@@ -7,14 +7,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 0. refuse to run without a CUDA device; print the card, its power limit and
    the torch / CUDA versions
-1. build the four CUDA kernels from nyxus_tpu_torch/csrc with nvcc (sm_90a)
+1. build the seven CUDA kernels from nyxus_tpu_torch/csrc with nvcc
+   (sm_90a, one nvcc process a source, all started together)
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's bucket shapes, f32 and f64 (counts exact, weighted sums
-   within rtol 1e-6 / 1e-12), and time both with CUDA events
-3. run the slice (intensity + GLCM + GLRLM + GLDM + NGTDM, 284 columns)
-   through PairRunner on a 320 x 320 slide in f32 on the card and in f64 on
+   main path's bucket shapes and beyond (128², 256², a 1024 x 64 bucket;
+   K2 at 256 levels and K3 at 1024-long runs, whose matrices exceed a
+   block's shared memory; checkerboard, uniform and empty crops for the
+   zone kernels), f32 and f64 (counts and labels exact, weighted sums within
+   rtol 1e-6 / 1e-12), and time both from a torch.profiler trace
+3. run the slice (intensity + GLCM, GLRLM, GLDM, NGTDM, GLSZM, GLDZM and
+   NGLDM, 337 columns) through PairRunner in f32 on the card and in f64 on
    the CPU, compare per column at the p90 relative error with the tiers of
-   tests/test_tpu_device.py, and check that every kernel was launched
+   tests/test_tpu_device.py, and check that every kernel was launched: a
+   320 x 320 slide, and a slide with one 600 x 40 px ROI (bucket 1024 x 64)
+   at 64 and at 256 grey levels, which takes K3's and K2's device-memory
+   paths
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run; the first slide
    is also held against the f64 CPU run
@@ -35,7 +42,14 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
-            "*ALL_NGTDM*"]
+            "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
+WIDTH = 337
+
+# the card's published peaks (H100 SXM at 700 W):
+# device memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, the
+# rate the bounds below charge each kernel's integer and float operations at
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12
 
 # per-member-prefix relative tolerance of f32-on-device vs f64-on-CPU, p90
 # over ROIs (copied from tests/test_tpu_device.py:27-63)
@@ -126,6 +140,20 @@ def make_dsb_like(h=1024, w=1024, n_blobs=300, seed=7):
     return np.floor(intens).astype(np.uint16), labels
 
 
+def make_long_roi_slide(seed=3):
+    """A 640 x 96 slide of make_dsb_like blobs plus one elliptical ROI about
+    600 x 40 px (the highest label), whose bucket is 1024 x 64."""
+    intens, labels = make_dsb_like(640, 96, 6, seed=seed)
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:640, 0:96]
+    roi = (((yy - 319.5) / 300.0) ** 2 + ((xx - 69.5) / 20.0) ** 2 <= 1.0) \
+        & (labels == 0)
+    labels[roi] = labels.max() + 1
+    intens[roi] = np.clip(3000 + 800 * np.sin(yy[roi] / 7.0)
+                          + r.normal(0, 300, roi.sum()), 1, 65535)
+    return intens, labels
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -201,15 +229,91 @@ def synth_bucket(B, H, W, roi_hw, seed, dtype, empty=False):
 
 
 CASES = ((64, 32, 32, (29, 31)), (64, 64, 64, (60, 47)), (28, 16, 16, (13, 9)),
-         (5, 32, 32, (13, 21)), (3, 7, 13, (7, 13)), (1, 16, 16, (0, 0)))
+         (5, 32, 32, (13, 21)), (3, 7, 13, (7, 13)), (4, 128, 128, (101, 77)),
+         (2, 256, 256, (250, 199)), (2, 1024, 64, (600, 40)),
+         (1, 16, 16, (0, 0)))
+KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "stencil8", "zone_dag",
+           "zone_cc4", "zone_stats")
+
+
+def counters():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from nyxus_tpu_torch.ops import common, glcm, glrlm, zones
+    return dict(zip(KERNELS, (common.batched_hist, glcm.cooc_matrices,
+                              glrlm.run_matrices, common.stencil8,
+                              zones.zone_labels, zones.zone_cc4,
+                              zones.zone_list)))
+
+
+def zone_cases(case, dtype, seed=0):
+    """(name, levels, valid, heights, widths) inputs of the zone kernels on
+    a synth bucket, as GLSZM/GLDZM hand them over (levels zeroed off valid):
+    MATLAB participation (the AABB) and radiomics participation (the ROI)."""
+    import torch
+    B, H, W, hw = case
+    _, lev, aabb, roi = synth_bucket(B, H, W, hw, seed, dtype,
+                                     empty=hw == (0, 0))
+    hts = torch.full((B,), hw[0], dtype=torch.int32, device="cuda")
+    wds = torch.full((B,), hw[1], dtype=torch.int32, device="cuda")
+    return [("aabb", torch.where(aabb, lev, 0), aabb, hts, wds),
+            ("roi", torch.where(roi, lev, 0), roi, hts, wds)]
+
+
+def special_zone_cases():
+    """Hand-made 32 x 32 crops: a checkerboard (every GLDZM zone a single
+    pixel), a uniform crop (one zone) and an empty one (no zone)."""
+    import torch
+    yy, xx = np.mgrid[0:32, 0:32]
+    full = np.ones((1, 32, 32), bool)
+    out = []
+    for name, lev, valid in (
+            ("checkerboard", (1 + (yy + xx) % 2)[None], full),
+            ("uniform", np.full((1, 32, 32), 7), full),
+            ("empty", np.full((1, 32, 32), 7), ~full)):
+        hw = torch.full((1,), 32, dtype=torch.int32, device="cuda")
+        out.append((name, torch.from_numpy(np.where(valid, lev, 0).astype(
+            np.int32)).cuda(), torch.from_numpy(valid).cuda(), hw, hw))
+    return out
+
+
+def zone_kernels_agree(agree, lev, valid, hts, wds):
+    """K5, K6 and K7 against their plain versions on one input; K7 is fed
+    the plain labels, so each kernel is checked on its own."""
+    from nyxus_tpu_torch.ops import zones
+    dag = zones.zone_labels_plain(lev, valid)
+    agree("zone_dag", zones.zone_labels(lev, valid), dag)
+    cc4, dist = zones.zone_cc4_plain(lev, valid, hts, wds)
+    for got, want in zip(zones.zone_cc4(lev, valid, hts, wds), (cc4, dist)):
+        agree("zone_cc4", got, want)
+    for anc, d in ((dag, None), (cc4, dist)):
+        for got, want in zip(zones.zone_list(anc, lev, valid, d),
+                             zones.zone_list_plain(anc, lev, valid, d)):
+            if want is not None:
+                agree("zone_stats", got, want)
+
+
+def bounds(B, H, W, ng=64, nbins=100, angles=4):
+    """(bytes, operations) each kernel must move and do at a bucket of B
+    crops of H x W at the timed arguments: each input read once, each output
+    written once (int32 levels, labels and counts, 1-byte masks, float32
+    values)."""
+    A = B * H * W
+    return {
+        "batched_hist": (A * 8 + B * nbins * 4, A),
+        "glcm_cooc": (A * 8 + B * angles * ng * ng * 4, angles * A),
+        "glrlm_runs": (A * 5 + B * 4 * ng * max(H, W) * 4, 4 * A),
+        "stencil8": (A * 5 + A * 12, 24 * A),
+        "zone_dag": (A * 5 + A * 4, 4 * A),
+        "zone_cc4": (A * 5 + B * 8 + A * 8, 6 * A),
+        "zone_stats": (A * 13 + A * 13, 2 * A),
+    }
 
 
 def check_kernels():
     """Every kernel against its plain version; returns per-kernel results."""
     import torch
-    from nyxus_tpu_torch.ops import common, glcm, glrlm
-    res = {k: {"max_abs_err": 0.0} for k in ("batched_hist", "glcm_cooc",
-                                             "glrlm_runs", "stencil8")}
+    from nyxus_tpu_torch.ops import common, glcm, glrlm, zones
+    res = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
     def agree(name, got, want, rtol=0.0):
         err = float((got.double() - want.double()).abs().max()) \
@@ -238,10 +342,12 @@ def check_kernels():
                              dtype=dtype) * 40 * cnt
             idx100 = torch.randint(-1, 101, cnt.shape, generator=g,
                                    device="cuda", dtype=torch.int32)
+            # a bin of a large crop sums ~1000 float32 terms in another order
+            wtol = rtol if H * W <= 4096 else 10 * rtol
             for idx, w, nb, tol in ((flat, cnt, 64, 0.0),
                                     (idx100, cnt, 100, 0.0),
                                     (flat * 9 + (flat % 9), cnt, 576, 0.0),
-                                    (flat, wts, 65, rtol)):
+                                    (flat, wts, 65, wtol)):
                 agree("batched_hist", common.batched_hist(idx, w, nb),
                       common.batched_hist_plain(idx, w, nb), tol)
             for sym in (False, True):
@@ -256,15 +362,42 @@ def check_kernels():
             for got, want in zip(common.stencil8(lev, roi),
                                  common.stencil8_plain(lev, roi)):
                 agree("stencil8", got, want)
-            log("  %s B=%d %dx%d roi %s: all four kernels agree"
+            for _, zl, zv, hts, wds in zone_cases((B, H, W, hw), dtype, ci):
+                zone_kernels_agree(agree, zl, zv, hts, wds)
+            log("  %s B=%d %dx%d roi %s: all seven kernels agree"
                 % (prec, B, H, W, hw))
+        # matrices beyond a block's shared memory: K2 at 256 levels, K3 at
+        # 1024-long runs (and 256 levels x 512)
+        for B, H, W, hw in ((64, 32, 32, (29, 31)), (2, 1024, 64, (600, 40))):
+            orig, lev, aabb, roi = synth_bucket(B, H, W, hw, 5, dtype)
+            lev256 = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
+            for sym in (False, True):
+                agree("glcm_cooc",
+                      glcm.cooc_matrices(orig, lev256, (0, 45, 90, 135), 1,
+                                         256, sym),
+                      glcm.cooc_matrices_plain(orig, lev256, (0, 45, 90, 135),
+                                               1, 256, sym))
+            for lv, ng, nr in ((lev, 64, 1024), (lev256, 256, 512)):
+                for valid in (aabb, roi):
+                    agree("glrlm_runs",
+                          glrlm.run_matrices(lv, valid, ng, nr, dtype),
+                          glrlm.run_matrices_plain(lv, valid, ng, nr, dtype))
+        for name, zl, zv, hts, wds in special_zone_cases():
+            zone_kernels_agree(agree, zl, zv, hts, wds)
+        log("  %s: device-memory paths of K2 (256 levels) and K3 (1024 and "
+            "512-long runs) and the checkerboard, uniform and empty zone "
+            "crops agree" % prec)
 
-    # times at the main path's commonest bucket (f32, 64 ROIs of 32 x 32)
-    for B, H, W, hw in CASES[:3]:
+    # times at the main path's commonest bucket (f32, 64 ROIs of 32 x 32),
+    # then at two more buckets and on the device-memory paths
+    for B, H, W, hw in CASES[:3] + ((2, 1024, 64, (600, 40)),):
         orig, lev, aabb, roi = synth_bucket(B, H, W, hw, 0, torch.float32)
         flat = (lev - 1).reshape(B, -1)
         cnt = roi.reshape(B, -1).to(torch.float32)
+        flat64 = flat.long()
         nr = max(H, W)
+        _, zl, zv, hts, wds = zone_cases((B, H, W, hw), torch.float32)[0]
+        anc, dist = zones.zone_cc4_plain(zl, zv, hts, wds)
         pairs = {
             "batched_hist": (lambda: common.batched_hist(flat, cnt, 100),
                              lambda: common.batched_hist_plain(flat, cnt, 100)),
@@ -279,19 +412,52 @@ def check_kernels():
                                                  torch.float32)),
             "stencil8": (lambda: common.stencil8(lev, roi),
                          lambda: common.stencil8_plain(lev, roi)),
+            "zone_dag": (lambda: zones.zone_labels(zl, zv),
+                         lambda: zones.zone_labels_plain(zl, zv)),
+            "zone_cc4": (lambda: zones.zone_cc4(zl, zv, hts, wds),
+                         lambda: zones.zone_cc4_plain(zl, zv, hts, wds)),
+            "zone_stats": (lambda: zones.zone_list(anc, zl, zv, dist),
+                           lambda: zones.zone_list_plain(anc, zl, zv, dist)),
         }
+        main = (B, H, W) == (64, 32, 32)
+        bnd = bounds(B, H, W)
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain: the pairs share clocks and cache
             p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), \
                 timed(plain)
             ev, ms = (k1[0] + k2[0]) / 2, (k1[1] + k2[1]) / 2
             pev, plain_ms = (p1[0] + p2[0]) / 2, (p1[1] + p2[1]) / 2
+            nbytes, ops = bnd[name]
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
             log("  time %-12s f32 B=%d %dx%d: device %.4f ms (events %.4f "
-                "ms) vs plain device %.4f ms (events %.4f ms)"
-                % (name, B, H, W, ms, ev, plain_ms, pev))
-            if (B, H, W) == (64, 32, 32):
-                res[name]["ms"] = ms
-                res[name]["plain_ms"] = plain_ms
+                "ms) vs plain device %.4f ms (events %.4f ms); bound %.5f ms"
+                % (name, B, H, W, ms, ev, plain_ms, pev,
+                   max(bytes_ms, ops_ms)))
+            if main:
+                res[name].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+        if main:
+            # the one PyTorch call that computes K1's function: scatter_add_
+            # into a zeroed [B, nbins] (the port never calls it on the card)
+            lib = timed(lambda: torch.zeros((B, 100), device="cuda")
+                        .scatter_add_(1, flat64, cnt))
+            res["batched_hist"]["library_ms"] = lib[1]
+            log("  time batched_hist library scatter_add_: device %.4f ms "
+                "(events %.4f ms)" % (lib[1], lib[0]))
+        if (B, H, W) == (2, 1024, 64):
+            ms = timed(lambda: glrlm.run_matrices(lev, aabb, 64, 1024,
+                                                  torch.float32))
+            log("  time glrlm_runs device-memory path 64 x 1024, B=2 "
+                "1024x64: device %.4f ms (events %.4f ms)" % (ms[1], ms[0]))
+        if main:
+            lev256 = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
+            ms = timed(lambda: glcm.cooc_matrices(orig, lev256,
+                                                  (0, 45, 90, 135), 1, 256,
+                                                  False))
+            log("  time glcm_cooc device-memory path 256 levels, B=64 32x32: "
+                "device %.4f ms (events %.4f ms)" % (ms[1], ms[0]))
     return res
 
 
@@ -311,7 +477,9 @@ def main():
                          "repository (%s)" % e)
     from nyxus_tpu_torch import _build, columns, taxonomy
     from nyxus_tpu_torch.config import EngineConfig
-    from nyxus_tpu_torch.ops import common, glcm, glrlm
+    from nyxus_tpu_torch.ops.common import SMEM_MAX
+    from nyxus_tpu_torch.pipeline import batching
+    from nyxus_tpu_torch.pipeline import labels as plabels
     from nyxus_tpu_torch.pipeline.runner import PairRunner
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -338,33 +506,51 @@ def main():
 
     # phase 3
     log("phase 3: slice on the card (f32) against the CPU (f64)")
-    counters = {"batched_hist": common.batched_hist,
-                "glcm_cooc": glcm.cooc_matrices,
-                "glrlm_runs": glrlm.run_matrices,
-                "stencil8": common.stencil8}
+    kern = counters()
     fset = taxonomy.parse_feature_request(FEATURES)
     hdr, _ = columns.build_header(fset, EngineConfig())
     cols = hdr[4:]
+    if len(cols) != WIDTH:
+        raise AssertionError("slice width %d != %d" % (len(cols), WIDTH))
     card_runner = PairRunner(fset, EngineConfig(precision="f32"), "cuda")
     cpu_runner = PairRunner(fset, EngineConfig(precision="f64"), "cpu")
-    intens, labels = make_dsb_like(320, 320, 40, seed=11)
-    for f in counters.values():
-        f.launches = 0
-    labs, dev = card_runner.run(intens, labels)
-    small_launches = {k: f.launches for k, f in counters.items()}
-    labs64, ref = cpu_runner.run(intens, labels)
-    if len(cols) != 284 or dev.shape != (len(labs64), 284) \
-            or list(labs) != list(labs64):
-        raise AssertionError("slice shape/labels: %s vs %s"
-                             % (dev.shape, ref.shape))
-    bad, worst = compare_tiers(cols, dev, ref)
-    if bad:
-        raise AssertionError("f32 card vs f64 CPU beyond tolerance: %r"
-                             % bad[:20])
-    log("  %d ROIs x %d columns agree; closest to its tier: %s; launches %s"
-        % (len(labs), len(cols), worst, small_launches))
-    if not all(small_launches.values()):
-        raise AssertionError("a kernel was not launched: %r" % small_launches)
+    long_slide = make_long_roi_slide()
+    for what, (intens, labels), depth in (
+            ("320x320 slide", make_dsb_like(320, 320, 40, seed=11), 64),
+            ("long-ROI slide", long_slide, 64),
+            ("long-ROI slide at 256 levels", long_slide, 256)):
+        recs, _, _ = plabels._discover_rois_np(intens, labels)
+        shapes = sorted({s for s, _ in batching.group_rois(recs)})
+        big = [("K3 %dx%d" % (depth, max(s)))
+               for s in shapes if 4 * depth * max(s) > SMEM_MAX]
+        if 4 * depth * depth > SMEM_MAX:
+            big.append("K2 %dx%d" % (depth, depth))
+        dev_runner, ref_runner = card_runner, cpu_runner
+        if depth != 64:
+            dev_runner = PairRunner(fset, EngineConfig(
+                precision="f32", coarse_gray_depth=depth), "cuda")
+            ref_runner = PairRunner(fset, EngineConfig(
+                precision="f64", coarse_gray_depth=depth), "cpu")
+        for f in kern.values():
+            f.launches = 0
+        labs, dev = dev_runner.run(intens, labels)
+        small_launches = {k: f.launches for k, f in kern.items()}
+        labs64, ref = ref_runner.run(intens, labels)
+        if dev.shape != (len(labs64), WIDTH) or list(labs) != list(labs64) \
+                or not np.isfinite(dev).all():
+            raise AssertionError("%s: slice shape/labels/values: %s vs %s"
+                                 % (what, dev.shape, ref.shape))
+        bad, worst = compare_tiers(cols, dev, ref)
+        if bad:
+            raise AssertionError("%s: f32 card vs f64 CPU beyond tolerance: "
+                                 "%r" % (what, bad[:20]))
+        log("  %s: %d ROIs x %d columns agree; buckets %s; matrices in "
+            "device memory: %s; closest to its tier: %s; launches %s"
+            % (what, len(labs), len(cols), shapes, big or "none", worst,
+               small_launches))
+        if not all(small_launches.values()):
+            raise AssertionError("%s: a kernel was not launched: %r"
+                                 % (what, small_launches))
 
     # phase 4
     log("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, 300)")
@@ -375,7 +561,7 @@ def main():
         card_runner.run(intens, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
+    for f in kern.values():
         f.launches = 0
     n_rois, outs = 0, []
     t0 = time.perf_counter()
@@ -385,7 +571,7 @@ def main():
         outs.append((labs, vals))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = {k: f.launches for k, f in kern.items()}
     peak = torch.cuda.max_memory_allocated()
     log("  %d ROIs in %.4f s: %.2f ROIs/s; peak device memory %d bytes "
         "(%.1f MiB); launches %s"
@@ -393,7 +579,7 @@ def main():
     if not all(launches.values()):
         raise AssertionError("a kernel was not launched: %r" % launches)
     for labs, vals in outs:
-        if vals.shape != (len(labs), 284) or not np.isfinite(vals).all():
+        if vals.shape != (len(labs), WIDTH) or not np.isfinite(vals).all():
             raise AssertionError("throughput run: bad output %s" %
                                  (vals.shape,))
     labs64, ref = cpu_runner.run(*slides[0])
@@ -437,7 +623,6 @@ def main():
         log("    %-26s host %8.2f ms   card span %8.2f ms"
             % (name, host_ms, span_ms))
     t0 = time.perf_counter()
-    from nyxus_tpu_torch.pipeline import labels as plabels
     for intens, labels in slides:
         plabels._discover_rois_np(intens, labels)
     log("  host ROI discovery: %.2f ms a slide (of %.2f ms a slide end to end)"
@@ -450,11 +635,18 @@ def main():
            "glrlm_runs": ("nyxus_tpu_torch/csrc/glrlm_runs.cu",
                           "nyxus_tpu/ops/glrlm.py:85"),
            "stencil8": ("nyxus_tpu_torch/csrc/stencil8.cu",
-                        "nyxus_tpu/ops/gldm.py:28")}
-    kernels = [{"name": k, "route": "cuda", "source": src[k][0],
-                "replaces": src[k][1], "launches": launches[k],
-                "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
-                "plain_ms": kres[k]["plain_ms"]} for k in counters]
+                        "nyxus_tpu/ops/gldm.py:28"),
+           "zone_dag": ("nyxus_tpu_torch/csrc/zone_dag.cu",
+                        "nyxus_tpu/ops/zones.py:32"),
+           "zone_cc4": ("nyxus_tpu_torch/csrc/zone_cc4.cu",
+                        "nyxus_tpu/ops/zones.py:85"),
+           "zone_stats": ("nyxus_tpu_torch/csrc/zone_stats.cu",
+                          "nyxus_tpu/ops/zones.py:140")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = [dict({"name": k, "route": "cuda", "source": src[k][0],
+                     "replaces": src[k][1], "launches": launches[k]},
+                    **{key: kres[k][key] for key in keys}) for k in KERNELS]
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

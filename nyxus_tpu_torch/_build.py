@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface,
+The sources are compiled at first use with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process a source, all started together, then linked into one
+shared library with a plain C interface,
 ``nyxus_tpu_torch/_build/libnyxcuda.so``, and loaded with ``ctypes``.  A stamp
 holding a hash of the sources and the flags sits next to the library; a
 change to either rebuilds it.  A failed build or load raises: there is no
@@ -27,19 +28,24 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 LIB_PATH = os.path.join(_DIR, "_build", "libnyxcuda.so")
-SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu", "stencil8.cu")
+SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu", "stencil8.cu",
+           "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
     "nyx_batched_hist": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "nyx_glcm_cooc": [_P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8 + [_I, _I, _P],
-    "nyx_glrlm_runs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nyx_glcm_cooc": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8
+    + [_I, _I, _P],
+    "nyx_glrlm_runs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nyx_stencil8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nyx_zone_dag": [_P, _P, _P, _I, _I, _I, _P],
+    "nyx_zone_cc4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nyx_zone_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -67,17 +73,39 @@ def _stamp() -> str:
 
 def _build(stamp: str):
     global build_log, build_seconds
-    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    tmp = "%s.%d.tmp" % (LIB_PATH, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", SRC_DIR, "-o", tmp,
-           *(os.path.join(SRC_DIR, s) for s in SOURCES)]
+    out_dir = os.path.dirname(LIB_PATH)
+    os.makedirs(out_dir, exist_ok=True)
+    tag = "%d.tmp" % os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    procs, objs = [], []
+    for src in SOURCES:
+        obj = os.path.join(out_dir, "%s.%s.o" % (src, tag))
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", SRC_DIR, "-c", "-o", obj,
+             os.path.join(SRC_DIR, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append("%s (exit %d)" % (src, proc.returncode))
+    tmp = "%s.%s" % (LIB_PATH, tag)
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=600)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link (exit %d)" % link.returncode)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc build of %s failed (exit %d):\n%s"
-                           % (LIB_PATH, proc.returncode, build_log))
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc build of %s failed: %s\n%s"
+                           % (LIB_PATH, ", ".join(failed), build_log))
     os.replace(tmp, LIB_PATH)
     with open(LIB_PATH + ".stamp", "w") as f:
         f.write(stamp)

@@ -12,9 +12,14 @@
 // Design: one block per (ROI, angle); the ng x ng matrix is kept as 32-bit
 // integer counts in shared memory (64 x 64 levels = 16 KB) so the counts are
 // exact, and is converted to the compute dtype on the one coalesced
-// write-out.  Bound on the card: the crop read (intensity + level, 8-12
-// bytes a pixel, each read twice through L1) and shared-memory atomics on
-// the 16 KB matrix.
+// write-out.  A matrix larger than a block's shared memory (4 * ng^2 >
+// 227 KB, i.e. 256 levels) counts with the same atomics in a zeroed int32
+// buffer in device memory that the wrapper passes (``gcnt``, [B, n_angles,
+// ng, ng]); each block owns its (ROI, angle) slice, so one __syncthreads()
+// orders its counts before its own write-out.  Bound on the card: the crop
+// read (intensity + level, 8-12 bytes a pixel, each read twice through L1)
+// and the atomics on the matrix (shared memory, or L2 on the device-memory
+// path).
 #include "common.cuh"
 
 struct NyxAngles {
@@ -26,14 +31,19 @@ struct NyxAngles {
 template <typename T>
 __global__ void glcm_cooc_kernel(const T* __restrict__ orig,
                                  const int* __restrict__ lev,
-                                 T* __restrict__ out, int H, int W, int ng,
-                                 NyxAngles ang, int symmetric) {
-  extern __shared__ unsigned int cnt[];
+                                 T* __restrict__ out,
+                                 unsigned int* __restrict__ gcnt, int H,
+                                 int W, int ng, NyxAngles ang, int symmetric) {
+  extern __shared__ unsigned int smem_cnt[];
   const int b = blockIdx.x;
   const int a = blockIdx.y;
   const int n2 = ng * ng;
-  for (int k = threadIdx.x; k < n2; k += blockDim.x) cnt[k] = 0u;
-  __syncthreads();
+  unsigned int* cnt =
+      gcnt ? gcnt + (static_cast<size_t>(b) * ang.n + a) * n2 : smem_cnt;
+  if (!gcnt) {
+    for (int k = threadIdx.x; k < n2; k += blockDim.x) cnt[k] = 0u;
+    __syncthreads();
+  }
   const size_t base = static_cast<size_t>(b) * H * W;
   const T* ob = orig + base;
   const int* lb = lev + base;
@@ -57,32 +67,37 @@ __global__ void glcm_cooc_kernel(const T* __restrict__ orig,
   __syncthreads();
   T* o = out + (static_cast<size_t>(b) * ang.n + a) * n2;
   for (int k = threadIdx.x; k < n2; k += blockDim.x) {
-    unsigned int c = cnt[k];
+    unsigned int c = gcnt ? __ldcg(cnt + k) : cnt[k];
     if (symmetric) {
       const int i = k / ng;
       const int j = k - i * ng;
-      c += cnt[j * ng + i];
+      c += gcnt ? __ldcg(cnt + j * ng + i) : cnt[j * ng + i];
     }
     o[k] = static_cast<T>(c);
   }
 }
 
 template <typename T>
-static int launch(const void* orig, const void* lev, void* out, int B, int H,
-                  int W, int ng, const NyxAngles& ang, int symmetric,
-                  void* stream) {
-  const size_t smem = sizeof(unsigned int) * static_cast<size_t>(ng) * ng;
+static int launch(const void* orig, const void* lev, void* out, void* gcnt,
+                  int B, int H, int W, int ng, const NyxAngles& ang,
+                  int symmetric, void* stream) {
+  const size_t smem =
+      gcnt ? 0 : sizeof(unsigned int) * static_cast<size_t>(ng) * ng;
   cudaError_t e = nyx_allow_smem(glcm_cooc_kernel<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(B, ang.n);
   glcm_cooc_kernel<T><<<grid, NYX_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(orig), static_cast<const int*>(lev),
-      static_cast<T*>(out), H, W, ng, ang, symmetric);
+      static_cast<T*>(out), static_cast<unsigned int*>(gcnt), H, W, ng, ang,
+      symmetric);
   return static_cast<int>(cudaGetLastError());
 }
 
+// gcnt: NULL to count in shared memory, else a zeroed int32
+// [B, n_angles, ng, ng].
 extern "C" int nyx_glcm_cooc(const void* orig, const void* lev, void* out,
-                             int B, int H, int W, int ng, int n_angles,
+                             void* gcnt, int B, int H, int W, int ng,
+                             int n_angles,
                              int dx0, int dy0, int dx1, int dy1, int dx2,
                              int dy2, int dx3, int dy3, int symmetric,
                              int is_f64, void* stream) {
@@ -92,6 +107,7 @@ extern "C" int nyx_glcm_cooc(const void* orig, const void* lev, void* out,
   ang.dx[1] = dx1; ang.dy[1] = dy1;
   ang.dx[2] = dx2; ang.dy[2] = dy2;
   ang.dx[3] = dx3; ang.dy[3] = dy3;
-  return is_f64 ? launch<double>(orig, lev, out, B, H, W, ng, ang, symmetric, stream)
-                : launch<float>(orig, lev, out, B, H, W, ng, ang, symmetric, stream);
+  return is_f64
+             ? launch<double>(orig, lev, out, gcnt, B, H, W, ng, ang, symmetric, stream)
+             : launch<float>(orig, lev, out, gcnt, B, H, W, ng, ang, symmetric, stream);
 }

@@ -16,9 +16,15 @@
 //
 // Design: one block per (ROI, angle), one thread per scan line, the
 // ng x nr matrix as 32-bit integer counts in shared memory (64 x 64 = 16 KB
-// for a 64 px bucket) and one coalesced write-out.  Bound on the card: the
-// per-thread serial walk (a line is at most max(H, W) pixels long) and its
-// strided reads of the crop, which stay in L1/L2 (a 64 x 64 crop is 20 KB).
+// for a 64 px bucket) and one coalesced write-out.  A matrix larger than a
+// block's shared memory (4 * ng * nr > 227 KB: a 1024 px bucket side at 64
+// levels, or 256 levels above 227 px) counts with the same atomics in a
+// zeroed int32 buffer in device memory that the wrapper passes (``gcnt``,
+// [B, 4, ng, nr]); each block owns its (ROI, angle) slice of it, so one
+// __syncthreads() orders its counts before its own write-out.  Bound on the
+// card: the per-thread serial walk (a line is at most max(H, W) pixels
+// long) and its strided reads of the crop, which stay in L1/L2 (a 64 x 64
+// crop is 20 KB); on the device-memory path, also the L2 atomics.
 #include "common.cuh"
 
 __device__ __forceinline__ void nyx_emit_run(unsigned int* cnt, int level,
@@ -32,14 +38,19 @@ __device__ __forceinline__ void nyx_emit_run(unsigned int* cnt, int level,
 template <typename T>
 __global__ void glrlm_runs_kernel(const int* __restrict__ lev,
                                   const unsigned char* __restrict__ valid,
-                                  T* __restrict__ out, int H, int W, int ng,
-                                  int nr) {
-  extern __shared__ unsigned int cnt[];
+                                  T* __restrict__ out,
+                                  unsigned int* __restrict__ gcnt, int H,
+                                  int W, int ng, int nr) {
+  extern __shared__ unsigned int smem_cnt[];
   const int b = blockIdx.x;
   const int a = blockIdx.y;  // 0: 0 deg, 1: 45 deg, 2: 90 deg, 3: 135 deg
   const int nm = ng * nr;
-  for (int k = threadIdx.x; k < nm; k += blockDim.x) cnt[k] = 0u;
-  __syncthreads();
+  unsigned int* cnt = gcnt ? gcnt + (static_cast<size_t>(b) * 4 + a) * nm
+                           : smem_cnt;
+  if (!gcnt) {
+    for (int k = threadIdx.x; k < nm; k += blockDim.x) cnt[k] = 0u;
+    __syncthreads();
+  }
   const size_t base = static_cast<size_t>(b) * H * W;
   const int* lb = lev + base;
   const unsigned char* vb = valid + base;
@@ -85,25 +96,28 @@ __global__ void glrlm_runs_kernel(const int* __restrict__ lev,
   }
   __syncthreads();
   T* o = out + (static_cast<size_t>(b) * 4 + a) * nm;
-  for (int k = threadIdx.x; k < nm; k += blockDim.x) o[k] = static_cast<T>(cnt[k]);
+  for (int k = threadIdx.x; k < nm; k += blockDim.x)
+    o[k] = static_cast<T>(gcnt ? __ldcg(cnt + k) : cnt[k]);
 }
 
 template <typename T>
-static int launch(const void* lev, const void* valid, void* out, int B, int H,
-                  int W, int ng, int nr, void* stream) {
-  const size_t smem = sizeof(unsigned int) * static_cast<size_t>(ng) * nr;
+static int launch(const void* lev, const void* valid, void* out, void* gcnt,
+                  int B, int H, int W, int ng, int nr, void* stream) {
+  const size_t smem =
+      gcnt ? 0 : sizeof(unsigned int) * static_cast<size_t>(ng) * nr;
   cudaError_t e = nyx_allow_smem(glrlm_runs_kernel<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(B, 4);
   glrlm_runs_kernel<T><<<grid, NYX_BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(lev), static_cast<const unsigned char*>(valid),
-      static_cast<T*>(out), H, W, ng, nr);
+      static_cast<T*>(out), static_cast<unsigned int*>(gcnt), H, W, ng, nr);
   return static_cast<int>(cudaGetLastError());
 }
 
+// gcnt: NULL to count in shared memory, else a zeroed int32 [B, 4, ng, nr].
 extern "C" int nyx_glrlm_runs(const void* lev, const void* valid, void* out,
-                              int B, int H, int W, int ng, int nr, int is_f64,
-                              void* stream) {
-  return is_f64 ? launch<double>(lev, valid, out, B, H, W, ng, nr, stream)
-                : launch<float>(lev, valid, out, B, H, W, ng, nr, stream);
+                              void* gcnt, int B, int H, int W, int ng, int nr,
+                              int is_f64, void* stream) {
+  return is_f64 ? launch<double>(lev, valid, out, gcnt, B, H, W, ng, nr, stream)
+                : launch<float>(lev, valid, out, gcnt, B, H, W, ng, nr, stream);
 }

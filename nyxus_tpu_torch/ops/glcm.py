@@ -26,7 +26,7 @@ import torch
 
 from . import quant
 from .. import _build
-from .common import (SMEM_MAX, _kernel_device, _check_float, fast_log2,
+from .common import (_check_float, _kernel_device, device_counts, fast_log2,
                      masked_bincount, pair_hist_plain, shifted2d)
 
 EPS = 1e-9  # reference: glcm.h:262
@@ -78,9 +78,10 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
     levels: [B, H, W] int binned levels (1-based)
     -> [B, n_angles, ng, ng] counts in orig.dtype; axis 2 indexes the
     NEIGHBOR level - 1, axis 3 the CENTER level - 1.  On the card one block
-    per (ROI, angle) keeps the matrix as integer counts in shared memory
-    (16 KB at 64 levels): ng above 238 raises NotImplementedError.  Bound on
-    the card: the crop reads and shared-memory atomics on that matrix."""
+    per (ROI, angle) counts the matrix in 32-bit integers: in shared memory
+    (16 KB at 64 levels) when 4 * ng^2 fits a block's 227 KB, else (256
+    levels) in a zeroed int32 buffer in device memory.  Bound on the card:
+    the crop reads and the atomics on that matrix."""
     if not _kernel_device(orig, "glcm_cooc"):
         return cooc_matrices_plain(orig, levels, angles, offset, ng,
                                    symmetric)
@@ -93,9 +94,6 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
     if not 1 <= len(angles) <= 4:
         raise ValueError("glcm_cooc: 1 to 4 angles expected, got %r"
                          % (angles,))
-    if 4 * ng * ng > SMEM_MAX:
-        raise NotImplementedError(
-            "glcm_cooc: %d grey levels exceed one block's shared memory" % ng)
     orig = orig.contiguous()
     levels = levels.to(torch.int32).contiguous()
     B, H, W = orig.shape
@@ -103,13 +101,15 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
     out = torch.empty((B, na, ng, ng), dtype=orig.dtype, device=orig.device)
     if B == 0:
         return out
+    gcnt = device_counts((B, na, ng, ng), orig.device)
     d = []
     for k in range(4):
         dx, dy = ANGLE_OFFSETS[angles[k]] if k < na else (0, 0)
         d += [dx * offset, dy * offset]
     with torch.cuda.device(orig.device):
         code = _build.lib().nyx_glcm_cooc(
-            orig.data_ptr(), levels.data_ptr(), out.data_ptr(), B, H, W, ng,
+            orig.data_ptr(), levels.data_ptr(), out.data_ptr(),
+            0 if gcnt is None else gcnt.data_ptr(), B, H, W, ng,
             na, *d, int(symmetric), int(orig.dtype == torch.float64),
             _build.stream_of(orig))
     _build.check("glcm_cooc", code)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .common import SMEM_MAX, _kernel_device, fast_log2, pair_hist_plain
+from .common import _kernel_device, device_counts, fast_log2, pair_hist_plain
 
 EPS = 2.2e-16  # reference: glrlm.h:169 / glszm.h:138 / gldm.h:105
 
@@ -118,10 +118,11 @@ def run_matrices(lev, valid, ng: int, nr: int, dtype):
     lev: [B, H, W] int levels (1-based); valid: [B, H, W] bool participation.
     Entry (l, j) counts maximal runs of level l+1 with length j+1 (longer
     runs clamp into the last column).  On the card one block per (ROI,
-    angle) keeps the matrix as integer counts in shared memory and one
-    thread walks each scan line: ng * nr above 58112 raises
-    NotImplementedError.  Bound on the card: the serial walk of a line (at
-    most max(H, W) pixels) and its strided, L1-cached reads."""
+    angle) counts the matrix in 32-bit integers and one thread walks each
+    scan line: in shared memory when 4 * ng * nr fits a block's 227 KB,
+    else in a zeroed int32 buffer in device memory (a 1024 px bucket side at
+    64 levels).  Bound on the card: the serial walk of a line (at most
+    max(H, W) pixels) and its strided, L1-cached reads."""
     if not _kernel_device(lev, "glrlm_runs"):
         return run_matrices_plain(lev, valid, ng, nr, dtype)
     if dtype not in (torch.float32, torch.float64):
@@ -132,19 +133,17 @@ def run_matrices(lev, valid, ng: int, nr: int, dtype):
         raise ValueError("glrlm_runs: lev %s and valid %s must be [B, H, W] "
                          "on one device" % (tuple(lev.shape),
                                             tuple(valid.shape)))
-    if 4 * ng * nr > SMEM_MAX:
-        raise NotImplementedError(
-            "glrlm_runs: a %d x %d run matrix exceeds one block's shared "
-            "memory" % (ng, nr))
     lev = lev.to(torch.int32).contiguous()
     valid = valid.to(torch.bool).contiguous()
     B, H, W = lev.shape
     out = torch.empty((B, 4, ng, nr), dtype=dtype, device=lev.device)
     if B == 0:
         return out
+    gcnt = device_counts((B, 4, ng, nr), lev.device)
     with torch.cuda.device(lev.device):
         code = _build.lib().nyx_glrlm_runs(
-            lev.data_ptr(), valid.data_ptr(), out.data_ptr(), B, H, W, ng, nr,
+            lev.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            0 if gcnt is None else gcnt.data_ptr(), B, H, W, ng, nr,
             int(dtype == torch.float64), _build.stream_of(lev))
     _build.check("glrlm_runs", code)
     run_matrices.launches += 1

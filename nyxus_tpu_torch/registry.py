@@ -23,8 +23,11 @@ from .config import EngineConfig
 from .ops import common as ops_common
 from .ops import glcm as ops_glcm
 from .ops import gldm as ops_gldm
+from .ops import gldzm as ops_gldzm
 from .ops import glrlm as ops_glrlm
+from .ops import glszm as ops_glszm
 from .ops import intensity as ops_intensity
+from .ops import ngldm as ops_ngldm
 from .ops import ngtdm as ops_ngtdm
 from .ops import quant
 
@@ -231,7 +234,8 @@ def _n_pixels(ctx: BatchContext):
 
 
 def _texture_setup(ctx: BatchContext, cfg: EngineConfig, family: str):
-    """(ng, levels, valid) shared by the GLRLM/NGTDM/GLDM families."""
+    """(ng, levels, valid) shared by the GLRLM/NGTDM/GLDM/GLSZM/GLDZM
+    families."""
     greyinfo = cfg.texture_greydepth(family)
     levels = ctx.texture_levels(greyinfo)
     if greyinfo > 0:
@@ -261,8 +265,36 @@ def _gldm_family(ctx: BatchContext, cfg: EngineConfig):
     return ops_gldm.gldm_features(P, ctx.vmin, ctx.vmax, cfg.noval)
 
 
+def _ngldm_family(ctx: BatchContext, cfg: EngineConfig):
+    return ops_ngldm.ngldm_features(
+        ctx.intens, ctx.mask, ctx.vmin, ctx.vmax, abs(cfg.coarse_gray_depth),
+        cfg.noval, ctx.intens.dtype)
+
+
+def _glszm_family(ctx: BatchContext, cfg: EngineConfig):
+    _, levels, valid = _texture_setup(ctx, cfg, "glszm")
+    if cfg.texture_greydepth("glszm") > 0:
+        # MATLAB mode: Np counts the VISITED-marked matrix = whole AABB
+        np_pixels = ctx.heights * ctx.widths
+    else:
+        np_pixels = _n_pixels(ctx)
+    return ops_glszm.glszm_features(
+        torch.where(valid, levels, 0), valid, np_pixels, ctx.vmin, ctx.vmax,
+        cfg.noval, ctx.intens.dtype)
+
+
+def _gldzm_family(ctx: BatchContext, cfg: EngineConfig):
+    _, levels, valid = _texture_setup(ctx, cfg, "gldzm")
+    return ops_gldzm.gldzm_features(
+        torch.where(valid, levels, 0), valid, ctx.heights, ctx.widths,
+        ctx.area, ctx.vmin, ctx.vmax, cfg.noval, ctx.intens.dtype)
+
+
 FAMILIES["PixelIntensityFeatures"].fn = _intensity_family
 FAMILIES["GLCMFeature"].fn = _glcm_family
 FAMILIES["GLRLMFeature"].fn = _glrlm_family
 FAMILIES["NGTDMFeature"].fn = _ngtdm_family
 FAMILIES["GLDMFeature"].fn = _gldm_family
+FAMILIES["NGLDMfeature"].fn = _ngldm_family
+FAMILIES["GLSZMFeature"].fn = _glszm_family
+FAMILIES["GLDZMFeature"].fn = _gldzm_family

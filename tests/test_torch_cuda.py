@@ -1,14 +1,15 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-slice in f32 on the card against the port's own f64 CPU run.  Every test
+"""The port's CUDA kernels K1-K7 against their plain PyTorch versions, and
+the slice in f32 on the card against the port's own f64 CPU run.  Every test
 needs a CUDA device and skips without one.  This file imports neither jax
 nor the JAX package, so it runs on a machine with a card and no jax:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Counts must be equal.  Weighted float sums hold rtol 1e-12 in f64 and, in
-f32, 1e-6 up to the main path's 64 x 64 buckets and 1e-5 above: the
-kernel's atomics add in another order, and a bin of a 256 x 256 crop sums
-~1000 float32 terms, whose rounding then differs by more than 1e-6."""
+Counts, zone labels and border distances must be equal.  Weighted float
+sums hold rtol 1e-12 in f64 and, in f32, 1e-6 up to the main path's 64 x 64
+buckets and 1e-5 above: the kernel's atomics add in another order, and a bin
+of a 256 x 256 crop sums ~1000 float32 terms, whose rounding then differs by
+more than 1e-6."""
 
 import os
 import sys
@@ -22,16 +23,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from nyxus_tpu_torch import columns, taxonomy  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
-from nyxus_tpu_torch.ops import common, glcm, glrlm  # noqa: E402
+from nyxus_tpu_torch.ops import common, glcm, glrlm, zones  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # (B, H, W, ROI AABB) buckets: the main path's, a ROI that does not fill its
 # bucket, a shape that is not a power of two, the 128/256 buckets whose run
-# matrices need more than 48 KB of shared memory, and an empty ROI
+# matrices need more than 48 KB of shared memory, an empty ROI, and a
+# 1024 x 64 bucket whose 64 x 1024 run matrix exceeds a block's shared memory
 CASES = [(64, 32, 32, (29, 31)), (64, 64, 64, (60, 47)), (28, 16, 16, (13, 9)),
          (5, 32, 32, (13, 21)), (3, 7, 13, (7, 13)), (4, 128, 128, (101, 77)),
-         (2, 256, 256, (250, 199)), (1, 16, 16, (0, 0))]
+         (2, 256, 256, (250, 199)), (1, 16, 16, (0, 0)),
+         (2, 1024, 64, (600, 40))]
 
 
 @pytest.fixture(autouse=True)
@@ -122,23 +125,73 @@ def test_stencil8(case):
             assert torch.equal(got, want)
 
 
+class _Agree:
+    def __call__(self, name, got, want):
+        assert got.shape == want.shape, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_zone_kernels(case):
+    """K5, K6 (labels and distances) and K7 on the plain labels, with the
+    AABB (MATLAB binning) and the ROI (radiomics binning) as
+    participation."""
+    for _, lev, valid, hts, wds in chip_smoke.zone_cases(case,
+                                                         torch.float32):
+        chip_smoke.zone_kernels_agree(_Agree(), lev, valid, hts, wds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop", ["checkerboard", "uniform", "empty"])
+def test_zone_kernels_special_crops(crop):
+    (_, lev, valid, hts, wds), = [c for c in chip_smoke.special_zone_cases()
+                                  if c[0] == crop]
+    chip_smoke.zone_kernels_agree(_Agree(), lev, valid, hts, wds)
+    anc, _ = zones.zone_cc4(lev, valid, hts, wds)
+    zlev, zsize, _, ok = zones.zone_list(anc, lev, valid)
+    n_zones = {"checkerboard": 32 * 32, "uniform": 1, "empty": 0}[crop]
+    assert int(ok.sum()) == n_zones
+    assert int(zsize.sum()) == int(valid.sum())
+
+
 @pytest.mark.cuda
 def test_shared_memory_limits_raise():
+    """K1 keeps its histogram in shared memory and refuses more bins (only
+    IBSI-size level sets, which the port refuses earlier, get there)."""
     idx = torch.zeros((1, 4), dtype=torch.int32, device="cuda")
     w = torch.ones((1, 4), dtype=torch.float64, device="cuda")
     with pytest.raises(NotImplementedError):
         common.batched_hist(idx, w, 30000)
-    lev = torch.ones((1, 4, 4), dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
-        glcm.cooc_matrices(lev.double(), lev, (0,), 1, 256, False)
-    with pytest.raises(NotImplementedError):
-        glrlm.run_matrices(lev, lev > 0, 256, 512, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+def test_device_memory_counts(prec):
+    """K2 at 256 levels and K3 at 256 x 512 and 64 x 1024 matrices count in
+    device memory (more than a block's shared memory) and equal their plain
+    versions."""
+    dtype = DTYPES[prec]
+    for case in ((64, 32, 32, (29, 31)), (2, 1024, 64, (600, 40))):
+        orig, lev, aabb, roi = _bucket(case, dtype)
+        lev256 = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
+        for sym in (False, True):
+            assert torch.equal(
+                glcm.cooc_matrices(orig, lev256, (0, 45, 90, 135), 1, 256,
+                                   sym),
+                glcm.cooc_matrices_plain(orig, lev256, (0, 45, 90, 135), 1,
+                                         256, sym))
+        for lv, ng, nr in ((lev256, 256, 512), (lev, 64, 1024)):
+            assert 4 * ng * nr > common.SMEM_MAX
+            for valid in (aabb, roi):
+                assert torch.equal(
+                    glrlm.run_matrices(lv, valid, ng, nr, dtype),
+                    glrlm.run_matrices_plain(lv, valid, ng, nr, dtype))
 
 
 @pytest.mark.cuda
 def test_slice_f32_on_card_against_f64_cpu():
-    counters = (common.batched_hist, common.stencil8, glcm.cooc_matrices,
-                glrlm.run_matrices)
+    counters = tuple(chip_smoke.counters().values())
     before = [f.launches for f in counters]
     fset = taxonomy.parse_feature_request(chip_smoke.FEATURES)
     intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)

@@ -1,12 +1,12 @@
-"""The PyTorch port's slice end to end: intensity + GLCM + GLRLM + GLDM +
-NGTDM (284 columns) through PairRunner and Nyxus.featurize, against the JAX
-package on the same slide in f64 on the CPU, and against the reference
-binary's own CSV.
+"""The PyTorch port's slice end to end: intensity + the seven 2D texture
+families GLCM, GLRLM, GLDM, NGTDM, GLSZM, GLDZM and NGLDM (337 columns)
+through PairRunner and Nyxus.featurize, against the JAX package on the same
+slide in f64 on the CPU, and against the reference binary's own CSV.
 
-Tolerances against JAX: rtol 1e-9 / atol 1e-12, except the entropy members
-(rtol 5e-7): the JAX runner's jitted fast_log2 is FMA-contracted by XLA and
-sits 1 ulp from the unfused reference formula the port computes on ~9% of
-its float32 logs (see test_torch_texture).  Against the reference CSV:
+Tolerances against JAX: rtol 1e-9 / atol 1e-12, except the members that go
+through fast_log2 (rtol 5e-7): the JAX runner's jitted fast_log2 is
+FMA-contracted by XLA and sits 1 ulp from the unfused reference formula the
+port computes on ~9% of its float32 logs (see test_torch_texture).  Against the reference CSV:
 test_reference_parity's tolerance, p90 relative error <= 1e-4."""
 
 import gzip
@@ -37,15 +37,19 @@ from nyxus_tpu_torch.config import EngineConfig as TConfig  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner as TRunner  # noqa: E402
 
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
-            "*ALL_NGTDM*"]
+            "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
+WIDTH = 337
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "ref_all_320x320_seed11.csv.gz")
-_ENTROPY = ("ENTRO", "_JE", "_RE", "_DE", "INFOMEAS")
-GROUPS = {"intensity": lambda c: not c.startswith(("GL", "NGTDM")),
+_ENTROPY = ("ENTRO", "_JE", "_RE", "_DE", "INFOMEAS", "GLSZM_ZE")
+GROUPS = {"intensity": lambda c: not c.startswith(("GL", "NGTDM", "NGLDM")),
           "glcm": lambda c: c.startswith("GLCM_"),
           "glrlm": lambda c: c.startswith("GLRLM_"),
           "gldm": lambda c: c.startswith("GLDM_"),
-          "ngtdm": lambda c: c.startswith("NGTDM_")}
+          "ngtdm": lambda c: c.startswith("NGTDM_"),
+          "glszm": lambda c: c.startswith("GLSZM_"),
+          "gldzm": lambda c: c.startswith("GLDZM_"),
+          "ngldm": lambda c: c.startswith("NGLDM_")}
 
 
 def _port_runner(**kw):
@@ -78,7 +82,7 @@ def _compare(cols, want, got):
 @pytest.mark.parametrize("group", list(GROUPS))
 def test_pair_runner_vs_jax(blob_runs, group):
     cols, (jl, jv), (tl, tv) = blob_runs
-    assert len(cols) == 284
+    assert len(cols) == WIDTH
     np.testing.assert_array_equal(tl, jl)
     sel = [j for j, c in enumerate(cols) if GROUPS[group](c)]
     assert sel
@@ -123,12 +127,30 @@ def test_nyxus_featurize_frame(blob_runs):
     got = nyxus_tpu_torch.Nyxus(FEATURES, device="cpu",
                                 precision="f64").featurize(intens, labels)
     assert list(got.columns) == list(want.columns)
-    assert len(got.columns) == 4 + 284
+    assert len(got.columns) == 4 + WIDTH
     np.testing.assert_array_equal(got["ROI_label"].to_numpy(),
                                   want["ROI_label"].to_numpy())
     assert (got["intensity_image"] == want["intensity_image"]).all()
     cols = list(want.columns[4:])
     _compare(cols, want[cols].to_numpy(float), got[cols].to_numpy(float))
+
+
+def test_long_roi_slide_vs_jax():
+    """chip_smoke's slide with one 600 x 40 px ROI (bucket 1024 x 64, whose
+    GLRLM run matrix at 64 levels is larger than a block's shared memory on
+    the card) beside small ones: the slice against the JAX package."""
+    import chip_smoke
+    intens, labels = chip_smoke.make_long_roi_slide()
+    cfg = JConfig(precision="f64")
+    fset = jtx.parse_feature_request(FEATURES)
+    jl, jv = JRunner(fset, cfg).run(intens, labels)
+    tl, tv = _port_runner().run(intens, labels)
+    ys, xs = np.nonzero(labels == labels.max())
+    assert ys.max() - ys.min() + 1 > 512 and xs.max() - xs.min() + 1 <= 64
+    assert len(tl) >= 3
+    np.testing.assert_array_equal(tl, jl)
+    hdr, _ = jcol.build_header(fset, cfg)
+    _compare(hdr[4:], jv, tv)
 
 
 def test_blacklisted_rows_stay_unassigned():
@@ -153,12 +175,12 @@ def test_empty_label_image():
     intens = np.ones((32, 32), np.uint16)
     labels = np.zeros((32, 32), np.int32)
     labs, values = _port_runner().run(intens, labels)
-    assert labs.shape == (0,) and values.shape == (0, 284)
+    assert labs.shape == (0,) and values.shape == (0, WIDTH)
 
 
 @pytest.mark.parametrize("features,missing", [
-    (["*ALL*"], "GLSZMFeature"),
-    (["*ALL_GLSZM*"], "GLSZMFeature"),
+    (["*ALL*"], "BasicMorphologyFeatures"),
+    (["*BASIC_MORPHOLOGY*"], "BasicMorphologyFeatures"),
     (["*ALL_INTENSITY*", "PERIMETER"], "ContourFeature"),
 ])
 def test_unported_families_raise(features, missing):

@@ -27,7 +27,7 @@ from nyxus_tpu_torch.pipeline import labels as tlabels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
-         "*ALL_NGTDM*"]
+         "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
 REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
             ["*ALL_MORPHOLOGY*"], ["*ALL_GLSZM*", "GLDM_SDE"]]
 
@@ -70,7 +70,7 @@ def test_config_fields():
         [f.name for f in t.__dataclass_fields__.values()]
     for name in j.__dataclass_fields__:
         assert getattr(j, name) == getattr(t, name), name
-    for fam in ("glcm", "glrlm", "gldm", "ngtdm"):
+    for fam in ("glcm", "glrlm", "gldm", "ngtdm", "glszm", "gldzm"):
         assert j.replace(coarse_gray_depth=-64).texture_greydepth(fam) == \
             t.replace(coarse_gray_depth=-64).texture_greydepth(fam)
 
@@ -88,7 +88,7 @@ def test_build_header(features, depth):
 def test_slice_width():
     tf = ttx.parse_feature_request(SLICE)
     hdr, _ = tcol.build_header(tf, tconfig.EngineConfig())
-    assert len(hdr) - 4 == 284
+    assert len(hdr) - 4 == 337
 
 
 def test_bucket_shape():
@@ -123,7 +123,8 @@ def test_registry_metadata():
         assert tf.needs_logw == jf.needs_logw, name
     ported = [n for n, f in treg.FAMILIES.items() if f.ported]
     assert ported == ["PixelIntensityFeatures", "GLCMFeature", "GLRLMFeature",
-                      "NGTDMFeature", "GLDMFeature"]
+                      "NGTDMFeature", "GLDMFeature", "NGLDMfeature",
+                      "GLSZMFeature", "GLDZMFeature"]
 
 
 @pytest.mark.parametrize("features", REQUESTS, ids=lambda f: ",".join(f))

@@ -14,6 +14,8 @@ FMA, so about 9% of its float32 logs sit 1 ulp from the unfused formula the
 port computes (bit-identical to the numpy oracle and to the JAX function run
 op by op, see test_torch_primitives), which moves an entropy by up to ~1e-7
 relative; they hold rtol 5e-7, as the JAX package's own oracle tests do.
+GLSZM's ZE is one of them; GLDZM's ZDE and NGLDM's DCENT use the exact log2
+and hold rtol 1e-9 like every other member.
 The NGTDM difference sums S, float sums in another order, hold rtol 1e-12."""
 
 import numpy as np
@@ -43,7 +45,8 @@ from nyxus_tpu_torch.pipeline import batching, labels
 SIZES = (16, 32)
 DEPTHS = (64, -64)
 FAMILIES = ("PixelIntensityFeatures", "GLCMFeature", "GLRLMFeature",
-            "NGTDMFeature", "GLDMFeature")
+            "NGTDMFeature", "GLDMFeature", "NGLDMfeature", "GLSZMFeature",
+            "GLDZMFeature")
 
 
 def _bucket_arrays(size):
@@ -78,7 +81,7 @@ _CACHE = {}
 _KEYS = ("intens", "mask", "area", "vmin", "vmax", "smin", "smax", "heights",
          "widths")
 # entropy members: see the module docstring
-_ENTROPY = ("ENTRO", "_JE", "_RE", "_DE", "INFOMEAS")
+_ENTROPY = ("ENTRO", "_JE", "_RE", "_DE", "INFOMEAS", "GLSZM_ZE")
 
 
 def _arrays(size):
