@@ -7,25 +7,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 0. refuse to run without a CUDA device; print the card, its power limit and
    the torch / CUDA versions
-1. build the seven CUDA kernels from nyxus_tpu_torch/csrc with nvcc
-   (sm_90a, one nvcc process a source, all started together)
+1. build the ten CUDA kernels from nyxus_tpu_torch/csrc with nvcc (sm_90a,
+   one nvcc process a source) and, at the same time, the host-geometry
+   library from nyxus_tpu_torch/native/src with g++ (no libtiff)
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's bucket shapes and beyond (128², 256², a 1024 x 64 bucket;
    K2 at 256 levels and K3 at 1024-long runs, whose matrices exceed a
    block's shared memory; checkerboard, uniform and empty crops for the
-   zone kernels), f32 and f64 (counts and labels exact, weighted sums within
+   zone and shape kernels; a 256² solid disk whose long erosion runs beside
+   short ones), f32 and f64 (counts and labels exact, weighted sums within
    rtol 1e-6 / 1e-12), and time both from a torch.profiler trace
-3. run the slice (intensity + GLCM, GLRLM, GLDM, NGTDM, GLSZM, GLDZM and
-   NGLDM, 337 columns) through PairRunner in f32 on the card and in f64 on
-   the CPU, compare per column at the p90 relative error with the tiers of
-   tests/test_tpu_device.py, and check that every kernel was launched: a
-   320 x 320 slide, and a slide with one 600 x 40 px ROI (bucket 1024 x 64)
-   at 64 and at 256 grey levels, which takes K3's and K2's device-memory
-   paths
+3. run the request *ALL* -GABOR -ZERNIKE2D (713 columns: intensity, the
+   seven 2D textures, the shape, contour and moment families) through
+   PairRunner in f32 on the card and in f64 on the CPU, compare per column
+   at the p90 relative error with the tiers of tests/test_tpu_device.py,
+   check that the columns of the host families that read no device result
+   are bit-equal between the two runs, and that every kernel was launched:
+   a 320 x 320 slide, and a slide with one 600 x 40 px ROI (bucket
+   1024 x 64) at 64 and at 256 grey levels, which takes K3's and K2's
+   device-memory paths
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
-   untimed pass then one timed pass through PairRunner.run; the first slide
-   is also held against the f64 CPU run
-5. a torch.profiler trace of one warm slide: device time by kernel
+   untimed pass then one timed pass through PairRunner.run, for the
+   337-column texture slice of the earlier slices and for the 713-column
+   request; the first slide is also held against the f64 CPU run
+5. a torch.profiler trace of one warm slide of the 713-column request:
+   device time by kernel, host time of each runner stage
 
 The last three lines are the card's name and power limit, the kernels'
 JSON line and the result JSON line.  Imports torch, numpy and
@@ -44,6 +50,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
             "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
 WIDTH = 337
+# every 2D family the port serves: *ALL* but Gabor and Zernike
+FEATURES_ALL = ["*ALL*", "-GABOR", "-ZERNIKE2D"]
+WIDTH_ALL = 713
 
 # the card's published peaks (H100 SXM at 700 W):
 # device memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, the
@@ -71,10 +80,16 @@ PREFIX_TOL = {
     "COV": 5e-3, "ENERGY": 5e-3, "VARIANCE": 5e-3,
     "EROSIONS": 1.01,
 }
-# discrete statistics of small counts: an f32 bin-edge flip moves one pixel
+# order statistics and histogram modes, skipped by the tiers: an f32
+# bin-edge flip moves one pixel between bins.  Matched on whole tokens of
+# the member name (MEDIAN_ABSOLUTE_DEVIATION, ANG_BW_NEIGHBORS_MODE), a
+# subset of tests/test_tpu_device.py's substrings, which also skip MINOR_*,
+# *_MIN_* and *_MAX_* members of the shape families
 DISCRETE = ("MODE", "MEDIAN", "P01", "P10", "P25", "P75", "P90", "P99",
-            "EULER", "NUM_", "MIN", "MAX", "RANGE", "MAXCHORDS",
-            "ALLCHORDS")
+            "INTERQUARTILE")
+# integer counts of the same mask on both sides: equal exactly (which makes
+# the EROSIONS tier above moot)
+EXACT = ("EULER_NUMBER", "EROSIONS_2_VANISH", "EROSIONS_2_VANISH_COMPLEMENT")
 ZERO_BY_CONSTRUCTION = ("CENTRAL_MOMENT_01", "CENTRAL_MOMENT_10",
                         "IMOM_CM_01", "IMOM_CM_10")
 
@@ -96,7 +111,7 @@ def compare_tiers(cols, dev, ref):
         both = np.isfinite(a) & np.isfinite(b)
         if both.sum() == 0:
             continue
-        if any(t in c for t in DISCRETE) or c in ZERO_BY_CONSTRUCTION:
+        if set(c.split("_")) & set(DISCRETE) or c in ZERO_BY_CONSTRUCTION:
             continue
         rel = np.abs(a[both] - b[both]) / np.maximum(np.abs(b[both]), 1e-4)
         p90 = float(np.quantile(rel, 0.9))
@@ -232,17 +247,20 @@ CASES = ((64, 32, 32, (29, 31)), (64, 64, 64, (60, 47)), (28, 16, 16, (13, 9)),
          (5, 32, 32, (13, 21)), (3, 7, 13, (7, 13)), (4, 128, 128, (101, 77)),
          (2, 256, 256, (250, 199)), (2, 1024, 64, (600, 40)),
          (1, 16, 16, (0, 0)))
-KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "stencil8", "zone_dag",
-           "zone_cc4", "zone_stats")
+TEXTURE_KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "stencil8",
+                   "zone_dag", "zone_cc4", "zone_stats")
+SHAPE_KERNELS = ("erosion", "binary_quads", "power_sums")
+KERNELS = TEXTURE_KERNELS + SHAPE_KERNELS
 
 
 def counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from nyxus_tpu_torch.ops import common, glcm, glrlm, zones
+    from nyxus_tpu_torch.ops import binary, common, glcm, glrlm, moments, zones
     return dict(zip(KERNELS, (common.batched_hist, glcm.cooc_matrices,
                               glrlm.run_matrices, common.stencil8,
                               zones.zone_labels, zones.zone_cc4,
-                              zones.zone_list)))
+                              zones.zone_list, binary.erosion_counts,
+                              binary.binary_quads, moments.power_sums)))
 
 
 def zone_cases(case, dtype, seed=0):
@@ -292,6 +310,109 @@ def zone_kernels_agree(agree, lev, valid, hts, wds):
                 agree("zone_stats", got, want)
 
 
+def shape_cases(case, dtype, seed=0):
+    """(name, mask, heights, widths) inputs of the shape kernels K8-K10 on
+    a synth bucket: the ROI mask (an ellipse with ~3% holes) and its AABB."""
+    import torch
+    B, H, W, hw = case
+    _, _, _, roi = synth_bucket(B, H, W, hw, seed, dtype, empty=hw == (0, 0))
+    hts = torch.full((B,), hw[0], dtype=torch.int32, device="cuda")
+    wds = torch.full((B,), hw[1], dtype=torch.int32, device="cuda")
+    return [("roi", roi, hts, wds)]
+
+
+def special_shape_cases():
+    """Hand-made crops: 32 x 32 empty, full and checkerboard ones (a full
+    AABB never erodes, its frozen border feeding the interior, so its count
+    stops at the cap of 1000), and a 256 x 256 bucket holding a solid disk
+    of radius 127.5 beside disks of radius 9.5 and 3.5, so that one ROI's
+    long erosion (131 steps) runs beside short ones (9 and 4) in the same
+    launch."""
+    import torch
+    yy, xx = np.mgrid[0:32, 0:32]
+    out = []
+    for name, m in (("empty", np.zeros((1, 32, 32), bool)),
+                    ("full", np.ones((1, 32, 32), bool)),
+                    ("checkerboard", ((yy + xx) % 2 == 0)[None])):
+        hw = torch.full((1,), 32, dtype=torch.int32, device="cuda")
+        out.append((name, torch.from_numpy(m).cuda(), hw, hw))
+    yy, xx = np.mgrid[0:256, 0:256]
+    disk = np.zeros((3, 256, 256), bool)
+    for k, r in enumerate((127.5, 9.5, 3.5)):
+        disk[k] = (yy - r) ** 2 + (xx - r) ** 2 <= r * r
+    out.append(("disk256", torch.from_numpy(disk).cuda(),
+                torch.tensor([256, 20, 8], dtype=torch.int32, device="cuda"),
+                torch.tensor([256, 20, 8], dtype=torch.int32, device="cuda")))
+    return out
+
+
+def weight_planes(mask, dtype, seed=0):
+    """Two K10 weight planes on a mask, as the moment families hand them
+    over: intensities I in 1..4000 and I * log(d + 0.001) with d a random
+    distance in 0..20 (negative and positive weights)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = mask.to(dtype)
+    inten = torch.floor(torch.rand(mask.shape, generator=g, device="cuda",
+                                   dtype=dtype) * 4000 + 1) * m
+    lw = torch.log(torch.rand(mask.shape, generator=g, device="cuda",
+                              dtype=dtype) * 20 + 0.001) * m
+    return [inten, inten * lw]
+
+
+def sums_scale(planes, centre=None):
+    """float64 [B, P, 4, 4] sums of |w| |x - ox|^i |y - oy|^j: the scale of
+    the rounding of a power sum whose terms are added in another order."""
+    import torch
+    B, H, W = planes[0].shape
+    xs = torch.arange(W, dtype=torch.float64, device="cuda")[None, None, :]
+    ys = torch.arange(H, dtype=torch.float64, device="cuda")[None, :, None]
+    out = []
+    for k, w in enumerate(planes):
+        x, y = xs, ys
+        if centre is not None:
+            x = (xs - centre[:, k, 0, None, None].double()).abs()
+            y = (ys - centre[:, k, 1, None, None].double()).abs()
+        a = w.abs().double()
+        out.append(torch.stack([torch.stack(
+            [(a * x ** i * y ** j).sum(dim=(1, 2)) for j in range(4)], dim=1)
+            for i in range(4)], dim=1))
+    return torch.stack(out, dim=1)
+
+
+def shape_kernels_agree(agree, mask, hts, wds, dtype, seed=0):
+    """K8, K9 and K10 against their plain versions on one input.  K10 runs
+    as the moment families run it (two planes raw, then centred on each
+    plane's own centroid) and as the ellipse runs it (the mask alone,
+    centred); it agrees within rtol 1e-6 (f32) or 1e-12 (f64) of
+    sums_scale, the size of a sum's rounding in another order."""
+    import torch
+    from nyxus_tpu_torch.ops import binary, moments
+    agree("erosion", binary.erosion_counts(mask, hts, wds),
+          binary.erosion_counts_plain(mask, hts, wds))
+    for got, want in zip(binary.binary_quads(mask),
+                         binary.binary_quads_plain(mask)):
+        agree("binary_quads", got, want)
+    rtol = 1e-6 if dtype == torch.float32 else 1e-12
+    planes = weight_planes(mask, dtype, seed)
+    raw = moments.power_sums_plain(planes)
+    agree("power_sums", moments.power_sums(planes), raw, rtol,
+          sums_scale(planes))
+    m00 = raw[:, :, 0, 0]
+    ok = m00 != 0
+    centre = torch.stack([torch.where(ok, raw[:, :, 1, 0], 0)
+                          / torch.where(ok, m00, 1),
+                          torch.where(ok, raw[:, :, 0, 1], 0)
+                          / torch.where(ok, m00, 1)], dim=2).to(dtype)
+    agree("power_sums", moments.power_sums(planes, centre),
+          moments.power_sums_plain(planes, centre), rtol,
+          sums_scale(planes, centre))
+    m = [mask.to(dtype)]
+    agree("power_sums", moments.power_sums(m, centre[:, :1]),
+          moments.power_sums_plain(m, centre[:, :1]), rtol,
+          sums_scale(m, centre[:, :1]))
+
+
 def bounds(B, H, W, ng=64, nbins=100, angles=4):
     """(bytes, operations) each kernel must move and do at a bucket of B
     crops of H x W at the timed arguments: each input read once, each output
@@ -309,20 +430,62 @@ def bounds(B, H, W, ng=64, nbins=100, angles=4):
     }
 
 
+def erosion_steps(mask, heights, widths):
+    """Erosion steps of each ROI (the plain version's count)."""
+    from nyxus_tpu_torch.ops import binary
+    return binary.erosion_counts_plain(mask, heights, widths).tolist()
+
+
+def shape_bounds(mask, heights, widths, planes):
+    """(bytes, operations) K8-K10 must move and do on these inputs, each
+    input read once and each output written once.  K8: the steps this data
+    takes (one more than its count, the last finding the interior empty),
+    5 operations (a 5-way min and the test) per interior pixel a step.
+    K9: 10 operations per 2 x 2 window, and the box counts as a pyramid
+    makes them: every box of scale s, at any of its origins, is the union of
+    four origin-0 boxes of scale s/2 (3 ORs) and adds one to its count.
+    K10: per nonzero weight, 2 subtractions, 24 multiplies and 16
+    additions."""
+    from nyxus_tpu_torch.ops import binary
+    B, H, W = mask.shape
+    n = binary.erosion_counts_plain(mask, heights, widths).double()
+    interior = ((heights - 3).clamp(min=0) * (widths - 3).clamp(min=0)).double()
+    SB, S = binary.n_scales(H, W)
+    boxes = 0
+    for s in (SB >> i for i in range(S)):
+        shifts = (((0, 0), (s // 2, 0), (0, s // 2), (s // 2, s // 2))
+                  if s <= 32 else ((0, 0),))
+        boxes += sum(-(-(H + oy) // s) * -(-(W + ox) // s)
+                     for ox, oy in shifts)
+    nz = sum(float((p != 0).sum()) for p in planes)
+    esz = planes[0].element_size()
+    return {
+        "erosion": (B * H * W + 4 * B, 5 * float(((n + 1) * interior).sum())),
+        "binary_quads": (B * H * W + 4 * B * (3 + 4 * S),
+                         B * (10 * (H + 1) * (W + 1) + 4 * boxes)),
+        "power_sums": (len(planes) * B * H * W * esz + 8 * B * len(planes) * 16,
+                       42 * nz),
+    }
+
+
 def check_kernels():
     """Every kernel against its plain version; returns per-kernel results."""
     import torch
-    from nyxus_tpu_torch.ops import common, glcm, glrlm, zones
+    from nyxus_tpu_torch.ops import binary, common, glcm, glrlm, moments, zones
     res = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
-    def agree(name, got, want, rtol=0.0):
-        err = float((got.double() - want.double()).abs().max()) \
-            if got.numel() else 0.0
-        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+    def agree(name, got, want, rtol=0.0, scale=None):
         if got.shape != want.shape:
             raise AssertionError("%s: shape %s != %s" % (name, got.shape,
                                                           want.shape))
-        if rtol == 0.0:
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max()) if got.numel() else 0.0
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        if scale is not None:
+            if not bool((diff <= rtol * scale).all()):
+                raise AssertionError("%s: beyond rtol %g of the sums' scale "
+                                     "(max abs %g)" % (name, rtol, err))
+        elif rtol == 0.0:
             if not torch.equal(got, want):
                 raise AssertionError("%s: counts differ (max abs %g)"
                                      % (name, err))
@@ -364,7 +527,9 @@ def check_kernels():
                 agree("stencil8", got, want)
             for _, zl, zv, hts, wds in zone_cases((B, H, W, hw), dtype, ci):
                 zone_kernels_agree(agree, zl, zv, hts, wds)
-            log("  %s B=%d %dx%d roi %s: all seven kernels agree"
+            for _, sm, hts, wds in shape_cases((B, H, W, hw), dtype, ci):
+                shape_kernels_agree(agree, sm, hts, wds, dtype, ci)
+            log("  %s B=%d %dx%d roi %s: all ten kernels agree"
                 % (prec, B, H, W, hw))
         # matrices beyond a block's shared memory: K2 at 256 levels, K3 at
         # 1024-long runs (and 256 levels x 512)
@@ -384,9 +549,14 @@ def check_kernels():
                           glrlm.run_matrices_plain(lv, valid, ng, nr, dtype))
         for name, zl, zv, hts, wds in special_zone_cases():
             zone_kernels_agree(agree, zl, zv, hts, wds)
+        steps = []
+        for name, sm, hts, wds in special_shape_cases():
+            shape_kernels_agree(agree, sm, hts, wds, dtype)
+            steps.append((name, erosion_steps(sm, hts, wds)))
         log("  %s: device-memory paths of K2 (256 levels) and K3 (1024 and "
-            "512-long runs) and the checkerboard, uniform and empty zone "
-            "crops agree" % prec)
+            "512-long runs), the checkerboard, uniform and empty zone crops "
+            "and the empty, full, checkerboard and 256² disk shape crops "
+            "agree; erosion steps %s" % (prec, steps))
 
     # times at the main path's commonest bucket (f32, 64 ROIs of 32 x 32),
     # then at two more buckets and on the device-memory paths
@@ -398,6 +568,8 @@ def check_kernels():
         nr = max(H, W)
         _, zl, zv, hts, wds = zone_cases((B, H, W, hw), torch.float32)[0]
         anc, dist = zones.zone_cc4_plain(zl, zv, hts, wds)
+        _, sm, shts, swds = shape_cases((B, H, W, hw), torch.float32)[0]
+        planes = weight_planes(sm, torch.float32)
         pairs = {
             "batched_hist": (lambda: common.batched_hist(flat, cnt, 100),
                              lambda: common.batched_hist_plain(flat, cnt, 100)),
@@ -418,9 +590,16 @@ def check_kernels():
                          lambda: zones.zone_cc4_plain(zl, zv, hts, wds)),
             "zone_stats": (lambda: zones.zone_list(anc, zl, zv, dist),
                            lambda: zones.zone_list_plain(anc, zl, zv, dist)),
+            "erosion": (lambda: binary.erosion_counts(sm, shts, swds),
+                        lambda: binary.erosion_counts_plain(sm, shts, swds)),
+            "binary_quads": (lambda: binary.binary_quads(sm),
+                             lambda: binary.binary_quads_plain(sm)),
+            "power_sums": (lambda: moments.power_sums(planes),
+                           lambda: moments.power_sums_plain(planes)),
         }
         main = (B, H, W) == (64, 32, 32)
         bnd = bounds(B, H, W)
+        bnd.update(shape_bounds(sm, shts, swds, planes))
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain: the pairs share clocks and cache
             p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), \
@@ -446,12 +625,30 @@ def check_kernels():
             res["batched_hist"]["library_ms"] = lib[1]
             log("  time batched_hist library scatter_add_: device %.4f ms "
                 "(events %.4f ms)" % (lib[1], lib[0]))
+            # K10's raw sums as one einsum over both planes (not called by
+            # the port): sum_hw w[b,h,w] Y[q,h] X[p,w], Y = h^q, X = w^p
+            wcat = torch.cat(planes).contiguous()
+            pw = torch.arange(4, device="cuda", dtype=torch.float32)
+            X = torch.arange(W, device="cuda", dtype=torch.float32)[None, :] \
+                ** pw[:, None]
+            Y = torch.arange(H, device="cuda", dtype=torch.float32)[None, :] \
+                ** pw[:, None]
+            lib = timed(lambda: torch.einsum("bhw,qh,pw->bpq", wcat, Y, X))
+            res["power_sums"]["library_ms"] = lib[1]
+            log("  time power_sums library einsum: device %.4f ms (events "
+                "%.4f ms)" % (lib[1], lib[0]))
         if (B, H, W) == (2, 1024, 64):
             ms = timed(lambda: glrlm.run_matrices(lev, aabb, 64, 1024,
                                                   torch.float32))
             log("  time glrlm_runs device-memory path 64 x 1024, B=2 "
                 "1024x64: device %.4f ms (events %.4f ms)" % (ms[1], ms[0]))
         if main:
+            (_, dm, dh, dw), = [c for c in special_shape_cases()
+                                if c[0] == "disk256"]
+            ms = timed(lambda: binary.erosion_counts(dm, dh, dw))
+            log("  time erosion 256² disk (131 steps) beside disks of 9 and "
+                "4 steps, B=3 256x256: device %.4f ms (events %.4f ms)"
+                % (ms[1], ms[0]))
             lev256 = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
             ms = timed(lambda: glcm.cooc_matrices(orig, lev256,
                                                   (0, 45, 90, 135), 1, 256,
@@ -459,6 +656,62 @@ def check_kernels():
             log("  time glcm_cooc device-memory path 256 levels, B=64 32x32: "
                 "device %.4f ms (events %.4f ms)" % (ms[1], ms[0]))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3 and 4: the request end to end
+
+
+def pre_host_columns(runner, slots):
+    """Value columns of the host families that read no device result (the
+    pre-collect ones): every member of those without a device half, and the
+    host half's FRACT_DIM_PERIMETER of FractalDimensionFeature.  Their
+    inputs are the same on the card and on the CPU, so their values are
+    too, bit for bit."""
+    from nyxus_tpu_torch import registry, taxonomy
+    codes = set()
+    for name in runner.pre_host:
+        fam = registry.FAMILIES[name]
+        if not fam.device:
+            codes.update(fam.codes)
+        elif name == "FractalDimensionFeature":
+            codes.add(taxonomy.F2D["FRACT_DIM_PERIMETER"])
+    out, off = [], 0
+    for code, width in slots:
+        if code in codes:
+            out.extend(range(off, off + width))
+        off += width
+    if not out:
+        raise AssertionError("no pre-collect host columns")
+    return np.asarray(out)
+
+
+def check_output(what, cols, labs, dev, labs64, ref):
+    """Labels and shape equal, NaN where and only where the f64 CPU run has
+    NaN, no infinity, the EXACT counts equal and every other column within
+    its tier; returns the column
+    closest to its tier.  Where the f64 value lies beyond float32's range
+    (a weighted Hu invariant of a long ROI reaches 1e44) the f32 run may
+    overflow to inf or NaN."""
+    if dev.shape != (len(labs64), len(cols)) or list(labs) != list(labs64):
+        raise AssertionError("%s: shape/labels %s vs %s"
+                             % (what, dev.shape, ref.shape))
+    with np.errstate(invalid="ignore"):
+        beyond = np.abs(ref) > np.finfo(np.float32).max
+    odd = ~beyond & ((np.isnan(dev) != np.isnan(ref)) | np.isinf(dev))
+    if odd.any():
+        j = np.nonzero(odd.any(axis=0))[0]
+        raise AssertionError("%s: inf, or NaN unlike the f64 CPU run, in %s"
+                             % (what, [cols[k] for k in j[:10]]))
+    exact = [j for j, c in enumerate(cols) if c in EXACT]
+    if not np.array_equal(dev[:, exact], ref[:, exact]):
+        raise AssertionError("%s: %s differ between the card and the CPU run"
+                             % (what, [cols[j] for j in exact]))
+    bad, worst = compare_tiers(cols, dev, ref)
+    if bad:
+        raise AssertionError("%s: f32 card vs f64 CPU beyond tolerance: %r"
+                             % (what, bad[:20]))
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +728,7 @@ def main():
     except ImportError as e:
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (%s)" % e)
-    from nyxus_tpu_torch import _build, columns, taxonomy
+    from nyxus_tpu_torch import _build, columns, native, taxonomy
     from nyxus_tpu_torch.config import EngineConfig
     from nyxus_tpu_torch.ops.common import SMEM_MAX
     from nyxus_tpu_torch.pipeline import batching
@@ -490,28 +743,38 @@ def main():
         % (torch.__version__, torch.version.cuda, sys.version.split()[0],
            torch.cuda.get_device_name(0)))
 
-    # phase 1
+    # phase 1: nvcc and g++ together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    _build.lib()
-    log("phase 1: kernels built in %.1f s (nvcc %.1f s) into %s"
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(_build.lib), ex.submit(native.available)]
+        for b in builds:
+            b.result()
+    log("phase 1: kernels and host library built in %.1f s (nvcc %.1f s "
+        "into %s; g++ %.1f s into %s)"
         % (time.perf_counter() - t0, _build.build_seconds or 0.0,
-           _build.LIB_PATH))
+           _build.LIB_PATH, native.build_seconds or 0.0, native.LIB_PATH))
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
+    ldd = subprocess.run(["ldd", native.LIB_PATH], capture_output=True,
+                         text=True, timeout=60).stdout
+    if "libtiff" in ldd:
+        raise AssertionError("the host library links libtiff:\n" + ldd)
 
     # phase 2
     log("phase 2: kernels against their plain versions")
     kres = check_kernels()
 
     # phase 3
-    log("phase 3: slice on the card (f32) against the CPU (f64)")
+    log("phase 3: %s on the card (f32) against the CPU (f64)"
+        % " ".join(FEATURES_ALL))
     kern = counters()
-    fset = taxonomy.parse_feature_request(FEATURES)
-    hdr, _ = columns.build_header(fset, EngineConfig())
+    fset = taxonomy.parse_feature_request(FEATURES_ALL)
+    hdr, slots = columns.build_header(fset, EngineConfig())
     cols = hdr[4:]
-    if len(cols) != WIDTH:
-        raise AssertionError("slice width %d != %d" % (len(cols), WIDTH))
+    if len(cols) != WIDTH_ALL:
+        raise AssertionError("width %d != %d" % (len(cols), WIDTH_ALL))
     card_runner = PairRunner(fset, EngineConfig(precision="f32"), "cuda")
     cpu_runner = PairRunner(fset, EngineConfig(precision="f64"), "cpu")
     long_slide = make_long_roi_slide()
@@ -526,28 +789,32 @@ def main():
         if 4 * depth * depth > SMEM_MAX:
             big.append("K2 %dx%d" % (depth, depth))
         dev_runner, ref_runner = card_runner, cpu_runner
+        dcols, dslots = cols, slots
         if depth != 64:
             dev_runner = PairRunner(fset, EngineConfig(
                 precision="f32", coarse_gray_depth=depth), "cuda")
             ref_runner = PairRunner(fset, EngineConfig(
                 precision="f64", coarse_gray_depth=depth), "cpu")
+            # the histogram members' widths follow the grey depth
+            dhdr, dslots = columns.build_header(
+                fset, EngineConfig(coarse_gray_depth=depth))
+            dcols = dhdr[4:]
+        host_cols = pre_host_columns(dev_runner, dslots)
         for f in kern.values():
             f.launches = 0
         labs, dev = dev_runner.run(intens, labels)
         small_launches = {k: f.launches for k, f in kern.items()}
         labs64, ref = ref_runner.run(intens, labels)
-        if dev.shape != (len(labs64), WIDTH) or list(labs) != list(labs64) \
-                or not np.isfinite(dev).all():
-            raise AssertionError("%s: slice shape/labels/values: %s vs %s"
-                                 % (what, dev.shape, ref.shape))
-        bad, worst = compare_tiers(cols, dev, ref)
-        if bad:
-            raise AssertionError("%s: f32 card vs f64 CPU beyond tolerance: "
-                                 "%r" % (what, bad[:20]))
-        log("  %s: %d ROIs x %d columns agree; buckets %s; matrices in "
-            "device memory: %s; closest to its tier: %s; launches %s"
-            % (what, len(labs), len(cols), shapes, big or "none", worst,
-               small_launches))
+        worst = check_output(what, dcols, labs, dev, labs64, ref)
+        if not np.array_equal(dev[:, host_cols].view(np.uint64),
+                              ref[:, host_cols].view(np.uint64)):
+            raise AssertionError("%s: the pre-collect host columns differ "
+                                 "between the card and the CPU run" % what)
+        log("  %s: %d ROIs x %d columns agree, the %d pre-collect host "
+            "columns bit for bit; buckets %s; matrices in device memory: "
+            "%s; closest to its tier: %s; launches %s"
+            % (what, len(labs), len(dcols), len(host_cols), shapes,
+               big or "none", worst, small_launches))
         if not all(small_launches.values()):
             raise AssertionError("%s: a kernel was not launched: %r"
                                  % (what, small_launches))
@@ -557,40 +824,45 @@ def main():
     t0 = time.perf_counter()
     slides = [make_dsb_like(1024, 1024, 300, seed=s) for s in range(7, 15)]
     log("  slides generated in %.1f s" % (time.perf_counter() - t0))
-    for intens, labels in slides:                     # untimed pass
-        card_runner.run(intens, labels)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for f in kern.values():
-        f.launches = 0
-    n_rois, outs = 0, []
-    t0 = time.perf_counter()
-    for intens, labels in slides:
-        labs, vals = card_runner.run(intens, labels)
-        n_rois += len(labs)
-        outs.append((labs, vals))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in kern.items()}
-    peak = torch.cuda.max_memory_allocated()
-    log("  %d ROIs in %.4f s: %.2f ROIs/s; peak device memory %d bytes "
-        "(%.1f MiB); launches %s"
-        % (n_rois, wall, n_rois / wall, peak, peak / 2 ** 20, launches))
-    if not all(launches.values()):
-        raise AssertionError("a kernel was not launched: %r" % launches)
-    for labs, vals in outs:
-        if vals.shape != (len(labs), WIDTH) or not np.isfinite(vals).all():
-            raise AssertionError("throughput run: bad output %s" %
-                                 (vals.shape,))
+    tex_fset = taxonomy.parse_feature_request(FEATURES)
+    tex_runner = PairRunner(tex_fset, EngineConfig(precision="f32"), "cuda")
+    for name, runner, width, used in (
+            ("337-column texture slice", tex_runner, WIDTH, TEXTURE_KERNELS),
+            ("713-column request", card_runner, WIDTH_ALL, KERNELS)):
+        for intens, labels in slides:                     # untimed pass
+            runner.run(intens, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in kern.values():
+            f.launches = 0
+        n_rois, outs = 0, []
+        t0 = time.perf_counter()
+        for intens, labels in slides:
+            labs, vals = runner.run(intens, labels)
+            n_rois += len(labs)
+            outs.append((labs, vals))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in kern.items()}
+        peak = torch.cuda.max_memory_allocated()
+        log("  %s: %d ROIs in %.4f s: %.2f ROIs/s; peak device memory %d "
+            "bytes (%.1f MiB); launches %s"
+            % (name, n_rois, wall, n_rois / wall, peak, peak / 2 ** 20,
+               launches))
+        if not all(launches[k] for k in used):
+            raise AssertionError("%s: a kernel was not launched: %r"
+                                 % (name, launches))
+        for labs, vals in outs:
+            if vals.shape != (len(labs), width):
+                raise AssertionError("%s: bad output %s" % (name,
+                                                            vals.shape))
     labs64, ref = cpu_runner.run(*slides[0])
-    bad, worst = compare_tiers(cols, outs[0][1], ref)
-    if bad or list(labs64) != list(outs[0][0]):
-        raise AssertionError("slide 7 f32 card vs f64 CPU: %r" % bad[:20])
-    log("  slide 7 (%d ROIs) agrees with the f64 CPU run; closest to its "
-        "tier: %s" % (len(labs64), worst))
+    worst = check_output("slide 7", cols, outs[0][0], outs[0][1], labs64, ref)
+    log("  slide 7 (%d ROIs) of the 713-column request agrees with the f64 "
+        "CPU run; closest to its tier: %s" % (len(labs64), worst))
 
     # phase 5
-    log("phase 5: profile of one warm slide")
+    log("phase 5: profile of one warm slide of the 713-column request")
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -620,7 +892,7 @@ def main():
     log("  runner stages (nyx:* ranges): host ms, and the span on the card "
         "from their first to their last kernel")
     for name, (host_ms, span_ms) in stages.items():
-        log("    %-26s host %8.2f ms   card span %8.2f ms"
+        log("    %-58s host %8.2f ms   card span %8.2f ms"
             % (name, host_ms, span_ms))
     t0 = time.perf_counter()
     for intens, labels in slides:
@@ -641,7 +913,13 @@ def main():
            "zone_cc4": ("nyxus_tpu_torch/csrc/zone_cc4.cu",
                         "nyxus_tpu/ops/zones.py:85"),
            "zone_stats": ("nyxus_tpu_torch/csrc/zone_stats.cu",
-                          "nyxus_tpu/ops/zones.py:140")}
+                          "nyxus_tpu/ops/zones.py:140"),
+           "erosion": ("nyxus_tpu_torch/csrc/erosion.cu",
+                       "nyxus_tpu/ops/binary.py:27"),
+           "binary_quads": ("nyxus_tpu_torch/csrc/binary_quads.cu",
+                            "nyxus_tpu/ops/binary.py:70"),
+           "power_sums": ("nyxus_tpu_torch/csrc/power_sums.cu",
+                          "nyxus_tpu/ops/moments.py:36")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict({"name": k, "route": "cuda", "source": src[k][0],

@@ -29,7 +29,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 LIB_PATH = os.path.join(_DIR, "_build", "libnyxcuda.so")
 SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu", "stencil8.cu",
-           "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu")
+           "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu", "erosion.cu",
+           "binary_quads.cu", "power_sums.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "nyx_zone_dag": [_P, _P, _P, _I, _I, _I, _P],
     "nyx_zone_cc4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nyx_zone_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "nyx_erosion": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nyx_binary_quads": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "nyx_power_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,393 @@
+"""Native (C++) host-geometry library of the port, bound with ctypes
+(reduced from nyxus_tpu/native/__init__.py: the contour and geometry entry
+points only).
+
+``src/`` holds verbatim copies of the JAX package's ``contour.cpp``,
+``geomfeats.cpp`` and ``geomfeats_batch.cpp``, which link only against each
+other and the C++ standard library (no libtiff, no file readers).  They are
+compiled with ``g++`` (or ``$CXX``), one process a source, at first use into
+``nyxus_tpu_torch/_build/libnyxgeom.so``; a stamp holding a hash of the
+sources, the compiler and the flags sits next to it, and a change to any of
+them rebuilds it.
+
+A failed build raises, and so does every later call: unlike the JAX
+package's loader there is no fallback to the slow numpy host paths, so
+``available()`` is True or raises the build error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "src")
+LIB_PATH = os.path.join(os.path.dirname(_DIR), "_build", "libnyxgeom.so")
+SOURCES = ("contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp")
+# -march=native is safe: the library is built on first use on the machine
+# that runs it and never committed.  -ffp-contract=off: FMA contraction
+# would change the doubles and break parity with the JAX package's host
+# results.
+CFLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC",
+          "-std=c++17")
+
+_lock = threading.Lock()
+_lib = None
+_build_err = None
+build_seconds = None   # wall time of the last build in this process
+
+_P = ctypes.c_void_p
+_L = ctypes.c_long
+_I = ctypes.c_int
+# entry point -> (restype, argtypes)
+_SIGNATURES = {
+    "nyx_caliper_feret": (None, [_P, _P, _P, _L, _P, _I]),
+    "nyx_caliper_martin": (None, [_P, _P, _P, _L, _P, _I]),
+    "nyx_caliper_nassenstein": (None, [_P, _P, _P, _L, _P, _I]),
+    "nyx_chords": (None, [_P, _P, _P, _P, _P, _L, _P, _I]),
+    "nyx_min_enclosing_circles": (None, [_P, _P, _P, _L, _P, _I]),
+    "nyx_contour_sqdist_approx": (None, [_P, _P, _L, _P, _P, _L, _P, _P]),
+    "nyx_contours_batch": (None, [_P, _P, _L, _L, _P, _L, _P, _P, _P, _I]),
+    "nyx_convex_hull": (_I, [_P, _P, _I, _P]),
+    "nyx_geom_width": (_I, []),
+    "nyx_geom_batch": (None, [_P, _P, _P, _P, _P, _P, _P, _P, _L,
+                              ctypes.c_uint32, ctypes.c_double, _P, _P, _I]),
+    "nyx_neighbors_batch": (None, [_P, _P, _P, _P, _P, _P, ctypes.c_double,
+                                   _L, _P, _I]),
+}
+
+
+def _cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
+def _stamp() -> str:
+    h = hashlib.sha256(" ".join((_cxx(),) + CFLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(_SRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
+def _run(cmds):
+    """Run the commands together; raise naming each one that failed."""
+    try:
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in cmds]
+    except OSError as e:
+        raise RuntimeError("native build of %s failed: %s" % (LIB_PATH, e))
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            failed.append("%s (exit %d)\n%s" % (" ".join(cmd),
+                                                proc.returncode, out))
+    if failed:
+        raise RuntimeError("native build of %s failed: %s"
+                           % (LIB_PATH, "\n".join(failed)))
+
+
+def _build(stamp: str):
+    """One compiler process a source, all started together, then a link."""
+    global build_seconds
+    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
+    tag = "%d.tmp" % os.getpid()
+    tmp = "%s.%s" % (LIB_PATH, tag)
+    objs = [os.path.join(os.path.dirname(LIB_PATH), "%s.%s.o" % (s, tag))
+            for s in SOURCES]
+    t0 = time.perf_counter()
+    try:
+        _run([[_cxx(), *CFLAGS, "-c", "-o", obj, os.path.join(_SRC, s)]
+              for s, obj in zip(SOURCES, objs)])
+        _run([[_cxx(), "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_seconds = time.perf_counter() - t0
+    os.replace(tmp, LIB_PATH)
+    with open(LIB_PATH + ".stamp", "w") as f:
+        f.write(stamp)
+
+
+def _load():
+    """The loaded library, built first if it is missing or stale; raises
+    the build error (again on every later call) when it cannot be built."""
+    global _lib, _build_err
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _build_err is not None:
+            raise _build_err
+        try:
+            stamp = _stamp()
+            try:
+                with open(LIB_PATH + ".stamp") as f:
+                    fresh = f.read() == stamp and os.path.exists(LIB_PATH)
+            except OSError:
+                fresh = False
+            if not fresh:
+                _build(stamp)
+            lib = ctypes.CDLL(LIB_PATH)
+        except Exception as e:
+            _build_err = e
+            raise
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    """True once the library is built and loaded; raises if it cannot be."""
+    return _load() is not None
+
+
+def contour_sqdist_approx(px, py, cx, cy, want_min=True, want_max=False):
+    """Approximate min/max squared distance from points to an ORDERED contour
+    (semantic port of the reference's sampling search, pixel.cpp:36-143).
+    Returns (min_d2 | None, max_d2 | None) float64 arrays."""
+    px = np.ascontiguousarray(px, np.float64)
+    py = np.ascontiguousarray(py, np.float64)
+    cx = np.ascontiguousarray(cx, np.float64)
+    cy = np.ascontiguousarray(cy, np.float64)
+    n = len(px)
+    out_min = np.empty(n, np.float64) if want_min else None
+    out_max = np.empty(n, np.float64) if want_max else None
+    lib = _load()
+
+    def run(lo, hi):
+        lib.nyx_contour_sqdist_approx(
+            px[lo:hi].ctypes.data_as(ctypes.c_void_p),
+            py[lo:hi].ctypes.data_as(ctypes.c_void_p), hi - lo,
+            cx.ctypes.data_as(ctypes.c_void_p),
+            cy.ctypes.data_as(ctypes.c_void_p), len(cx),
+            out_min[lo:hi].ctypes.data_as(ctypes.c_void_p)
+            if want_min else None,
+            out_max[lo:hi].ctypes.data_as(ctypes.c_void_p)
+            if want_max else None)
+
+    # the per-point search is independent and GIL-free: fan big point
+    # sets over threads
+    nthr = min(os.cpu_count() or 1, max(1, n // 65536))
+    if nthr > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        step = (n + nthr - 1) // nthr
+        with ThreadPoolExecutor(nthr) as ex:
+            list(ex.map(lambda lo: run(lo, min(n, lo + step)),
+                        range(0, n, step)))
+    else:
+        run(0, n)
+    return out_min, out_max
+
+
+def convex_hull(xs, ys):
+    """Monotone-chain hull, reference vertex order; [K, 2] float64 (x, y)."""
+    lib = _load()
+    xs = np.ascontiguousarray(xs, np.int64)
+    ys = np.ascontiguousarray(ys, np.int64)
+    out = np.empty((len(xs) + 4, 2), np.float64)
+    k = lib.nyx_convex_hull(xs.ctypes.data_as(ctypes.c_void_p),
+                            ys.ctypes.data_as(ctypes.c_void_p), len(xs),
+                            out.ctypes.data_as(ctypes.c_void_p))
+    return out[:k].copy()
+
+
+def _concat_offsets(arrays, dtype):
+    """Concatenate per-ROI 1-D arrays -> (flat, offsets[int64, N+1])."""
+    offsets = np.zeros(len(arrays) + 1, np.int64)
+    for i, a in enumerate(arrays):
+        offsets[i + 1] = offsets[i] + len(a)
+    if offsets[-1] == 0:
+        return np.zeros(0, dtype), offsets
+    flat = np.concatenate([np.ascontiguousarray(a, dtype) for a in arrays])
+    return flat, offsets
+
+
+def _n_threads():
+    env = os.environ.get("NYXUS_NATIVE_THREADS")
+    if env:
+        return max(1, int(env))
+    return max(1, os.cpu_count() or 1)
+
+
+def caliper_batch(kind, hulls, fill):
+    """Run a caliper family natively over all ROIs.
+
+    kind: 'feret' (8 outputs) | 'martin' | 'nassenstein' (6 outputs);
+    hulls: list of [K, 2] float arrays (global coords) or None.
+    Returns [N, W] float64 initialized to ``fill``."""
+    lib = _load()
+    width = 8 if kind == "feret" else 6
+    n = len(hulls)
+    out = np.full((n, width), fill, np.float64)
+    hx, off = _concat_offsets(
+        [h[:, 0] if h is not None else np.zeros(0) for h in hulls], np.float64)
+    hy, _ = _concat_offsets(
+        [h[:, 1] if h is not None else np.zeros(0) for h in hulls], np.float64)
+    fn = getattr(lib, "nyx_caliper_" + kind)
+    fn(hx.ctypes.data_as(ctypes.c_void_p), hy.ctypes.data_as(ctypes.c_void_p),
+       off.ctypes.data_as(ctypes.c_void_p), n,
+       out.ctypes.data_as(ctypes.c_void_p), _n_threads())
+    return out
+
+
+def chords_batch(points, aabbs):
+    """Chord statistics natively over all ROIs.
+
+    points: list of (gx int64, gy int64, inten float64) in cloud order;
+    aabbs: [N, 4] int64 (x0, x1, y0, y1).  Returns [N, 16] float64
+    (-0.0 rows where no chords)."""
+    lib = _load()
+    n = len(points)
+    out = np.full((n, 16), -0.0, np.float64)
+    gx, off = _concat_offsets([p[0] for p in points], np.int64)
+    gy, _ = _concat_offsets([p[1] for p in points], np.int64)
+    it, _ = _concat_offsets([p[2] for p in points], np.float64)
+    ab = np.ascontiguousarray(aabbs, np.int64)
+    lib.nyx_chords(gx.ctypes.data_as(ctypes.c_void_p),
+                   gy.ctypes.data_as(ctypes.c_void_p),
+                   it.ctypes.data_as(ctypes.c_void_p),
+                   off.ctypes.data_as(ctypes.c_void_p),
+                   ab.ctypes.data_as(ctypes.c_void_p), n,
+                   out.ctypes.data_as(ctypes.c_void_p), _n_threads())
+    return out
+
+
+def min_enclosing_circles(contours):
+    """Min enclosing circle DIAMETER per ROI (float32 reference algorithm,
+    circle.cpp:28-216).  contours: list of [K, 2] float arrays or None."""
+    lib = _load()
+    n = len(contours)
+    out = np.zeros(n, np.float64)
+    px, off = _concat_offsets(
+        [c[:, 0] if c is not None else np.zeros(0) for c in contours],
+        np.float64)
+    py, _ = _concat_offsets(
+        [c[:, 1] if c is not None else np.zeros(0) for c in contours],
+        np.float64)
+    lib.nyx_min_enclosing_circles(
+        px.ctypes.data_as(ctypes.c_void_p), py.ctypes.data_as(ctypes.c_void_p),
+        off.ctypes.data_as(ctypes.c_void_p), n,
+        out.ctypes.data_as(ctypes.c_void_p), _n_threads())
+    return out
+
+
+def _labels_i32(labels_img, validated=False):
+    """Contiguous int32 view of a label image; raises instead of silently
+    wrapping labels >= 2**31 negative (uint32/uint64 label schemes).
+    Callers that already ran pipeline.labels._native_labels_ok pass
+    ``validated`` to skip the (full-image max) re-check."""
+    labels_img = np.asarray(labels_img)
+    if not validated and (labels_img.dtype == np.uint32
+                          or (labels_img.dtype.kind in "iu"
+                              and labels_img.dtype.itemsize > 4)) \
+            and labels_img.size and int(labels_img.max()) >= 2 ** 31:
+        raise ValueError("labels exceed int32 range; the native scan "
+                         "cannot represent them")
+    return np.ascontiguousarray(labels_img, np.int32)
+
+
+def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,
+               out=None, want_logw=False, n_threads=None):
+    """One-call batched host-geometry pass (contour stats, fractal perimeter,
+    convex hull features, 3 calipers, chords, ROI radius, radial
+    distribution, weighted-moment log distances) over all ROIs.
+
+    clouds: (gx int64, gy int64, inten float64, offsets int64[n+1]) global
+    raster-order pixel clouds; contours: (flat [K,3] int64, offsets[n+1])
+    merged contours in +1-shifted local coords; recs_mat: [n, 9] int64
+    (x0, x1, y0, y1, rep_x0, rep_x1, rep_y0, rep_y1, area); flags: uint8[n]
+    bit0 has_cloud, bit1 hull_from_contour; groups: bitmask (GEOM_GROUPS in
+    pipeline.hostfeats); out: pre-filled [n, nyx_geom_width] sentinel matrix.
+    Returns (out, logw_flat | None)."""
+    lib = _load()
+    gx, gy, it, coff = clouds
+    ctr, koff = contours
+    n = len(recs_mat)
+    if out is None:
+        out = np.zeros((n, lib.nyx_geom_width()), np.float64)
+    logw = np.zeros(int(coff[-1]), np.float64) if want_logw else None
+    gx = np.ascontiguousarray(gx, np.int64)
+    gy = np.ascontiguousarray(gy, np.int64)
+    it = np.ascontiguousarray(it, np.float64)
+    coff = np.ascontiguousarray(coff, np.int64)
+    ctr = np.ascontiguousarray(ctr, np.int64)
+    koff = np.ascontiguousarray(koff, np.int64)
+    recs_mat = np.ascontiguousarray(recs_mat, np.int64)
+    flags = np.ascontiguousarray(flags, np.uint8)
+    lib.nyx_geom_batch(
+        gx.ctypes.data_as(ctypes.c_void_p), gy.ctypes.data_as(ctypes.c_void_p),
+        it.ctypes.data_as(ctypes.c_void_p),
+        coff.ctypes.data_as(ctypes.c_void_p),
+        ctr.ctypes.data_as(ctypes.c_void_p),
+        koff.ctypes.data_as(ctypes.c_void_p),
+        recs_mat.ctypes.data_as(ctypes.c_void_p),
+        flags.ctypes.data_as(ctypes.c_void_p), n, groups, logw_eps,
+        out.ctypes.data_as(ctypes.c_void_p),
+        logw.ctypes.data_as(ctypes.c_void_p) if want_logw else None,
+        n_threads or _n_threads())
+    return out, logw
+
+
+def neighbors_batch(contours_global, aabbs, cenx, ceny, radius):
+    """Cross-ROI neighbor features natively.  contours_global: list of
+    [K, >=2] float arrays (global coords) or None; aabbs [n,4] int64
+    (x0, x1, y0, y1); cenx/ceny float64 [n].  Returns [n, 9] float64."""
+    lib = _load()
+    n = len(contours_global)
+    kx, koff = _concat_offsets(
+        [c[:, 0] if c is not None else np.zeros(0) for c in contours_global],
+        np.float64)
+    ky, _ = _concat_offsets(
+        [c[:, 1] if c is not None else np.zeros(0) for c in contours_global],
+        np.float64)
+    ab = np.ascontiguousarray(aabbs, np.int64)
+    cenx = np.ascontiguousarray(cenx, np.float64)
+    ceny = np.ascontiguousarray(ceny, np.float64)
+    out = np.zeros((n, 9), np.float64)
+    lib.nyx_neighbors_batch(
+        kx.ctypes.data_as(ctypes.c_void_p), ky.ctypes.data_as(ctypes.c_void_p),
+        koff.ctypes.data_as(ctypes.c_void_p),
+        ab.ctypes.data_as(ctypes.c_void_p),
+        cenx.ctypes.data_as(ctypes.c_void_p),
+        ceny.ctypes.data_as(ctypes.c_void_p), float(radius), n,
+        out.ctypes.data_as(ctypes.c_void_p), _n_threads())
+    return out
+
+
+def contours_batch(labels_img, intens_img, recs):
+    """Merged multicontours of every ROI of a resident slide in one call.
+
+    labels_img: [H, W] int-like; intens_img: [H, W] numeric; recs: iterable
+    of RoiRecord-likes (label, y0, x0, height, width).  Returns a list of
+    [K, 3] int64 (x, y, inten) arrays in +1-shifted local coordinates."""
+    lib = _load()
+    labels_img = _labels_i32(labels_img)
+    intens_img = np.ascontiguousarray(intens_img, np.int64)
+    H, W = labels_img.shape
+    n = len(recs)
+    rmat = np.zeros((n, 5), np.int64)
+    caps = np.zeros(n + 1, np.int64)
+    for i, r in enumerate(recs):
+        rmat[i] = (r.label, r.y0, r.x0, r.height, r.width)
+        caps[i + 1] = caps[i] + r.height * r.width + 16
+    out = np.empty((int(caps[-1]), 3), np.int64)
+    counts = np.zeros(n, np.int64)
+    lib.nyx_contours_batch(
+        labels_img.ctypes.data_as(ctypes.c_void_p),
+        intens_img.ctypes.data_as(ctypes.c_void_p), H, W,
+        rmat.ctypes.data_as(ctypes.c_void_p), n,
+        caps.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p),
+        counts.ctypes.data_as(ctypes.c_void_p), _n_threads())
+    return [out[caps[i]:caps[i] + counts[i]].copy() for i in range(n)]

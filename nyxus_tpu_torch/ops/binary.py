@@ -1,0 +1,249 @@
+"""Binary-mask features: erosion count, Euler number, box-count fractal
+dimension (PyTorch port of nyxus_tpu/ops/binary.py).  Batched over the ROI
+bucket.
+
+References:
+* ErosionPixelsFeature (erosion.cpp:16-80): iterated 3x3 cross erosion over
+  the AABB INTERIOR (cols/rows 2..dim-2; border pixels are frozen at their
+  initial value), counting iterations until the interior empties (cap 1000).
+* EulerNumberFeature (euler_number.cpp:10-100): 2x2 quad pattern counting
+  over a 1-padded mask, mode 8: (C1 - C3 - 2*Cd) / 4 with C++ integer
+  division.
+* FractalDimensionFeature box count (fractal_dim.cpp:16-77): pow2 grids;
+  for padded sides > 32, plain origin-0 tile counts; for small ROIs the
+  minimum over a 2x2 grid of origin shifts; FD = -slope of log count vs
+  log s.
+
+Two kernels written by hand for the card serve this module, each with a
+plain PyTorch version beside it that follows the JAX formulation (the only
+path for a tensor on the CPU; a CUDA tensor launches the kernel or raises):
+
+* K8 ``erosion_counts`` (csrc/erosion.cu): one block per ROI, its own exit
+* K9 ``binary_quads`` (csrc/binary_quads.cu): the quad counts and every
+  scale's and origin's box counts in one launch
+
+The Euler number and the log-log fit stay torch, from K9's counts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .common import SMEM_MAX, _kernel_device
+
+EROSION_CAP = 1000  # SANITY_MAX_NUM_EROSIONS (erosion.h:42)
+
+# Euler quad patterns (euler_number.h:42-58): C1 singles, C3 triples, Cd diag
+_P1 = (8, 4, 2, 1)
+_P3 = (7, 11, 13, 14)
+_PD = (9, 6)
+
+
+def _check_mask(name, mask, *per_roi):
+    if mask.dim() != 3:
+        raise ValueError("%s: [B, H, W] mask expected, got %s"
+                         % (name, tuple(mask.shape)))
+    for t in per_roi:
+        if t.shape != mask.shape[:1] or t.device != mask.device:
+            raise ValueError("%s: per-ROI %s must be [B] on %s"
+                             % (name, tuple(t.shape), mask.device))
+
+
+# ---------------------------------------------------------------------------
+# K8: erosions to vanish
+
+
+def erosion_counts_plain(mask, heights, widths):
+    """Plain version of K8: the JAX loop (binary.py:27-61), every crop of
+    the batch eroded each step until the last ROI is done.  [B] int32."""
+    B, H, W = mask.shape
+    dev = mask.device
+    xs = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :]
+    ys = torch.arange(H, dtype=torch.int32, device=dev)[None, :, None]
+    # interior update region: 2 <= x <= w-2, 2 <= y <= h-2 (erosion.cpp:38-40)
+    interior = ((xs >= 2) & (xs <= widths[:, None, None] - 2) &
+                (ys >= 2) & (ys <= heights[:, None, None] - 2))
+    img = mask.to(torch.int32)
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    while not bool(done.all()):
+        padded = torch.nn.functional.pad(img, (1, 1, 1, 1))
+        mn = torch.minimum(
+            torch.minimum(padded[:, :-2, 1:-1], padded[:, 2:, 1:-1]),
+            torch.minimum(padded[:, 1:-1, :-2], padded[:, 1:-1, 2:]))
+        new = torch.where(interior, torch.minimum(mn, img), img)
+        nonzero = torch.where(interior, new, 0).sum(dim=(1, 2))
+        now_done = nonzero == 0
+        n = torch.where(done | now_done, n, n + 1)
+        done = done | now_done | (n >= EROSION_CAP)
+        img = torch.where(done[:, None, None], img, new)
+    return n
+
+
+def erosion_counts(mask, heights, widths):
+    """K8 erosion (csrc/erosion.cu), replacing nyxus_tpu/ops/binary.py:27
+    erosions_to_vanish's while_loop.  mask: [B, H, W] bool; heights,
+    widths: [B] AABB sizes -> [B] int32 EROSIONS_2_VANISH.  One block per
+    ROI with its own exit; the ping-pong planes sit in shared memory when
+    2 * H * W bytes fit a block, else in a device scratch buffer."""
+    if not _kernel_device(mask, "erosion_counts"):
+        return erosion_counts_plain(mask, heights, widths)
+    _check_mask("erosion_counts", mask, heights, widths)
+    mask = mask.to(torch.bool).contiguous()
+    heights = heights.to(torch.int32).contiguous()
+    widths = widths.to(torch.int32).contiguous()
+    B, H, W = mask.shape
+    out = torch.empty(B, dtype=torch.int32, device=mask.device)
+    if B == 0:
+        return out
+    scratch = None
+    if 2 * H * W > SMEM_MAX:
+        scratch = torch.empty((B, 2, H, W), dtype=torch.uint8,
+                              device=mask.device)
+    with torch.cuda.device(mask.device):
+        code = _build.lib().nyx_erosion(
+            mask.data_ptr(), heights.data_ptr(), widths.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            B, H, W, _build.stream_of(mask))
+    _build.check("erosion", code)
+    erosion_counts.launches += 1
+    return out
+
+
+erosion_counts.launches = 0
+
+
+def erosions_to_vanish(mask, heights, widths, dtype):
+    """EROSIONS_2_VANISH: [B]."""
+    return erosion_counts(mask, heights, widths).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# K9: quad and box counts
+
+
+def n_scales(H: int, W: int):
+    """(SB, S): the power of two SB >= max(H, W) and the number S of box
+    scales SB, SB/2, ..., 2 (binary.py:108-121)."""
+    SB = 1
+    while SB < max(H, W):
+        SB *= 2
+    return SB, max(SB.bit_length() - 1, 0)
+
+
+def box_count_at_scale(mask, s: int, ox: int, oy: int):
+    """# of s x s boxes (grid shifted by (ox, oy)) containing mask pixels
+    (binary.py:93 _box_count_at_scale).  [B] int32."""
+    B, H, W = mask.shape
+    ph = (-(H + oy)) % s
+    pw = (-(W + ox)) % s
+    p = torch.nn.functional.pad(mask, (ox, pw, oy, ph))
+    Hp, Wp = p.shape[1], p.shape[2]
+    t = p.reshape(B, Hp // s, s, Wp // s, s)
+    occupied = t.any(dim=4).any(dim=2)
+    return occupied.sum(dim=(1, 2)).to(torch.int32)
+
+
+def binary_quads_plain(mask):
+    """Plain version of K9 (binary.py:70-102): (quads [B, 3] int32 = C1, C3,
+    Cd; boxes [B, S, 4] int32, the box counts at scales SB >> i and origins
+    (0, 0), (s/2, 0), (0, s/2), (s/2, s/2), the (0, 0) count in all four
+    entries where s > 32)."""
+    B, H, W = mask.shape
+    p = torch.nn.functional.pad(mask, (1, 1, 1, 1)).to(torch.int32)
+    # quads over every 2x2 window of the 1-padded image
+    q = (p[:, :-1, :-1] * 8 + p[:, :-1, 1:] * 4
+         + p[:, 1:, :-1] * 2 + p[:, 1:, 1:])
+    quads = torch.stack(
+        [sum((q == v).to(torch.int32).sum(dim=(1, 2)) for v in pats)
+         for pats in (_P1, _P3, _PD)], dim=1).to(torch.int32)
+    SB, S = n_scales(H, W)
+    boxes = []
+    for i in range(S):
+        s = SB >> i
+        plain = box_count_at_scale(mask, s, 0, 0)
+        if s <= 32:
+            boxes.append(torch.stack(
+                [plain] + [box_count_at_scale(mask, s, ox, oy)
+                           for ox, oy in ((s // 2, 0), (0, s // 2),
+                                          (s // 2, s // 2))], dim=1))
+        else:
+            boxes.append(plain[:, None].expand(B, 4))
+    boxes = (torch.stack(boxes, dim=1) if boxes else
+             torch.zeros((B, 0, 4), dtype=torch.int32, device=mask.device))
+    return quads, boxes.contiguous()
+
+
+def binary_quads(mask):
+    """K9 binary_quads (csrc/binary_quads.cu), replacing
+    nyxus_tpu/ops/binary.py:70 euler_number's pattern counts and :93
+    _box_count_at_scale as :105 fract_dim_boxcount calls it.  mask:
+    [B, H, W] bool -> (quads, boxes) as binary_quads_plain returns them."""
+    if not _kernel_device(mask, "binary_quads"):
+        return binary_quads_plain(mask)
+    _check_mask("binary_quads", mask)
+    mask = mask.to(torch.bool).contiguous()
+    B, H, W = mask.shape
+    SB, S = n_scales(H, W)
+    quads = torch.empty((B, 3), dtype=torch.int32, device=mask.device)
+    boxes = torch.empty((B, S, 4), dtype=torch.int32, device=mask.device)
+    if B == 0:
+        return quads, boxes
+    with torch.cuda.device(mask.device):
+        code = _build.lib().nyx_binary_quads(
+            mask.data_ptr(), quads.data_ptr(), boxes.data_ptr(), B, H, W, SB,
+            S, _build.stream_of(mask))
+    _build.check("binary_quads", code)
+    binary_quads.launches += 1
+    return quads, boxes
+
+
+binary_quads.launches = 0
+
+
+def euler_number(mask, dtype, quads=None):
+    """EULER_NUMBER, mode 8: [B]. Mask crop is embedded in a (h+2, w+2)
+    zero-padded image; bucket padding already supplies the zeros."""
+    if quads is None:
+        quads, _ = binary_quads(mask)
+    c1, c3, cd = quads.unbind(dim=1)
+    # C++ integer division truncates toward zero (torch's // floors)
+    num = c1 - c3 - 2 * cd
+    e = torch.sign(num) * (torch.abs(num) // 4)
+    return e.to(dtype)
+
+
+def fract_dim_boxcount(mask, heights, widths, dtype, boxes=None):
+    """FRACT_DIM_BOXCOUNT: [B]."""
+    B, H, W = mask.shape
+    if boxes is None:
+        _, boxes = binary_quads(mask)
+    SB, S = n_scales(H, W)
+    # per-ROI padded side (pow2 of max AABB dim), in float32 as JAX takes it
+    big = torch.maximum(heights, widths)
+    padded_side = (2 ** torch.ceil(torch.log2(
+        torch.clamp(big, min=1).to(torch.float32)))).to(torch.int32)
+    padded_side = torch.clamp(padded_side, min=2)
+
+    # every scale at once: the (0, 0) count stands in all four origin
+    # entries above s = 32, so the min over origins is the plain count there
+    scale = SB >> torch.arange(S, device=mask.device)
+    count = torch.where(padded_side[:, None] > 32, boxes[:, :, 0],
+                        boxes.amin(dim=2)).to(dtype)
+    use = (scale[None, :] <= padded_side[:, None]) & (count > 0)
+    lx = torch.log(scale.to(dtype))[None, :]
+    ly = torch.log(torch.where(count > 0, count, 1))
+    w = use.to(dtype)
+    sx = (w * lx).sum(dim=1)
+    sy = (w * ly).sum(dim=1)
+    sxy = (w * lx * ly).sum(dim=1)
+    sx2 = (w * lx * lx).sum(dim=1)
+    cnt_used = w.sum(dim=1)
+
+    denom = cnt_used * sx2 - sx * sx
+    ok = denom != 0
+    slope = torch.where(ok, (cnt_used * sxy - sx * sy)
+                        / torch.where(ok, denom, 1), 0.0)
+    return -slope
+

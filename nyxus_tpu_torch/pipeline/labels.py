@@ -1,4 +1,4 @@
-# Copied from nyxus_tpu/pipeline/labels.py (RoiRecord and the numpy discovery path only); pinned by tests/test_torch_tables.py.
+# Copied from nyxus_tpu/pipeline/labels.py (RoiRecord, _native_labels_ok and the numpy discovery path only); pinned by tests/test_torch_tables.py.
 """Label discovery: per-ROI metrics from a labeled mask (phase-1 equivalent).
 
 The reference streams tiles and updates per-label records pixel-by-pixel
@@ -38,6 +38,20 @@ class RoiRecord:
     @property
     def width(self):
         return self.x1 - self.x0 + 1
+
+
+def _native_labels_ok(labels: np.ndarray) -> bool:
+    """The native one-pass scan reads labels as int32; values >= 2**31
+    (legal in uint32/uint64 label schemes, e.g. encoded raster indices)
+    would wrap negative and silently mismatch every pixel.  Cheap dtypes
+    pass by construction; wide dtypes pay one max() scan."""
+    if labels.dtype.kind == "b":
+        return True
+    if labels.dtype.kind in "iu" and labels.dtype.itemsize <= 2:
+        return True
+    if labels.dtype == np.int32:
+        return True
+    return labels.size == 0 or int(labels.max()) < 2 ** 31
 
 
 def _discover_rois_np(intens: np.ndarray, labels: np.ndarray):

@@ -1,11 +1,19 @@
 """Batched feature-extraction runner for image pairs (PyTorch port of the
-dense padded-bucket path of nyxus_tpu/pipeline/runner.py).
+dense padded-bucket path of nyxus_tpu/pipeline/runner.py, in-memory pairs).
 
-Orchestrates: label discovery -> bucketed batching -> every family over each
-padded ROI batch on one torch device -> row assembly.  Crops are assembled
-on the host (one padded [B, H, W] plane per bucket, the form of the JAX
-package's dense path) and shipped to the device once per bucket; the packed
-outputs of all buckets come back in one device-to-host copy per slide.
+Orchestrates: label discovery -> contours and the native host-geometry pass
+-> bucketed batching -> every device family over each padded ROI batch on
+one torch device -> row assembly -> the host families.  Crops (and, for the
+moment families, the per-pixel log contour distances) are assembled on the
+host, one padded [B, H, W] plane per bucket, and shipped to the device once
+per bucket; the packed outputs of all buckets come back in one
+device-to-host copy per slide.
+
+Host stages run inline on the calling thread.  The device launches are
+asynchronous, so the host families that read no device result (and the
+heavy half of the geometry pass) run while the card works, before the
+collect; the families that read device results (centroids, areas) run after
+it, in ``registry.split_host_families`` order.
 """
 
 from __future__ import annotations
@@ -15,10 +23,12 @@ import torch
 from torch.profiler import record_function
 
 from .. import columns as col
+from .. import native
 from .. import registry
 from .. import taxonomy as tx
 from ..config import EngineConfig
-from . import batching, labels
+from ..ops.moments import WEIGHTING_EPSILON
+from . import batching, hostfeats, labels
 
 
 def compute_dtype(cfg: EngineConfig):
@@ -33,6 +43,97 @@ def is_oversized(rec, budget_bytes: int, bytes_per_px: int = 16) -> bool:
         return True
     hb, wb = batching.bucket_shape(rec.height, rec.width)
     return hb * wb * bytes_per_px > budget_bytes
+
+
+class _ArrayPairSource:
+    """The in-memory pair as a region source (nyxus_tpu/pipeline/sources.py
+    ArrayPairSource)."""
+
+    def __init__(self, intens: np.ndarray, label_img: np.ndarray):
+        self.intens = intens
+        self.labels = label_img
+        self.shape = label_img.shape
+
+    def read_pair(self, y0: int, x0: int, h: int, w: int):
+        """(intens [h, w] float64, labels [h, w] int64); out-of-image
+        margins are zero."""
+        H, W = self.shape
+        ii = np.zeros((h, w), np.float64)
+        ll = np.zeros((h, w), np.int64)
+        y1, x1 = min(y0 + h, H), min(x0 + w, W)
+        ii[:y1 - y0, :x1 - x0] = self.intens[y0:y1, x0:x1]
+        ll[:y1 - y0, :x1 - x0] = self.labels[y0:y1, x0:x1]
+        return ii, ll
+
+
+class HostContext:
+    """Inputs for host-side (sequential/contour) families
+    (nyxus_tpu/pipeline/runner.py:318 HostContext).
+
+    Host families may read previously computed features via
+    ``get_feature`` (the reference's fvals-mediated dependencies, e.g.
+    hexagonality reading NUM_NEIGHBORS and STAT_FERET_DIAM_*)."""
+
+    def __init__(self, recs, contours, source, get_feature):
+        self.recs = recs            # all RoiRecords of the pair
+        self.contours = contours    # merged contour per ROI, local +1 coords
+        self.source = source        # _ArrayPairSource
+        self.get_feature = get_feature   # display/member name -> np [N]
+        self.hulls = [None] * len(recs)  # filled by the convex-hull family
+        self._points = {}
+        self._crops = {}
+
+    def pixels_ok(self, i):
+        """Every row has dense pixel access: the port refuses oversized
+        ROIs, the only rows without it in the JAX package."""
+        return True
+
+    def pair_crop(self, i):
+        """(intens [h, w] float64, mask [h, w] bool) over ROI i's exact AABB."""
+        if i not in self._crops:
+            r = self.recs[i]
+            ii, ll = self.source.read_pair(r.y0, r.x0, r.height, r.width)
+            self._crops[i] = (ii, ll == r.label)
+        return self._crops[i]
+
+    def roi_points(self, i):
+        """(ys, xs) LOCAL pixel coordinates of ROI i."""
+        if i not in self._points:
+            _, m = self.pair_crop(i)
+            self._points[i] = np.nonzero(m)
+        return self._points[i]
+
+
+def _build_clouds(recs, intens, label_img):
+    """Concatenated per-ROI pixel clouds (global raster order) for the
+    batched native geometry pass: (gx, gy, inten, offsets) aligned with
+    ``recs``, from one whole-slide nonzero + stable label sort (the resident
+    branch of nyxus_tpu/pipeline/runner.py:361 _build_clouds)."""
+    n = len(recs)
+    off = np.zeros(n + 1, np.int64)
+    gx_p, gy_p, it_p = [], [], []
+    ys, xs = np.nonzero(label_img)
+    labs = label_img[ys, xs]
+    order = np.argsort(labs, kind="stable")
+    ys, xs, labs = ys[order], xs[order], labs[order]
+    vals = intens[ys, xs].astype(np.float64)
+    uniq, starts = np.unique(labs, return_index=True)
+    bounds = np.append(starts, len(labs))
+    seg = {int(l): (int(bounds[k]), int(bounds[k + 1]))
+           for k, l in enumerate(uniq)}
+    for j, r in enumerate(recs):
+        if r.label not in seg:
+            off[j + 1] = off[j]
+            continue
+        a, b = seg[r.label]
+        off[j + 1] = off[j] + (b - a)
+        gx_p.append(xs[a:b])
+        gy_p.append(ys[a:b])
+        it_p.append(vals[a:b])
+    cat = lambda parts, dt: (np.concatenate(parts).astype(dt) if parts
+                             else np.zeros(0, dt))
+    return (cat(gx_p, np.int64), cat(gy_p, np.int64),
+            cat(it_p, np.float64), off)
 
 
 class PairRunner:
@@ -52,6 +153,12 @@ class PairRunner:
         self.device = torch.device(device)
         self.dtype = compute_dtype(cfg)
         self.families = registry.families_for(fset)
+        self.device_families = tuple(
+            n for n in self.families if registry.FAMILIES[n].device)
+        self.pre_host, self.post_host = registry.split_host_families(fset)
+        self._needs_contour = registry.contour_needed(fset)
+        self._needs_logw = any(
+            registry.FAMILIES[f].needs_logw for f in self.families)
 
         # internal feature set: user features + everything computed by the
         # dependency-closed family set (only user features reach the output)
@@ -104,11 +211,30 @@ class PairRunner:
                 "(labels %s exceed the %d MB batch budget)"
                 % (over[:10], self.cfg.ram_limit_mb))
 
+        # every ported host family reads contours, so the host stage runs
+        # exactly when contours are needed
+        hc = None
+        if recs and self._needs_contour:
+            hc = self._host_context(intens, label_img, recs, values)
+
         outs = []
         for shape, idxs in batching.group_rois(recs, hbm_budget_bytes=budget):
+            lw = self._logw_planes(hc, recs, idxs, shape) \
+                if hc is not None and self._needs_logw else None
             outs.append((idxs, self._run_batch(
                 intens, label_img, [recs[i] for i in idxs], shape, smin,
-                smax)))
+                smax, lw)))
+
+        if hc is not None:
+            # the heavy half of the geometry pass and the host families
+            # that read no device result: the device batches above run
+            # asynchronously meanwhile
+            with record_function("nyx:geom"):
+                hostfeats.compute_geom(
+                    hc, self.cfg, self.families, phase="rest",
+                    exclude=hostfeats.DIST_FAMILIES)
+            self._run_host(hc, values, self.pre_host)
+
         if outs:
             # one device-to-host copy per slide: every bucket packs the same
             # member layout, so the packed outputs concatenate
@@ -123,6 +249,11 @@ class PairRunner:
                     packed_all[row:row + n][:, src]
                 row += n
 
+        if hc is not None:
+            # device-dependent host families (circles, geodetic, neighbors,
+            # hexagonality read centroids/areas computed on the device)
+            self._run_host(hc, values, self.post_host)
+
         if len(recs) != len(all_recs):
             # reinsert blacklisted rows with unassigned values
             out = np.full((len(all_recs), len(self._out_cols)), -0.0)
@@ -133,15 +264,88 @@ class PairRunner:
             return labs_all, out
         return labs_all, values[:, self._out_cols]
 
-    def _run_batch(self, intens, label_img, batch_recs, shape, smin, smax):
-        """All families over one padded bucket; returns the packed
+    def _host_context(self, intens, label_img, recs, values):
+        """Contours of every ROI, then the HostContext with its pixel
+        clouds and phase "logw" of the native geometry pass: the per-pixel
+        log contour distances the moment families consume, and the ROI
+        radius / radial families that share that distance search."""
+        if not labels._native_labels_ok(label_img):
+            raise NotImplementedError(
+                "nyxus_tpu_torch traces contours natively only for labels "
+                "below 2**31; the numpy contour fallback for larger labels "
+                "is not ported yet")
+        with record_function("nyx:contours"):
+            contours = native.contours_batch(label_img, intens, recs)
+        rows = np.arange(len(recs))
+
+        def get_feature(member):
+            code = tx.NAME2CODE_2D.get(member)
+            if code is None or code not in self.member_slots:
+                return np.zeros(len(rows))
+            off, _ = self.member_slots[code]
+            return values[rows, off]
+
+        hc = HostContext(recs, contours, _ArrayPairSource(intens, label_img),
+                         get_feature)
+        with record_function("nyx:geom"):
+            hc.clouds = _build_clouds(recs, intens, label_img)
+            hostfeats.compute_geom(
+                hc, self.cfg,
+                tuple(f for f in hostfeats.DIST_FAMILIES
+                      if f in self.families),
+                want_logw=self._needs_logw,
+                logw_eps=WEIGHTING_EPSILON, phase="logw")
+        return hc
+
+    def _logw_planes(self, hc, recs, idxs, shape):
+        """Padded [B, hb, wb] per-pixel log(sqrt(d2) + eps) of one bucket,
+        the host pass's float64 values cast to the compute dtype: ONE flat
+        scatter into the padded crop frame (nyxus_tpu/pipeline/runner.py
+        build_lw)."""
+        hb, wb = shape
+        np_dt = np.float64 if self.dtype == torch.float64 else np.float32
+        lw_h = np.zeros((len(idxs), hb, wb), np_dt)
+        gx, gy, _, coff = hc.clouds
+        segs = [(bi, int(coff[i]), int(coff[i + 1]), recs[i].y0, recs[i].x0)
+                for bi, i in enumerate(idxs) if coff[i + 1] > coff[i]]
+        if segs:
+            bi_f = np.concatenate([np.full(b - a, bi, np.int64)
+                                   for bi, a, b, _, _ in segs])
+            gy_f = np.concatenate([gy[a:b] - y0 for _, a, b, y0, _ in segs])
+            gx_f = np.concatenate([gx[a:b] - x0 for _, a, b, _, x0 in segs])
+            lw_f = np.concatenate([hc.logw_flat[a:b]
+                                   for _, a, b, _, _ in segs])
+            lw_h[bi_f, gy_f, gx_f] = lw_f
+        return lw_h
+
+    def _run_host(self, hc, values, names):
+        """Host families in order, each scattered into ``values`` before
+        the next one runs (later families read earlier ones' members)."""
+        rows = np.arange(len(hc.recs))
+        for name in names:
+            with record_function("nyx:host:" + name):
+                members = registry.FAMILIES[name].host_fn(hc, self.cfg)
+            for member, arr in members.items():
+                code = registry.FAMILIES[name].member_code(member)
+                if code is None or code not in self.member_slots:
+                    continue
+                off, width = self.member_slots[code]
+                arr = np.asarray(arr, np.float64)
+                if arr.ndim == 1:
+                    arr = arr[:, None]
+                w = min(width, arr.shape[1])
+                values[rows, off:off + w] = arr[:, :w]
+
+    def _run_batch(self, intens, label_img, batch_recs, shape, smin, smax,
+                   lw=None):
+        """All device families over one padded bucket; returns the packed
         [B, total_width] output on the device.  Each stage is a
         ``nyx:<stage>`` profiler range (near free when no profiler runs)."""
         with record_function("nyx:crops"):
             ctx = self._batch_context(intens, label_img, batch_recs, shape,
-                                      smin, smax)
+                                      smin, smax, lw)
         out = {}
-        for name in self.families:
+        for name in self.device_families:
             with record_function("nyx:" + name):
                 out[name] = registry.FAMILIES[name].fn(ctx, self.cfg)
         with record_function("nyx:pack"):
@@ -158,9 +362,9 @@ class PairRunner:
             return torch.cat(parts, dim=1)
 
     def _batch_context(self, intens, label_img, batch_recs, shape, smin,
-                       smax):
+                       smax, lw=None):
         """Host crop assembly of one padded bucket, shipped to the device
-        once."""
+        once (with the bucket's log-distance planes when given)."""
         hb, wb = shape
         B = len(batch_recs)
         np_dt = np.float64 if self.dtype == torch.float64 else np.float32
@@ -173,8 +377,8 @@ class PairRunner:
             sl = (slice(r.y0, r.y0 + h_av), slice(r.x0, r.x0 + w_av))
             ci[bi, :h_av, :w_av] = intens[sl]
             cm[bi, :h_av, :w_av] = label_img[sl] == r.label
-        meta_i = np.asarray([[r.area, r.height, r.width] for r in batch_recs],
-                            np.int32)
+        meta_i = np.asarray([[r.area, r.height, r.width, r.y0, r.x0]
+                             for r in batch_recs], np.int32)
         meta_f = np.asarray([[r.vmin, r.vmax, smin, smax]
                              for r in batch_recs], np_dt)
         dev = self.device
@@ -183,7 +387,8 @@ class PairRunner:
         return registry.BatchContext(
             torch.from_numpy(ci).to(dev), torch.from_numpy(cm).to(dev),
             mi[:, 0], mf[:, 0], mf[:, 1], mf[:, 2], mf[:, 3],
-            mi[:, 1], mi[:, 2], self.cfg)
+            mi[:, 1], mi[:, 2], self.cfg, y0=mi[:, 3], x0=mi[:, 4],
+            logw=None if lw is None else torch.from_numpy(lw).to(dev))
 
     def _build_colmap(self, layout):
         """(src cols in the packed layout, dst cols in the value matrix)."""

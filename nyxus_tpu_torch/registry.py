@@ -3,12 +3,14 @@
 The family table below declares every family of the JAX package, in its
 registration order and with its metadata (codes, dependencies, device/host
 halves, contour and logw needs), so that the dependency closure of a
-feature request is the same in both packages.  Only some families have a
-device function here; a request that activates any other family raises
-``NotImplementedError`` naming it, never silent zeros.
+feature request is the same in both packages.  A family is ported when the
+port has every half the JAX family has; a request that activates any other
+family raises ``NotImplementedError`` naming it, never silent zeros.
 
 A device function is ``fn(ctx, cfg) -> {enum_member_name: [B] or [B, K]
-tensor}`` over one padded ROI batch.
+tensor}`` over one padded ROI batch; a host function is ``host_fn(hc, cfg)
+-> {enum_member_name: [N] or [N, K] numpy array}`` over the host rows of a
+slide (``pipeline.runner.HostContext``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from . import taxonomy as tx
 from .config import EngineConfig
+from .ops import binary as ops_binary
 from .ops import common as ops_common
 from .ops import glcm as ops_glcm
 from .ops import gldm as ops_gldm
@@ -27,9 +30,12 @@ from .ops import gldzm as ops_gldzm
 from .ops import glrlm as ops_glrlm
 from .ops import glszm as ops_glszm
 from .ops import intensity as ops_intensity
+from .ops import moments as ops_moments
+from .ops import morphology as ops_morphology
 from .ops import ngldm as ops_ngldm
 from .ops import ngtdm as ops_ngtdm
 from .ops import quant
+from .ops import radial as ops_radial
 
 
 class BatchContext:
@@ -38,12 +44,16 @@ class BatchContext:
     shared across families."""
 
     def __init__(self, intens, mask, area, vmin, vmax, slide_min, slide_max,
-                 heights, widths, cfg: EngineConfig):
+                 heights, widths, cfg: EngineConfig, y0=None, x0=None,
+                 logw=None):
         self.intens = intens          # [B, H, W] compute dtype, raw crop
         self.mask = mask              # [B, H, W] bool
         self.area = area              # [B] int
         self.vmin = vmin              # [B] per-ROI min intensity
         self.vmax = vmax              # [B] per-ROI max intensity
+        self.y0 = y0                  # [B] AABB origin (global coords)
+        self.x0 = x0
+        self.logw = logw  # [B, H, W] log(sqrt(approx d2 to contour) + eps)
         self.slide_min = slide_min    # [B]
         self.slide_max = slide_max    # [B]
         self.heights = heights        # [B] AABB height per ROI
@@ -80,6 +90,12 @@ class BatchContext:
             lambda: torch.where(self.mask, self.intens, 0))
 
     @property
+    def mask_weights(self):
+        """[B, H, W] the mask as 0/1 weights of the compute dtype."""
+        return self.cached("mask_weights",
+                           lambda: self.mask.to(self.intens.dtype))
+
+    @property
     def aabb_mask(self):
         """[B, H, W] True inside each ROI's AABB (excludes bucket padding)."""
         def build():
@@ -112,6 +128,7 @@ class Family:
     host_needs_contour: bool = True    # host fn reads contours
     needs_logw: bool = False           # device kernel consumes the logw plane
     fn: typing.Callable = None         # the port's device function, if any
+    host_fn: typing.Callable = None    # the port's host function, if any
 
     def member_code(self, member: str):
         table = {"2d": tx.F2D, "3d": tx.F3D, "imq": tx.FIMQ}[self.domain]
@@ -119,7 +136,9 @@ class Family:
 
     @property
     def ported(self) -> bool:
-        return self.fn is not None and not self.host
+        """The port has every half (device, host) the JAX family has."""
+        return ((self.fn is not None) == self.device
+                and (self.host_fn is not None) == self.host)
 
 
 FAMILIES: dict = {}
@@ -196,8 +215,8 @@ def activated_families(fset: tx.FeatureSet):
 
 
 def families_for(fset: tx.FeatureSet):
-    """Names of the activated families, all of which must have a device
-    function in this port; raises NotImplementedError naming the others."""
+    """Names of the activated families, all of which must be ported; raises
+    NotImplementedError naming the others."""
     act = activated_families(fset)
     missing = [n for n in act if not FAMILIES[n].ported]
     if missing:
@@ -205,6 +224,60 @@ def families_for(fset: tx.FeatureSet):
             "nyxus_tpu_torch does not port these feature families yet: %s"
             % ", ".join(missing))
     return act
+
+
+def split_host_families(fset: tx.FeatureSet):
+    """(pre, post) host families.  ``pre`` families' declared deps avoid
+    (transitively) any device-computed member, so they can run on the host
+    before the device results are collected; ``post`` families read device
+    results (centroids, areas) and must run after collection.  Relative
+    order within each tuple preserves the registration order that
+    dependency chains rely on (hull <- contour, hexagonality <- neighbors)."""
+    act = tuple(activated_families(fset))
+    code2fam = {}
+    for n in act:
+        for c in FAMILIES[n].codes:
+            code2fam[c] = n
+    memo = {}
+
+    def reads_device(n):
+        if n in memo:
+            return memo[n]
+        memo[n] = False          # cycle guard
+        for m in FAMILIES[n].deps:
+            code = tx.NAME2CODE_2D.get(m)
+            p = code2fam.get(code)
+            if p is None:
+                continue
+            pf = FAMILIES[p]
+            if pf.device and (not pf.host
+                              or m not in _HOST_PROVIDED.get(p, ())):
+                memo[n] = True
+                break
+            if pf.host and reads_device(p):
+                memo[n] = True
+                break
+        return memo[n]
+
+    host = [n for n in act if FAMILIES[n].host]
+    return (tuple(n for n in host if not reads_device(n)),
+            tuple(n for n in host if reads_device(n)))
+
+
+# members produced by the HOST half of mixed device+host families (so a dep
+# on these does not force post-collect ordering)
+_HOST_PROVIDED = {
+    "ContourFeature": ("PERIMETER", "PERIMETER_MM", "EDGE_MEAN_INTENSITY",
+                       "EDGE_MAX_INTENSITY", "EDGE_MIN_INTENSITY",
+                       "EDGE_STDDEV_INTENSITY", "EDGE_INTEGRATED_INTENSITY"),
+    "ConvexHullFeature": ("CONVEX_HULL_AREA", "SOLIDITY"),
+}
+
+
+def contour_needed(fset: tx.FeatureSet):
+    return any(FAMILIES[n].needs_contour
+               or (FAMILIES[n].host and FAMILIES[n].host_needs_contour)
+               for n in activated_families(fset))
 
 
 # ---------------------------------------------------------------------------
@@ -298,3 +371,146 @@ FAMILIES["GLDMFeature"].fn = _gldm_family
 FAMILIES["NGLDMfeature"].fn = _ngldm_family
 FAMILIES["GLSZMFeature"].fn = _glszm_family
 FAMILIES["GLDZMFeature"].fn = _gldzm_family
+
+
+# ---------------------------------------------------------------------------
+# Morphology / geometry
+
+
+def _basic_morphology_family(ctx: BatchContext, cfg: EngineConfig):
+    return ops_morphology.basic_morphology(ctx, cfg)
+
+
+def _ellipse_family(ctx: BatchContext, cfg: EngineConfig):
+    return ops_morphology.ellipse_fitting(ctx, cfg)
+
+
+def _erosion_family(ctx: BatchContext, cfg: EngineConfig):
+    return {
+        "EROSIONS_2_VANISH": ops_binary.erosions_to_vanish(
+            ctx.mask, ctx.heights, ctx.widths, ctx.intens.dtype),
+        # the reference DECLARES this member (erosion.cpp:16) but its
+        # save_value never writes it (erosion.cpp:196-199), so the binary
+        # emits the fvals default 0.0 for every ROI -- pinned by
+        # tests/data/ref_all_320x320_seed11.csv.gz.  Emit the same constant.
+        "EROSIONS_2_VANISH_COMPLEMENT": torch.zeros(
+            (ctx.B,), dtype=ctx.intens.dtype, device=ctx.intens.device),
+    }
+
+
+def _binary_quads(ctx: BatchContext):
+    """K9's quad and box counts, one launch shared by Euler and fractal."""
+    return ctx.cached("binary_quads",
+                      lambda: ops_binary.binary_quads(ctx.mask))
+
+
+def _euler_family(ctx: BatchContext, cfg: EngineConfig):
+    quads, _ = _binary_quads(ctx)
+    return {"EULER_NUMBER": ops_binary.euler_number(
+        ctx.mask, ctx.intens.dtype, quads)}
+
+
+def _fractal_family(ctx: BatchContext, cfg: EngineConfig):
+    _, boxes = _binary_quads(ctx)
+    return {"FRACT_DIM_BOXCOUNT": ops_binary.fract_dim_boxcount(
+        ctx.mask, ctx.heights, ctx.widths, ctx.intens.dtype, boxes)}
+
+
+def _extrema_family(ctx: BatchContext, cfg: EngineConfig):
+    return ops_radial.extrema(ctx, cfg)
+
+
+# Smoms uses the legacy member names (SPAT_MOMENT_*, HU_M*, ...) while Imoms
+# uses the IMOM_* scheme (featureset.h)
+_SMOM_RENAME = {
+    "RM": "SPAT_MOMENT", "WRM": "WEIGHTED_SPAT_MOMENT",
+    "CM": "CENTRAL_MOMENT", "WCM": "WEIGHTED_CENTRAL_MOMENT",
+    "NCM": "NORM_CENTRAL_MOMENT", "WNCM": "WT_NORM_CTR_MOM",
+    "NRM": "NORM_SPAT_MOMENT",
+}
+
+
+def _moments_family(prefix):
+    def fn(ctx: BatchContext, cfg: EngineConfig):
+        if prefix == "IMOM":
+            weights = ctx.masked_intens
+        else:
+            weights = ctx.mask_weights
+        out = ops_moments.moments_all(ctx, weights, prefix, ctx.logw)
+        if prefix == "SMOM":
+            renamed = {}
+            for k, v in out.items():
+                tag = k[len("SMOM_"):]
+                if tag.startswith("WHU"):
+                    renamed["WEIGHTED_HU_M" + tag[3:]] = v
+                elif tag.startswith("HU"):
+                    renamed["HU_M" + tag[2:]] = v
+                else:
+                    kind, pq = tag.rsplit("_", 1)
+                    renamed["%s_%s" % (_SMOM_RENAME[kind], pq)] = v
+            return renamed
+        return out
+    return fn
+
+
+FAMILIES["BasicMorphologyFeatures"].fn = _basic_morphology_family
+FAMILIES["EllipseFittingFeature"].fn = _ellipse_family
+FAMILIES["ErosionPixelsFeature"].fn = _erosion_family
+FAMILIES["EulerNumberFeature"].fn = _euler_family
+FAMILIES["FractalDimensionFeature"].fn = _fractal_family
+FAMILIES["ExtremaFeature"].fn = _extrema_family
+FAMILIES["Imoms2D_feature"].fn = _moments_family("IMOM")
+FAMILIES["Smoms2D_feature"].fn = _moments_family("SMOM")
+
+
+# ---------------------------------------------------------------------------
+# Host families (sequential / contour-based; the reference runs these on
+# CPU too).  numpy only, as the JAX package has them.
+
+
+def _hf(fn_name):
+    def fn(hc, cfg):
+        from .pipeline import hostfeats
+        return getattr(hostfeats, fn_name)(hc, cfg)
+    return fn
+
+
+def _contour_host(hc, cfg):
+    """ContourFeature (contour.cpp:935-987), from the geometry pass's
+    matrix (the JAX registry's numpy fallback for a missing native library
+    is not ported: the port's library builds or raises)."""
+    g = hc.geom
+    return {"PERIMETER": g[:, 0].copy(),
+            "DIAMETER_EQUAL_PERIMETER": g[:, 1].copy(),
+            "EDGE_MEAN_INTENSITY": g[:, 2].copy(),
+            "EDGE_STDDEV_INTENSITY": g[:, 3].copy(),
+            "EDGE_MAX_INTENSITY": g[:, 4].copy(),
+            "EDGE_MIN_INTENSITY": g[:, 5].copy(),
+            "EDGE_INTEGRATED_INTENSITY": g[:, 6].copy()}
+
+
+def _fractal_perimeter_host(hc, cfg):
+    """FRACT_DIM_PERIMETER (fractal_dim.cpp:96-125), from the geometry
+    pass's matrix."""
+    from .pipeline.hostfeats import _GC_FRACT
+    return {"FRACT_DIM_PERIMETER": hc.geom[:, _GC_FRACT].copy()}
+
+
+FAMILIES["FractalDimensionFeature"].host_fn = _fractal_perimeter_host
+# ROI radius and radial distribution consume the reference's APPROXIMATE
+# ordered-contour distance search (pixel.cpp:36-143); host families over the
+# native approx-distance kernel
+FAMILIES["RoiRadiusFeature"].host_fn = _hf("roi_radius")
+FAMILIES["RadialDistributionFeature"].host_fn = _hf("radial_distribution")
+FAMILIES["ContourFeature"].host_fn = _contour_host
+FAMILIES["ConvexHullFeature"].host_fn = _hf("convex_hull_features")
+FAMILIES["CaliperFeretFeature"].host_fn = _hf("caliper_feret")
+FAMILIES["CaliperMartinFeature"].host_fn = _hf("caliper_martin")
+FAMILIES["CaliperNassensteinFeature"].host_fn = _hf("caliper_nassenstein")
+FAMILIES["ChordsFeature"].host_fn = _hf("chords")
+FAMILIES["EnclosingInscribingCircumscribingCircleFeature"].host_fn = \
+    _hf("circle_features")
+FAMILIES["GeodeticLengthThicknessFeature"].host_fn = _hf("geodetic_features")
+FAMILIES["NeighborsFeature"].host_fn = _hf("neighbors_features")
+FAMILIES["HexagonalityPolygonalityFeature"].host_fn = \
+    _hf("hexagonality_features")

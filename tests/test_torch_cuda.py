@@ -1,15 +1,19 @@
-"""The port's CUDA kernels K1-K7 against their plain PyTorch versions, and
-the slice in f32 on the card against the port's own f64 CPU run.  Every test
-needs a CUDA device and skips without one.  This file imports neither jax
-nor the JAX package, so it runs on a machine with a card and no jax:
+"""The port's CUDA kernels K1-K10 against their plain PyTorch versions, and
+the slices in f32 on the card against the port's own f64 CPU run.  Every
+test needs a CUDA device and skips without one.  This file imports neither
+jax nor the JAX package, so it runs on a machine with a card and no jax:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Counts, zone labels and border distances must be equal.  Weighted float
-sums hold rtol 1e-12 in f64 and, in f32, 1e-6 up to the main path's 64 x 64
-buckets and 1e-5 above: the kernel's atomics add in another order, and a bin
-of a 256 x 256 crop sums ~1000 float32 terms, whose rounding then differs by
-more than 1e-6."""
+Counts, zone labels, border distances and erosion counts must be equal.
+Weighted float sums hold rtol 1e-12 in f64 and, in f32, 1e-6 up to the main
+path's 64 x 64 buckets and 1e-5 above: the kernel's atomics add in another
+order, and a bin of a 256 x 256 crop sums ~1000 float32 terms, whose
+rounding then differs by more than 1e-6.  K10's power sums (accumulated in
+float64 by both versions) hold rtol 1e-6 (f32 inputs) or 1e-12 (f64) of the
+sum of their terms' absolute values, the size of a sum's rounding when its
+terms are added in another order: a central moment's terms cancel, so its
+own value is no scale."""
 
 import os
 import sys
@@ -22,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from nyxus_tpu_torch import columns, taxonomy  # noqa: E402
+from nyxus_tpu_torch.ops import binary  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
 from nyxus_tpu_torch.ops import common, glcm, glrlm, zones  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner  # noqa: E402
@@ -126,9 +131,12 @@ def test_stencil8(case):
 
 
 class _Agree:
-    def __call__(self, name, got, want):
+    def __call__(self, name, got, want, rtol=0.0, scale=None):
         assert got.shape == want.shape, name
-        assert torch.equal(got, want), name
+        if scale is None:
+            assert torch.equal(got, want), name
+        else:
+            assert bool(((got - want).abs() <= rtol * scale).all()), name
 
 
 @pytest.mark.cuda
@@ -153,6 +161,38 @@ def test_zone_kernels_special_crops(crop):
     n_zones = {"checkerboard": 32 * 32, "uniform": 1, "empty": 0}[crop]
     assert int(ok.sum()) == n_zones
     assert int(zsize.sum()) == int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_shape_kernels(prec, case):
+    """K8 (erosion), K9 (quad and box counts) and K10 (raw and centred
+    power sums of one and two planes) on the ROI masks of a bucket."""
+    for _, mask, hts, wds in chip_smoke.shape_cases(case, DTYPES[prec]):
+        chip_smoke.shape_kernels_agree(_Agree(), mask, hts, wds, DTYPES[prec])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("crop", ["empty", "full", "checkerboard", "disk256"])
+def test_shape_kernels_special_crops(prec, crop):
+    """Empty, full and checkerboard crops, and a 256 x 256 solid disk whose
+    long erosion runs beside two short ones in one launch; the erosion
+    counts and Euler numbers are those of the shapes (a full AABB never
+    erodes: its frozen border feeds the interior, and the count stops at
+    the cap)."""
+    (_, mask, hts, wds), = [c for c in chip_smoke.special_shape_cases()
+                            if c[0] == crop]
+    chip_smoke.shape_kernels_agree(_Agree(), mask, hts, wds, DTYPES[prec])
+    n = binary.erosion_counts(mask, hts, wds).tolist()
+    want = {"empty": [0], "full": [1000], "checkerboard": [0],
+            "disk256": [131, 9, 4]}[crop]
+    assert n == want
+    quads, _ = binary.binary_quads(mask)
+    euler = binary.euler_number(mask, torch.float64, quads).tolist()
+    assert euler == {"empty": [0], "full": [1], "checkerboard": [-449],
+                     "disk256": [1, 1, 1]}[crop]
 
 
 @pytest.mark.cuda
@@ -191,7 +231,7 @@ def test_device_memory_counts(prec):
 
 @pytest.mark.cuda
 def test_slice_f32_on_card_against_f64_cpu():
-    counters = tuple(chip_smoke.counters().values())
+    counters = [chip_smoke.counters()[k] for k in chip_smoke.TEXTURE_KERNELS]
     before = [f.launches for f in counters]
     fset = taxonomy.parse_feature_request(chip_smoke.FEATURES)
     intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)
@@ -204,3 +244,24 @@ def test_slice_f32_on_card_against_f64_cpu():
     hdr, _ = columns.build_header(fset, EngineConfig())
     bad, _ = chip_smoke.compare_tiers(hdr[4:], dev, ref)
     assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_all_but_gabor_zernike_f32_on_card_against_f64_cpu():
+    """The 713-column request *ALL* -GABOR -ZERNIKE2D: every column within
+    its tier, the pre-collect host columns bit-equal, K1-K10 launched."""
+    counters = tuple(chip_smoke.counters().values())
+    before = [f.launches for f in counters]
+    fset = taxonomy.parse_feature_request(chip_smoke.FEATURES_ALL)
+    intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)
+    card = PairRunner(fset, EngineConfig(precision="f32"), "cuda")
+    labs, dev = card.run(intens, labels)
+    assert all(f.launches > b for f, b in zip(counters, before))
+    labs64, ref = PairRunner(fset, EngineConfig(precision="f64"),
+                             "cpu").run(intens, labels)
+    hdr, slots = columns.build_header(fset, EngineConfig())
+    assert len(hdr) - 4 == chip_smoke.WIDTH_ALL
+    chip_smoke.check_output("320x320 slide", hdr[4:], labs, dev, labs64, ref)
+    host = chip_smoke.pre_host_columns(card, slots)
+    assert np.array_equal(dev[:, host].view(np.uint64),
+                          ref[:, host].view(np.uint64))

@@ -1,0 +1,315 @@
+"""The PyTorch port's shape and moment modules against the JAX package's, in
+f64 on the CPU: the binary-mask features (ops/binary.py: erosion, Euler
+number, box-count fractal dimension), the power sums of ops/moments.py, and
+every member of the eight device families of the slice (basic morphology,
+ellipse, erosion, Euler, fractal box count, extrema, intensity and shape
+moments).  The port runs the plain versions of K8-K10 here
+(tests/test_torch_cuda.py holds the kernels against them on the card).
+
+Inputs are the padded 16 x 16, 32 x 32 and 64 x 64 buckets of seeded
+conftest.make_blobs slides, assembled like the runners' dense path, with a
+seeded log-distance plane for the weighted moments; the JAX side runs under
+jax.jit, as its runner runs it.
+
+Tolerances: counts (erosions, Euler numbers, box counts) must be equal; the
+fractal dimension holds rtol 1e-12; the power sums (float sums in another
+order) hold 1e-12 of the sum of their terms' absolute values, as a central
+sum's terms cancel and its own value is no scale; family members hold rtol 1e-9 / atol 1e-12 with NaN in
+the same places (the weighted normalised moments of a ROI whose weighted
+mass is negative are NaN on both sides, std::pow semantics).  The first
+central moments CENTRAL_MOMENT_01/10 and IMOM_CM_01/10 are zero by
+construction: both sides hold floating-point residue, compared by absolute
+size as tests/test_reference_parity.py compares them."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from conftest import make_blobs
+
+import nyxus_tpu.registry as jreg
+from nyxus_tpu.config import EngineConfig as JConfig
+from nyxus_tpu.ops import binary as jbinary
+from nyxus_tpu.ops import moments as jmoments
+
+import nyxus_tpu_torch.registry as treg
+from nyxus_tpu_torch.config import EngineConfig as TConfig
+from nyxus_tpu_torch.ops import binary as tbinary
+from nyxus_tpu_torch.ops import moments as tmoments
+from nyxus_tpu_torch.pipeline import batching, labels
+
+SIZES = (16, 32, 64)
+DEVICE_FAMILIES = ("BasicMorphologyFeatures", "EllipseFittingFeature",
+                   "ErosionPixelsFeature", "EulerNumberFeature",
+                   "FractalDimensionFeature", "ExtremaFeature",
+                   "Imoms2D_feature", "Smoms2D_feature")
+ZERO_BY_CONSTRUCTION = ("CENTRAL_MOMENT_01", "CENTRAL_MOMENT_10",
+                        "IMOM_CM_01", "IMOM_CM_10")
+_KEYS = ("intens", "mask", "area", "vmin", "vmax", "y0", "x0", "smin",
+         "smax", "heights", "widths", "logw")
+_CACHE = {}
+
+
+def _bucket_arrays(size):
+    """Padded crops of every ROI of a seeded slide whose bucket is
+    size x size, with a seeded log-distance plane on the ROI pixels."""
+    rmin, rmax = {16: (3, 7), 32: (8, 14), 64: (17, 28)}[size]
+    intens, lab = make_blobs(h=160, w=160, n_blobs=9, seed=size,
+                             rmin=rmin, rmax=rmax)
+    recs, smin, smax = labels._discover_rois_np(intens, lab)
+    recs = [r for r in recs
+            if batching.bucket_shape(r.height, r.width) == (size, size)]
+    assert len(recs) >= 2
+    B = len(recs)
+    ci = np.zeros((B, size, size))
+    cm = np.zeros((B, size, size), bool)
+    for bi, r in enumerate(recs):
+        h = min(size, lab.shape[0] - r.y0)
+        w = min(size, lab.shape[1] - r.x0)
+        ci[bi, :h, :w] = intens[r.y0:r.y0 + h, r.x0:r.x0 + w]
+        cm[bi, :h, :w] = lab[r.y0:r.y0 + h, r.x0:r.x0 + w] == r.label
+    # distances to the contour 0 .. size/8: mostly 0 (log 0.001) for the
+    # small ROIs, whose weighted mass is then negative, as on a real slide
+    rng = np.random.default_rng(size)
+    d = rng.integers(0, size // 8 + 1, cm.shape).astype(np.float64)
+    logw = np.where(cm, np.log(d + 0.001), 0.0)
+    return dict(
+        intens=ci, mask=cm,
+        area=np.array([r.area for r in recs], np.int32),
+        vmin=np.array([r.vmin for r in recs]),
+        vmax=np.array([r.vmax for r in recs]),
+        y0=np.array([r.y0 for r in recs], np.int32),
+        x0=np.array([r.x0 for r in recs], np.int32),
+        smin=np.full(B, smin), smax=np.full(B, smax),
+        heights=np.array([r.height for r in recs], np.int32),
+        widths=np.array([r.width for r in recs], np.int32),
+        logw=logw)
+
+
+def _arrays(size):
+    if size not in _CACHE:
+        _CACHE[size] = _bucket_arrays(size)
+    return _CACHE[size]
+
+
+def _jax(size, fn):
+    """fn(ctx, cfg) of the JAX package, under jax.jit, on the bucket."""
+    cfg = JConfig(precision="f64")
+
+    def run(*arrs):
+        d = dict(zip(_KEYS, arrs))
+        ctx = jreg.BatchContext(d["intens"], d["mask"], d["area"], d["vmin"],
+                                d["vmax"], d["y0"], d["x0"], d["smin"],
+                                d["smax"], cfg, heights=d["heights"],
+                                widths=d["widths"], logw=d["logw"])
+        return fn(ctx, cfg)
+
+    a = _arrays(size)
+    return jax.jit(run)(*(jnp.asarray(a[k]) for k in _KEYS))
+
+
+def _torch(size, fn):
+    """fn(ctx, cfg) of the port, on the bucket."""
+    a = _arrays(size)
+    cfg = TConfig(precision="f64")
+    t = {k: torch.from_numpy(a[k]) for k in _KEYS}
+    ctx = treg.BatchContext(t["intens"], t["mask"], t["area"], t["vmin"],
+                            t["vmax"], t["smin"], t["smax"], t["heights"],
+                            t["widths"], cfg, y0=t["y0"], x0=t["x0"],
+                            logw=t["logw"])
+    return fn(ctx, cfg)
+
+
+# ---------------------------------------------------------------------------
+# hand-made masks
+
+
+def _disk(n, r, hole=0.0):
+    yy, xx = np.mgrid[0:n, 0:n]
+    d2 = (yy - (n - 1) / 2) ** 2 + (xx - (n - 1) / 2) ** 2
+    return (d2 <= r * r) & (d2 >= hole * hole)
+
+
+def _with_holes(k):
+    m = np.zeros((32, 32), bool)
+    m[2:30, 2:30] = True
+    for j in range(k):
+        m[6 + 8 * j:9 + 8 * j, 10:13] = False
+    return m
+
+
+def _diagonal():
+    m = np.zeros((16, 16), bool)
+    for k in range(6):
+        m[2 + 2 * k, 2 + 2 * k] = True
+        m[3 + 2 * k, 3 + 2 * k] = True
+    m[8, 3] = m[9, 2] = True          # a second diagonal-only pair
+    return m
+
+
+def _empty_interior():
+    """A 12 x 12 frame whose pixels all lie on the frozen border (x, y < 2
+    or = 11): the interior is empty from the start."""
+    m = np.zeros((16, 16), bool)
+    m[:2, :12] = m[:12, :2] = m[11, :12] = m[:12, 11] = True
+    return m
+
+
+CROPS = {
+    "thick_disk": _disk(64, 30),
+    "ring": _disk(64, 25) & ~_disk(64, 24),
+    "empty_interior": _empty_interior(),
+    "holes0": _with_holes(0),
+    "holes1": _with_holes(1),
+    "holes3": _with_holes(3),
+    "diagonal": _diagonal(),
+}
+
+
+def _crop_inputs(name):
+    m = CROPS[name]
+    ys, xs = np.nonzero(m)
+    hw = (ys.max() + 1, xs.max() + 1)
+    return (m[None], np.array([hw[0]], np.int32), np.array([hw[1]], np.int32))
+
+
+def _mask_inputs(case):
+    """(mask [B, H, W], heights, widths) of a bucket or a hand-made crop."""
+    if isinstance(case, int):
+        a = _arrays(case)
+        return a["mask"], a["heights"], a["widths"]
+    return _crop_inputs(case)
+
+
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(SIZES) + ["thick_disk", "ring",
+                                                "empty_interior"])
+def test_erosions_to_vanish(case):
+    m, h, w = _mask_inputs(case)
+    want = np.asarray(jbinary.erosions_to_vanish(
+        jnp.asarray(m), jnp.asarray(h), jnp.asarray(w), jnp.float64))
+    got = tbinary.erosions_to_vanish(torch.from_numpy(m), torch.from_numpy(h),
+                                     torch.from_numpy(w), torch.float64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "thick_disk":
+        assert want[0] > 20
+    if case == "empty_interior":
+        assert want[0] == 0
+
+
+@pytest.mark.parametrize("case", list(SIZES) + ["holes0", "holes1", "holes3",
+                                                "diagonal"])
+def test_euler_number(case):
+    m, _, _ = _mask_inputs(case)
+    want = np.asarray(jbinary.euler_number(jnp.asarray(m), jnp.float64))
+    got = tbinary.euler_number(torch.from_numpy(m), torch.float64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    expect = {"holes0": 1, "holes1": 0, "holes3": -2}
+    if case in expect:
+        assert want[0] == expect[case]
+    if case == "diagonal":
+        # 8-connected: one diagonal line and one diagonal pair, the C++
+        # truncating division of a count that is not a multiple of 4
+        assert want[0] == 2
+
+
+@pytest.mark.parametrize("case", list(SIZES) + ["thick_disk", "ring"])
+def test_box_counts_and_fractal_dimension(case):
+    m, h, w = _mask_inputs(case)
+    quads, boxes = tbinary.binary_quads_plain(torch.from_numpy(m))
+    SB, S = tbinary.n_scales(*m.shape[1:])
+    assert boxes.shape == (m.shape[0], S, 4) and quads.shape == (m.shape[0], 3)
+    jm = jnp.asarray(m)
+
+    def jax_counts(mj):
+        counts = []
+        for i in range(S):
+            s = SB >> i
+            origins = (((0, 0), (s // 2, 0), (0, s // 2), (s // 2, s // 2))
+                       if s <= 32 else ((0, 0),) * 4)
+            counts.append(jnp.stack([jbinary._box_count_at_scale(mj, s, ox, oy)
+                                     for ox, oy in origins], axis=1))
+        return jnp.stack(counts, axis=1)
+
+    def jax_fd(mj, hj, wj):
+        return jbinary.fract_dim_boxcount(mj, hj, wj, jnp.float64)
+
+    np.testing.assert_array_equal(boxes.numpy(),
+                                  np.asarray(jax.jit(jax_counts)(jm)))
+    want = np.asarray(jax.jit(jax_fd)(jm, jnp.asarray(h), jnp.asarray(w)))
+    got = tbinary.fract_dim_boxcount(torch.from_numpy(m), torch.from_numpy(h),
+                                     torch.from_numpy(w), torch.float64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("centred", [False, True])
+@pytest.mark.parametrize("size", SIZES)
+def test_power_sums(size, centred):
+    a = _arrays(size)
+    w = np.where(a["mask"], a["intens"], 0.0)
+    planes = [w, w * a["logw"]]
+    B, H, W = w.shape
+    xs = np.arange(W, dtype=np.float64)[None, None, :] * np.ones((1, H, 1))
+    ys = np.arange(H, dtype=np.float64)[None, :, None] * np.ones((1, 1, W))
+    centre = None
+    if centred:
+        m00 = w.sum(axis=(1, 2))
+        centre = np.stack([(w * xs).sum(axis=(1, 2)) / m00,
+                           (w * ys).sum(axis=(1, 2)) / m00], axis=1)
+        centre = np.stack([centre, centre + 0.25], axis=1)     # [B, 2, 2]
+    got = tmoments.power_sums_plain(
+        [torch.from_numpy(p) for p in planes],
+        None if centre is None else torch.from_numpy(centre)).numpy()
+    assert got.shape == (B, 2, 4, 4)
+    for k, p in enumerate(planes):
+        x, y = jnp.asarray(xs), jnp.asarray(ys)
+        if centred:
+            x = x - jnp.asarray(centre[:, k, 0])[:, None, None]
+            y = y - jnp.asarray(centre[:, k, 1])[:, None, None]
+        S = jmoments._power_sums(jnp.asarray(p), x, y)
+        for (i, j), v in S.items():
+            scale = (np.abs(p) * np.abs(np.asarray(x)) ** i
+                     * np.abs(np.asarray(y)) ** j).sum(axis=(1, 2))
+            assert (np.abs(got[:, k, i, j] - np.asarray(v))
+                    <= 1e-12 * scale).all(), (k, i, j)
+
+
+def _family_fn(mod, family):
+    def fn(ctx, cfg):
+        return mod.FAMILIES[family].fn(ctx, cfg)
+    return fn
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("family", DEVICE_FAMILIES)
+def test_family_members(family, size):
+    want = {k: np.asarray(v) for k, v in
+            _jax(size, _family_fn(jreg, family)).items()}
+    got = {k: v.numpy() for k, v in
+           _torch(size, _family_fn(treg, family)).items()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        a, b = got[k], want[k]
+        assert a.shape == b.shape, k
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=k)
+        ok = ~np.isnan(b)
+        if k in ZERO_BY_CONSTRUCTION:
+            scale = np.abs(want["IMOM_RM_00" if k.startswith("IMOM")
+                                else "SPAT_MOMENT_00"]) * size
+            assert (np.abs(a[ok]) <= 1e-9 * scale[ok]).all(), k
+            assert (np.abs(b[ok]) <= 1e-9 * scale[ok]).all(), k
+            continue
+        np.testing.assert_allclose(a[ok], b[ok], rtol=1e-9, atol=1e-12,
+                                   err_msg=k)
+        zero = b == 0
+        np.testing.assert_array_equal(np.signbit(a[zero]), np.signbit(b[zero]),
+                                      err_msg=k)
+    if family in ("Imoms2D_feature", "Smoms2D_feature") and size == 16:
+        # the 16 px bucket's ROIs have a negative weighted mass: their
+        # weighted normalised moments are NaN on both sides
+        assert any(np.isnan(v).any() for v in want.values())

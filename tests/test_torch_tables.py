@@ -1,29 +1,42 @@
 """The PyTorch port's copied tables and host-side helpers against the JAX
 package they were copied from: taxonomy, config, columns, batching, ROI
-discovery and the family registry's metadata.  Also pins that importing the
-port pulls in neither jax nor anything of nyxus_tpu."""
+discovery, the host features and their native geometry library, and the
+family registry's metadata.  Also pins that importing the port pulls in
+neither jax nor anything of nyxus_tpu, and that the port's native library
+builds without libtiff and raises when it cannot be built."""
 
 import os
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from conftest import make_blobs
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import bench  # noqa: E402
 
 import nyxus_tpu.columns as jcol
 import nyxus_tpu.config as jconfig
 import nyxus_tpu.registry as jreg
 import nyxus_tpu.taxonomy as jtx
-from nyxus_tpu.pipeline import batching as jbatching
-from nyxus_tpu.pipeline import labels as jlabels
+import nyxus_tpu.native as jnative  # noqa: E402
+from nyxus_tpu.pipeline import batching as jbatching  # noqa: E402
+from nyxus_tpu.pipeline import labels as jlabels  # noqa: E402
+from nyxus_tpu.pipeline import runner as jrunner  # noqa: E402
 
 import nyxus_tpu_torch.columns as tcol
 import nyxus_tpu_torch.config as tconfig
 import nyxus_tpu_torch.registry as treg
 import nyxus_tpu_torch.taxonomy as ttx
-from nyxus_tpu_torch.pipeline import batching as tbatching
-from nyxus_tpu_torch.pipeline import labels as tlabels
+import nyxus_tpu_torch.native as tnative  # noqa: E402
+from nyxus_tpu_torch.pipeline import batching as tbatching  # noqa: E402
+from nyxus_tpu_torch.pipeline import hostfeats as thostfeats  # noqa: E402
+from nyxus_tpu_torch.pipeline import labels as tlabels  # noqa: E402
+from nyxus_tpu_torch.pipeline import runner as trunner  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
@@ -34,7 +47,8 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
 
 @pytest.mark.parametrize("rel", ["config.py", "columns.py",
                                  "taxonomy/__init__.py",
-                                 "pipeline/batching.py"])
+                                 "pipeline/batching.py",
+                                 "pipeline/hostfeats.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -44,6 +58,125 @@ def test_verbatim_copies(rel):
         first, copy = f.read().split("\n", 1)
     assert first.startswith("# Copied verbatim from nyxus_tpu/%s" % rel)
     assert copy == orig
+
+
+@pytest.mark.parametrize("name", ["contour.cpp", "geomfeats.cpp",
+                                  "geomfeats_batch.cpp"])
+def test_native_sources_are_verbatim_copies(name):
+    """The host-geometry library's C++ sources: each is its original plus
+    one first-line comment that names the source file."""
+    with open(os.path.join(ROOT, "nyxus_tpu", "native", "src", name)) as f:
+        orig = f.read()
+    with open(os.path.join(ROOT, "nyxus_tpu_torch", "native", "src",
+                           name)) as f:
+        first, copy = f.read().split("\n", 1)
+    assert first.startswith("// Copied verbatim from nyxus_tpu/native/src/%s"
+                            % name)
+    assert copy == orig
+
+
+def test_native_contours_and_geometry_equal_jax():
+    """contours_batch and geom_batch of the port's library equal the JAX
+    package's on the 320 x 320 slide, bit for bit (the same sources and
+    flags), and so do the pixel clouds the runner feeds geom_batch."""
+    intens, labels = bench.make_dsb_like(320, 320, 40, seed=11)
+    recs, _, _ = tlabels._discover_rois_np(intens, labels)
+    tk = tnative.contours_batch(labels, intens, recs)
+    jk = jnative.contours_batch(labels, intens, recs)
+    assert len(tk) == len(jk) == len(recs)
+    for a, b in zip(tk, jk):
+        np.testing.assert_array_equal(a, b)
+    clouds = trunner._build_clouds(recs, intens, labels)
+    jclouds = jrunner._build_clouds(recs, list(range(len(recs))), set(),
+                                    (intens, labels), None)
+    for a, b in zip(clouds, jclouds):
+        np.testing.assert_array_equal(a, b)
+    hc = trunner.HostContext(recs, tk, None, None)
+    contours, recs_mat, flags = thostfeats._geom_inputs(hc)
+    groups = thostfeats.G_LOGW
+    for g in thostfeats.GEOM_GROUPS.values():
+        groups |= g
+    t_out, t_lw = tnative.geom_batch(clouds, contours, recs_mat, flags, groups,
+                                     logw_eps=0.001, want_logw=True)
+    j_out, j_lw = jnative.geom_batch(clouds, contours, recs_mat, flags, groups,
+                                     logw_eps=0.001, want_logw=True)
+    assert t_out.shape == (len(recs), thostfeats.GEOM_W)
+    np.testing.assert_array_equal(t_out.view(np.uint64), j_out.view(np.uint64))
+    np.testing.assert_array_equal(t_lw.view(np.uint64), j_lw.view(np.uint64))
+
+
+_CXX_LOG = """#!/bin/sh
+echo "$@" >> "%s"
+exec g++ "$@"
+"""
+
+
+def _port_copy(tmp_path):
+    dst = tmp_path / "nyxus_tpu_torch"
+    shutil.copytree(os.path.join(ROOT, "nyxus_tpu_torch"), dst,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    return str(tmp_path)
+
+
+def test_native_build_links_no_libtiff(tmp_path):
+    """A fresh copy of the port builds its host library with neither
+    -ltiff nor the JAX package's file readers, and links no libtiff."""
+    root = _port_copy(tmp_path)
+    log = tmp_path / "cxx.log"
+    cxx = tmp_path / "cxx"
+    cxx.write_text(_CXX_LOG % log)
+    cxx.chmod(0o755)
+    env = dict(os.environ, CXX=str(cxx), PYTHONPATH=root)
+    code = ("import nyxus_tpu_torch.native as n\n"
+            "assert n.available() is True\n"
+            "print(n.LIB_PATH)\n")
+    out = subprocess.run([sys.executable, "-c", code], check=True, cwd=root,
+                         env=env, capture_output=True, text=True, timeout=300)
+    lib = out.stdout.strip().splitlines()[-1]
+    assert lib.startswith(root)
+    args = log.read_text()
+    assert "-ltiff" not in args
+    for src in ("tiff_reader", "zarr_codec", "csv_writer", "discover"):
+        assert src not in args
+    for src in tnative.SOURCES:
+        assert src in args
+    assert "-ffp-contract=off" in args and "-march=native" in args
+    ldd = subprocess.run(["ldd", lib], capture_output=True, text=True,
+                         timeout=60).stdout
+    assert "libtiff" not in ldd
+
+
+def test_native_build_failure_raises(tmp_path):
+    """With no working compiler the port's loader raises, and raises again,
+    rather than report the library unavailable and fall back."""
+    root = _port_copy(tmp_path)
+    env = dict(os.environ, CXX="false", PYTHONPATH=root)
+    code = ("import nyxus_tpu_torch.native as n\n"
+            "for _ in range(2):\n"
+            "    try:\n"
+            "        n.available()\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'native build' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit('no error')\n"
+            "print('raised')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "raised"
+
+
+@pytest.mark.parametrize("dtype", [np.bool_, np.uint8, np.uint16, np.int32,
+                                   np.uint32, np.int64, np.uint64])
+def test_native_labels_ok(dtype):
+    small = np.zeros((4, 4), dtype)
+    small[1, 1] = 1
+    assert tlabels._native_labels_ok(small) == jlabels._native_labels_ok(small)
+    if np.dtype(dtype).itemsize >= 4 and np.dtype(dtype) != np.int32:
+        big = small.copy()
+        big[2, 2] = 2 ** 31 + 5
+        assert tlabels._native_labels_ok(big) is False
+        assert jlabels._native_labels_ok(big) is False
 
 
 def test_taxonomy_data_copy():
@@ -122,9 +255,21 @@ def test_registry_metadata():
         assert tf.host_needs_contour == jf.host_needs_contour, name
         assert tf.needs_logw == jf.needs_logw, name
     ported = [n for n, f in treg.FAMILIES.items() if f.ported]
-    assert ported == ["PixelIntensityFeatures", "GLCMFeature", "GLRLMFeature",
-                      "NGTDMFeature", "GLDMFeature", "NGLDMfeature",
-                      "GLSZMFeature", "GLDZMFeature"]
+    assert ported == [n for n in jreg.FAMILIES
+                      if n not in ("IntensityHistogramFeatures",
+                                   "GaborFeature", "ZernikeFeature",
+                                   "FocusScoreFeature",
+                                   "PowerSpectrumFeature",
+                                   "SaturationFeature", "SharpnessFeature")]
+    assert len(ported) == 28
+
+
+@pytest.mark.parametrize("features", REQUESTS, ids=lambda f: ",".join(f))
+def test_split_host_families(features):
+    jf = jtx.parse_feature_request(features)
+    tf = ttx.parse_feature_request(features)
+    assert jreg.split_host_families(jf) == treg.split_host_families(tf)
+    assert jreg.contour_needed(jf) == treg.contour_needed(tf)
 
 
 @pytest.mark.parametrize("features", REQUESTS, ids=lambda f: ",".join(f))
@@ -135,6 +280,7 @@ def test_activated_families(features):
 
 def test_import_pulls_no_jax():
     code = ("import sys, nyxus_tpu_torch\n"
+            "import nyxus_tpu_torch.native, nyxus_tpu_torch.pipeline.hostfeats\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"
