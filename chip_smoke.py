@@ -7,18 +7,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 0. refuse to run without a CUDA device; print the card, its power limit and
    the torch / CUDA versions
-1. build the ten CUDA kernels from nyxus_tpu_torch/csrc with nvcc (sm_90a,
-   one nvcc process a source) and, at the same time, the host-geometry
-   library from nyxus_tpu_torch/native/src with g++ (no libtiff)
+1. build the twelve CUDA kernels from nyxus_tpu_torch/csrc with nvcc
+   (sm_90a, one nvcc process a source) and, at the same time, the
+   host-geometry library from nyxus_tpu_torch/native/src with g++ (no
+   libtiff)
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's bucket shapes and beyond (128², 256², a 1024 x 64 bucket;
    K2 at 256 levels and K3 at 1024-long runs, whose matrices exceed a
    block's shared memory; checkerboard, uniform and empty crops for the
    zone and shape kernels; a 256² solid disk whose long erosion runs beside
-   short ones), f32 and f64 (counts and labels exact, weighted sums within
-   rtol 1e-6 / 1e-12), and time both from a torch.profiler trace
-3. run the request *ALL* -GABOR -ZERNIKE2D (713 columns: intensity, the
-   seven 2D textures, the shape, contour and moment families) through
+   short ones; blank and flat-baseline ROIs and Gabor kernels of 9 to 160
+   taps a side for K11 and K12), f32 and f64 (counts and labels exact,
+   weighted sums within rtol 1e-6 / 1e-12), and time both from a
+   torch.profiler trace
+3. run the request *ALL* (747 columns: intensity, the seven 2D textures,
+   the shape, contour, moment, Gabor and Zernike families) through
    PairRunner in f32 on the card and in f64 on the CPU, compare per column
    at the p90 relative error with the tiers of tests/test_tpu_device.py,
    check that the columns of the host families that read no device result
@@ -28,9 +31,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    device-memory paths
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
-   337-column texture slice of the earlier slices and for the 713-column
-   request; the first slide is also held against the f64 CPU run
-5. a torch.profiler trace of one warm slide of the 713-column request:
+   337-column texture slice, the 713-column request *ALL* -GABOR
+   -ZERNIKE2D and the 747-column *ALL*; the first slide of the last is also
+   held against the f64 CPU run
+5. a torch.profiler trace of one warm slide of the 747-column request:
    device time by kernel, host time of each runner stage
 
 The last three lines are the card's name and power limit, the kernels'
@@ -50,9 +54,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
             "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
 WIDTH = 337
-# every 2D family the port serves: *ALL* but Gabor and Zernike
-FEATURES_ALL = ["*ALL*", "-GABOR", "-ZERNIKE2D"]
-WIDTH_ALL = 713
+# every 2D family: *ALL*, and the same without Gabor and Zernike
+FEATURES_ALL = ["*ALL*"]
+WIDTH_ALL = 747
+FEATURES_713 = ["*ALL*", "-GABOR", "-ZERNIKE2D"]
+WIDTH_713 = 713
 
 # the card's published peaks (H100 SXM at 700 W):
 # device memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, the
@@ -169,8 +175,15 @@ def make_long_roi_slide(seed=3):
     return intens, labels
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(text):
+    log("%s (at %.1f s)" % (text, time.perf_counter() - _T0))
 
 
 def card_line():
@@ -191,8 +204,8 @@ def device_events(prof):
 
 
 def timed(fn, iters=20):
-    """(ms a call between CUDA events, device ms a call) of fn() after a
-    warm-up.  The first includes the host's launch overhead whenever the host
+    """(ms a call between CUDA events, device ms a call) of fn() over
+    ``iters`` calls after a warm-up.  The first includes the host's launch overhead whenever the host
     enqueues more slowly than the card runs; the second sums the kernels the
     call ran, from a torch.profiler trace."""
     import torch
@@ -250,17 +263,20 @@ CASES = ((64, 32, 32, (29, 31)), (64, 64, 64, (60, 47)), (28, 16, 16, (13, 9)),
 TEXTURE_KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "stencil8",
                    "zone_dag", "zone_cc4", "zone_stats")
 SHAPE_KERNELS = ("erosion", "binary_quads", "power_sums")
-KERNELS = TEXTURE_KERNELS + SHAPE_KERNELS
+GZ_KERNELS = ("gabor", "zernike")
+KERNELS = TEXTURE_KERNELS + SHAPE_KERNELS + GZ_KERNELS
 
 
 def counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from nyxus_tpu_torch.ops import binary, common, glcm, glrlm, moments, zones
+    from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm,
+                                     moments, zernike, zones)
     return dict(zip(KERNELS, (common.batched_hist, glcm.cooc_matrices,
                               glrlm.run_matrices, common.stencil8,
                               zones.zone_labels, zones.zone_cc4,
                               zones.zone_list, binary.erosion_counts,
-                              binary.binary_quads, moments.power_sums)))
+                              binary.binary_quads, moments.power_sums,
+                              gabor.gabor_counts, zernike.zernike_sums)))
 
 
 def zone_cases(case, dtype, seed=0):
@@ -413,6 +429,103 @@ def shape_kernels_agree(agree, mask, hts, wds, dtype, seed=0):
           sums_scale(m, centre[:, :1]))
 
 
+# Gabor banks K11 is held at: the main path's (16 taps a side, four
+# filters), five filters at 10 (two filter groups in the count pass), odd
+# and large kernels (9, 31: 78 KB of shared memory in f64), 64 (its taps
+# read from device memory) and 160 (in f64 its input tile too)
+GABOR_BANKS = {"n16": {}, "n10x5": {"gabor_kersize": 10,
+                                    "gabor_thetas": (0, 30, 60, 90, 120),
+                                    "gabor_freqs": (2, 4, 8, 16, 32)},
+               "n9": {"gabor_kersize": 9}, "n31": {"gabor_kersize": 31},
+               "n64": {"gabor_kersize": 64}, "n160": {"gabor_kersize": 160}}
+# K12's sums (float64, both versions forming the same terms) against the
+# plain version: a fraction of the sum of the terms' absolute values
+ZERNIKE_RTOL = 1e-12
+
+
+def gz_inputs(case, dtype, seed=0):
+    """(img, heights, widths) of K11 and K12 on a synth bucket: the masked
+    intensities and the AABB."""
+    import torch
+    B, H, W, hw = case
+    orig, _, _, _ = synth_bucket(B, H, W, hw, seed, dtype, empty=hw == (0, 0))
+    hts = torch.full((B,), hw[0], dtype=torch.int32, device="cuda")
+    wds = torch.full((B,), hw[1], dtype=torch.int32, device="cuda")
+    return orig, hts, wds
+
+
+def special_gz_cases(dtype):
+    """(name, img, heights, widths): a 32 x 32 bucket holding a blank ROI
+    (one intensity) and a 3 x 3 ROI of intensities 1 and 2 whose baseline
+    magnitudes are all 0 (flat: maxval == cmpval), and the three 256² disks
+    of special_shape_cases with intensities 1..4000."""
+    import torch
+    yy, xx = np.mgrid[0:32, 0:32]
+    img = np.zeros((2, 32, 32))
+    img[0] = np.where(((yy - 14.5) / 15) ** 2 + ((xx - 12) / 12.5) ** 2 <= 1,
+                      700.0, 0.0)
+    img[1, :3, :3] = 1 + np.arange(9).reshape(3, 3) % 2
+    out = [("blank+flat", torch.from_numpy(img).to(dtype).cuda(),
+            torch.tensor([30, 3], dtype=torch.int32, device="cuda"),
+            torch.tensor([25, 3], dtype=torch.int32, device="cuda"))]
+    (_, disk, hts, wds), = [c for c in special_shape_cases()
+                            if c[0] == "disk256"]
+    out.append(("disk256", weight_planes(disk, dtype)[0], hts, wds))
+    return out
+
+
+def gz_kernels_agree(agree, img, hts, wds, banks):
+    """K11 (counts, baseline max and min) at each of ``banks`` and K12 (the
+    60 sums around the centroid) against their plain versions on one
+    bucket.  Both K11 versions add the taps in one order with every
+    operation rounded on its own, so they agree bit for bit; K12 agrees
+    within ZERNIKE_RTOL of the sums of its terms' absolute values."""
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.ops import gabor, zernike
+    for bank in banks:
+        cfg = EngineConfig(**GABOR_BANKS[bank])
+        for got, want in zip(gabor.gabor_counts(img, hts, wds, cfg),
+                             gabor.gabor_counts_plain(img, hts, wds, cfg)):
+            agree("gabor", got, want)
+    cx, cy, rad, s = zernike.zernike_inputs(img, hts, wds)
+    want, scale = zernike.zernike_sums_plain(img, cx, cy, rad, s, scale=True)
+    agree("zernike", zernike.zernike_sums(img, cx, cy, rad, s), want,
+          ZERNIKE_RTOL, scale)
+
+
+def gz_bounds(img, hts, wds, cfg):
+    """(bytes, operations) K11 and K12 must move and do on these inputs,
+    each input read once and each output written once.  K11: every AABB
+    pixel convolved with the 1 + F filters, 4 operations (two multiplies,
+    two adds) a tap and filter.  K12: 372 operations a nonzero pixel inside
+    the unit disk (coordinates 10, angle recurrences 56, radius powers 10,
+    radial polynomials 84, the 30 pairs of terms with their float64 sums
+    210) and 10 outside it, all charged at the float32 rate."""
+    import torch
+    from nyxus_tpu_torch.ops import zernike
+    B, H, W = img.shape
+    esz = img.element_size()
+    K = 1 + len(cfg.gabor_thetas)
+    n = cfg.gabor_kersize
+    px = float((hts.double() * wds.double()).sum())
+    cx, cy, rad, s = zernike.zernike_inputs(img, hts, wds)
+    xs = torch.arange(1, W + 1, dtype=torch.float64, device=img.device)
+    ys = torch.arange(1, H + 1, dtype=torch.float64, device=img.device)
+    x = (xs[None, None, :] - cx.double()[:, None, None]) \
+        / rad.double()[:, None, None]
+    y = (ys[None, :, None] - cy.double()[:, None, None]) \
+        / rad.double()[:, None, None]
+    r = torch.sqrt(x * x + y * y)
+    nz = img != 0
+    disk = float((nz & (r >= zernike.EPS64) & (r <= 1)).sum())
+    return {
+        "gabor": (B * H * W * esz + K * 2 * n * n * esz + B * K * 4
+                  + 2 * B * esz, 4.0 * n * n * K * px),
+        "zernike": (B * H * W * esz + 4 * B * esz + B * 60 * 8,
+                    372 * disk + 10 * (float(nz.sum()) - disk)),
+    }
+
+
 def bounds(B, H, W, ng=64, nbins=100, angles=4):
     """(bytes, operations) each kernel must move and do at a bucket of B
     crops of H x W at the timed arguments: each input read once, each output
@@ -471,7 +584,9 @@ def shape_bounds(mask, heights, widths, planes):
 def check_kernels():
     """Every kernel against its plain version; returns per-kernel results."""
     import torch
-    from nyxus_tpu_torch.ops import binary, common, glcm, glrlm, moments, zones
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm,
+                                     moments, zernike, zones)
     res = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
     def agree(name, got, want, rtol=0.0, scale=None):
@@ -529,8 +644,12 @@ def check_kernels():
                 zone_kernels_agree(agree, zl, zv, hts, wds)
             for _, sm, hts, wds in shape_cases((B, H, W, hw), dtype, ci):
                 shape_kernels_agree(agree, sm, hts, wds, dtype, ci)
-            log("  %s B=%d %dx%d roi %s: all ten kernels agree"
-                % (prec, B, H, W, hw))
+            banks = ["n16", "n10x5"] + (["n9", "n31"] if ci < 2 else []) \
+                + (["n64", "n160"] if (H, W) == (7, 13) else [])
+            gz_kernels_agree(agree, *gz_inputs((B, H, W, hw), dtype, ci),
+                             banks)
+            log("  %s B=%d %dx%d roi %s: all twelve kernels agree (Gabor "
+                "banks %s)" % (prec, B, H, W, hw, banks))
         # matrices beyond a block's shared memory: K2 at 256 levels, K3 at
         # 1024-long runs (and 256 levels x 512)
         for B, H, W, hw in ((64, 32, 32, (29, 31)), (2, 1024, 64, (600, 40))):
@@ -553,10 +672,19 @@ def check_kernels():
         for name, sm, hts, wds in special_shape_cases():
             shape_kernels_agree(agree, sm, hts, wds, dtype)
             steps.append((name, erosion_steps(sm, hts, wds)))
+        for name, gi, hts, wds in special_gz_cases(dtype):
+            gz_kernels_agree(agree, gi, hts, wds, ["n16", "n9"])
+        _, gi, hts, wds = special_gz_cases(dtype)[0]
+        _, mx, mn = gabor.gabor_counts(gi, hts, wds, EngineConfig())
+        if not (mx[0] > mn[0] and mx[1] == mn[1]):
+            raise AssertionError("gabor: the flat ROI's baseline is not flat "
+                                 "(max %s, min %s)" % (mx.tolist(),
+                                                       mn.tolist()))
         log("  %s: device-memory paths of K2 (256 levels) and K3 (1024 and "
             "512-long runs), the checkerboard, uniform and empty zone crops "
-            "and the empty, full, checkerboard and 256² disk shape crops "
-            "agree; erosion steps %s" % (prec, steps))
+            "and the empty, full, checkerboard and 256² disk shape crops, "
+            "K11 and K12 on blank, flat-baseline and 256² disk ROIs agree; "
+            "erosion steps %s" % (prec, steps))
 
     # times at the main path's commonest bucket (f32, 64 ROIs of 32 x 32),
     # then at two more buckets and on the device-memory paths
@@ -570,6 +698,9 @@ def check_kernels():
         anc, dist = zones.zone_cc4_plain(zl, zv, hts, wds)
         _, sm, shts, swds = shape_cases((B, H, W, hw), torch.float32)[0]
         planes = weight_planes(sm, torch.float32)
+        gimg, ghts, gwds = gz_inputs((B, H, W, hw), torch.float32)
+        gcfg = EngineConfig()
+        zin = zernike.zernike_inputs(gimg, ghts, gwds)
         pairs = {
             "batched_hist": (lambda: common.batched_hist(flat, cnt, 100),
                              lambda: common.batched_hist_plain(flat, cnt, 100)),
@@ -596,14 +727,21 @@ def check_kernels():
                              lambda: binary.binary_quads_plain(sm)),
             "power_sums": (lambda: moments.power_sums(planes),
                            lambda: moments.power_sums_plain(planes)),
+            "gabor": (lambda: gabor.gabor_counts(gimg, ghts, gwds, gcfg),
+                      lambda: gabor.gabor_counts_plain(gimg, ghts, gwds,
+                                                       gcfg)),
+            "zernike": (lambda: zernike.zernike_sums(gimg, *zin),
+                        lambda: zernike.zernike_sums_plain(gimg, *zin)),
         }
         main = (B, H, W) == (64, 32, 32)
+        iters = 20 if main else 5   # the other buckets' times are printed only
         bnd = bounds(B, H, W)
         bnd.update(shape_bounds(sm, shts, swds, planes))
+        bnd.update(gz_bounds(gimg, ghts, gwds, gcfg))
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain: the pairs share clocks and cache
-            p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), \
-                timed(plain)
+            p1, k1, k2, p2 = (timed(f, iters) for f in (plain, kern, kern,
+                                                        plain))
             ev, ms = (k1[0] + k2[0]) / 2, (k1[1] + k2[1]) / 2
             pev, plain_ms = (p1[0] + p2[0]) / 2, (p1[1] + p2[1]) / 2
             nbytes, ops = bnd[name]
@@ -637,6 +775,17 @@ def check_kernels():
             res["power_sums"]["library_ms"] = lib[1]
             log("  time power_sums library einsum: device %.4f ms (events "
                 "%.4f ms)" % (lib[1], lib[0]))
+            # K11's ten real convolutions (five complex filters) as one
+            # cuDNN conv2d, TF32 off (not called by the port)
+            n = gcfg.gabor_kersize
+            wts = gabor.filter_bank(gcfg, torch.float32, "cuda").reshape(
+                -1, 1, n, n).flip(-1, -2).contiguous()
+            lib = timed(lambda: torch.nn.functional.conv2d(
+                gimg[:, None], wts, padding=n - 1))
+            res["gabor"]["library_ms"] = lib[1]
+            log("  time gabor library conv2d (10 channels, cuDNN, TF32 "
+                "%s): device %.4f ms (events %.4f ms)"
+                % (torch.backends.cudnn.allow_tf32, lib[1], lib[0]))
         if (B, H, W) == (2, 1024, 64):
             ms = timed(lambda: glrlm.run_matrices(lev, aabb, 64, 1024,
                                                   torch.float32))
@@ -763,12 +912,12 @@ def main():
         raise AssertionError("the host library links libtiff:\n" + ldd)
 
     # phase 2
-    log("phase 2: kernels against their plain versions")
+    log_phase("phase 2: kernels against their plain versions")
     kres = check_kernels()
 
     # phase 3
-    log("phase 3: %s on the card (f32) against the CPU (f64)"
-        % " ".join(FEATURES_ALL))
+    log_phase("phase 3: %s on the card (f32) against the CPU (f64)"
+              % " ".join(FEATURES_ALL))
     kern = counters()
     fset = taxonomy.parse_feature_request(FEATURES_ALL)
     hdr, slots = columns.build_header(fset, EngineConfig())
@@ -810,25 +959,35 @@ def main():
                               ref[:, host_cols].view(np.uint64)):
             raise AssertionError("%s: the pre-collect host columns differ "
                                  "between the card and the CPU run" % what)
+        gz = [j for j, c in enumerate(dcols)
+              if c.startswith(("GABOR_", "ZERNIKE2D_"))]
+        _, gz_worst = compare_tiers([dcols[j] for j in gz], dev[:, gz],
+                                    ref[:, gz])
         log("  %s: %d ROIs x %d columns agree, the %d pre-collect host "
             "columns bit for bit; buckets %s; matrices in device memory: "
-            "%s; closest to its tier: %s; launches %s"
+            "%s; closest to its tier: %s (of GABOR and ZERNIKE2D: %s); "
+            "launches %s"
             % (what, len(labs), len(dcols), len(host_cols), shapes,
-               big or "none", worst, small_launches))
+               big or "none", worst, gz_worst, small_launches))
         if not all(small_launches.values()):
             raise AssertionError("%s: a kernel was not launched: %r"
                                  % (what, small_launches))
 
     # phase 4
-    log("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, 300)")
+    log_phase("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, "
+              "300)")
     t0 = time.perf_counter()
     slides = [make_dsb_like(1024, 1024, 300, seed=s) for s in range(7, 15)]
     log("  slides generated in %.1f s" % (time.perf_counter() - t0))
     tex_fset = taxonomy.parse_feature_request(FEATURES)
     tex_runner = PairRunner(tex_fset, EngineConfig(precision="f32"), "cuda")
+    runner_713 = PairRunner(taxonomy.parse_feature_request(FEATURES_713),
+                            EngineConfig(precision="f32"), "cuda")
     for name, runner, width, used in (
             ("337-column texture slice", tex_runner, WIDTH, TEXTURE_KERNELS),
-            ("713-column request", card_runner, WIDTH_ALL, KERNELS)):
+            ("713-column request", runner_713, WIDTH_713,
+             TEXTURE_KERNELS + SHAPE_KERNELS),
+            ("747-column request", card_runner, WIDTH_ALL, KERNELS)):
         for intens, labels in slides:                     # untimed pass
             runner.run(intens, labels)
         torch.cuda.synchronize()
@@ -858,11 +1017,11 @@ def main():
                                                             vals.shape))
     labs64, ref = cpu_runner.run(*slides[0])
     worst = check_output("slide 7", cols, outs[0][0], outs[0][1], labs64, ref)
-    log("  slide 7 (%d ROIs) of the 713-column request agrees with the f64 "
+    log("  slide 7 (%d ROIs) of the 747-column request agrees with the f64 "
         "CPU run; closest to its tier: %s" % (len(labs64), worst))
 
     # phase 5
-    log("phase 5: profile of one warm slide of the 713-column request")
+    log_phase("phase 5: profile of one warm slide of the 747-column request")
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -919,12 +1078,17 @@ def main():
            "binary_quads": ("nyxus_tpu_torch/csrc/binary_quads.cu",
                             "nyxus_tpu/ops/binary.py:70"),
            "power_sums": ("nyxus_tpu_torch/csrc/power_sums.cu",
-                          "nyxus_tpu/ops/moments.py:36")}
+                          "nyxus_tpu/ops/moments.py:36"),
+           "gabor": ("nyxus_tpu_torch/csrc/gabor.cu",
+                     "nyxus_tpu/ops/gabor.py:49"),
+           "zernike": ("nyxus_tpu_torch/csrc/zernike.cu",
+                       "nyxus_tpu/ops/zernike.py:38")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict({"name": k, "route": "cuda", "source": src[k][0],
                      "replaces": src[k][1], "launches": launches[k]},
                     **{key: kres[k][key] for key in keys}) for k in KERNELS]
+    log_phase("done")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Public Python API: ``Nyxus`` for in-memory 2D pairs (PyTorch port of
-nyxus_tpu/api.py, the ``featurize`` path).
+nyxus_tpu/api.py: the ``featurize`` path and the parameter surface).
 
 Mirrors the reference's Python surface (reference:
 src/nyx/python/nyxus/nyxus.py:29-909).  ``pandas`` is imported only where a
@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import columns as col
+from . import metaparams
 from . import taxonomy as tx
 from .config import EngineConfig
 from .pipeline.runner import PairRunner
@@ -60,6 +61,10 @@ class Nyxus:
             field = _KWARG_MAP.get(k)
             if field is not None and v is not None:
                 updates[field] = v
+        if "gabor_thetas" in kwargs:
+            updates["gabor_thetas"] = tuple(kwargs["gabor_thetas"])
+        if "gabor_freqs" in kwargs:
+            updates["gabor_freqs"] = tuple(kwargs["gabor_freqs"])
         # Python-API calibration: xyRes = pixelSizeUm = pixels_per_micron
         # (default 1.0, new_bindings_py.cpp:93)
         updates.setdefault("xyres", float(updates.get("pixels_per_micron",
@@ -144,6 +149,89 @@ class Nyxus:
             return self._to_frame("", "", np.zeros(0, np.int64),
                                   np.zeros((0, len(self.header) - 4)))
         return pd.concat(frames, ignore_index=True)
+
+    # -- parameter access (reference: nyxus.py:560-770) -------------------
+
+    def set_params(self, **params):
+        updates = {}
+        for k, v in params.items():
+            field = _KWARG_MAP.get(k)
+            if field is not None:
+                updates[field] = v
+            elif k == "features":
+                self.features = list(v)
+            elif k in ("gabor_thetas", "gabor_freqs"):
+                updates[k] = tuple(v)
+        if updates:
+            self.cfg = self.cfg.replace(**updates)
+        self._compile()
+
+    def get_params(self, *args):
+        inv = {v: k for k, v in _KWARG_MAP.items()}
+        out = {"features": self.features}
+        for field, kwarg in inv.items():
+            out[kwarg] = getattr(self.cfg, field)
+        out["gabor_thetas"] = list(self.cfg.gabor_thetas)
+        out["gabor_freqs"] = list(self.cfg.gabor_freqs)
+        if args:
+            return {k: v for k, v in out.items() if k in args}
+        return out
+
+    def set_environment_params(self, **params):
+        """Alias surface of set_params (reference: nyxus.py:718-770)."""
+        self.set_params(**params)
+
+    # -- metaparameters (reference: nyxus.py:252-289, env_metaparams.cpp) --
+
+    def set_metaparam(self, paramval: str):
+        cfg, err = metaparams.set_metaparam(self.cfg, paramval)
+        if err is not None:
+            raise ValueError("Invalid metaparameter value %s: %s"
+                             % (paramval, err))
+        self.cfg = cfg
+        self._compile()
+
+    def get_metaparam(self, paramname: str):
+        val, err = metaparams.get_metaparam(self.cfg, paramname)
+        if err:
+            raise NameError("Invalid metaparameter name %s: %s"
+                            % (paramname, err))
+        return val
+
+    # -- Gabor customization (reference: nyxus.py:660-716) -----------------
+
+    def set_gabor_feature_params(self, **kwargs):
+        valid = ("kersize", "gamma", "sig2lam", "f0", "thold", "thetas",
+                 "freqs")
+        for key in kwargs:
+            if key not in valid:
+                raise ValueError("Invalid Gabor parameter %s. The valid "
+                                 "parameters are: %s" % (key, list(valid)))
+        if not kwargs:
+            raise IOError("Illegal arguments passed to "
+                          "set_gabor_feature_params()")
+        updates = {}
+        if "kersize" in kwargs:
+            updates["gabor_kersize"] = int(kwargs["kersize"])
+        if "gamma" in kwargs:
+            updates["gabor_gamma"] = float(kwargs["gamma"])
+        if "sig2lam" in kwargs:
+            updates["gabor_sig2lam"] = float(kwargs["sig2lam"])
+        if "f0" in kwargs:
+            updates["gabor_f0"] = float(kwargs["f0"])
+        if "thold" in kwargs:
+            updates["gabor_thold"] = float(kwargs["thold"])
+        if "thetas" in kwargs:
+            updates["gabor_thetas"] = tuple(float(t) for t in kwargs["thetas"])
+        if "freqs" in kwargs:
+            updates["gabor_freqs"] = tuple(float(f) for f in kwargs["freqs"])
+        if ("thetas" in kwargs) != ("freqs" in kwargs) or (
+                "thetas" in kwargs
+                and len(updates["gabor_thetas"]) != len(updates["gabor_freqs"])):
+            raise ValueError("Gabor thetas and freqs must be specified "
+                             "together with matching lengths")
+        self.cfg = self.cfg.replace(**updates)
+        self._compile()
 
     def _to_frame(self, int_name, seg_name, labs, values):
         import pandas as pd

@@ -133,7 +133,15 @@ def _sums_dict(S, dt):
     return {(p, q): S[:, p, q] for p in range(4) for q in range(4)}
 
 
-def moments_all(ctx, weights, prefix: str, logw=None):
+def moment_planes(weights, logw=None):
+    """K10's weight planes of one weighting mode: the weights, and the
+    contour-weighted weights * logw when logw is given."""
+    if logw is None:
+        return [weights]
+    return [weights, weights * logw.to(weights.dtype)]
+
+
+def moments_all(ctx, weights, prefix: str, logw=None, raw=None):
     """All moment outputs for one weighting mode.
 
     weights: [B, H, W] INTEN(value) * mask (intensity or ones).
@@ -141,13 +149,14 @@ def moments_all(ctx, weights, prefix: str, logw=None):
     (0 outside the mask), using the reference's APPROXIMATE ordered-contour
     distance search (pixel.cpp:36-71).  If None the weighted (W*) members
     are not emitted (they stay unassigned).
+    raw: the raw power sums of moment_planes(weights, logw) when the caller
+    has them (Zernike shares the intensity moments' launch).
     Returns {member_name: [B]}.
     """
     dt = weights.dtype
-    planes = [weights]
-    if logw is not None:
-        planes.append(weights * logw.to(dt))
-    raw = power_sums(planes)
+    planes = moment_planes(weights, logw)
+    if raw is None:
+        raw = power_sums(planes)
     S = _sums_dict(raw[:, 0], dt)
 
     out = {}

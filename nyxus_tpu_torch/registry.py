@@ -24,6 +24,7 @@ from . import taxonomy as tx
 from .config import EngineConfig
 from .ops import binary as ops_binary
 from .ops import common as ops_common
+from .ops import gabor as ops_gabor
 from .ops import glcm as ops_glcm
 from .ops import gldm as ops_gldm
 from .ops import gldzm as ops_gldzm
@@ -36,6 +37,7 @@ from .ops import ngldm as ops_ngldm
 from .ops import ngtdm as ops_ngtdm
 from .ops import quant
 from .ops import radial as ops_radial
+from .ops import zernike as ops_zernike
 
 
 class BatchContext:
@@ -430,13 +432,22 @@ _SMOM_RENAME = {
 }
 
 
+def _intensity_sums(ctx: BatchContext):
+    """K10's raw power sums of the masked intensities (and, with the logw
+    plane, of their contour-weighted plane): one launch shared by the
+    intensity moments and Zernike."""
+    return ctx.cached("intensity_power_sums", lambda: ops_moments.power_sums(
+        ops_moments.moment_planes(ctx.masked_intens, ctx.logw)))
+
+
 def _moments_family(prefix):
     def fn(ctx: BatchContext, cfg: EngineConfig):
         if prefix == "IMOM":
-            weights = ctx.masked_intens
+            out = ops_moments.moments_all(ctx, ctx.masked_intens, prefix,
+                                          ctx.logw, _intensity_sums(ctx))
         else:
-            weights = ctx.mask_weights
-        out = ops_moments.moments_all(ctx, weights, prefix, ctx.logw)
+            out = ops_moments.moments_all(ctx, ctx.mask_weights, prefix,
+                                          ctx.logw)
         if prefix == "SMOM":
             renamed = {}
             for k, v in out.items():
@@ -453,6 +464,18 @@ def _moments_family(prefix):
     return fn
 
 
+def _gabor_family(ctx: BatchContext, cfg: EngineConfig):
+    return ops_gabor.gabor_features(ctx.masked_intens, ctx.heights,
+                                    ctx.widths, ctx.vmin, ctx.vmax, cfg,
+                                    ctx.intens.dtype)
+
+
+def _zernike_family(ctx: BatchContext, cfg: EngineConfig):
+    return ops_zernike.zernike_features(
+        ctx.masked_intens, ctx.heights, ctx.widths, ctx.vmin, ctx.vmax,
+        cfg.noval, ctx.intens.dtype, raw=_intensity_sums(ctx)[:, 0])
+
+
 FAMILIES["BasicMorphologyFeatures"].fn = _basic_morphology_family
 FAMILIES["EllipseFittingFeature"].fn = _ellipse_family
 FAMILIES["ErosionPixelsFeature"].fn = _erosion_family
@@ -461,6 +484,8 @@ FAMILIES["FractalDimensionFeature"].fn = _fractal_family
 FAMILIES["ExtremaFeature"].fn = _extrema_family
 FAMILIES["Imoms2D_feature"].fn = _moments_family("IMOM")
 FAMILIES["Smoms2D_feature"].fn = _moments_family("SMOM")
+FAMILIES["GaborFeature"].fn = _gabor_family
+FAMILIES["ZernikeFeature"].fn = _zernike_family
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K10 against their plain PyTorch versions, and
+"""The port's CUDA kernels K1-K12 against their plain PyTorch versions, and
 the slices in f32 on the card against the port's own f64 CPU run.  Every
 test needs a CUDA device and skips without one.  This file imports neither
 jax nor the JAX package, so it runs on a machine with a card and no jax:
@@ -13,7 +13,10 @@ rounding then differs by more than 1e-6.  K10's power sums (accumulated in
 float64 by both versions) hold rtol 1e-6 (f32 inputs) or 1e-12 (f64) of the
 sum of their terms' absolute values, the size of a sum's rounding when its
 terms are added in another order: a central moment's terms cancel, so its
-own value is no scale."""
+own value is no scale.  K11's counts and baseline extrema are equal in
+both types (both versions add the taps in one order, each operation
+rounded on its own); K12's sums (float64, the same terms in both versions)
+hold 1e-12 of the sum of their terms' absolute values."""
 
 import os
 import sys
@@ -28,7 +31,8 @@ import chip_smoke  # noqa: E402
 from nyxus_tpu_torch import columns, taxonomy  # noqa: E402
 from nyxus_tpu_torch.ops import binary  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
-from nyxus_tpu_torch.ops import common, glcm, glrlm, zones  # noqa: E402
+from nyxus_tpu_torch.ops import common, gabor, glcm, glrlm, zones  # noqa: E402
+from nyxus_tpu_torch.ops import zernike  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -196,6 +200,56 @@ def test_shape_kernels_special_crops(prec, crop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_gabor_zernike_kernels(prec, case):
+    """K11 at the main path's bank, a five-filter bank and (on the main
+    buckets) odd and large kernels, and K12, on a synth bucket."""
+    banks = ["n16", "n10x5"] + (["n9", "n31"] if case in CASES[:2] else [])
+    chip_smoke.gz_kernels_agree(_Agree(),
+                                *chip_smoke.gz_inputs(case, DTYPES[prec]),
+                                banks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("bank", ["n64", "n160"])
+def test_gabor_large_kernels(prec, bank):
+    """Kernels of 64 and 160 taps a side, whose taps (and, at 160 in f64,
+    the input tile) are read from device memory instead of shared memory."""
+    chip_smoke.gz_kernels_agree(
+        _Agree(), *chip_smoke.gz_inputs((3, 7, 13, (7, 13)), DTYPES[prec]),
+        [bank])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("crop", ["blank+flat", "disk256"])
+def test_gabor_zernike_special_crops(prec, crop):
+    """A blank ROI beside a flat-baseline one (its baseline max equals its
+    min), and the 256² disk beside two small ones."""
+    (_, img, hts, wds), = [c for c in chip_smoke.special_gz_cases(
+        DTYPES[prec]) if c[0] == crop]
+    chip_smoke.gz_kernels_agree(_Agree(), img, hts, wds, ["n16", "n9"])
+    if crop == "blank+flat":
+        _, mx, mn = gabor.gabor_counts(img, hts, wds, EngineConfig())
+        assert mx[0] > mn[0] and mx[1] == mn[1] == 0
+
+
+@pytest.mark.cuda
+def test_gabor_zernike_refuse_bad_inputs():
+    img = torch.zeros((2, 16, 16), dtype=torch.int32, device="cuda")
+    hw = torch.full((2,), 16, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        gabor.gabor_counts(img, hw, hw, EngineConfig())
+    with pytest.raises(ValueError):
+        gabor.gabor_counts(img.double(), hw[:1], hw, EngineConfig())
+    v = torch.ones(2, dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError):
+        zernike.zernike_sums(img.double(), v, v, v.float(), v)
+
+
+@pytest.mark.cuda
 def test_shared_memory_limits_raise():
     """K1 keeps its histogram in shared memory and refuses more bins (only
     IBSI-size level sets, which the port refuses earlier, get there)."""
@@ -248,8 +302,8 @@ def test_slice_f32_on_card_against_f64_cpu():
 
 @pytest.mark.cuda
 def test_all_but_gabor_zernike_f32_on_card_against_f64_cpu():
-    """The 713-column request *ALL* -GABOR -ZERNIKE2D: every column within
-    its tier, the pre-collect host columns bit-equal, K1-K10 launched."""
+    """The 747-column request *ALL*: every column within its tier, the
+    pre-collect host columns bit-equal, K1-K12 launched."""
     counters = tuple(chip_smoke.counters().values())
     before = [f.launches for f in counters]
     fset = taxonomy.parse_feature_request(chip_smoke.FEATURES_ALL)

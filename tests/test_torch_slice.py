@@ -2,8 +2,8 @@
 Nyxus.featurize, against the JAX package on the same slide in f64 on the
 CPU, and against the reference binary's own CSV: intensity + the seven 2D
 texture families GLCM, GLRLM, GLDM, NGTDM, GLSZM, GLDZM and NGLDM (337
-columns), and the request *ALL* -GABOR -ZERNIKE2D (713 columns: those plus
-the shape, contour, host-geometry and moment families).
+columns), and the request *ALL* (747 columns: those plus the shape,
+contour, host-geometry, moment, Gabor and Zernike families).
 
 Tolerances against JAX: rtol 1e-9 / atol 1e-12, except the members that go
 through fast_log2 (rtol 5e-7): the JAX runner's jitted fast_log2 is
@@ -39,6 +39,7 @@ from nyxus_tpu.pipeline.runner import PairRunner as JRunner  # noqa: E402
 
 import nyxus_tpu_torch  # noqa: E402
 from nyxus_tpu_torch import columns as tcol  # noqa: E402
+from nyxus_tpu_torch import registry  # noqa: E402
 from nyxus_tpu_torch import taxonomy as ttx  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig as TConfig  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner as TRunner  # noqa: E402
@@ -46,8 +47,8 @@ from nyxus_tpu_torch.pipeline.runner import PairRunner as TRunner  # noqa: E402
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
             "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
 WIDTH = 337
-FEATURES_ALL = ["*ALL*", "-GABOR", "-ZERNIKE2D"]
-WIDTH_ALL = 713
+FEATURES_ALL = ["*ALL*"]
+WIDTH_ALL = 747
 ZERO_BY_CONSTRUCTION = ("CENTRAL_MOMENT_01", "CENTRAL_MOMENT_10",
                         "IMOM_CM_01", "IMOM_CM_10")
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -189,20 +190,25 @@ def test_empty_label_image():
     assert labs.shape == (0,) and values.shape == (0, WIDTH)
 
 
-@pytest.mark.parametrize("features,missing", [
-    (["*ALL*"], "yet: GaborFeature, ZernikeFeature$"),
-    (["ZERNIKE2D"], "yet: ZernikeFeature$"),
-    (["*ALL_INTENSITY*", "GABOR"], "yet: GaborFeature$"),
+@pytest.mark.parametrize("features,parse_kw,missing", [
+    (["*ALL*"], {"ibsi": True}, "yet: IntensityHistogramFeatures$"),
+    (["*ALL_IMQ*"], {"imq": True}, "yet: FocusScoreFeature, "
+     "PowerSpectrumFeature, SaturationFeature, SharpnessFeature$"),
+    (["FOCUS_SCORE"], {"imq": True},
+     "yet: FocusScoreFeature, PowerSpectrumFeature$"),
 ])
-def test_unported_families_raise(features, missing):
+def test_unported_families_raise(features, parse_kw, missing):
+    """Requests whose families the port does not serve yet (IBSI's
+    intensity histogram, the image-quality families) raise, naming them."""
+    fset = ttx.parse_feature_request(features, **parse_kw)
     with pytest.raises(NotImplementedError, match=missing):
-        TRunner(ttx.parse_feature_request(features), TConfig(), device="cpu")
+        registry.families_for(fset)
     with pytest.raises(NotImplementedError, match=missing):
-        nyxus_tpu_torch.Nyxus(features, device="cpu")
+        TRunner(fset, TConfig(), device="cpu")
 
 
 # ---------------------------------------------------------------------------
-# the request *ALL* -GABOR -ZERNIKE2D (713 columns)
+# the request *ALL* (747 columns)
 
 ALL_GROUPS = {
     "textures": lambda c: c.startswith(("GL", "NGTDM", "NGLDM")),
@@ -217,6 +223,7 @@ ALL_GROUPS = {
          "DIAMETER_INSCRIBING", "DIAMETER_CIRCUMSCRIBING", "GEODETIC",
          "THICKNESS", "NUM_NEIGHBORS", "PERCENT_TOUCHING", "CLOSEST_",
          "ANG_BW", "POLYGONALITY", "HEXAGONALITY")),
+    "gabor+zernike": lambda c: c.startswith(("GABOR_", "ZERNIKE2D_")),
 }
 ALL_GROUPS["intensity+shape"] = lambda c: not any(
     g(c) for k, g in ALL_GROUPS.items() if k != "intensity+shape")
@@ -239,7 +246,7 @@ def _compare_all(cols, want, got):
 
 @pytest.fixture(scope="module")
 def all_runs():
-    """The 713-column request on a 160 x 160 slide of 20 ROIs."""
+    """The 747-column request on a 160 x 160 slide of 20 ROIs."""
     intens, labels = make_blobs(160, 160, 20, seed=0)
     cfg = JConfig(precision="f64")
     fset = jtx.parse_feature_request(FEATURES_ALL)
@@ -269,7 +276,7 @@ def test_all_but_gabor_zernike_groups_cover_every_column(all_runs):
 
 
 def test_all_but_gabor_zernike_featurize_frame(all_runs):
-    """Nyxus.featurize: the 713 value columns of the JAX package, in its
+    """Nyxus.featurize: the 747 value columns of the JAX package, in its
     order; NaN becomes noval in both (api._force_finite)."""
     intens, labels = make_blobs(160, 160, 20, seed=0)
     want = nyxus_tpu.Nyxus(FEATURES_ALL, precision="f64").featurize(intens,
@@ -300,7 +307,7 @@ def reference_frames():
 @pytest.mark.parametrize("group", list(ALL_GROUPS))
 def test_all_but_gabor_zernike_against_reference_binary(reference_frames,
                                                         group):
-    """The 713 columns against the reference CLI's *ALL* CSV on
+    """The 747 columns against the reference CLI's *ALL* CSV on
     bench.make_dsb_like(320, 320, 40, seed=11), at
     tests/test_reference_parity.py's tolerances."""
     ref, ours = reference_frames

@@ -45,7 +45,7 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
             ["*ALL_MORPHOLOGY*"], ["*ALL_GLSZM*", "GLDM_SDE"]]
 
 
-@pytest.mark.parametrize("rel", ["config.py", "columns.py",
+@pytest.mark.parametrize("rel", ["config.py", "columns.py", "metaparams.py",
                                  "taxonomy/__init__.py",
                                  "pipeline/batching.py",
                                  "pipeline/hostfeats.py"])
@@ -257,11 +257,10 @@ def test_registry_metadata():
     ported = [n for n, f in treg.FAMILIES.items() if f.ported]
     assert ported == [n for n in jreg.FAMILIES
                       if n not in ("IntensityHistogramFeatures",
-                                   "GaborFeature", "ZernikeFeature",
                                    "FocusScoreFeature",
                                    "PowerSpectrumFeature",
                                    "SaturationFeature", "SharpnessFeature")]
-    assert len(ported) == 28
+    assert len(ported) == 30
 
 
 @pytest.mark.parametrize("features", REQUESTS, ids=lambda f: ",".join(f))
