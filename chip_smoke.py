@@ -7,39 +7,51 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 0. refuse to run without a CUDA device; print the card, its power limit and
    the torch / CUDA versions
-1. build the twelve CUDA kernels from nyxus_tpu_torch/csrc with nvcc
+1. build the sixteen CUDA kernels from nyxus_tpu_torch/csrc with nvcc
    (sm_90a, one nvcc process a source) and, at the same time, the
    host-geometry library from nyxus_tpu_torch/native/src with g++ (no
    libtiff)
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's bucket shapes and beyond (128², 256², a 1024 x 64 bucket;
-   K2 at 256 levels and K3 at 1024-long runs, whose matrices exceed a
-   block's shared memory; checkerboard, uniform and empty crops for the
-   zone and shape kernels; a 256² solid disk whose long erosion runs beside
-   short ones; blank and flat-baseline ROIs and Gabor kernels of 9 to 160
-   taps a side for K11 and K12), f32 and f64 (counts and labels exact,
-   weighted sums within rtol 1e-6 / 1e-12), and time both from a
-   torch.profiler trace
-3. run the request *ALL* (747 columns: intensity, the seven 2D textures,
-   the shape, contour, moment, Gabor and Zernike families) through
-   PairRunner in f32 on the card and in f64 on the CPU, compare per column
-   at the p90 relative error with the tiers of tests/test_tpu_device.py,
-   check that the columns of the host families that read no device result
-   are bit-equal between the two runs, and that every kernel was launched:
-   a 320 x 320 slide, and a slide with one 600 x 40 px ROI (bucket
-   1024 x 64) at 64 and at 256 grey levels, which takes K3's and K2's
-   device-memory paths
+2. hold each kernel against its plain PyTorch version on the card, f32 and
+   f64 (counts, labels and distances exact, weighted sums within rtol 1e-6
+   / 1e-12), and time both from a torch.profiler trace beside CUDA events.
+   2D (K1-K12): the main path's bucket shapes and beyond (128², 256², a
+   1024 x 64 bucket; K2 at 256 levels and K3 at 1024-long runs, whose
+   matrices exceed a block's shared memory; checkerboard, uniform and empty
+   crops for the zone and shape kernels; a 256² solid disk whose long
+   erosion runs beside short ones; blank and flat-baseline ROIs and Gabor
+   kernels of 9 to 160 taps a side for K11 and K12).  3D (K13-K16, K7 on 3D
+   labels, K1's device-memory path): the buckets 8³ to 64³ and a 64 x 256
+   x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
+   GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
+   uniform cubes
+3. run the request *ALL* (747 columns) through PairRunner in f32 on the
+   card and in f64 on the CPU, compare per column at the p90 relative error
+   with the tiers of tests/test_tpu_device.py, check that the columns of
+   the host families that read no device result are bit-equal between the
+   two runs, and that every kernel was launched: a 320 x 320 slide, and a
+   slide with one 600 x 40 px ROI (bucket 1024 x 64) at 64 and at 256 grey
+   levels, which takes K3's and K2's device-memory paths.  Then *3D_ALL*
+   (213 columns) through VolumeRunner the same way, a 3D column taking its
+   2D twin's tier (the name without the leading 3): the reference
+   fixture's volume and a subset of throughput volume 1, at the default
+   configuration (raw levels for GLRLM/GLSZM/GLDM/NGTDM, NGTDM zero) and
+   the binned one (grey depth 64, NGTDM radius 1: K16's window), the
+   surface columns bit-equal, K13-K16 launched
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
    -ZERNIKE2D and the 747-column *ALL*; the first slide of the last is also
-   held against the f64 CPU run
-5. a torch.profiler trace of one warm slide of the 747-column request:
-   device time by kernel, host time of each runner stage
+   held against the f64 CPU run.  Then *3D_ALL* on the two 12-bit volumes
+   make_volume_3d(1..2) (96 x 320 x 320, ~200 nuclei and 3 lesions each)
+   through VolumeRunner.run: ROIs/s, ROI Mvoxels/s, peak device memory
+5. torch.profiler traces of one warm slide of the 747-column request and of
+   one warm volume of *3D_ALL*: device time by kernel, host time of each
+   runner stage (nyx:D3_* for the 3D families)
 
 The last three lines are the card's name and power limit, the kernels'
-JSON line and the result JSON line.  Imports torch, numpy and
-nyxus_tpu_torch only.
+JSON line (K1-K16; the 2D kernels' launches from the timed 747-column
+pass, K13-K16's from the timed 3D pass) and the result JSON line.  Imports
+torch, numpy, scipy and nyxus_tpu_torch only.
 """
 
 import json
@@ -59,6 +71,15 @@ FEATURES_ALL = ["*ALL*"]
 WIDTH_ALL = 747
 FEATURES_713 = ["*ALL*", "-GABOR", "-ZERNIKE2D"]
 WIDTH_713 = 713
+# the 3D path: *3D_ALL* through VolumeRunner
+FEATURES_3D = ["*3D_ALL*"]
+WIDTH_3D = 213
+# the binned 3D configuration of tests/test_texture3d.py:40-42 (grey depth
+# 64 for the four families that keep raw levels by default, and an NGTDM
+# window of radius 1, which the default leaves empty)
+BINNED_3D = dict(d3_glrlm_greydepth=64, d3_glszm_greydepth=64,
+                 d3_gldm_greydepth=64, d3_ngtdm_greydepth=64,
+                 d3_ngtdm_radius=1)
 
 # the card's published peaks (H100 SXM at 700 W):
 # device memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, the
@@ -88,7 +109,8 @@ PREFIX_TOL = {
 }
 # order statistics and histogram modes, skipped by the tiers: an f32
 # bin-edge flip moves one pixel between bins.  Matched on whole tokens of
-# the member name (MEDIAN_ABSOLUTE_DEVIATION, ANG_BW_NEIGHBORS_MODE), a
+# the member name, or of a 3D column's 2D twin (MEDIAN_ABSOLUTE_DEVIATION,
+# ANG_BW_NEIGHBORS_MODE, 3P90), a
 # subset of tests/test_tpu_device.py's substrings, which also skip MINOR_*,
 # *_MIN_* and *_MAX_* members of the shape families
 DISCRETE = ("MODE", "MEDIAN", "P01", "P10", "P25", "P75", "P90", "P99",
@@ -100,11 +122,20 @@ ZERO_BY_CONSTRUCTION = ("CENTRAL_MOMENT_01", "CENTRAL_MOMENT_10",
                         "IMOM_CM_01", "IMOM_CM_10")
 
 
+def twin_2d(col):
+    """A 3D column's 2D twin, whose tier and tokens it takes: the name
+    without its leading 3 (3KURTOSIS -> KURTOSIS, 3MEDIAN -> MEDIAN)."""
+    return col[1:] if col.startswith("3") else col
+
+
 def tol_for(col):
+    """The tier of the longest PREFIX_TOL key that starts the column or its
+    2D twin (the explicit 3GLCM_... keys match the 3D name itself)."""
     best, best_len = DEFAULT_TOL, 0
     for pref, t in PREFIX_TOL.items():
-        if col.startswith(pref) and len(pref) > best_len:
-            best, best_len = t, len(pref)
+        for name in (col, twin_2d(col)):
+            if name.startswith(pref) and len(pref) > best_len:
+                best, best_len = t, len(pref)
     return best
 
 
@@ -117,7 +148,8 @@ def compare_tiers(cols, dev, ref):
         both = np.isfinite(a) & np.isfinite(b)
         if both.sum() == 0:
             continue
-        if set(c.split("_")) & set(DISCRETE) or c in ZERO_BY_CONSTRUCTION:
+        if set(twin_2d(c).split("_")) & set(DISCRETE) \
+                or c in ZERO_BY_CONSTRUCTION:
             continue
         rel = np.abs(a[both] - b[both]) / np.maximum(np.abs(b[both]), 1e-4)
         p90 = float(np.quantile(rel, 0.9))
@@ -172,6 +204,23 @@ def make_long_roi_slide(seed=3):
     labels[roi] = labels.max() + 1
     intens[roi] = np.clip(3000 + 800 * np.sin(yy[roi] / 7.0)
                           + r.normal(0, 300, roi.sum()), 1, 65535)
+    return intens, labels
+
+
+def blob3d(seed=4, shape=(48, 56, 60)):
+    """The reference fixture's volume pair (tests/test_oversized._blob3d,
+    copied: the script cannot import the tests; pinned equal by
+    tests/test_torch_3d.py): uniform intensities 1..899, one ellipsoid ROI
+    (label 3) and a 4^3 cube (label 1)."""
+    r = np.random.default_rng(seed)
+    D, H, W = shape
+    intens = r.integers(1, 900, shape).astype(np.uint16)
+    labels = np.zeros(shape, np.int32)
+    zz, yy, xx = np.mgrid[0:D, 0:H, 0:W]
+    blob = (((zz - D / 2) / (D * 0.42)) ** 2 + ((yy - H / 2) / (H * 0.42)) ** 2
+            + ((xx - W / 2) / (W * 0.42)) ** 2) <= 1.0
+    labels[blob] = 3
+    labels[2:6, 2:6, 2:6] = 1     # small trivial ROI
     return intens, labels
 
 
@@ -264,19 +313,23 @@ TEXTURE_KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "stencil8",
                    "zone_dag", "zone_cc4", "zone_stats")
 SHAPE_KERNELS = ("erosion", "binary_quads", "power_sums")
 GZ_KERNELS = ("gabor", "zernike")
-KERNELS = TEXTURE_KERNELS + SHAPE_KERNELS + GZ_KERNELS
+KERNELS_2D = TEXTURE_KERNELS + SHAPE_KERNELS + GZ_KERNELS
+KERNELS_3D = ("glcm3d_cooc", "glrlm3d_runs", "cc3d", "stencil3d")
+KERNELS = KERNELS_2D + KERNELS_3D
 
 
 def counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm,
-                                     moments, zernike, zones)
+                                     moments, texture3d, zernike, zones)
     return dict(zip(KERNELS, (common.batched_hist, glcm.cooc_matrices,
                               glrlm.run_matrices, common.stencil8,
                               zones.zone_labels, zones.zone_cc4,
                               zones.zone_list, binary.erosion_counts,
                               binary.binary_quads, moments.power_sums,
-                              gabor.gabor_counts, zernike.zernike_sums)))
+                              gabor.gabor_counts, zernike.zernike_sums,
+                              texture3d.glcm3d_cooc, texture3d.glrlm3d_runs,
+                              texture3d.cc3d, texture3d.stencil3d)))
 
 
 def zone_cases(case, dtype, seed=0):
@@ -587,7 +640,7 @@ def check_kernels():
     from nyxus_tpu_torch.config import EngineConfig
     from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm,
                                      moments, zernike, zones)
-    res = {k: {"max_abs_err": 0.0} for k in KERNELS}
+    res = {k: {"max_abs_err": 0.0} for k in KERNELS_2D}
 
     def agree(name, got, want, rtol=0.0, scale=None):
         if got.shape != want.shape:
@@ -808,6 +861,303 @@ def check_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 2, 3D: K13-K16 and K1's device-memory path
+
+
+# (B, D, H, W) batches of the 3D buckets 8^3 to 64^3 and a 64 x 256 x 256
+# crop; the 32^3 batch is where the kernels are timed
+CUBES = ((64, 8, 8, 8), (32, 16, 16, 16), (8, 32, 32, 32), (2, 64, 64, 64),
+         (1, 64, 256, 256))
+MAIN_CUBE = (8, 32, 32, 32)
+RAW_NG = 4096   # the matrix size of raw 12-bit levels (GLRLM/GLSZM/GLDM)
+
+
+def synth_cube(B, D, H, W, seed, dtype, kind="blob"):
+    """A padded 3D bucket of B ellipsoid ROIs with ~3% holes, the first
+    filling its D x H x W cube and the others AABBs of random sizes:
+    (masked 12-bit intensities, MATLAB levels at 64, raw levels, the AABB
+    mask, depths, heights, widths).  kind "empty": no ROI voxel; "uniform":
+    every AABB voxel a ROI voxel of intensity 1000."""
+    import torch
+    from nyxus_tpu_torch.ops import quant, texture3d
+    r = np.random.default_rng(seed)
+    dims = np.stack([r.integers(max(1, n // 2), n + 1, B) for n in (D, H, W)],
+                    axis=1)
+    dims[0] = (D, H, W)
+    zz, yy, xx = np.ogrid[0:D, 0:H, 0:W]
+    roi = np.zeros((B, D, H, W), bool)
+    for b, (d, h, w) in enumerate(dims):
+        inside = (zz < d) & (yy < h) & (xx < w)
+        if kind == "uniform":
+            roi[b] = inside
+            continue
+        roi[b] = inside & ((((zz - (d - 1) / 2) / (d / 2)) ** 2
+                            + ((yy - (h - 1) / 2) / (h / 2)) ** 2
+                            + ((xx - (w - 1) / 2) / (w / 2)) ** 2) <= 1.0)
+    if kind == "blob":
+        roi &= r.random(roi.shape) < 0.97
+    elif kind == "empty":
+        roi[:] = False
+    intens = np.floor(r.normal(2000, 500, roi.shape)).clip(1, 4095)
+    if kind == "uniform":
+        intens[:] = 1000.0
+    orig = torch.from_numpy(np.where(roi, intens, 0)).to(dtype).cuda()
+    vmax = orig.reshape(B, -1).amax(dim=1).clamp(min=1)[:, None, None, None]
+    lev = quant.bin_levels(orig, vmax, vmax, 64)
+    dd, hh, ww = (torch.from_numpy(dims[:, k].astype(np.int32)).cuda()
+                  for k in range(3))
+    aabb = texture3d._in_aabb3d((D, H, W), dd, hh, ww)
+    return orig, lev, orig.to(torch.int32), aabb, dd, hh, ww
+
+
+def kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=False):
+    """K13-K16, K7 on the 3D labels and K1 against their plain versions on
+    one synth_cube, with the inputs the 3D families hand them: K13 at 64
+    levels (offsets 1 and 2, with and without the transpose) and, with
+    ``big_glcm``, at 4096 raw levels (device memory); K14 at 64 levels and
+    at 4096 raw levels (device memory); K15 with both connectivities on
+    GLSZM's and GLDZM's inputs at both level sets; K16 with the GLDM (N26)
+    and NGLDM (N24) tables and NGTDM windows of radius 1 and 2; K1 on
+    GLDM's 4096 x 27 cells (device memory) with 0/1 weights and float
+    weights (within ``rtol``, or within the rounding bound of a sum taken
+    in another order where a cell sums many terms), and at 64 bins with
+    0/1 weights and dyadic weights (multiples of 1/4: a bin's sum, below
+    2^22 even at the 64 x 256 x 256 crop, is exact in either type, so that
+    rows of many chunks must agree exactly whatever the atomics' order)."""
+    import torch
+    from nyxus_tpu_torch.ops import common, texture3d as t3, zones
+    orig, lev, raw, aabb, dd, hh, ww = cube
+    B = lev.shape[0]
+    nr = max(lev.shape[1:])
+    for o, sym, ibsi in ((1, False, False), (2, True, False)):
+        agree("glcm3d_cooc",
+              t3.glcm3d_cooc(lev, dd, hh, ww, o, 64, sym, ibsi, dtype),
+              t3.glcm3d_cooc_plain(lev, dd, hh, ww, o, 64, sym, ibsi, dtype))
+    if big_glcm:
+        one = (raw[:1], dd[:1], hh[:1], ww[:1])
+        agree("glcm3d_cooc",
+              t3.glcm3d_cooc(*one, 1, RAW_NG, True, True, dtype),
+              t3.glcm3d_cooc_plain(*one, 1, RAW_NG, True, True, dtype))
+    rvalid = aabb & (raw > 0)
+    for lv, valid, ng in ((lev, aabb, 64), (raw, rvalid, RAW_NG)):
+        agree("glrlm3d_runs", t3.glrlm3d_runs(lv, valid, ng, nr, dtype),
+              t3.glrlm3d_runs_plain(lv, valid, ng, nr, dtype))
+    for lv, zero_i, gvalid in ((lev, 1, aabb), (raw, 0, rvalid)):
+        sv = aabb & (lv != zero_i)
+        slev = torch.where(sv, lv, -1)
+        dlev = torch.where(aabb, lv, 0)
+        for inp, valid, conn in ((slev, sv, 26), (dlev, gvalid, 6)):
+            got = t3.cc3d(inp, valid, conn, hh, ww)
+            want = t3.cc3d_plain(inp, valid, conn, hh, ww)
+            for g, w in zip(got, want):
+                if w is not None:
+                    agree("cc3d", g, w)
+            d = want[1]
+            for g, w in zip(zones.zone_list(want[0], inp, valid, d),
+                            zones.zone_list_plain(want[0], inp, valid, d)):
+                if w is not None:
+                    agree("zone_stats", g, w)
+    glev = torch.where(aabb, raw, -9)
+    for lv, table in ((glev, t3.N26), (lev, t3.N24_NGLDM)):
+        agree("stencil3d", t3.stencil3d(lv, aabb, table),
+              t3.stencil3d_plain(lv, aabb, table))
+    nlev = torch.where(aabb, lev, 0)
+    for radius in (1, 2):
+        for g, w in zip(t3.stencil3d(nlev, aabb, radius=radius),
+                        t3.stencil3d_plain(nlev, aabb, radius=radius)):
+            agree("stencil3d", g, w)
+    same = t3.stencil3d_plain(glev, aabb, t3.N26)
+    cells = common._composite((raw - 1).reshape(B, -1), same.reshape(B, -1),
+                              RAW_NG, 27)
+    ones = aabb.reshape(B, -1).to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(B)
+    wts = torch.rand(ones.shape, generator=g, device="cuda", dtype=dtype)
+    dyadic = torch.floor(wts * 4) / 4 * ones
+    flat = (lev - 1).reshape(B, -1)
+    for idx, w, nb in ((cells, ones, RAW_NG * 27), (flat, ones, 64),
+                       (flat, dyadic, 64)):
+        agree("batched_hist", common.batched_hist(idx, w, nb),
+              common.batched_hist_plain(idx, w, nb))
+    # float weights: within rtol, or where a cell sums many terms (a uniform
+    # cube's few cells, the crop's) within the rounding of a sum of n
+    # non-negative terms taken in another order, 2 n u sum(w) (u the type's
+    # unit roundoff)
+    nb = RAW_NG * 27
+    want = common.batched_hist_plain(cells, wts * ones, nb)
+    n = common.batched_hist_plain(cells, ones.double(), nb)
+    total = common.batched_hist_plain(cells, (wts * ones).double(), nb)
+    unit = torch.finfo(dtype).eps / 2
+    agree("batched_hist", common.batched_hist(cells, wts * ones, nb), want,
+          scale=torch.maximum(rtol * want.abs().double(),
+                              2 * n * unit * total))
+
+
+def bounds_3d(cube, ng_glcm=64, ng_runs=RAW_NG):
+    """(bytes, operations) K13-K16 must move and do on one synth_cube at the
+    timed arguments (the main path's: GLCM at 64 levels, runs at raw 12-bit
+    levels, GLSZM's 26-connected labels, GLDM's 26-shift table), each input
+    read once and each output written once (int32 levels, labels and
+    counts, 1-byte masks, float32 matrices).  Operations: K13 one count a
+    pair with both ends in the AABB, K14 one compare a voxel and direction,
+    K15 one compare a voxel and forward neighbour (13), K16 one compare a
+    voxel and shift (26)."""
+    _, lev, _, aabb, dd, hh, ww = cube
+    B, D, H, W = lev.shape
+    A = B * D * H * W
+    from nyxus_tpu_torch.ops import texture3d as t3
+    d, h, w = (t.double() for t in (dd, hh, ww))
+    pairs = 0.0
+    for dx, dy, dz in t3.GLCM_SHIFTS:
+        pairs += float(((d - abs(dz)).clamp(min=0) * (h - abs(dy)).clamp(min=0)
+                        * (w - abs(dx)).clamp(min=0)).sum())
+    return {
+        "glcm3d_cooc": (A * 4 + 12 * B + B * 13 * ng_glcm ** 2 * 4, pairs),
+        "glrlm3d_runs": (A * 5 + B * 13 * ng_runs * max(D, H, W) * 4, 13 * A),
+        "cc3d": (A * 5 + A * 4, 13 * A),
+        "stencil3d": (A * 5 + A * 4, 26 * A),
+    }
+
+
+def check_kernels_3d():
+    """K13-K16 and K1's device-memory path against their plain versions on
+    the card, then their times at MAIN_CUBE (and at 64^3 and the 64 x 256 x
+    256 crop, printed only); returns per-kernel results."""
+    import torch
+    from nyxus_tpu_torch.ops import common, texture3d as t3
+    res = {k: {"max_abs_err": 0.0} for k in KERNELS_3D + ("batched_hist",
+                                                          "zone_stats")}
+
+    def agree(name, got, want, scale=None):
+        """Equal, or within ``scale`` (a per-element bound) when given."""
+        if got.shape != want.shape:
+            raise AssertionError("%s: shape %s != %s" % (name, got.shape,
+                                                          want.shape))
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max()) if got.numel() else 0.0
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        if scale is None:
+            if not torch.equal(got, want):
+                raise AssertionError("%s: counts differ (max abs %g)"
+                                     % (name, err))
+        elif not bool((diff <= scale).all()):
+            raise AssertionError("%s: beyond its bound (max abs %g)"
+                                 % (name, err))
+
+    for prec, dtype, rtol in (("f32", torch.float32, 1e-6),
+                              ("f64", torch.float64, 1e-12)):
+        for ci, (B, D, H, W) in enumerate(CUBES):
+            cube = synth_cube(B, D, H, W, 20 + ci, dtype)
+            kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=D <= 16)
+            log("  %s B=%d %dx%dx%d: K13-K16, K7 and K1 agree (K13 at 64%s "
+                "levels, K14 at 64 and %d)" % (
+                    prec, B, D, H, W, " and %d" % RAW_NG if D <= 16 else "",
+                    RAW_NG))
+        for kind in ("empty", "uniform"):
+            cube = synth_cube(4, 16, 16, 16, 30, dtype, kind)
+            kernels_3d_agree(agree, cube, dtype, rtol)
+            raw_valid = cube[3] & (cube[2] > 0)     # raw levels' zones
+            n = int((t3.cc3d(torch.where(raw_valid, cube[2], -1), raw_valid,
+                             26)[0].reshape(4, -1)
+                     == torch.arange(16 ** 3, device="cuda")).sum())
+            if n != (0 if kind == "empty" else 4):
+                raise AssertionError("cc3d: %d zones in the %s cubes" % (n,
+                                                                         kind))
+        log("  %s: empty and uniform 16^3 cubes agree (0 and 4 zones)" % prec)
+
+    for cube_shape in (MAIN_CUBE, (2, 64, 64, 64), (1, 64, 256, 256)):
+        cube = synth_cube(*cube_shape, 0, torch.float32)
+        orig, lev, raw, aabb, dd, hh, ww = cube
+        rvalid = aabb & (raw > 0)
+        nr = max(lev.shape[1:])
+        sv = aabb & (raw != 0)
+        slev = torch.where(sv, raw, -1)
+        glev = torch.where(aabb, raw, -9)
+        f32 = torch.float32
+        pairs = {
+            "glcm3d_cooc": (
+                lambda: t3.glcm3d_cooc(lev, dd, hh, ww, 1, 64, False, False,
+                                       f32),
+                lambda: t3.glcm3d_cooc_plain(lev, dd, hh, ww, 1, 64, False,
+                                             False, f32)),
+            "glrlm3d_runs": (
+                lambda: t3.glrlm3d_runs(raw, rvalid, RAW_NG, nr, f32),
+                lambda: t3.glrlm3d_runs_plain(raw, rvalid, RAW_NG, nr, f32)),
+            "cc3d": (lambda: t3.cc3d(slev, sv, 26),
+                     lambda: t3.cc3d_plain(slev, sv, 26)),
+            "stencil3d": (lambda: t3.stencil3d(glev, aabb, t3.N26),
+                          lambda: t3.stencil3d_plain(glev, aabb, t3.N26)),
+        }
+        main = cube_shape == MAIN_CUBE
+        iters = 20 if main else 3
+        bnd = bounds_3d(cube)
+        for name, (kern, plain) in pairs.items():
+            p1, k1, k2, p2 = (timed(f, iters) for f in (plain, kern, kern,
+                                                        plain))
+            ev, ms = (k1[0] + k2[0]) / 2, (k1[1] + k2[1]) / 2
+            pev, plain_ms = (p1[0] + p2[0]) / 2, (p1[1] + p2[1]) / 2
+            nbytes, ops = bnd[name]
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+            log("  time %-12s f32 B=%d %dx%dx%d: device %.4f ms (events "
+                "%.4f ms) vs plain device %.4f ms (events %.4f ms); bound "
+                "%.5f ms" % ((name,) + cube_shape + (ms, ev, plain_ms, pev,
+                                                     max(bytes_ms, ops_ms))))
+            if main:
+                res[name].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    library_ms=None)
+        # K1's device-memory path at GLDM's raw 4096 x 27 cells
+        B = lev.shape[0]
+        same = t3.stencil3d(glev, aabb, t3.N26)
+        cells = common._composite((raw - 1).reshape(B, -1),
+                                  same.reshape(B, -1), RAW_NG, 27)
+        ones = aabb.reshape(B, -1).to(f32)
+        k = timed(lambda: common.batched_hist(cells, ones, RAW_NG * 27),
+                  iters)
+        p = timed(lambda: common.batched_hist_plain(cells, ones, RAW_NG * 27),
+                  iters)
+        log("  time batched_hist device-memory path %d x 27 cells, B=%d "
+            "%dx%dx%d: device %.4f ms (events %.4f ms) vs plain device %.4f "
+            "ms; bound %.5f ms" % ((RAW_NG, B) + cube_shape[1:] + (
+                k[1], k[0], p[1], (B * lev[0].numel() * 8
+                                   + B * RAW_NG * 27 * 4) / HBM_BYTES_S * 1e3)))
+    return res
+
+
+def make_volume_3d(seed, shape=(96, 320, 320), n_nuclei=200, n_lesions=3):
+    """A 12-bit radiomics-like volume pair: a noisy background (intensities
+    1..4095) with ~``n_nuclei`` nucleus-like ellipsoids (semi-axes 3-10
+    voxels: buckets 8^3 to 32^3) and ``n_lesions`` lesion-like ones
+    (semi-axes 14-30: buckets 32^3 to 64^3), each with its own base
+    intensity and texture; made per object in a window around it, with
+    numpy from ``seed`` (as make_dsb_like makes its slides)."""
+    r = np.random.default_rng(seed)
+    D, H, W = shape
+    labels = np.zeros(shape, np.int32)
+    intens = r.normal(300, 60, shape).clip(1, 4095)
+    lab = 1
+    specs = [(14, 30)] * n_lesions + [(3, 10)] * n_nuclei
+    for lo, hi in specs:
+        rz, ry, rx = r.uniform(lo, hi, 3)
+        c = [r.uniform(rad + 1, n - rad - 1) for rad, n in
+             ((rz, D), (ry, H), (rx, W))]
+        sl = tuple(slice(max(0, int(ci - rad) - 1), min(n, int(ci + rad) + 2))
+                   for ci, rad, n in zip(c, (rz, ry, rx), (D, H, W)))
+        zz, yy, xx = np.mgrid[sl]
+        m = ((((zz - c[0]) / rz) ** 2 + ((yy - c[1]) / ry) ** 2
+              + ((xx - c[2]) / rx) ** 2) <= 1.0) & (labels[sl] == 0)
+        if m.sum() < 30:
+            continue
+        base = r.uniform(600, 3800)
+        win_i = intens[sl]
+        win_i[m] = np.clip(base + r.normal(0, base * 0.15, m.sum())
+                           + base * 0.1 * np.sin(zz[m] / 2.3), 1, 4095)
+        labels[sl][m] = lab
+        lab += 1
+    return np.floor(intens).astype(np.uint16), labels
+
+
+# ---------------------------------------------------------------------------
 # phase 3 and 4: the request end to end
 
 
@@ -863,6 +1213,164 @@ def check_output(what, cols, labs, dev, labs64, ref):
     return worst
 
 
+def surface_columns(slots):
+    """Value columns of D3_SurfaceFeature: numpy and scipy on the host over
+    the same voxels, reading no device result, so bit-equal between the
+    card and the CPU run."""
+    from nyxus_tpu_torch import taxonomy
+    codes = set(taxonomy.CLASS_FEATURES["D3_SurfaceFeature"])
+    out, off = [], 0
+    for code, width in slots:
+        if code in codes:
+            out.extend(range(off, off + width))
+        off += width
+    if not out:
+        raise AssertionError("no surface columns")
+    return np.asarray(out)
+
+
+def subset_3d(labels, step=10):
+    """The labels of the f64 CPU reference on a throughput volume: the
+    lesions (labels 1-3, made first) and every ``step``-th nucleus; the
+    others are zeroed, which leaves every kept ROI's values as they are
+    (the slide range and the raw levels' matrix size come from the
+    intensities)."""
+    keep = [l for l in np.unique(labels) if l and (l <= 3 or l % step == 0)]
+    return np.where(np.isin(labels, keep), labels, 0), keep
+
+
+def check_3d(kern):
+    """Phase 3, 3D: *3D_ALL* in f32 on the card against f64 on the CPU, at
+    the default and the binned configuration, on the fixture volume and on
+    a subset of throughput volume 1; every column within its tier, the
+    surface columns bit-equal, and K13-K16 launched."""
+    from nyxus_tpu_torch import columns, taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+    fset = taxonomy.parse_feature_request(FEATURES_3D, dim=3)
+    hdr, slots = columns.build_header(fset, EngineConfig())
+    cols = hdr[4:]
+    if len(cols) != WIDTH_3D:
+        raise AssertionError("3D width %d != %d" % (len(cols), WIDTH_3D))
+    surf = surface_columns(slots)
+    fi, fl = blob3d(seed=4, shape=(48, 56, 60))
+    fixture = ((fi % 59 + 1).astype(np.uint16), fl)
+    vol = make_volume_3d(1)
+    sub_labels, keep = subset_3d(vol[1])
+    seen = {k: 0 for k in KERNELS_3D}
+    for what, (intens, labels), ref_labels, kw in (
+            ("fixture volume", fixture, fixture[1], {}),
+            ("fixture volume, binned", fixture, fixture[1], BINNED_3D),
+            ("volume 1 (%d of its ROIs on the CPU)" % len(keep), vol,
+             sub_labels, {}),
+            ("volume 1, binned (%d of its ROIs on the CPU)" % len(keep), vol,
+             sub_labels, BINNED_3D)):
+        for f in kern.values():
+            f.launches = 0
+        labs, dev = VolumeRunner(fset, EngineConfig(precision="f32", **kw),
+                                 "cuda").run(intens, labels)
+        launches = {k: kern[k].launches for k in KERNELS_3D + (
+            "batched_hist", "zone_stats")}
+        for k in KERNELS_3D:
+            seen[k] += launches[k]
+        labs64, ref = VolumeRunner(fset, EngineConfig(precision="f64", **kw),
+                                   "cpu").run(intens, ref_labels)
+        rows = np.searchsorted(labs, labs64)
+        worst = check_output(what, cols, labs[rows], dev[rows], labs64, ref)
+        if not np.array_equal(dev[rows][:, surf].view(np.uint64),
+                              ref[:, surf].view(np.uint64)):
+            raise AssertionError("%s: the surface columns differ between "
+                                 "the card and the CPU run" % what)
+        log("  %s: %d ROIs x %d columns agree, the %d surface columns bit "
+            "for bit; closest to its tier: %s; launches %s"
+            % (what, len(labs64), len(cols), len(surf), worst, launches))
+    if not all(seen.values()):
+        raise AssertionError("3D: a kernel was not launched: %r" % seen)
+
+
+def throughput_3d(kern):
+    """Phase 4, 3D: two make_volume_3d volumes through VolumeRunner at the
+    default configuration, one untimed pass then one timed pass; returns
+    (runner, volumes, the timed pass's launches)."""
+    import torch
+    from nyxus_tpu_torch import taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+    t0 = time.perf_counter()
+    vols = [make_volume_3d(s) for s in (1, 2)]
+    log("  volumes generated in %.1f s" % (time.perf_counter() - t0))
+    runner = VolumeRunner(taxonomy.parse_feature_request(FEATURES_3D, dim=3),
+                          EngineConfig(precision="f32"), "cuda")
+    for intens, labels in vols:                         # untimed pass
+        runner.run(intens, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kern.values():
+        f.launches = 0
+    n_rois, outs = 0, []
+    t0 = time.perf_counter()
+    for intens, labels in vols:
+        labs, vals = runner.run(intens, labels)
+        n_rois += len(labs)
+        outs.append((labs, vals))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    voxels = sum(int(np.count_nonzero(labels)) for _, labels in vols)
+    log("  *3D_ALL* (213 columns) on 2 volumes of 96 x 320 x 320: %d ROIs "
+        "(%d ROI voxels) in %.4f s: %.2f ROIs/s, %.3f ROI Mvoxels/s; peak "
+        "device memory %d bytes (%.1f MiB); launches %s"
+        % (n_rois, voxels, wall, n_rois / wall, voxels / wall / 1e6, peak,
+           peak / 2 ** 20, launches))
+    if not all(launches[k] for k in KERNELS_3D + ("batched_hist",
+                                                  "zone_stats")):
+        raise AssertionError("3D throughput: a kernel was not launched: %r"
+                             % launches)
+    for labs, vals in outs:
+        if vals.shape != (len(labs), WIDTH_3D):
+            raise AssertionError("3D throughput: bad output %s" % (
+                vals.shape,))
+    return runner, vols, launches
+
+
+def profile_report(what, run, stage_prefix="nyx:"):
+    """Profile one warm run: wall, device busy share, the top device
+    kernels, and the host ms (and card span) of each nyx:* runner stage."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for name, us in device_events(prof):
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + us, cnt + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    log("  %s: wall %.2f ms (profiled), device busy %.2f ms (%.1f%%) in %d "
+        "kernel/copy launches of %d names"
+        % (what, pwall, busy, 100 * busy / pwall,
+           sum(c for _, c in by_name.values()), len(by_name)))
+    for name, (tot, cnt) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+        log("    %8.3f ms %5d x  %s" % (tot / 1e3, cnt, name[:100]))
+    stages = {}
+    for e in prof.events():
+        if e.name.startswith(stage_prefix):
+            on_host = e.device_type != DeviceType.CUDA
+            st = stages.setdefault(e.name, [0.0, 0.0])
+            st[0 if on_host else 1] += e.time_range.elapsed_us() / 1e3
+    log("  runner stages (nyx:* ranges): host ms, and the span on the card "
+        "from their first to their last kernel")
+    for name, (host_ms, span_ms) in stages.items():
+        log("    %-58s host %8.2f ms   card span %8.2f ms"
+            % (name, host_ms, span_ms))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -899,9 +1407,10 @@ def main():
         builds = [ex.submit(_build.lib), ex.submit(native.available)]
         for b in builds:
             b.result()
-    log("phase 1: kernels and host library built in %.1f s (nvcc %.1f s "
-        "into %s; g++ %.1f s into %s)"
-        % (time.perf_counter() - t0, _build.build_seconds or 0.0,
+    log("phase 1: the %d kernel sources and the host library built in "
+        "%.1f s (nvcc %.1f s into %s; g++ %.1f s into %s)"
+        % (len(_build.SOURCES), time.perf_counter() - t0,
+           _build.build_seconds or 0.0,
            _build.LIB_PATH, native.build_seconds or 0.0, native.LIB_PATH))
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
@@ -914,6 +1423,14 @@ def main():
     # phase 2
     log_phase("phase 2: kernels against their plain versions")
     kres = check_kernels()
+    log_phase("phase 2, 3D: K13-K16 and K1's device-memory path against "
+              "their plain versions")
+    for k, v in check_kernels_3d().items():
+        if k in kres:
+            kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"],
+                                         v["max_abs_err"])
+        else:
+            kres[k] = v
 
     # phase 3
     log_phase("phase 3: %s on the card (f32) against the CPU (f64)"
@@ -952,7 +1469,7 @@ def main():
         for f in kern.values():
             f.launches = 0
         labs, dev = dev_runner.run(intens, labels)
-        small_launches = {k: f.launches for k, f in kern.items()}
+        small_launches = {k: kern[k].launches for k in KERNELS_2D}
         labs64, ref = ref_runner.run(intens, labels)
         worst = check_output(what, dcols, labs, dev, labs64, ref)
         if not np.array_equal(dev[:, host_cols].view(np.uint64),
@@ -973,6 +1490,10 @@ def main():
             raise AssertionError("%s: a kernel was not launched: %r"
                                  % (what, small_launches))
 
+    log_phase("phase 3, 3D: %s on the card (f32) against the CPU (f64)"
+              % " ".join(FEATURES_3D))
+    check_3d(kern)
+
     # phase 4
     log_phase("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, "
               "300)")
@@ -987,7 +1508,7 @@ def main():
             ("337-column texture slice", tex_runner, WIDTH, TEXTURE_KERNELS),
             ("713-column request", runner_713, WIDTH_713,
              TEXTURE_KERNELS + SHAPE_KERNELS),
-            ("747-column request", card_runner, WIDTH_ALL, KERNELS)):
+            ("747-column request", card_runner, WIDTH_ALL, KERNELS_2D)):
         for intens, labels in slides:                     # untimed pass
             runner.run(intens, labels)
         torch.cuda.synchronize()
@@ -1020,44 +1541,20 @@ def main():
     log("  slide 7 (%d ROIs) of the 747-column request agrees with the f64 "
         "CPU run; closest to its tier: %s" % (len(labs64), worst))
 
+    log_phase("phase 4, 3D: throughput on 2 volumes make_volume_3d(1..2)")
+    runner_3d, vols, launches_3d = throughput_3d(kern)
+
     # phase 5
     log_phase("phase 5: profile of one warm slide of the 747-column request")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        card_runner.run(*slides[1])
-        torch.cuda.synchronize()
-        pwall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for name, us in device_events(prof):
-        tot, cnt = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + us, cnt + 1)
-    busy = sum(t for t, _ in by_name.values()) / 1e3
-    log("  wall %.2f ms (profiled), device busy %.2f ms (%.1f%%) in %d "
-        "kernel/copy launches of %d names"
-        % (pwall, busy, 100 * busy / pwall,
-           sum(c for _, c in by_name.values()), len(by_name)))
-    for name, (tot, cnt) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][0])[:12]:
-        log("    %8.3f ms %5d x  %s" % (tot / 1e3, cnt, name[:100]))
-    from torch.autograd import DeviceType
-    stages = {}
-    for e in prof.events():
-        if e.name.startswith("nyx:"):
-            on_host = e.device_type != DeviceType.CUDA
-            st = stages.setdefault(e.name, [0.0, 0.0])
-            st[0 if on_host else 1] += e.time_range.elapsed_us() / 1e3
-    log("  runner stages (nyx:* ranges): host ms, and the span on the card "
-        "from their first to their last kernel")
-    for name, (host_ms, span_ms) in stages.items():
-        log("    %-58s host %8.2f ms   card span %8.2f ms"
-            % (name, host_ms, span_ms))
+    profile_report("slide 8 of the 747-column request",
+                   lambda: card_runner.run(*slides[1]))
     t0 = time.perf_counter()
     for intens, labels in slides:
         plabels._discover_rois_np(intens, labels)
     log("  host ROI discovery: %.2f ms a slide (of %.2f ms a slide end to end)"
         % ((time.perf_counter() - t0) * 1e3 / len(slides), wall * 1e3 / len(slides)))
+    log_phase("phase 5, 3D: profile of one warm volume of *3D_ALL*")
+    profile_report("volume 1 of *3D_ALL*", lambda: runner_3d.run(*vols[0]))
 
     src = {"batched_hist": ("nyxus_tpu_torch/csrc/batched_hist.cu",
                             "nyxus_tpu/ops/common.py:19"),
@@ -1082,7 +1579,18 @@ def main():
            "gabor": ("nyxus_tpu_torch/csrc/gabor.cu",
                      "nyxus_tpu/ops/gabor.py:49"),
            "zernike": ("nyxus_tpu_torch/csrc/zernike.cu",
-                       "nyxus_tpu/ops/zernike.py:38")}
+                       "nyxus_tpu/ops/zernike.py:38"),
+           "glcm3d_cooc": ("nyxus_tpu_torch/csrc/glcm3d_cooc.cu",
+                           "nyxus_tpu/ops/texture3d.py:81"),
+           "glrlm3d_runs": ("nyxus_tpu_torch/csrc/glrlm3d_runs.cu",
+                            "nyxus_tpu/ops/texture3d.py:134"),
+           "cc3d": ("nyxus_tpu_torch/csrc/cc3d.cu",
+                    "nyxus_tpu/ops/texture3d.py:173"),
+           "stencil3d": ("nyxus_tpu_torch/csrc/stencil3d.cu",
+                         "nyxus_tpu/ops/texture3d.py:350")}
+    # launches: the 2D kernels' in the timed pass of the 747-column request,
+    # K13-K16's in the timed pass of *3D_ALL*
+    launches.update({k: launches_3d[k] for k in KERNELS_3D})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict({"name": k, "route": "cuda", "source": src[k][0],

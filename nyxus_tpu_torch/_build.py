@@ -30,7 +30,8 @@ SRC_DIR = os.path.join(_DIR, "csrc")
 LIB_PATH = os.path.join(_DIR, "_build", "libnyxcuda.so")
 SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu", "stencil8.cu",
            "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu", "erosion.cu",
-           "binary_quads.cu", "power_sums.cu", "gabor.cu", "zernike.cu")
+           "binary_quads.cu", "power_sums.cu", "gabor.cu", "zernike.cu",
+           "glcm3d_cooc.cu", "glrlm3d_runs.cu", "cc3d.cu", "stencil3d.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -38,10 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# entry point -> argtypes (pointers and the stream as c_void_p, ints as
-# c_int, doubles as c_double)
+# entry point -> argtypes (pointers, host int tables and the stream as
+# c_void_p, ints as c_int, doubles as c_double)
 _SIGNATURES = {
-    "nyx_batched_hist": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "nyx_batched_hist": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nyx_glcm_cooc": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8
     + [_I, _I, _P],
     "nyx_glrlm_runs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "nyx_power_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nyx_gabor": [_P] * 8 + [_I] * 5 + [_D, _I, _P],
     "nyx_zernike": [_P] * 7 + [_I] * 5 + [_P],
+    "nyx_glcm3d_cooc": [_P] * 5 + [_I] * 8 + [_P],
+    "nyx_glrlm3d_runs": [_P] * 5 + [_I] * 8 + [_P],
+    "nyx_cc3d": [_P] * 6 + [_I] * 5 + [_P],
+    "nyx_stencil3d": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

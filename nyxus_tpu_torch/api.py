@@ -1,5 +1,6 @@
-"""Public Python API: ``Nyxus`` for in-memory 2D pairs (PyTorch port of
-nyxus_tpu/api.py: the ``featurize`` path and the parameter surface).
+"""Public Python API: ``Nyxus`` for in-memory 2D pairs and ``Nyxus3D`` for
+in-memory 3D volume pairs (PyTorch port of nyxus_tpu/api.py: the
+``featurize`` paths and the parameter surface).
 
 Mirrors the reference's Python surface (reference:
 src/nyx/python/nyxus/nyxus.py:29-909).  ``pandas`` is imported only where a
@@ -245,3 +246,115 @@ class Nyxus:
         for j, cname in enumerate(self.header[4:]):
             data[cname] = values[:, j]
         return pd.DataFrame(data)
+
+
+class Nyxus3D:
+    """3D feature extractor over in-memory [Z, Y, X] voxel arrays (reference:
+    nyxus.py:911-1466) on a torch device.
+
+    ``device`` as for ``Nyxus``.  Not ported yet, each raising
+    ``NotImplementedError`` naming its ROADMAP item: 3D anisotropy
+    (``anisotropy_*`` other than 1), whole-volume mode, lazy 2.5D stacks,
+    ``mergerois``, IBSI, oversized ROIs, ``featurize_directory`` /
+    ``featurize_files`` (the NIfTI file protocol) and ``n_devices`` other
+    than 1."""
+
+    def __init__(self, features, device="cuda", **kwargs):
+        self.features = list(features)
+        updates = {}
+        for k, v in kwargs.items():
+            field = _KWARG_MAP.get(k)
+            if field is not None and v is not None:
+                updates[field] = v
+        if kwargs.get("anisotropy_z") is not None:
+            updates["aniso_z"] = kwargs["anisotropy_z"]
+        # Python-API calibration: xyRes = pixelSizeUm = pixels_per_micron
+        # (default 1.0, new_bindings_py.cpp:93)
+        updates.setdefault("xyres", float(updates.get("pixels_per_micron",
+                                                      1.0)))
+        # every reference entry path narrows anisotropy to C float
+        for k in ("aniso_x", "aniso_y", "aniso_z"):
+            if k in updates:
+                updates[k] = float(np.float32(updates[k]))
+        if kwargs.get("n_devices", 1) not in (None, 0, 1):
+            from .pipeline.runner3d import _unported
+            raise _unported(15, "multi-device 3D")
+        self.cfg = EngineConfig().replace(**updates)
+        self.device = device
+        self._compile()
+
+    use_gpu_device = Nyxus.use_gpu_device
+    # metaparameter surface (the 3D-family paths are 3glcm/...,
+    # 3ngtdm/radius, ...)
+    set_metaparam = Nyxus.set_metaparam
+    get_metaparam = Nyxus.get_metaparam
+
+    def _compile(self):
+        from .pipeline.runner3d import VolumeRunner
+        self.fset = tx.parse_feature_request(
+            self.features, dim=3, ibsi=self.cfg.ibsi)
+        self.header, _ = col.build_header(self.fset, self.cfg)
+        self._runner = VolumeRunner(self.fset, self.cfg, device=self.device)
+
+    def featurize(self, intensity_volumes, label_volumes,
+                  intensity_names: list = (), label_names: list = ()):
+        """Features of in-memory [Z, Y, X] volume pairs (one pair, or lists
+        of them) as a pandas DataFrame, one row per ROI."""
+        if isinstance(intensity_volumes, np.ndarray) \
+                and intensity_volumes.ndim == 3:
+            intensity_volumes = [intensity_volumes]
+            label_volumes = [label_volumes]
+        import pandas as pd
+        frames = []
+        for i, (I, M) in enumerate(zip(intensity_volumes, label_volumes)):
+            iname = intensity_names[i] if intensity_names else "Intensity%d" % i
+            lname = label_names[i] if label_names else "Segmentation%d" % i
+            labs, values = self._runner.run(self._prep(np.asarray(I)),
+                                            np.asarray(M).astype(np.int32))
+            values = _force_finite(values, self.cfg.noval)
+            frames.append(self._to_frame(iname, lname, labs, values))
+        if not frames:
+            return self._to_frame("", "", np.zeros(0, np.int64),
+                                  np.zeros((0, len(self.header) - 4)))
+        return pd.concat(frames, ignore_index=True)
+
+    _to_frame = Nyxus._to_frame
+
+    def featurize_directory(self, *args, **kwargs):
+        from .pipeline.runner3d import _unported
+        raise _unported(6, "featurize_directory (the NIfTI file protocol)")
+
+    def featurize_files(self, *args, **kwargs):
+        from .pipeline.runner3d import _unported
+        raise _unported(6, "featurize_files (the NIfTI file protocol)")
+
+    def _prep(self, vol: np.ndarray) -> np.ndarray:
+        """Shift a volume with negative values to start at 0, then floor
+        (nyxus_tpu/api.py:875)."""
+        vol = np.asarray(vol, np.float64)
+        if vol.size and vol.min() < 0:
+            vol = vol - vol.min()
+        return np.floor(vol)
+
+    def set_params(self, **params):
+        updates = {}
+        for k, v in params.items():
+            field = _KWARG_MAP.get(k)
+            if field is not None:
+                updates[field] = v
+            elif k == "features":
+                self.features = list(v)
+        if updates:
+            self.cfg = self.cfg.replace(**updates)
+        self._compile()
+
+    def get_params(self, *args):
+        inv = {v: k for k, v in _KWARG_MAP.items()}
+        out = {"features": self.features}
+        for field, kwarg in inv.items():
+            out[kwarg] = getattr(self.cfg, field)
+        if args:
+            return {k: v for k, v in out.items() if k in args}
+        return out
+
+    set_environment_params = Nyxus.set_environment_params

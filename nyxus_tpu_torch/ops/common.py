@@ -16,6 +16,8 @@ from .. import _build
 
 # shared memory a Hopper block can use (227 KB)
 SMEM_MAX = 232448
+# entries of a ROI row one K1 block counts
+HIST_CHUNK = 8192
 
 
 def _kernel_device(t: torch.Tensor, name: str) -> bool:
@@ -63,10 +65,12 @@ def batched_hist(idx, weights, nbins: int):
     nyxus_tpu/ops/common.py:19 masked_bincount.
 
     idx: [B, A] integer; weights: [B, A] float32/float64 on the same device
-    -> [B, nbins] of weights.dtype.  On the card one block per ROI keeps the
-    histogram in shared memory: more than 227 KB of bins (IBSI-size level
-    sets) raises NotImplementedError.  Bound on the card: the 8-12 bytes an
-    entry read and shared-memory atomic contention on popular bins."""
+    -> [B, nbins] of weights.dtype.  On the card a (ROI, chunk of HIST_CHUNK
+    entries) block counts in shared memory where the bins fit a block's
+    227 KB, and a ROI of several chunks adds its blocks' bins into the
+    output with device-memory atomics; more bins (raw 12-bit levels) are
+    counted straight into the output in device memory.  Bound on the card:
+    the 8-12 bytes an entry read and atomic contention on popular bins."""
     if not _kernel_device(idx, "batched_hist"):
         return batched_hist_plain(idx, weights, nbins)
     _check_float(weights, "batched_hist")
@@ -75,19 +79,20 @@ def batched_hist(idx, weights, nbins: int):
         raise ValueError("batched_hist: idx %s and weights %s must be [B, A] "
                          "on one device" % (tuple(idx.shape),
                                             tuple(weights.shape)))
-    if nbins * weights.element_size() > SMEM_MAX:
-        raise NotImplementedError(
-            "batched_hist: %d bins exceed one block's shared memory" % nbins)
     idx = idx.to(torch.int32).contiguous()
     weights = weights.contiguous()
     B, A = idx.shape
-    out = torch.empty((B, nbins), dtype=weights.dtype, device=idx.device)
-    if B == 0 or nbins == 0:
+    in_smem = nbins * weights.element_size() <= SMEM_MAX
+    # one block a row writes its bins out; several add into zeros
+    alloc = torch.empty if in_smem and A <= HIST_CHUNK else torch.zeros
+    out = alloc((B, nbins), dtype=weights.dtype, device=idx.device)
+    if B == 0 or nbins == 0 or A == 0:
         return out.zero_()
     with torch.cuda.device(idx.device):
         code = _build.lib().nyx_batched_hist(
             idx.data_ptr(), weights.data_ptr(), out.data_ptr(), B, A, nbins,
-            int(weights.dtype == torch.float64), _build.stream_of(idx))
+            HIST_CHUNK, int(in_smem), int(weights.dtype == torch.float64),
+            _build.stream_of(idx))
     _build.check("batched_hist", code)
     batched_hist.launches += 1
     return out

@@ -54,11 +54,17 @@ def ngtdm_features(levels, valid, nmax: int, vmin, vmax, noval: float, dtype):
     (AABB for MATLAB binning, AABB & level>0 otherwise); nmax: static level
     cap (levels <= nmax).  Returns dict member -> [B]."""
     N, S, present = ngtdm_matrices(levels, valid, nmax, dtype)
-    return ngtdm_stats(N, S, present, noval, dtype)
+    return ngtdm_stats(N, S, present, levels, valid, noval, dtype)
 
 
-def ngtdm_stats(N, S, present, noval: float, dtype):
-    """The 5 NGTDM statistics from per-level counts N and diff sums S."""
+def ngtdm_stats(N, S, present, levels, valid, noval: float, dtype,
+                ibsi: bool = False):
+    """The 5 NGTDM statistics from per-level counts N and diff sums S
+    (nyxus_tpu/ops/ngtdm.py:61), shared by the 2D and 3D builders.
+    levels/valid ([B, ...]) serve only the IBSI degenerate gate: with
+    ``ibsi`` a ROI is degenerate when its largest valid level is below 1
+    (the reference's I = 0..max has fewer than two entries), else when
+    fewer than two distinct non-zero levels are present."""
     B, nb = N.shape
     ngp = present.sum(dim=1).to(dtype)                           # Ngp
 
@@ -102,5 +108,10 @@ def ngtdm_stats(N, S, present, noval: float, dtype):
         "NGTDM_COMPLEXITY": complexity,
         "NGTDM_STRENGTH": strength,
     }
-    degenerate = ngp < 2
+    if ibsi:
+        B = N.shape[0]
+        maxlev = torch.where(valid, levels, 0).reshape(B, -1).amax(dim=1)
+        degenerate = maxlev < 1
+    else:
+        degenerate = ngp < 2
     return {k: torch.where(degenerate, noval, v) for k, v in out.items()}

@@ -23,8 +23,9 @@ different algorithm from the kernels', so their agreement on the card is a
 real check.  ``zone_list`` returns the zones in raster order of their seeds
 (JAX: sorted-label order, the same zones); callers only sum over zones.
 
-``zone_seeds_and_sizes`` and ``grouped_run_counts`` of the JAX module serve
-its 3D families only and come with the 3D slice.
+``zone_seeds_and_sizes`` and ``grouped_run_counts`` are torch twins of the
+JAX module's, held to it by tests; the zone statistics here group with
+``grouped_weight_sums``.  The 3D zone labels are K15 (ops/texture3d.cc3d).
 """
 
 from __future__ import annotations
@@ -370,3 +371,37 @@ def cell_keys(w, major, minor, stride: int):
     key = major.round().to(torch.int64) * stride + minor.round().to(
         torch.int64)
     return torch.where(w > 0, key, torch.iinfo(torch.int64).max)
+
+
+def zone_seeds_and_sizes(anc, valid):
+    """(seed mask, zone size at seed) from zone labels
+    (nyxus_tpu/ops/zones.py:181).  anc: [B, ...] labels (>= the spatial size
+    off ``valid``); returns seed [B, ...] bool and size [B, ...] int32, the
+    zone's pixel count, meaningful at seeds."""
+    B = anc.shape[0]
+    A = math.prod(anc.shape[1:])
+    flat = anc.reshape(B, -1).to(torch.int64)
+    ridx = torch.arange(A, device=anc.device)[None]
+    counts = torch.zeros((B, A + 1), dtype=torch.int32, device=anc.device)
+    counts.scatter_add_(1, torch.clamp(flat, max=A),
+                        valid.reshape(B, -1).to(torch.int32))
+    seed = valid & (flat == ridx).reshape(anc.shape)
+    size = counts[:, :A].gather(1, torch.clamp(flat, max=A - 1))
+    return seed, size.reshape(anc.shape)
+
+
+def grouped_run_counts(keys):
+    """For each valid element, the number of valid elements sharing its key
+    (nyxus_tpu/ops/zones.py:245).  keys: [B, A], float with +inf (or
+    integer with the dtype's maximum) at invalid entries.  Returns (sorted
+    keys, counts, valid), aligned with the SORTED order."""
+    B, A = keys.shape
+    ks = torch.sort(keys, dim=1).values
+    v = ~_invalid_key(ks)
+    is_start = torch.ones_like(v)
+    is_start[:, 1:] = ks[:, 1:] != ks[:, :-1]
+    seg = torch.cumsum(is_start.to(torch.int64), dim=1) - 1
+    size = torch.zeros((B, A), dtype=torch.int32, device=keys.device)
+    size.scatter_add_(1, seg, torch.ones_like(seg, dtype=torch.int32))
+    counts = size.gather(1, seg)
+    return ks, torch.where(v, counts, 0), v

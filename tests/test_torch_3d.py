@@ -1,0 +1,253 @@
+"""The PyTorch port's 3D path end to end through Nyxus3D and VolumeRunner
+(the request *3D_ALL*: 213 columns, the eight device families and the host
+surface family), against the JAX package's VolumeRunner on the same volume
+in f64 on the CPU, and against the reference binary's own CSV; the two
+packages' Nyxus3D configurations; and the modes the port does not serve
+yet, which raise NotImplementedError naming their ROADMAP item.
+
+Volumes: the reference fixture's (tests/test_oversized._blob3d(seed=4,
+shape=(48, 56, 60)), intensities % 59 + 1; two ROIs, buckets 8^3 and 64^3)
+at the default configuration, whose GLRLM/GLSZM/GLDM/NGTDM keep raw levels
+and whose NGTDM is zero; and conftest.make_blobs3d at the binned
+configuration of tests/test_texture3d.py (grey depth 64 for the four
+families, 3ngtdm/radius 1).
+
+Against JAX: rtol 1e-9, except the members that go through fast_log2 (rtol
+5e-7, the JAX runner's fast_log2 being FMA-contracted by XLA).  Against the
+reference CSV: test_config_parity's p90 relative error <= 1e-4 on every
+comparable column, no exclusions."""
+
+import dataclasses
+import gzip
+import os
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from conftest import make_blobs3d
+from test_oversized import _blob3d
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+import nyxus_tpu  # noqa: E402
+from nyxus_tpu import columns as jcol  # noqa: E402
+from nyxus_tpu import taxonomy as jtx  # noqa: E402
+from nyxus_tpu.config import EngineConfig as JConfig  # noqa: E402
+from nyxus_tpu.pipeline.runner3d import VolumeRunner as JRunner  # noqa: E402
+
+import nyxus_tpu_torch  # noqa: E402
+from nyxus_tpu_torch import taxonomy as ttx  # noqa: E402
+from nyxus_tpu_torch.config import EngineConfig as TConfig  # noqa: E402
+from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner  # noqa: E402
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+FEATURES = ["*3D_ALL*"]
+ENTROPY = ("ENTRO", "_JE", "_RE", "_ZE", "_DE", "INFOMEAS", "_ZDE", "DCENT")
+BINNED = dict(d3_glrlm_greydepth=64, d3_glszm_greydepth=64,
+              d3_gldm_greydepth=64, d3_ngtdm_greydepth=64, d3_ngtdm_radius=1)
+
+
+def _fixture_volume():
+    intens, labels = _blob3d(seed=4, shape=(48, 56, 60))
+    return (intens % 59 + 1).astype(np.uint16), labels
+
+
+def _jax_run(intens, labels, **cfg):
+    fset = jtx.parse_feature_request(FEATURES, dim=3)
+    labs, values = JRunner(fset, JConfig(precision="f64", **cfg)).run(
+        intens, labels.astype(np.int32))
+    cols, _ = jcol.build_header(fset, JConfig(**cfg))
+    return labs, values, cols[4:]
+
+
+def _agree(cols, got, want):
+    assert got.shape == want.shape == (got.shape[0], 213)
+    bad = []
+    for j, c in enumerate(cols):
+        tol = 5e-7 if any(t in c for t in ENTROPY) else 1e-9
+        if not np.allclose(got[:, j], want[:, j], rtol=tol, atol=1e-300,
+                           equal_nan=True):
+            bad.append((c, got[:, j], want[:, j]))
+    assert not bad, bad[:10]
+
+
+@pytest.fixture(scope="module")
+def fixture_frame():
+    """The fixture volume through the port's Nyxus3D on the CPU."""
+    intens, labels = _fixture_volume()
+    nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", precision="f64")
+    return nyx.featurize(intens, labels)
+
+
+def test_nyxus3d_default_config_equals_jax(fixture_frame):
+    """Nyxus3D (raw levels for four families, NGTDM zero) equals JAX's
+    VolumeRunner on every one of the 213 columns; the surface columns are
+    the same numpy/scipy code on the same voxels, so they are equal."""
+    intens, labels = _fixture_volume()
+    labs, want, cols = _jax_run(intens, labels)
+    noval = JConfig().noval
+    want = np.where(np.isfinite(want), want, noval)
+    assert list(fixture_frame.columns[4:]) == cols
+    assert list(fixture_frame["ROI_label"]) == list(labs)
+    got = fixture_frame[cols].to_numpy(np.float64)
+    _agree(cols, got, want)
+    surf = [j for j, c in enumerate(cols) if c in (
+        "3AREA", "3VOLUME_CONVEXHULL", "3MAJOR_AXIS_LEN", "3SPHERICITY")]
+    assert len(surf) == 4
+    assert np.array_equal(got[:, surf], want[:, surf])
+    ngtdm = [j for j, c in enumerate(cols) if c.startswith("3NGTDM_")]
+    assert len(ngtdm) == 5 and not got[:, ngtdm].any()
+
+
+def test_nyxus3d_reference_binary_parity(fixture_frame):
+    """The port against the reference binary's *3D_ALL* CSV of the fixture
+    volume at test_config_parity's p90 1e-4, no exclusions."""
+    ref = pd.read_csv(gzip.open(
+        os.path.join(DATA, "ref_3d_48x56x60_seed4.csv.gz"), "rt"))
+    ref = ref.sort_values("ROI_label").set_index("ROI_label")
+    ours = fixture_frame.set_index("ROI_label")
+    assert list(ref.index) == list(ours.index)
+    failures, checked = [], 0
+    for c in ours.columns[4:]:
+        if c not in ref.columns:
+            continue
+        a = ours[c].to_numpy(float)
+        b = ref[c].to_numpy(float)
+        both = np.isfinite(a) & np.isfinite(b)
+        if both.sum() == 0:
+            continue
+        rel = np.abs(a[both] - b[both]) / np.maximum(np.abs(b[both]), 1e-6)
+        p90 = float(np.quantile(rel, 0.9))
+        checked += 1
+        if p90 > 1e-4:
+            failures.append((c, p90))
+    assert checked > 200, checked
+    assert not failures, failures[:40]
+
+
+def test_volume_runner_binned_config_equals_jax():
+    """VolumeRunner at the binned configuration (K16's NGTDM window at
+    radius 1) equals JAX's on every column of conftest.make_blobs3d."""
+    intens, labels = make_blobs3d()
+    labs, want, cols = _jax_run(intens, labels, **BINNED)
+    fset = ttx.parse_feature_request(FEATURES, dim=3)
+    tlabs, got = VolumeRunner(fset, TConfig(precision="f64", **BINNED),
+                              device="cpu").run(intens,
+                                                labels.astype(np.int32))
+    assert list(tlabs) == list(labs)
+    _agree(cols, got, want)
+    ngtdm = [j for j, c in enumerate(cols) if c.startswith("3NGTDM_")]
+    assert np.isfinite(got[:, ngtdm]).all() and got[:, ngtdm].any()
+
+
+@pytest.mark.parametrize("kw,meta", [
+    ({}, ()),
+    ({"coarse_gray_depth": 32, "anisotropy_z": 1.0, "ram_limit": 512,
+      "pixels_per_micron": 2.5, "neighbor_distance": 3}, ()),
+    ({}, ("3glcm/greydepth=16", "3glcm/offset=2", "3ngtdm/radius=2",
+          "3gldm/greydepth=8", "3glrlm/greydepth=12", "3glszm/greydepth=10",
+          "3ngtdm/greydepth=4")),
+])
+def test_config_equals_jax(kw, meta):
+    """Both packages' Nyxus3D build the same EngineConfig from the same
+    keywords and 3D metaparameters, and read the metaparameters back
+    alike."""
+    j = nyxus_tpu.Nyxus3D(FEATURES, **kw)
+    t = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", **kw)
+    for m in meta:
+        j.set_metaparam(m)
+        t.set_metaparam(m)
+    assert dataclasses.asdict(j.cfg) == dataclasses.asdict(t.cfg)
+    for m in meta:
+        name = m.split("=")[0]
+        assert j.get_metaparam(name) == t.get_metaparam(name), name
+    assert j.get_params() == t.get_params()
+    assert j.header == t.header and len(t.header) - 4 == 213
+
+
+def test_set_params_and_prep():
+    t = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu")
+    t.set_params(coarse_gray_depth=16, features=["*3D_GLCM*"])
+    j = nyxus_tpu.Nyxus3D(FEATURES)
+    j.set_params(coarse_gray_depth=16, features=["*3D_GLCM*"])
+    assert dataclasses.asdict(t.cfg) == dataclasses.asdict(j.cfg)
+    assert t.header == j.header
+    vol = np.asarray([[[-3.5, 0.25], [2.0, 7.9]]])
+    np.testing.assert_array_equal(t._prep(vol), j._prep(vol))
+
+
+def _volume():
+    intens, labels = _fixture_volume()
+    return intens[:12, :12, :12].copy(), labels[:12, :12, :12].copy()
+
+
+@pytest.mark.parametrize("mode", ["anisotropy", "wholeslide", "lazy",
+                                  "mergerois", "ibsi", "oversized",
+                                  "featurize_directory", "featurize_files",
+                                  "n_devices"])
+def test_unported_modes_raise(mode):
+    """Each mode the slice does not port raises NotImplementedError naming
+    its ROADMAP item."""
+    intens, labels = _volume()
+    ctor = {"anisotropy": {"anisotropy_z": 1.5}, "mergerois":
+            {"mergerois": True}, "ibsi": {"ibsi": True},
+            "n_devices": {"n_devices": 4}}.get(mode, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+        nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", **ctor)
+        runner = nyx._runner
+        if mode == "wholeslide":
+            runner.run(intens.astype(float), labels, wholeslide=True)
+        elif mode == "lazy":
+            runner.run(list(intens.astype(float)), labels)
+        elif mode == "oversized":
+            nyx.set_params(ram_limit=0)
+            nyx.featurize(intens, labels)
+        elif mode in ("featurize_directory", "featurize_files"):
+            getattr(nyx, mode)("a", "b")
+    assert "item" in str(e.value)
+
+
+def test_empty_volume():
+    nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", precision="f64")
+    df = nyx.featurize(np.ones((8, 8, 8)), np.zeros((8, 8, 8), np.int32))
+    assert len(df) == 0 and len(df.columns) == 217
+
+
+def test_chip_smoke_blob3d_copy():
+    """chip_smoke's copy of the fixture volume generator (it cannot import
+    the tests) makes the same volume."""
+    for seed, shape in ((4, (48, 56, 60)), (1, (20, 24, 16))):
+        a = _blob3d(seed=seed, shape=shape)
+        b = chip_smoke.blob3d(seed=seed, shape=shape)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+
+
+def test_chip_smoke_3d_tiers():
+    """chip_smoke gives a 3D column its 2D twin's tier and skips the same
+    order statistics: every *3D_ALL* column has the tier of its name
+    without the leading 3 (3KURTOSIS 2e-2, not the default 2e-3), and
+    3MEDIAN, 3P90 and 3MODE are skipped however far off they are."""
+    fset = ttx.parse_feature_request(FEATURES, dim=3)
+    from nyxus_tpu_torch import columns as tcol
+    cols = tcol.build_header(fset, TConfig())[0][4:]
+    for c in cols:
+        assert chip_smoke.tol_for(c) == chip_smoke.tol_for(c[1:]), c
+    assert chip_smoke.tol_for("3KURTOSIS") == 2e-2
+    assert chip_smoke.tol_for("3GLCM_ASM") == 5e-3
+    dev = np.ones((3, len(cols)))
+    ref = np.ones((3, len(cols)))
+    skipped = [j for j, c in enumerate(cols)
+               if c in ("3MEDIAN", "3P90", "3MODE", "3P01")]
+    assert len(skipped) == 4
+    dev[:, skipped] = 5.0
+    assert chip_smoke.compare_tiers(cols, dev, ref)[0] == []
+    dev[:, cols.index("3KURTOSIS")] = 1.01
+    assert chip_smoke.compare_tiers(cols, dev, ref)[0] == []
+    dev[:, cols.index("3KURTOSIS")] = 1.03
+    assert [c for c, _ in chip_smoke.compare_tiers(cols, dev, ref)[0]] == \
+        ["3KURTOSIS"]

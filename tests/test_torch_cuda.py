@@ -1,7 +1,8 @@
-"""The port's CUDA kernels K1-K12 against their plain PyTorch versions, and
-the slices in f32 on the card against the port's own f64 CPU run.  Every
-test needs a CUDA device and skips without one.  This file imports neither
-jax nor the JAX package, so it runs on a machine with a card and no jax:
+"""The port's CUDA kernels K1-K16 against their plain PyTorch versions, and
+the slices (2D and 3D) in f32 on the card against the port's own f64 CPU
+run.  Every test needs a CUDA device and skips without one.  This file
+imports neither jax nor the JAX package, so it runs on a machine with a
+card and no jax:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
@@ -16,7 +17,12 @@ terms are added in another order: a central moment's terms cancel, so its
 own value is no scale.  K11's counts and baseline extrema are equal in
 both types (both versions add the taps in one order, each operation
 rounded on its own); K12's sums (float64, the same terms in both versions)
-hold 1e-12 of the sum of their terms' absolute values."""
+hold 1e-12 of the sum of their terms' absolute values.  K13-K16 (3D
+matrices, runs, labels, distances, stencil counts and sums) are integers
+and must be equal; K1's float sums over 3D rows hold rtol 1e-6 / 1e-12 on
+the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
+64 x 256 x 256 crop) the rounding bound of a sum in another order, 2 n u
+sum(w); they are exact on dyadic weights."""
 
 import os
 import sys
@@ -251,12 +257,16 @@ def test_gabor_zernike_refuse_bad_inputs():
 
 @pytest.mark.cuda
 def test_shared_memory_limits_raise():
-    """K1 keeps its histogram in shared memory and refuses more bins (only
-    IBSI-size level sets, which the port refuses earlier, get there)."""
-    idx = torch.zeros((1, 4), dtype=torch.int32, device="cuda")
-    w = torch.ones((1, 4), dtype=torch.float64, device="cuda")
-    with pytest.raises(NotImplementedError):
-        common.batched_hist(idx, w, 30000)
+    """K1 counts a histogram larger than a block's shared memory (30000
+    float64 bins, 240 KB) in device memory instead of refusing it, for a
+    row of one chunk and of several."""
+    for A in (4, 3 * common.HIST_CHUNK + 5):
+        idx = (torch.arange(A, dtype=torch.int32, device="cuda") * 7919
+               % 30007)[None]
+        w = torch.ones((1, A), dtype=torch.float64, device="cuda")
+        assert 30000 * 8 > common.SMEM_MAX
+        assert torch.equal(common.batched_hist(idx, w, 30000),
+                           common.batched_hist_plain(idx, w, 30000))
 
 
 @pytest.mark.cuda
@@ -304,7 +314,7 @@ def test_slice_f32_on_card_against_f64_cpu():
 def test_all_but_gabor_zernike_f32_on_card_against_f64_cpu():
     """The 747-column request *ALL*: every column within its tier, the
     pre-collect host columns bit-equal, K1-K12 launched."""
-    counters = tuple(chip_smoke.counters().values())
+    counters = [chip_smoke.counters()[k] for k in chip_smoke.KERNELS_2D]
     before = [f.launches for f in counters]
     fset = taxonomy.parse_feature_request(chip_smoke.FEATURES_ALL)
     intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)
@@ -319,3 +329,42 @@ def test_all_but_gabor_zernike_f32_on_card_against_f64_cpu():
     host = chip_smoke.pre_host_columns(card, slots)
     assert np.array_equal(dev[:, host].view(np.uint64),
                           ref[:, host].view(np.uint64))
+
+
+class _Agree3D:
+    def __call__(self, name, got, want, scale=None):
+        assert got.shape == want.shape, name
+        if scale is None:
+            assert torch.equal(got, want), name
+        else:
+            assert bool(((got.double() - want.double()).abs()
+                         <= scale).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("cube", chip_smoke.CUBES, ids=str)
+def test_3d_kernels(prec, cube):
+    """K13-K16, K7 on 3D labels and K1 (device-memory path at 4096 x 27
+    cells, multi-chunk rows at 64 bins) against their plain versions at the
+    3D buckets 8^3 to 64^3 and a 64 x 256 x 256 crop: 64 and 4096 levels,
+    both connectivities, the GLDM and NGLDM tables, NGTDM radii 1 and 2."""
+    dtype = DTYPES[prec]
+    rtol = 1e-6 if prec == "f32" else 1e-12
+    chip_smoke.kernels_3d_agree(_Agree3D(), chip_smoke.synth_cube(
+        *cube, 20, dtype), dtype, rtol, big_glcm=cube[1] <= 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["empty", "uniform"])
+def test_3d_kernels_special_cubes(kind):
+    cube = chip_smoke.synth_cube(4, 16, 16, 16, 30, torch.float32, kind)
+    chip_smoke.kernels_3d_agree(_Agree3D(), cube, torch.float32, 1e-6)
+
+
+@pytest.mark.cuda
+def test_3d_f32_on_card_against_f64_cpu():
+    """*3D_ALL* on the fixture volume at the default and binned
+    configurations: every column within its tier (a 3D column taking its 2D
+    twin's), the surface columns bit-equal, K13-K16 launched."""
+    chip_smoke.check_3d(chip_smoke.counters())

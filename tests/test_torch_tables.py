@@ -1,10 +1,11 @@
 """The PyTorch port's copied tables and host-side helpers against the JAX
 package they were copied from: taxonomy, config, columns, batching, ROI
-discovery, the host features and their native geometry library, and the
-family registry's metadata.  Also pins that importing the port pulls in
+discovery (2D and 3D), the host features and their native geometry
+library, the 3D surface pass, and the family registry's metadata.  Also pins that importing the port pulls in
 neither jax nor anything of nyxus_tpu, and that the port's native library
 builds without libtiff and raises when it cannot be built."""
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -27,6 +28,8 @@ import nyxus_tpu.native as jnative  # noqa: E402
 from nyxus_tpu.pipeline import batching as jbatching  # noqa: E402
 from nyxus_tpu.pipeline import labels as jlabels  # noqa: E402
 from nyxus_tpu.pipeline import runner as jrunner  # noqa: E402
+from nyxus_tpu.pipeline import oversized3d as joversized3d  # noqa: E402
+from nyxus_tpu.pipeline import runner3d as jrunner3d  # noqa: E402
 
 import nyxus_tpu_torch.columns as tcol
 import nyxus_tpu_torch.config as tconfig
@@ -37,6 +40,7 @@ from nyxus_tpu_torch.pipeline import batching as tbatching  # noqa: E402
 from nyxus_tpu_torch.pipeline import hostfeats as thostfeats  # noqa: E402
 from nyxus_tpu_torch.pipeline import labels as tlabels  # noqa: E402
 from nyxus_tpu_torch.pipeline import runner as trunner  # noqa: E402
+from nyxus_tpu_torch.pipeline import runner3d as trunner3d  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
@@ -277,9 +281,42 @@ def test_activated_families(features):
         treg.activated_families(ttx.parse_feature_request(features))
 
 
+@pytest.mark.parametrize("jfn,tfn", [
+    (jrunner3d.Roi3D, trunner3d.Roi3D),
+    (jrunner3d.discover_rois_3d, trunner3d.discover_rois_3d),
+    (jrunner3d.VolumeRunner._surface, trunner3d.VolumeRunner._surface),
+    (joversized3d.is_oversized3d, trunner3d.is_oversized3d),
+], ids=lambda f: f.__qualname__)
+def test_verbatim_3d_host_code(jfn, tfn):
+    """The 3D ROI record, discovery, oversized gate and surface pass are
+    the JAX module's code, line for line (docstrings aside)."""
+    def body(f):
+        src = inspect.getsource(f)
+        doc = f.__doc__
+        if doc and not isinstance(f, type):
+            src = src.replace('"""%s"""' % doc, "")
+        return [ln for ln in src.splitlines() if ln.strip()]
+    assert body(jfn) == body(tfn)
+
+
+def test_discovery_3d():
+    from conftest import make_blobs3d
+    intens, labels = make_blobs3d(seed=6)
+    labels[0, 0, :3] = 9                    # a ROI on the volume's edge
+    j = jrunner3d.discover_rois_3d(intens, labels)
+    t = trunner3d.discover_rois_3d(intens, labels)
+    assert j[1:] == t[1:] and len(t[0]) >= 3
+    assert [vars(r) for r in j[0]] == [vars(r) for r in t[0]]
+    empty = np.zeros_like(labels)
+    assert jrunner3d.discover_rois_3d(intens, empty) == \
+        trunner3d.discover_rois_3d(intens, empty)
+
+
 def test_import_pulls_no_jax():
     code = ("import sys, nyxus_tpu_torch\n"
             "import nyxus_tpu_torch.native, nyxus_tpu_torch.pipeline.hostfeats\n"
+            "import nyxus_tpu_torch.pipeline.runner3d\n"
+            "import nyxus_tpu_torch.ops.texture3d\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"
