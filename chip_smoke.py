@@ -7,7 +7,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 0. refuse to run without a CUDA device; print the card, its power limit and
    the torch / CUDA versions
-1. build the sixteen CUDA kernels from nyxus_tpu_torch/csrc with nvcc
+1. build the seventeen CUDA kernels from nyxus_tpu_torch/csrc with nvcc
    (sm_90a, one nvcc process a source) and, at the same time, the
    host-geometry library from nyxus_tpu_torch/native/src with g++ (no
    libtiff)
@@ -23,7 +23,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    labels, K1's device-memory path): the buckets 8³ to 64³ and a 64 x 256
    x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
    GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
-   uniform cubes
+   uniform cubes.  IBSI (K17): B = 64 histograms of 6, 64, 100, 256 and
+   32768 bins (the last beyond a block's shared memory in f64), with empty,
+   single-level and one-bin rows, bin indices equal and values within 1e-5
+   / 1e-12 of their row's scale; and torch.sort (sort_masked_values) timed
 3. run the request *ALL* (747 columns) through PairRunner in f32 on the
    card and in f64 on the CPU, compare per column at the p90 relative error
    with the tiers of tests/test_tpu_device.py, check that the columns of
@@ -36,22 +39,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    fixture's volume and a subset of throughput volume 1, at the default
    configuration (raw levels for GLRLM/GLSZM/GLDM/NGTDM, NGTDM zero) and
    the binned one (grey depth 64, NGTDM radius 1: K16's window), the
-   surface columns bit-equal, K13-K16 launched
+   surface columns bit-equal, K13-K16 launched.  Then IBSI mode: *ALL*
+   (793 columns, the 46 IH_* added) on the 320 x 320 slide with
+   intensities % 59 + 1 (64 raw levels) and on the long-ROI slide at 12
+   bits (intensities >> 4: 4096 raw levels, GLCM's matrices a ROI at a
+   time), the IH members read off the histogram (bin count, mode and
+   gradient bins) equal; and *3D_ALL* (ibsi) on the fixture volume
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
    -ZERNIKE2D and the 747-column *ALL*; the first slide of the last is also
-   held against the f64 CPU run.  Then *3D_ALL* on the two 12-bit volumes
-   make_volume_3d(1..2) (96 x 320 x 320, ~200 nuclei and 3 lesions each)
-   through VolumeRunner.run: ROIs/s, ROI Mvoxels/s, peak device memory
-5. torch.profiler traces of one warm slide of the 747-column request and of
-   one warm volume of *3D_ALL*: device time by kernel, host time of each
-   runner stage (nyx:D3_* for the 3D families)
+   held against the f64 CPU run.  Then the IBSI *ALL* (793 columns) on the
+   8 slides at 8 bits ((intensity >> 8) + 1, 256 raw levels), its first
+   slide held against the f64 CPU run.  Then *3D_ALL* on the two 12-bit
+   volumes make_volume_3d(1..2) (96 x 320 x 320, ~200 nuclei and 3 lesions
+   each) through VolumeRunner.run: ROIs/s, ROI Mvoxels/s, peak device
+   memory
+5. torch.profiler traces of one warm slide of the 747-column request, of
+   one warm volume of *3D_ALL* and of one warm 8-bit slide of the IBSI
+   request: device time by kernel, host time of each runner stage (nyx:D3_*
+   for the 3D families)
 
 The last three lines are the card's name and power limit, the kernels'
-JSON line (K1-K16; the 2D kernels' launches from the timed 747-column
-pass, K13-K16's from the timed 3D pass) and the result JSON line.  Imports
-torch, numpy, scipy and nyxus_tpu_torch only.
+JSON line (K1-K17; the 2D kernels' launches from the timed 747-column
+pass, K13-K16's from the timed 3D pass, K17's from the timed IBSI pass)
+and the result JSON line.  Imports torch, numpy, scipy and nyxus_tpu_torch
+only.
 """
 
 import json
@@ -71,6 +84,8 @@ FEATURES_ALL = ["*ALL*"]
 WIDTH_ALL = 747
 FEATURES_713 = ["*ALL*", "-GABOR", "-ZERNIKE2D"]
 WIDTH_713 = 713
+# IBSI mode: *ALL* adds the 46 IH_* columns; *3D_ALL* keeps its 213
+WIDTH_IBSI = 793
 # the 3D path: *3D_ALL* through VolumeRunner
 FEATURES_3D = ["*3D_ALL*"]
 WIDTH_3D = 213
@@ -315,12 +330,13 @@ SHAPE_KERNELS = ("erosion", "binary_quads", "power_sums")
 GZ_KERNELS = ("gabor", "zernike")
 KERNELS_2D = TEXTURE_KERNELS + SHAPE_KERNELS + GZ_KERNELS
 KERNELS_3D = ("glcm3d_cooc", "glrlm3d_runs", "cc3d", "stencil3d")
-KERNELS = KERNELS_2D + KERNELS_3D
+KERNELS_IH = ("ih_stats",)
+KERNELS = KERNELS_2D + KERNELS_3D + KERNELS_IH
 
 
 def counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm,
+    from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm, ih,
                                      moments, texture3d, zernike, zones)
     return dict(zip(KERNELS, (common.batched_hist, glcm.cooc_matrices,
                               glrlm.run_matrices, common.stencil8,
@@ -329,7 +345,8 @@ def counters():
                               binary.binary_quads, moments.power_sums,
                               gabor.gabor_counts, zernike.zernike_sums,
                               texture3d.glcm3d_cooc, texture3d.glrlm3d_runs,
-                              texture3d.cc3d, texture3d.stencil3d)))
+                              texture3d.cc3d, texture3d.stencil3d,
+                              ih.ih_stats)))
 
 
 def zone_cases(case, dtype, seed=0):
@@ -1124,6 +1141,144 @@ def check_kernels_3d():
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 2, IBSI: K17 ih_stats
+
+
+# bin counts K17 is held at: the IBSI goldens' 6, the default |grey depth|
+# 64, 100, 256, and 32768 (beyond a block's shared memory in float64)
+IH_BINS = (6, 64, 100, 256, 32768)
+# members that are bin indices or counts formed by the same operations in
+# both versions from the same counts: equal exactly
+IH_EXACT = ("IH_MEDIAN_IDX", "IH_MINIMUM_IDX", "IH_P10_IDX", "IH_P90_IDX",
+            "IH_MAXIMUM_IDX", "IH_MODE_IDX", "IH_INTERQUANTILE_RANGE_IDX",
+            "IH_RANGE_IDX", "IH_MAX_GRADIENT_IDX", "IH_MIN_GRADIENT_IDX",
+            "IH_NUM_BINS")
+
+
+def ih_inputs(B, N, dtype, seed=0, device="cuda"):
+    """(freq, counts, vmin, vmax, pscale, poffset) of B ROIs' N-bin
+    histograms: random exact counts over random [vmin, vmax] ranges, every
+    fourth row in an HU-like reporting domain (offset -1024); row 0 has no
+    pixels, row 1 a single level (vmax == vmin), row 2 all its mass in one
+    middle bin and row 3 in the last bin."""
+    import torch
+    r = np.random.default_rng(seed)
+    freq = r.integers(0, 40, (B, N)).astype(np.float64)
+    freq[r.random((B, N)) < 0.3] = 0
+    vmin = r.integers(0, 2000, B).astype(np.float64)
+    vmax = vmin + r.integers(1, 3000, B)
+    freq[0] = 0
+    freq[1] = 0
+    freq[1, 0] = 17
+    vmax[1] = vmin[1]
+    freq[2] = 0
+    freq[2, N // 2] = 31
+    freq[3] = 0
+    freq[3, N - 1] = 5
+    counts = freq.sum(axis=1)
+    pscale = np.ones(B)
+    poffset = np.where(np.arange(B) % 4 == 0, -1024.0, 0.0)
+    return tuple(torch.from_numpy(a).to(dtype).to(device)
+                 for a in (freq, counts, vmin, vmax, pscale, poffset))
+
+
+def ih_agree(got, want, inputs, rtol):
+    """K17's [B, 46] against its plain version's: IH_EXACT equal, every
+    other member within rtol of its value plus rtol of the row's scale (the
+    largest of 1, N, the largest count and the reporting-domain magnitude
+    |poffset| + |pscale| max(|vmin|, |vmax|)), since sums that cancel (a
+    skewness near 0, a mean near 0 in the HU domain) have no scale of their
+    own.  Returns the largest absolute difference."""
+    import torch
+    from nyxus_tpu_torch.ops import ih
+    freq, _, vmin, vmax, pscale, poffset = inputs
+    if got.shape != want.shape:
+        raise AssertionError("ih_stats: shape %s != %s"
+                             % (tuple(got.shape), tuple(want.shape)))
+    exact = [ih.MEMBERS.index(m) for m in IH_EXACT]
+    if not torch.equal(got[:, exact], want[:, exact]):
+        bad = (got[:, exact] != want[:, exact]).nonzero()[:5].tolist()
+        raise AssertionError("ih_stats: bin indices differ at %s" % bad)
+    g, w = got.double(), want.double()
+    scale = torch.stack([
+        torch.ones_like(vmin.double()),
+        torch.full_like(vmin.double(), freq.shape[1]),
+        freq.double().amax(dim=1),
+        poffset.double().abs() + pscale.double().abs()
+        * torch.maximum(vmin.double().abs(), vmax.double().abs())]).amax(dim=0)
+    diff = (g - w).abs()
+    ok = diff <= rtol * (w.abs() + scale[:, None])
+    if not bool(ok.all()):
+        b, k = (~ok).nonzero()[0].tolist()
+        raise AssertionError("ih_stats: %s of row %d: %r vs %r"
+                             % (ih.MEMBERS[k], b, float(g[b, k]),
+                                float(w[b, k])))
+    return float(diff.max())
+
+
+def ih_bound(B, N, esz=4):
+    """(bytes, operations) K17 must move and do: freq read once, the five
+    [B] rows read once, the [B, 46] result written once; ~60 operations a
+    bin (the scan and the landing tests ~12, the gradient 3, pass B 10,
+    pass C 35)."""
+    return (B * N * esz + 5 * B * esz + 46 * B * esz, 60.0 * B * N)
+
+
+def check_ih():
+    """K17 against its plain version at B = 64, each bin count of IH_BINS,
+    f32 and f64 (the degenerate rows included), then timed at the default
+    N = 64 in f32; and the one torch.sort the IBSI path reads
+    (common.sort_masked_values, IH's binning) timed at the main bucket."""
+    import torch
+    from nyxus_tpu_torch.ops import common, ih
+    res = {"ih_stats": {"max_abs_err": 0.0}}
+    for prec, dtype, rtol in (("f32", torch.float32, 1e-5),
+                              ("f64", torch.float64, 1e-12)):
+        for N in IH_BINS:
+            inputs = ih_inputs(64, N, dtype, seed=N)
+            got = ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
+            want = ih.ih_features_from_freq_plain(*inputs[:4], -0.0,
+                                                  *inputs[4:])
+            err = ih_agree(got, want, inputs, rtol)
+            res["ih_stats"]["max_abs_err"] = max(
+                res["ih_stats"]["max_abs_err"], err)
+            staged = N * got.element_size() <= ih._STAGE_MAX
+            log("  %s B=64 N=%d (%s): ih_stats agrees, max abs diff %g"
+                % (prec, N, "row in shared memory" if staged
+                   else "row in device memory", err))
+    for N in (64, 6, 100, 256, 32768):
+        inputs = ih_inputs(64, N, torch.float32, seed=N)
+        kern = lambda: ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
+        plain = lambda: ih.ih_features_from_freq_plain(*inputs[:4], -0.0,
+                                                       *inputs[4:])
+        main = N == 64
+        iters = 20 if main else 5
+        p1, k1, k2, p2 = (timed(f, iters) for f in (plain, kern, kern, plain))
+        ev, ms = (k1[0] + k2[0]) / 2, (k1[1] + k2[1]) / 2
+        pev, plain_ms = (p1[0] + p2[0]) / 2, (p1[1] + p2[1]) / 2
+        nbytes, ops = ih_bound(64, N)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+        log("  time ih_stats     f32 B=64 N=%d: device %.4f ms (events %.4f "
+            "ms) vs plain device %.4f ms (events %.4f ms); bound %.5f ms"
+            % (N, ms, ev, plain_ms, pev, max(bytes_ms, ops_ms)))
+        if main:
+            res["ih_stats"].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None)
+    # sort_masked_values at B=64 x 32^2: reads the crop (4 bytes) and mask
+    # (1 byte) once, writes the sorted rows; ~log2(1024) = 10 compares an
+    # element
+    orig, _, _, roi = synth_bucket(64, 32, 32, (29, 31), 0, torch.float32)
+    ev, ms = timed(lambda: common.sort_masked_values(orig, roi))
+    A = orig.numel()
+    bound = max((A * 9) / HBM_BYTES_S, 10.0 * A / OPS_S) * 1e3
+    log("  time sort_masked_values (torch.sort) f32 B=64 32x32: device %.4f "
+        "ms (events %.4f ms); bound %.5f ms" % (ms, ev, bound))
+    return res
+
+
 def make_volume_3d(seed, shape=(96, 320, 320), n_nuclei=200, n_lesions=3):
     """A 12-bit radiomics-like volume pair: a noisy background (intensities
     1..4095) with ~``n_nuclei`` nucleus-like ellipsoids (semi-axes 3-10
@@ -1334,6 +1489,105 @@ def throughput_3d(kern):
     return runner, vols, launches
 
 
+# IH members read straight off the histogram: its bin count, the mode's
+# bin and the gradient extrema's bins.  The histogram's bin indices are
+# computed in float64 in either precision (ops/ih.ih_freq), so the f32
+# card run's histograms equal the f64 CPU run's and these members must too
+IH_FROM_HISTOGRAM = ("IH_NUM_BINS", "IH_MODE_IDX", "IH_MAX_GRADIENT_IDX",
+                     "IH_MIN_GRADIENT_IDX")
+
+
+def check_ih_columns(what, cols, dev, ref):
+    """IH_FROM_HISTOGRAM equal between the card and the CPU run."""
+    for c in IH_FROM_HISTOGRAM:
+        j = cols.index(c)
+        if not np.array_equal(dev[:, j], ref[:, j]):
+            raise AssertionError("%s: %s differs between the card and the "
+                                 "CPU run" % (what, c))
+
+
+def check_ibsi(kern):
+    """Phase 3, IBSI: the IBSI *ALL* (793 columns) on the reference fixture
+    slide (intensities % 59 + 1, 64 raw levels) and on the long-ROI slide
+    at 12 bits (intensities >> 4, 4096 raw levels: GLCM's [4, 4096, 4096]
+    matrices in device memory, a chunk of one ROI at a time), then IBSI
+    *3D_ALL* on the fixture volume, each in f32 on the card against f64 on
+    the CPU at the tiers; the IH members read off the histogram equal;
+    every kernel of the path launched."""
+    import torch
+    from nyxus_tpu_torch import columns, taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner import PairRunner
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+    fset = taxonomy.parse_feature_request(FEATURES_ALL, ibsi=True)
+    hdr, slots = columns.build_header(fset, EngineConfig(ibsi=True))
+    cols = hdr[4:]
+    if len(cols) != WIDTH_IBSI:
+        raise AssertionError("IBSI width %d != %d" % (len(cols), WIDTH_IBSI))
+    card = PairRunner(fset, EngineConfig(precision="f32", ibsi=True), "cuda")
+    cpu = PairRunner(fset, EngineConfig(precision="f64", ibsi=True), "cpu")
+    host_cols = pre_host_columns(card, slots)
+    fi, fl = make_dsb_like(320, 320, 40, seed=11)
+    li, ll = make_long_roi_slide()
+    for what, (intens, labels), used in (
+            ("320x320 slide, IBSI (64 raw levels)",
+             ((fi % 59 + 1).astype(np.uint16), fl), KERNELS_2D + KERNELS_IH),
+            ("long-ROI slide at 12 bits, IBSI (4096 raw levels)",
+             ((li >> 4).astype(np.uint16), ll),
+             ("glcm_cooc", "glrlm_runs", "ih_stats"))):
+        for f in kern.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        labs, dev = card.run(intens, labels)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: kern[k].launches for k in KERNELS_2D + KERNELS_IH}
+        labs64, ref = cpu.run(intens, labels)
+        worst = check_output(what, cols, labs, dev, labs64, ref)
+        if not np.array_equal(dev[:, host_cols].view(np.uint64),
+                              ref[:, host_cols].view(np.uint64)):
+            raise AssertionError("%s: the pre-collect host columns differ "
+                                 "between the card and the CPU run" % what)
+        check_ih_columns(what, cols, dev, ref)
+        log("  %s: %d ROIs x %d columns agree, the %d pre-collect host "
+            "columns bit for bit, %s equal; closest to its tier: %s; peak "
+            "device memory %d bytes (%.1f MiB); launches %s"
+            % (what, len(labs), len(cols), len(host_cols),
+               "/".join(IH_FROM_HISTOGRAM), worst, peak, peak / 2 ** 20,
+               launches))
+        if not all(launches[k] for k in used):
+            raise AssertionError("%s: a kernel was not launched: %r"
+                                 % (what, launches))
+    fset3 = taxonomy.parse_feature_request(FEATURES_3D, dim=3, ibsi=True)
+    hdr3, slots3 = columns.build_header(fset3, EngineConfig(ibsi=True))
+    cols3 = hdr3[4:]
+    if len(cols3) != WIDTH_3D:
+        raise AssertionError("3D IBSI width %d != %d" % (len(cols3), WIDTH_3D))
+    vi, vl = blob3d(seed=4, shape=(48, 56, 60))
+    vi = (vi % 59 + 1).astype(np.uint16)
+    for f in kern.values():
+        f.launches = 0
+    labs, dev = VolumeRunner(fset3, EngineConfig(precision="f32", ibsi=True),
+                             "cuda").run(vi, vl)
+    launches = {k: kern[k].launches for k in KERNELS_3D}
+    labs64, ref = VolumeRunner(fset3, EngineConfig(precision="f64", ibsi=True),
+                               "cpu").run(vi, vl)
+    worst = check_output("fixture volume, IBSI", cols3, labs, dev, labs64, ref)
+    surf = surface_columns(slots3)
+    if not np.array_equal(dev[:, surf].view(np.uint64),
+                          ref[:, surf].view(np.uint64)):
+        raise AssertionError("fixture volume, IBSI: the surface columns "
+                             "differ between the card and the CPU run")
+    log("  fixture volume, IBSI: %d ROIs x %d columns agree, the %d surface "
+        "columns bit for bit; closest to its tier: %s; launches %s"
+        % (len(labs), len(cols3), len(surf), worst, launches))
+    if not all(launches.values()):
+        raise AssertionError("3D IBSI: a kernel was not launched: %r"
+                             % launches)
+    return card, cpu, cols
+
+
 def profile_report(what, run, stage_prefix="nyx:"):
     """Profile one warm run: wall, device busy share, the top device
     kernels, and the host ms (and card span) of each nyx:* runner stage."""
@@ -1431,6 +1685,8 @@ def main():
                                          v["max_abs_err"])
         else:
             kres[k] = v
+    log_phase("phase 2, IBSI: K17 against its plain version")
+    kres.update(check_ih())
 
     # phase 3
     log_phase("phase 3: %s on the card (f32) against the CPU (f64)"
@@ -1493,6 +1749,10 @@ def main():
     log_phase("phase 3, 3D: %s on the card (f32) against the CPU (f64)"
               % " ".join(FEATURES_3D))
     check_3d(kern)
+    log_phase("phase 3, IBSI: %s (ibsi) and %s (ibsi) on the card (f32) "
+              "against the CPU (f64)" % (" ".join(FEATURES_ALL),
+                                         " ".join(FEATURES_3D)))
+    ibsi_card, ibsi_cpu, ibsi_cols = check_ibsi(kern)
 
     # phase 4
     log_phase("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, "
@@ -1541,6 +1801,47 @@ def main():
     log("  slide 7 (%d ROIs) of the 747-column request agrees with the f64 "
         "CPU run; closest to its tier: %s" % (len(labs64), worst))
 
+    log_phase("phase 4, IBSI: throughput on the 8 slides at 8 bits "
+              "((intensity >> 8) + 1, 256 raw levels)")
+    from nyxus_tpu_torch.ops import common as ops_common
+    slides8 = [(((intens >> 8) + 1).astype(np.uint16), labels)
+               for intens, labels in slides]
+    for intens, labels in slides8:                        # untimed pass
+        ibsi_card.run(intens, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kern.values():
+        f.launches = 0
+    ops_common.sort_masked_values.calls = 0
+    n_rois, outs8 = 0, []
+    t0 = time.perf_counter()
+    for intens, labels in slides8:
+        labs, vals = ibsi_card.run(intens, labels)
+        n_rois += len(labs)
+        outs8.append((labs, vals))
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    launches_ibsi = {k: f.launches for k, f in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log("  IBSI 793-column request: %d ROIs in %.4f s: %.2f ROIs/s; peak "
+        "device memory %d bytes (%.1f MiB); launches %s; sort_masked_values "
+        "calls %d" % (n_rois, wall8, n_rois / wall8, peak, peak / 2 ** 20,
+                      launches_ibsi, ops_common.sort_masked_values.calls))
+    if not all(launches_ibsi[k] for k in KERNELS_2D + KERNELS_IH):
+        raise AssertionError("IBSI throughput: a kernel was not launched: %r"
+                             % launches_ibsi)
+    for labs, vals in outs8:
+        if vals.shape != (len(labs), WIDTH_IBSI):
+            raise AssertionError("IBSI throughput: bad output %s"
+                                 % (vals.shape,))
+    labs64, ref = ibsi_cpu.run(*slides8[0])
+    worst = check_output("slide 7, IBSI", ibsi_cols, outs8[0][0],
+                         outs8[0][1], labs64, ref)
+    check_ih_columns("slide 7, IBSI", ibsi_cols, outs8[0][1], ref)
+    log("  slide 7 (%d ROIs) of the IBSI request agrees with the f64 CPU "
+        "run, %s equal; closest to its tier: %s"
+        % (len(labs64), "/".join(IH_FROM_HISTOGRAM), worst))
+
     log_phase("phase 4, 3D: throughput on 2 volumes make_volume_3d(1..2)")
     runner_3d, vols, launches_3d = throughput_3d(kern)
 
@@ -1555,6 +1856,10 @@ def main():
         % ((time.perf_counter() - t0) * 1e3 / len(slides), wall * 1e3 / len(slides)))
     log_phase("phase 5, 3D: profile of one warm volume of *3D_ALL*")
     profile_report("volume 1 of *3D_ALL*", lambda: runner_3d.run(*vols[0]))
+    log_phase("phase 5, IBSI: profile of one warm 8-bit slide of the IBSI "
+              "request")
+    profile_report("slide 8 of the IBSI request",
+                   lambda: ibsi_card.run(*slides8[1]))
 
     src = {"batched_hist": ("nyxus_tpu_torch/csrc/batched_hist.cu",
                             "nyxus_tpu/ops/common.py:19"),
@@ -1587,10 +1892,13 @@ def main():
            "cc3d": ("nyxus_tpu_torch/csrc/cc3d.cu",
                     "nyxus_tpu/ops/texture3d.py:173"),
            "stencil3d": ("nyxus_tpu_torch/csrc/stencil3d.cu",
-                         "nyxus_tpu/ops/texture3d.py:350")}
+                         "nyxus_tpu/ops/texture3d.py:350"),
+           "ih_stats": ("nyxus_tpu_torch/csrc/ih_stats.cu",
+                        "nyxus_tpu/ops/ih.py:132")}
     # launches: the 2D kernels' in the timed pass of the 747-column request,
-    # K13-K16's in the timed pass of *3D_ALL*
+    # K13-K16's in the timed pass of *3D_ALL*, K17's in the timed IBSI pass
     launches.update({k: launches_3d[k] for k in KERNELS_3D})
+    launches.update({k: launches_ibsi[k] for k in KERNELS_IH})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict({"name": k, "route": "cuda", "source": src[k][0],

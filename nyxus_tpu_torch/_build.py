@@ -31,7 +31,8 @@ LIB_PATH = os.path.join(_DIR, "_build", "libnyxcuda.so")
 SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu", "stencil8.cu",
            "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu", "erosion.cu",
            "binary_quads.cu", "power_sums.cu", "gabor.cu", "zernike.cu",
-           "glcm3d_cooc.cu", "glrlm3d_runs.cu", "cc3d.cu", "stencil3d.cu")
+           "glcm3d_cooc.cu", "glrlm3d_runs.cu", "cc3d.cu", "stencil3d.cu",
+           "ih_stats.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "nyx_glrlm3d_runs": [_P] * 5 + [_I] * 8 + [_P],
     "nyx_cc3d": [_P] * 6 + [_I] * 5 + [_P],
     "nyx_stencil3d": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    "nyx_ih_stats": [_P] * 7 + [_I] * 4 + [_D, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Public Python API: ``Nyxus`` for in-memory 2D pairs and ``Nyxus3D`` for
 in-memory 3D volume pairs (PyTorch port of nyxus_tpu/api.py: the
-``featurize`` paths and the parameter surface).
+``featurize`` paths, their CSV / Arrow IPC / Parquet outputs, the ROI
+blacklist and the parameter surface).
 
 Mirrors the reference's Python surface (reference:
-src/nyx/python/nyxus/nyxus.py:29-909).  ``pandas`` is imported only where a
-frame is built, so ``import nyxus_tpu_torch`` works without it.
+src/nyx/python/nyxus/nyxus.py:29-909).  ``pandas`` and ``pyarrow`` are
+imported only where a frame is built or a file written, so ``import
+nyxus_tpu_torch`` works without them.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ import numpy as np
 from . import columns as col
 from . import metaparams
 from . import taxonomy as tx
+from .blacklist import RoiBlacklist
 from .config import EngineConfig
 from .pipeline.runner import PairRunner
+
+_VALID_OUTPUT_TYPES = ("pandas", "arrowipc", "parquet")
 
 _KWARG_MAP = {
     # constructor kwarg -> EngineConfig field
@@ -55,8 +60,11 @@ class Nyxus:
     current CUDA device) or e.g. "cuda:1"; "cpu" runs the plain PyTorch
     versions of the kernels and is meant for tests."""
 
+    _valid_output_types = list(_VALID_OUTPUT_TYPES)
+
     def __init__(self, features, device="cuda", **kwargs):
         self.features = list(features)
+        self._blacklist = RoiBlacklist()
         updates = {}
         for k, v in kwargs.items():
             field = _KWARG_MAP.get(k)
@@ -97,13 +105,13 @@ class Nyxus:
 
     def featurize(self, intensity_images: np.ndarray, label_images: np.ndarray,
                   intensity_names: list = (), label_names: list = (),
-                  output_type: str = "pandas"):
-        """Features of in-memory 2D pairs ([H, W] or [N, H, W] arrays) as a
-        pandas DataFrame, one row per ROI."""
-        if output_type != "pandas":
-            raise NotImplementedError(
-                "nyxus_tpu_torch writes pandas frames only, not %r"
-                % (output_type,))
+                  output_type: str = "pandas", output_path: str = ""):
+        """Features of in-memory 2D pairs ([H, W] or [N, H, W] arrays), one
+        row per ROI: a pandas DataFrame (``output_type`` "pandas"), or the
+        path of the Arrow IPC or Parquet file written at ``output_path`` (a
+        directory gets the default file name).  ROIs of the blacklist (a
+        global label list, or per-file lists keyed by the intensity image's
+        name) keep their row with unassigned values."""
         if not isinstance(intensity_images, np.ndarray):
             raise ValueError("intensity_images parameter must be numpy.ndarray")
         if not isinstance(label_images, np.ndarray):
@@ -128,11 +136,15 @@ class Nyxus:
         if len(intensity_names) != n_img or len(label_names) != n_img:
             raise ValueError("Number of image names must equal the number of images")
 
-        # Hounsfield-style shift + uint cast (reference: nyxus.py:469-477)
+        # Hounsfield-style shift + uint cast (reference: nyxus.py:469-477);
+        # under preserve_hu the slope-1 offset u = round(x - floor(min)) is
+        # recorded so IH_* can report in the original HU domain
         I = intensity_images
         min_raw = I.min() if I.size else 0
+        hu_off = 0.0
         if self.cfg.preserve_hu:
-            I = np.maximum(np.round(I - np.floor(min_raw)), 0)
+            hu_off = float(np.floor(min_raw))
+            I = np.maximum(np.round(I - hu_off), 0)
         elif min_raw < 0:
             I = I - min_raw
         if I.dtype.kind != "u":     # narrow unsigned dtypes ship as-is
@@ -142,14 +154,54 @@ class Nyxus:
         import pandas as pd
         frames = []
         for i in range(n_img):
-            labs, values = self._runner.run(I[i], M[i])
+            labs, values = self._runner.run(
+                I[i], M[i], blacklist=self._blacklist,
+                fname=intensity_names[i], hu_offset=hu_off)
             values = _force_finite(values, self.cfg.noval)
             frames.append(self._to_frame(intensity_names[i], label_names[i],
                                          labs, values))
-        if not frames:
-            return self._to_frame("", "", np.zeros(0, np.int64),
-                                  np.zeros((0, len(self.header) - 4)))
-        return pd.concat(frames, ignore_index=True)
+        if frames:
+            df = pd.concat(frames, ignore_index=True)
+        else:
+            df = self._to_frame("", "", np.zeros(0, np.int64),
+                                np.zeros((0, len(self.header) - 4)))
+        if output_type == "pandas":
+            return df
+        if output_type not in self._valid_output_types:
+            raise ValueError("Invalid output type %s. Valid output types "
+                             "are %s." % (output_type,
+                                          self._valid_output_types))
+        from .io import writers
+        self._arrow_path = writers.write_dataframe(df, output_type,
+                                                   output_path)
+        return self._arrow_path
+
+    # -- ROI blacklist (reference: nyxus.py:771-830) -----------------------
+
+    def blacklist_roi(self, raw: str):
+        self._blacklist.parse_raw_string(raw)
+
+    def clear_roi_blacklist(self):
+        self._blacklist.clear()
+
+    def roi_blacklist_get_summary(self) -> str:
+        return self._blacklist.summary()
+
+    # -- Arrow accessors ----------------------------------------------------
+
+    def get_arrow_ipc_file(self):
+        return getattr(self, "_arrow_path", "")
+
+    def get_parquet_file(self):
+        return getattr(self, "_arrow_path", "")
+
+    @staticmethod
+    def arrow_is_enabled():
+        try:
+            import pyarrow  # noqa: F401
+            return True
+        except ImportError:
+            return False
 
     # -- parameter access (reference: nyxus.py:560-770) -------------------
 
@@ -255,7 +307,7 @@ class Nyxus3D:
     ``device`` as for ``Nyxus``.  Not ported yet, each raising
     ``NotImplementedError`` naming its ROADMAP item: 3D anisotropy
     (``anisotropy_*`` other than 1), whole-volume mode, lazy 2.5D stacks,
-    ``mergerois``, IBSI, oversized ROIs, ``featurize_directory`` /
+    ``mergerois``, oversized ROIs, ``featurize_directory`` /
     ``featurize_files`` (the NIfTI file protocol) and ``n_devices`` other
     than 1."""
 

@@ -1,10 +1,11 @@
 """Native (C++) host-geometry library of the port, bound with ctypes
-(reduced from nyxus_tpu/native/__init__.py: the contour and geometry entry
-points only).
+(reduced from nyxus_tpu/native/__init__.py: the contour, geometry and CSV
+writer entry points only).
 
 ``src/`` holds verbatim copies of the JAX package's ``contour.cpp``,
-``geomfeats.cpp`` and ``geomfeats_batch.cpp``, which link only against each
-other and the C++ standard library (no libtiff, no file readers).  They are
+``geomfeats.cpp``, ``geomfeats_batch.cpp`` and ``csv_writer.cpp``, which link
+only against each other and the C++ standard library (no libtiff, no file
+readers).  They are
 compiled with ``g++`` (or ``$CXX``), one process a source, at first use into
 ``nyxus_tpu_torch/_build/libnyxgeom.so``; a stamp holding a hash of the
 sources, the compiler and the flags sits next to it, and a change to any of
@@ -29,7 +30,8 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 LIB_PATH = os.path.join(os.path.dirname(_DIR), "_build", "libnyxgeom.so")
-SOURCES = ("contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp")
+SOURCES = ("contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp",
+           "csv_writer.cpp")
 # -march=native is safe: the library is built on first use on the machine
 # that runs it and never committed.  -ffp-contract=off: FMA contraction
 # would change the doubles and break parity with the JAX package's host
@@ -60,6 +62,10 @@ _SIGNATURES = {
                               ctypes.c_uint32, ctypes.c_double, _P, _P, _I]),
     "nyx_neighbors_batch": (None, [_P, _P, _P, _P, _P, _P, ctypes.c_double,
                                    _L, _P, _I]),
+    "nyxcsv_write": (_I, [ctypes.c_char_p, ctypes.c_char_p,
+                          ctypes.POINTER(ctypes.c_char_p), _P,
+                          ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+                          _I, _I, _I, _I]),
 }
 
 
@@ -391,3 +397,22 @@ def contours_batch(labels_img, intens_img, recs):
         out.ctypes.data_as(ctypes.c_void_p),
         counts.ctypes.data_as(ctypes.c_void_p), _n_threads())
     return [out[caps[i]:caps[i] + counts[i]].copy() for i in range(n)]
+
+
+def write_csv(path, header, row_prefixes, values, noval_text="nan",
+              append=False, precision=6, sub_negzero=False):
+    """Write a feature table to CSV natively (nyxus_tpu/native/__init__.py
+    write_csv).  header: str or None; row_prefixes: list[str] pre-rendered
+    string-column prefixes (no trailing comma); values: [nrows, ncols]
+    float64."""
+    lib = _load()
+    values = np.ascontiguousarray(values, np.float64)
+    n = values.shape[0]
+    arr = (ctypes.c_char_p * n)(*[p.encode() for p in row_prefixes])
+    rc = lib.nyxcsv_write(
+        path.encode(), header.encode() if header else None, arr,
+        values.ctypes.data_as(ctypes.c_void_p), n, values.shape[1],
+        noval_text.encode(), 1 if append else 0, precision,
+        1 if sub_negzero else 0, _n_threads())
+    if rc != 0:
+        raise IOError("CSV write failed (rc=%d)" % rc)

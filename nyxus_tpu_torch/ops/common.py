@@ -148,10 +148,15 @@ def safe_div(a, b, default=0.0):
 
 
 def sort_masked_values(intens, mask, pad=float("inf")):
-    """Flatten an [B, H, W] crop to sorted [B, A] values with +inf padding."""
+    """Flatten an [B, H, W] crop to sorted [B, A] values with +inf padding
+    (one torch.sort; ``calls`` counts them for chip_smoke.py's report)."""
     B = intens.shape[0]
     v = torch.where(mask, intens, pad).reshape(B, -1)
+    sort_masked_values.calls += 1
     return torch.sort(v, dim=1).values
+
+
+sort_masked_values.calls = 0
 
 
 def take_per_row(values, idx):

@@ -21,7 +21,6 @@ co-occurrence matrix emit the soft-NAN placeholder for every member.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import quant
@@ -120,17 +119,6 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
 cooc_matrices.launches = 0
 
 
-def _onehots(ng: int, dt, device):
-    """Constant [ng*ng, ng] |i-j| and [ng*ng, 2ng-1] i+j one-hot maps."""
-    ii = np.arange(ng)
-    diff_oh = (np.abs(ii[:, None] - ii[None, :]).reshape(-1)[:, None]
-               == np.arange(ng)[None, :])
-    sum_oh = ((ii[:, None] + ii[None, :]).reshape(-1)[:, None]
-              == np.arange(2 * ng - 1)[None, :])
-    return (torch.as_tensor(diff_oh, dtype=dt, device=device),
-            torch.as_tensor(sum_oh, dtype=dt, device=device))
-
-
 def glcm_features_from_matrix(M, ng: int, noval: float, ng_val=None,
                               val=None, kvs=None, kvd=None):
     """All 30 angled GLCM features from count matrices.
@@ -161,10 +149,17 @@ def glcm_features_from_matrix(M, ng: int, noval: float, ng_val=None,
     mr = (px_c * valB).sum(dim=-1)       # center-marginal mean
     mc = (px_n * valB).sum(dim=-1)       # neighbor-marginal mean (by_row_mean)
 
-    diff_oh, sum_oh = _onehots(ng, dt, dev)
+    # the |i-j| and i+j marginals: each cell added into its bin (the JAX
+    # package's one-hot matmuls hold ng^3 entries, 2^36 at IBSI's 4096 raw
+    # levels)
     pflat = p.reshape(p.shape[:-2] + (ng * ng,))
-    pxmy = pflat @ diff_oh                                  # [B, A, ng]
-    pxpy = pflat @ sum_oh                                   # [B, A, 2ng-1]
+    ii = torch.arange(ng, device=dev)
+    dif = (ii[:, None] - ii[None, :]).abs().reshape(-1)
+    add = (ii[:, None] + ii[None, :]).reshape(-1)
+    pxmy = torch.zeros(p.shape[:-2] + (ng,), dtype=dt, device=dev
+                       ).index_add_(-1, dif, pflat)             # [B, A, ng]
+    pxpy = torch.zeros(p.shape[:-2] + (2 * ng - 1,), dtype=dt, device=dev
+                       ).index_add_(-1, add, pflat)             # [B, A, 2ng-1]
 
     k = idx                                                 # diff index values
     if kvs is None:

@@ -30,26 +30,29 @@ MEMBERS = [
 ]
 
 
-def to_grayscale_levels(intens, vmax, n_levels: int):
+def to_grayscale_levels(intens, vmax, n_levels: int, ibsi: bool):
     """Nyxus::to_grayscale(i, 0, max, n) = floor(i * n / max) (helpers.h:337),
     truncated toward zero like the JAX package's astype(int32): levels
-    0..n_levels.  (IBSI mode's raw levels come with the IBSI slice.)"""
+    0..n_levels; IBSI mode keeps the raw levels."""
+    if ibsi:
+        return intens.to(torch.int32)
     return (intens * n_levels / torch.clamp(vmax, min=1e-30)).to(torch.int32)
 
 
-def ngldm_features(intens, mask, vmin, vmax, n_levels: int, noval: float,
-                   dtype):
+def ngldm_features(intens, mask, vmin, vmax, n_levels: int, nmax: int,
+                   ibsi: bool, noval: float, dtype):
     """intens: [B, H, W] raw crop; mask: ROI membership; n_levels: the
-    to_grayscale level count.  Returns dict member -> [B]."""
+    to_grayscale level count; nmax: static level cap (levels <= nmax).
+    Returns dict member -> [B]."""
     B = intens.shape[0]
     lev = to_grayscale_levels(intens.to(dtype), vmax[:, None, None],
-                              n_levels)
+                              n_levels, ibsi)
     # matches of in-ROI pixels: in-ROI neighbours of the same level (JAX:
     # levels -1 outside the ROI, matches counted where n_lev >= 0)
     matches, _, _ = stencil8(lev, mask)
     lev_idx = torch.where(mask, lev, 0).reshape(B, -1)
     w = mask.reshape(B, -1).to(dtype)
-    P = pair_hist(lev_idx, matches.reshape(B, -1), w, n_levels + 1, NR)
+    P = pair_hist(lev_idx, matches.reshape(B, -1), w, nmax + 1, NR)
     return ngldm_features_from_matrix(P, vmin, vmax, noval, dtype)
 
 

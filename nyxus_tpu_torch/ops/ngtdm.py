@@ -49,12 +49,34 @@ def ngtdm_matrices(levels, valid, nmax: int, dtype):
     return N, S, present
 
 
-def ngtdm_features(levels, valid, nmax: int, vmin, vmax, noval: float, dtype):
+def ngtdm_features(levels, valid, nmax: int, vmin, vmax, noval: float, dtype,
+                   ibsi: bool = False):
     """levels: [B, H, W] int binned levels; valid: participation mask
     (AABB for MATLAB binning, AABB & level>0 otherwise); nmax: static level
-    cap (levels <= nmax).  Returns dict member -> [B]."""
+    cap (levels <= nmax); ``ibsi``: raw levels (IBSI's degenerate gate).
+    Returns dict member -> [B]."""
     N, S, present = ngtdm_matrices(levels, valid, nmax, dtype)
-    return ngtdm_stats(N, S, present, levels, valid, noval, dtype)
+    return ngtdm_stats_chunked(N, S, present, levels, valid, noval, dtype,
+                               ibsi)
+
+
+# bytes of one [B, nb, nb] temporary of ngtdm_stats per chunk of ROIs
+_CHUNK_BYTES = 1 << 28
+
+
+def ngtdm_stats_chunked(N, S, present, levels, valid, noval: float, dtype,
+                        ibsi: bool):
+    """ngtdm_stats over chunks of ROIs: its [B, nb, nb] temporaries reach
+    4097^2 a ROI at raw 12-bit levels."""
+    B, nb = N.shape
+    step = max(1, _CHUNK_BYTES // (nb * nb * 8))
+    if step >= B:
+        return ngtdm_stats(N, S, present, levels, valid, noval, dtype, ibsi)
+    parts = [ngtdm_stats(N[c:c + step], S[c:c + step], present[c:c + step],
+                         levels[c:c + step], valid[c:c + step], noval, dtype,
+                         ibsi)
+             for c in range(0, B, step)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def ngtdm_stats(N, S, present, levels, valid, noval: float, dtype,

@@ -51,7 +51,7 @@ from . import quant, zones
 from .common import (SMEM_MAX, _kernel_device, masked_bincount, pair_hist,
                      pair_hist_plain)
 from .gldm import gldm_features
-from .ngtdm import ngtdm_stats
+from .ngtdm import ngtdm_stats_chunked
 
 # (dx, dy, dz), 3d_glcm.cpp:16-31
 GLCM_SHIFTS = [(1, 1, 1), (1, 1, 0), (1, 1, -1), (1, 0, 1), (1, 0, 0),
@@ -70,9 +70,6 @@ N6 = [(0, 0, 1), (0, 0, -1), (0, 1, 0), (0, -1, 0), (1, 0, 0), (-1, 0, 0)]
 # 8-neighbourhood at dz = 0, +1, -1 and leaves out the axial (0, 0, +-1)
 # pair: 24 shifts, not 26 (3d_gldm.cpp:16-48 has all 26)
 N24_NGLDM = [s for s in N26 if not (s[1] == 0 and s[2] == 0)]
-
-# bytes of one [B, nb, nb] temporary of ngtdm_stats per chunk of ROIs
-_NGTDM_CHUNK_BYTES = 1 << 28
 
 
 def shifted3d(arr, dx: int, dy: int, dz: int, fill=0):
@@ -528,9 +525,8 @@ def ngtdm3d_all(levels, valid, zeroI: int, nmax: int, radius: int, vmin,
                 vmax, noval: float, dtype, ibsi: bool):
     """Chebyshev-window NGTDM (nyxus_tpu/ops/texture3d.py:369): every
     in-cube voxel is a neighbour (background included).  K16 sums, K1 the
-    per-level N and S; the statistics run over chunks of ROIs, since their
-    [B, nmax+1, nmax+1] temporaries reach 4097^2 a ROI at raw 12-bit
-    levels."""
+    per-level N and S, the statistics over chunks of ROIs
+    (ngtdm_stats_chunked)."""
     B = levels.shape[0]
     lev = torch.where(valid, levels.to(torch.int32), 0)
     nsum, ncnt = stencil3d(lev, valid, radius=radius)
@@ -546,12 +542,8 @@ def ngtdm3d_all(levels, valid, zeroI: int, nmax: int, radius: int, vmin,
     present = masked_bincount(flat_lev, valid.reshape(B, -1).to(dtype),
                               nb) > 0
     present[:, 0] = False
-    step = max(1, _NGTDM_CHUNK_BYTES // (nb * nb * 8))
-    parts = [ngtdm_stats(N[c:c + step], S[c:c + step], present[c:c + step],
-                         levels[c:c + step], valid[c:c + step], noval, dtype,
-                         ibsi)
-             for c in range(0, B, step)]
-    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return ngtdm_stats_chunked(N, S, present, levels, valid, noval, dtype,
+                               ibsi)
 
 
 def ngldm3d_all(intens, aabb, vmax, n_levels: int, nmax: int, ibsi: bool,

@@ -10,7 +10,7 @@ pipeline/oversized3d.py) and ``VolumeRunner._surface`` are verbatim copies
 of the JAX package's code (pinned by tests/test_torch_tables.py).
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-3D anisotropy, whole-volume mode, lazy 2.5D stacks, ``mergerois``, IBSI,
+3D anisotropy, whole-volume mode, lazy 2.5D stacks, ``mergerois``,
 oversized 3D ROIs.
 """
 
@@ -168,8 +168,11 @@ class Ctx3D:
 
 def _grey(ctx, cfg, family=None):
     """(greyInfo, matrix size) of a family: a grey depth bins into that many
-    levels; 0 (the per-family default of GLRLM/GLSZM/GLDM/NGTDM) keeps raw
-    levels, with the matrix sized by the volume's power-of-two ceiling."""
+    levels; 0 (IBSI mode, and the per-family default of GLRLM/GLSZM/GLDM/
+    NGTDM) keeps raw levels, with the matrix sized by the volume's
+    power-of-two ceiling."""
+    if cfg.ibsi:
+        return 0, int(ctx.static_meta.get("max_int", 256))
     g = cfg.texture_greydepth3(family) if family else cfg.coarse_gray_depth
     if g == 0:
         return 0, int(ctx.static_meta.get("max_int", 256))
@@ -241,12 +244,14 @@ def _f_ngldm(ctx, cfg):
     interior = ((zs >= 1) & (zs < ctx.depths[:, None, None, None] - 1)
                 & (ys >= 1) & (ys < ctx.heights[:, None, None, None] - 1)
                 & (xs >= 1) & (xs < ctx.widths[:, None, None, None] - 1))
+    n_levels = 0 if cfg.ibsi else cfg.coarse_gray_depth
     # to_grayscale is unclamped (helpers.h:337); "ngldm_nmax" carries the
-    # host-computed level ceiling
-    nmax = int(ctx.static_meta.get("ngldm_nmax", ng))
+    # host-computed level ceiling; IBSI's raw levels reach the slide max
+    nmax = (int(ctx.static_meta.get("max_int", 256)) if cfg.ibsi
+            else int(ctx.static_meta.get("ngldm_nmax", ng)))
     return t3.ngldm3d_all(ctx.masked_intens,
                           {"interior": interior, "inbounds": ctx.aabb},
-                          ctx.bvmax, cfg.coarse_gray_depth, nmax, False,
+                          ctx.bvmax, n_levels, nmax, cfg.ibsi,
                           ctx.bvmin, cfg.noval, ctx.intens.dtype)
 
 
@@ -288,8 +293,6 @@ class VolumeRunner:
 
     def __init__(self, fset: tx.FeatureSet, cfg: EngineConfig,
                  device="cuda"):
-        if cfg.ibsi:
-            raise _unported(5, "IBSI mode in 3D")
         if cfg.mergerois:
             raise _unported(14, "mergerois")
         if cfg.aniso_customized or abs(cfg.aniso_z - 1.0) > 1.1920929e-07:
@@ -346,7 +349,7 @@ class VolumeRunner:
             # NGLDM level ceiling: to_grayscale is unclamped, so when a rec
             # bins against a range below its cloud max levels reach
             # floor(cloud_max * n / range)
-            g_ngldm = self.cfg.coarse_gray_depth
+            g_ngldm = 0 if self.cfg.ibsi else self.cfg.coarse_gray_depth
             ngldm_nmax = max(abs(g_ngldm), 2)
             for r in brecs:
                 if r.bin_max is not None and r.bin_max < r.vmax and \

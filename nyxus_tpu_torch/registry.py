@@ -30,6 +30,7 @@ from .ops import gldm as ops_gldm
 from .ops import gldzm as ops_gldzm
 from .ops import glrlm as ops_glrlm
 from .ops import glszm as ops_glszm
+from .ops import ih as ops_ih
 from .ops import intensity as ops_intensity
 from .ops import moments as ops_moments
 from .ops import morphology as ops_morphology
@@ -47,7 +48,14 @@ class BatchContext:
 
     def __init__(self, intens, mask, area, vmin, vmax, slide_min, slide_max,
                  heights, widths, cfg: EngineConfig, y0=None, x0=None,
-                 logw=None):
+                 logw=None, static_meta=(), hu_offset=None):
+        # hu_offset: [B] floor(original slide min) under preserve_hu -- the
+        # load-time slope-1 shift IH_* must undo (slideprops.h:48-66,
+        # intensity_histogram.cpp:341-372); None/0 otherwise
+        self.hu_offset = hu_offset
+        # static_meta: (key, value) pairs of per-batch scalars (the IBSI
+        # level count "max_int")
+        self.static_meta = dict(static_meta)
         self.intens = intens          # [B, H, W] compute dtype, raw crop
         self.mask = mask              # [B, H, W] bool
         self.area = area              # [B] int
@@ -295,13 +303,64 @@ def _intensity_family(ctx: BatchContext, cfg: EngineConfig):
         ctx.slide_max - ctx.slide_min, nbins, cfg.noval)
 
 
+def _ih_family(ctx: BatchContext, cfg: EngineConfig):
+    dt = ctx.intens.dtype
+    if not cfg.ibsi:
+        # defensive compute-time gate (intensity_histogram.cpp:305-309);
+        # enablement is already IBSI-gated at parse time
+        nv = torch.full((ctx.B,), cfg.noval, dtype=dt,
+                        device=ctx.intens.device)
+        return {m: nv for m in ops_ih.MEMBERS}
+    # float-domain map (intensity_histogram.cpp:341-372): HU mode undoes the
+    # load-time slope-1 offset (the ORIGINAL pre-shift slide min, carried in
+    # ctx.hu_offset -- the in-memory slide min is 0 after the shift);
+    # integer non-HU images are a no-op
+    if cfg.preserve_hu and ctx.hu_offset is not None:
+        poffset = ctx.hu_offset.to(dt)
+        pscale = torch.ones_like(poffset)
+    else:
+        poffset = pscale = None
+    return ops_ih.ih_features(ctx.sorted_values, ctx.area, ctx.vmin,
+                              ctx.vmax, abs(cfg.coarse_gray_depth),
+                              cfg.noval, pscale, poffset)
+
+
+# matrix cells ([B, angles, ng, ng]) of one GLCM chunk of ROIs
+GLCM_CHUNK_CELLS = 1 << 26
+
+
+def _max_int(ctx: BatchContext):
+    """IBSI's raw-level count: the slide max rounded up to a power of two
+    (the runner's static_meta)."""
+    return int(ctx.static_meta.get("max_int", 256))
+
+
 def _glcm_family(ctx: BatchContext, cfg: EngineConfig):
-    greyinfo = cfg.texture_greydepth("glcm")
+    ng_val = None
+    if cfg.ibsi:
+        greyinfo = 0
+        ng = _max_int(ctx)
+        symmetric = True
+        ng_val = ctx.vmax     # per-ROI Ng (reference sizes by the ROI max)
+    else:
+        greyinfo = cfg.texture_greydepth("glcm")
+        ng = abs(greyinfo)
+        symmetric = False
     levels = ctx.texture_levels(greyinfo)
-    return ops_glcm.glcm_all(
-        ctx.masked_intens, levels, ctx.vmin, ctx.vmax,
-        cfg.glcm_angles, cfg.glcm_offset, abs(greyinfo), False, greyinfo,
-        cfg.noval)
+    # [B, angles, ng, ng] matrices and their statistics' temporaries: at
+    # raw 12-bit levels (4096) one ROI's matrices are 268 MB, so the family
+    # runs over chunks of ROIs; each ROI's values are its own
+    na = len(cfg.glcm_angles)
+    step = max(1, GLCM_CHUNK_CELLS // (na * ng * ng))
+    parts = [ops_glcm.glcm_all(
+        ctx.masked_intens[c:c + step], levels[c:c + step],
+        ctx.vmin[c:c + step], ctx.vmax[c:c + step], cfg.glcm_angles,
+        cfg.glcm_offset, ng, symmetric, greyinfo, cfg.noval,
+        None if ng_val is None else ng_val[c:c + step])
+        for c in range(0, ctx.B, step)]
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def _n_pixels(ctx: BatchContext):
@@ -309,19 +368,25 @@ def _n_pixels(ctx: BatchContext):
 
 
 def _texture_setup(ctx: BatchContext, cfg: EngineConfig, family: str):
-    """(ng, levels, valid) shared by the GLRLM/NGTDM/GLDM/GLSZM/GLDZM
-    families."""
-    greyinfo = cfg.texture_greydepth(family)
+    """(greyinfo, ng, levels, valid) shared by the GLRLM/NGTDM/GLDM/GLSZM/
+    GLDZM families."""
+    if cfg.ibsi:
+        greyinfo = 0
+        ng = _max_int(ctx)
+    else:
+        greyinfo = cfg.texture_greydepth(family)
+        ng = abs(greyinfo)
     levels = ctx.texture_levels(greyinfo)
     if greyinfo > 0:
         valid = ctx.aabb_mask        # MATLAB binning: background participates
     else:
+        # IBSI raw mode and radiomics mode both map background/zero to level 0
         valid = ctx.aabb_mask & (levels > 0)
-    return abs(greyinfo), levels, valid
+    return greyinfo, ng, levels, valid
 
 
 def _glrlm_family(ctx: BatchContext, cfg: EngineConfig):
-    ng, levels, valid = _texture_setup(ctx, cfg, "glrlm")
+    _, ng, levels, valid = _texture_setup(ctx, cfg, "glrlm")
     dtype = ctx.intens.dtype
     P = ops_glrlm.run_matrices(levels, valid, ng, max(ctx.shape), dtype)
     return ops_glrlm.glrlm_features(P, _n_pixels(ctx), ctx.vmin, ctx.vmax,
@@ -329,26 +394,33 @@ def _glrlm_family(ctx: BatchContext, cfg: EngineConfig):
 
 
 def _ngtdm_family(ctx: BatchContext, cfg: EngineConfig):
-    ng, levels, valid = _texture_setup(ctx, cfg, "ngtdm")
+    greyinfo, ng, levels, valid = _texture_setup(ctx, cfg, "ngtdm")
     return ops_ngtdm.ngtdm_features(levels, valid, ng, ctx.vmin, ctx.vmax,
-                                    cfg.noval, ctx.intens.dtype)
+                                    cfg.noval, ctx.intens.dtype,
+                                    ibsi=greyinfo == 0)
 
 
 def _gldm_family(ctx: BatchContext, cfg: EngineConfig):
-    ng, levels, _ = _texture_setup(ctx, cfg, "gldm")
+    _, ng, levels, _ = _texture_setup(ctx, cfg, "gldm")
     P = ops_gldm.gldm_matrix(ctx.masked_intens, levels, ng, ctx.intens.dtype)
     return ops_gldm.gldm_features(P, ctx.vmin, ctx.vmax, cfg.noval)
 
 
 def _ngldm_family(ctx: BatchContext, cfg: EngineConfig):
+    if cfg.ibsi:
+        n_levels = 0
+        nmax = _max_int(ctx)
+    else:
+        n_levels = abs(cfg.coarse_gray_depth)
+        nmax = n_levels  # to_grayscale yields 0..n
     return ops_ngldm.ngldm_features(
-        ctx.intens, ctx.mask, ctx.vmin, ctx.vmax, abs(cfg.coarse_gray_depth),
+        ctx.intens, ctx.mask, ctx.vmin, ctx.vmax, n_levels, nmax, cfg.ibsi,
         cfg.noval, ctx.intens.dtype)
 
 
 def _glszm_family(ctx: BatchContext, cfg: EngineConfig):
-    _, levels, valid = _texture_setup(ctx, cfg, "glszm")
-    if cfg.texture_greydepth("glszm") > 0:
+    greyinfo, _, levels, valid = _texture_setup(ctx, cfg, "glszm")
+    if greyinfo > 0:
         # MATLAB mode: Np counts the VISITED-marked matrix = whole AABB
         np_pixels = ctx.heights * ctx.widths
     else:
@@ -359,13 +431,14 @@ def _glszm_family(ctx: BatchContext, cfg: EngineConfig):
 
 
 def _gldzm_family(ctx: BatchContext, cfg: EngineConfig):
-    _, levels, valid = _texture_setup(ctx, cfg, "gldzm")
+    _, _, levels, valid = _texture_setup(ctx, cfg, "gldzm")
     return ops_gldzm.gldzm_features(
         torch.where(valid, levels, 0), valid, ctx.heights, ctx.widths,
         ctx.area, ctx.vmin, ctx.vmax, cfg.noval, ctx.intens.dtype)
 
 
 FAMILIES["PixelIntensityFeatures"].fn = _intensity_family
+FAMILIES["IntensityHistogramFeatures"].fn = _ih_family
 FAMILIES["GLCMFeature"].fn = _glcm_family
 FAMILIES["GLRLMFeature"].fn = _glrlm_family
 FAMILIES["NGTDMFeature"].fn = _ngtdm_family

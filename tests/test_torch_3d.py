@@ -185,7 +185,7 @@ def _volume():
 
 
 @pytest.mark.parametrize("mode", ["anisotropy", "wholeslide", "lazy",
-                                  "mergerois", "ibsi", "oversized",
+                                  "mergerois", "anisotropy_xy", "oversized",
                                   "featurize_directory", "featurize_files",
                                   "n_devices"])
 def test_unported_modes_raise(mode):
@@ -193,7 +193,7 @@ def test_unported_modes_raise(mode):
     its ROADMAP item."""
     intens, labels = _volume()
     ctor = {"anisotropy": {"anisotropy_z": 1.5}, "mergerois":
-            {"mergerois": True}, "ibsi": {"ibsi": True},
+            {"mergerois": True}, "anisotropy_xy": {"anisotropy_x": 1.5},
             "n_devices": {"n_devices": 4}}.get(mode, {})
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", **ctor)
@@ -251,3 +251,87 @@ def test_chip_smoke_3d_tiers():
     dev[:, cols.index("3KURTOSIS")] = 1.03
     assert [c for c, _ in chip_smoke.compare_tiers(cols, dev, ref)[0]] == \
         ["3KURTOSIS"]
+
+
+# ---------------------------------------------------------------------------
+# IBSI mode and preserve_hu on the fixture volume
+
+
+def _reference_parity_3d(name, ours, skip_prefixes=()):
+    """(columns checked, failures) against a reference CSV at
+    test_config_parity's p90 1e-4."""
+    ref = pd.read_csv(gzip.open(os.path.join(DATA, name), "rt"))
+    ref = ref.sort_values("ROI_label").set_index("ROI_label")
+    assert list(ref.index) == list(ours.index)
+    failures, checked = [], 0
+    for c in ours.columns:
+        if c not in ref.columns or c.startswith(skip_prefixes):
+            continue
+        a = ours[c].to_numpy(float)
+        b = ref[c].to_numpy(float)
+        both = np.isfinite(a) & np.isfinite(b)
+        if both.sum() == 0:
+            continue
+        rel = np.abs(a[both] - b[both]) / np.maximum(np.abs(b[both]), 1e-6)
+        p90 = float(np.quantile(rel, 0.9))
+        checked += 1
+        if p90 > 1e-4:
+            failures.append((c, p90))
+    return checked, failures
+
+
+@pytest.fixture(scope="module")
+def ibsi_volume_frame():
+    intens, labels = _fixture_volume()
+    nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", precision="f64",
+                                  ibsi=True)
+    return nyx.featurize(intens, labels)
+
+
+def test_volume_runner_ibsi_equals_jax():
+    """IBSI *3D_ALL* (raw levels for every texture family, the matrices
+    sized by the volume's power-of-two ceiling, NGLDM's raw levels) equals
+    JAX's VolumeRunner on all 213 columns of conftest.make_blobs3d with
+    intensities % 59 + 1 (the fixture volume's 64^3 bucket takes the JAX
+    package ~16 GB in IBSI mode)."""
+    intens, labels = make_blobs3d()
+    intens = (intens % 59 + 1).astype(np.uint16)
+    labs, want, cols = _jax_run(intens, labels, ibsi=True)
+    fset = ttx.parse_feature_request(FEATURES, dim=3, ibsi=True)
+    tl, got = VolumeRunner(fset, TConfig(precision="f64", ibsi=True),
+                           "cpu").run(intens, labels.astype(np.int32))
+    np.testing.assert_array_equal(tl, labs)
+    _agree(cols, got, want)
+
+
+def test_nyxus3d_ibsi_reference_parity(ibsi_volume_frame):
+    """IBSI *3D_ALL* against ref_3d_ibsi_48x56x60_seed4 (the binary's
+    --ibsi=true) at p90 1e-4: every comparable column, at least 150."""
+    ours = ibsi_volume_frame.set_index("ROI_label").iloc[:, 3:]
+    checked, failures = _reference_parity_3d(
+        "ref_3d_ibsi_48x56x60_seed4.csv.gz", ours)
+    assert not failures, failures[:40]
+    assert checked >= 150, checked
+
+
+def test_preserve_hu_3d_reference_parity():
+    """*3D_ALL* under preserve_hu on an int16 HU-like volume against
+    ref_3d_hu_48x56x60_seed4 (the NIfTI loader's floored-minimum offset, as
+    test_config_parity.test_3d_hu_reference_binary_parity applies it): 211
+    columns, the hull members skipped (the binary's per-plane hull)."""
+    intens, labels = _blob3d(seed=4, shape=(48, 56, 60))
+    hu = ((intens.astype(np.int64) % 59) * 30 - 900).astype(np.int16)
+    off = np.floor(hu.min())
+    vol = np.maximum(np.round(hu - off), 0).astype(np.uint16)
+    fset = ttx.parse_feature_request(FEATURES, dim=3)
+    cfg = TConfig(precision="f64", preserve_hu=True)
+    labs, values = VolumeRunner(fset, cfg, "cpu").run(
+        vol, labels.astype(np.int32))
+    from nyxus_tpu_torch import columns as tcol
+    ours = pd.DataFrame(values, columns=tcol.build_header(fset, cfg)[0][4:],
+                        index=labs)
+    checked, failures = _reference_parity_3d(
+        "ref_3d_hu_48x56x60_seed4.csv.gz", ours,
+        skip_prefixes=("3MESH_VOLUME", "3VOLUME_CONVEXHULL"))
+    assert not failures, failures[:40]
+    assert checked == 211, checked

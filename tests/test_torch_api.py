@@ -129,3 +129,105 @@ def test_custom_gabor_bank_matches_jax():
                                atol=1e-12)
     default = _nyx(["GABOR"], precision="f64").featurize(intens, labels)
     assert len(default.columns) == 4 + 4
+
+
+# ---------------------------------------------------------------------------
+# output types, the ROI blacklist and IBSI construction
+
+
+def _pair():
+    intens, labels = make_blobs(96, 96, 5, seed=11)
+    return intens, labels
+
+
+@pytest.mark.parametrize("output_type", ["arrowipc", "parquet"])
+def test_featurize_output_files(tmp_path, output_type):
+    """featurize writes the Arrow IPC / Parquet file at output_path (a
+    directory gets the default name), returns its path, and the file reads
+    back as the pandas frame."""
+    pa = pytest.importorskip("pyarrow")
+    import pandas as pd
+    intens, labels = _pair()
+    nyx = _nyx(["*ALL_INTENSITY*", "GLCM_ASM"], precision="f64")
+    df = nyx.featurize(intens, labels)
+    path = nyx.featurize(intens, labels, output_type=output_type,
+                         output_path=str(tmp_path / "out"))
+    name = {"arrowipc": "NyxusFeatures.arrow",
+            "parquet": "NyxusFeatures.parquet"}[output_type]
+    assert path == str(tmp_path / "out" / name)
+    getter = {"arrowipc": nyx.get_arrow_ipc_file,
+              "parquet": nyx.get_parquet_file}[output_type]
+    assert getter() == path
+    if output_type == "parquet":
+        back = pd.read_parquet(path)
+    else:
+        with pa.memory_map(path) as src:
+            back = pa.ipc.open_file(src).read_all().to_pandas()
+    pd.testing.assert_frame_equal(back, df)
+    assert nyxus_tpu_torch.Nyxus.arrow_is_enabled() is True
+
+
+def test_featurize_csv_writer_matches_jax(tmp_path):
+    """The CSV writer (the copied native writer) writes the port's frame as
+    the JAX package's writes it, byte for byte, and it reads back."""
+    import pandas as pd
+    from nyxus_tpu.io import writers as jwriters
+    from nyxus_tpu_torch.io import writers
+    intens, labels = _pair()
+    df = _nyx(["*ALL_INTENSITY*"], precision="f64").featurize(intens, labels)
+    ours = writers.write_dataframe(df, "csv", str(tmp_path / "t.csv"))
+    theirs = jwriters.write_dataframe(df, "csv", str(tmp_path / "j.csv"))
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    back = pd.read_csv(ours, float_precision="round_trip")
+    assert list(back.columns) == list(df.columns)
+    np.testing.assert_allclose(back.iloc[:, 4:].to_numpy(float),
+                               df.iloc[:, 4:].to_numpy(float), rtol=0)
+
+
+def test_featurize_invalid_output_type():
+    intens, labels = _pair()
+    nyx = _nyx(["MEAN"])
+    with pytest.raises(ValueError, match="Invalid output type csv"):
+        nyx.featurize(intens, labels, output_type="csv")
+    assert nyx.get_arrow_ipc_file() == ""
+
+
+def test_blacklist_methods():
+    """A blacklisted ROI keeps its row with every feature -0.0; the summary
+    names the list; clearing it restores the values.  A per-file list
+    applies to the intensity image of that name only."""
+    intens, labels = _pair()
+    nyx = _nyx(["MEAN", "GLCM_ASM_AVE"], precision="f64")
+    full = nyx.featurize(intens, labels)
+    assert nyx.roi_blacklist_get_summary() == "blacklist is not defined"
+    nyx.blacklist_roi("1,3")
+    assert "global blacklist: 1,3" in nyx.roi_blacklist_get_summary()
+    df = nyx.featurize(intens, labels)
+    assert list(df.ROI_label) == list(full.ROI_label)
+    black = df.ROI_label.isin([1, 3])
+    vals = df.loc[black].iloc[:, 4:].to_numpy(float)
+    assert black.sum() == 2 and (vals == 0).all() and np.signbit(vals).all()
+    np.testing.assert_array_equal(df.loc[~black].iloc[:, 4:].to_numpy(float),
+                                  full.loc[~black].iloc[:, 4:].to_numpy(float))
+    nyx.clear_roi_blacklist()
+    pd_eq = nyx.featurize(intens, labels)
+    np.testing.assert_array_equal(pd_eq.iloc[:, 4:].to_numpy(float),
+                                  full.iloc[:, 4:].to_numpy(float))
+    nyx.blacklist_roi("a.tif:2;b.tif:4")
+    two = nyx.featurize(np.stack([intens, intens]), np.stack([labels, labels]),
+                        intensity_names=["a.tif", "b.tif"],
+                        label_names=["ma.tif", "mb.tif"])
+    out = two.set_index(["intensity_image", "ROI_label"]).MEAN
+    assert out[("a.tif", 2)] == 0 and out[("a.tif", 4)] > 0
+    assert out[("b.tif", 4)] == 0 and out[("b.tif", 2)] > 0
+
+
+@pytest.mark.parametrize("cls,features,width", [
+    ("Nyxus", ["*ALL*"], 793), ("Nyxus3D", ["*3D_ALL*"], 213)])
+def test_ibsi_construction(cls, features, width):
+    """IBSI Nyxus / Nyxus3D build on the CPU (no NotImplementedError) with
+    the IBSI header."""
+    nyx = getattr(nyxus_tpu_torch, cls)(features, device="cpu", ibsi=True)
+    assert nyx.cfg.ibsi and len(nyx.header) - 4 == width
+    assert nyx.get_params("ibsi") == {"ibsi": True}

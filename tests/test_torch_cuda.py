@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K16 against their plain PyTorch versions, and
+"""The port's CUDA kernels K1-K17 against their plain PyTorch versions, and
 the slices (2D and 3D) in f32 on the card against the port's own f64 CPU
 run.  Every test needs a CUDA device and skips without one.  This file
 imports neither jax nor the JAX package, so it runs on a machine with a
@@ -22,7 +22,10 @@ matrices, runs, labels, distances, stencil counts and sums) are integers
 and must be equal; K1's float sums over 3D rows hold rtol 1e-6 / 1e-12 on
 the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
 64 x 256 x 256 crop) the rounding bound of a sum in another order, 2 n u
-sum(w); they are exact on dyadic weights."""
+sum(w); they are exact on dyadic weights.  K17's bin indices and counts are
+equal, its values within 1e-5 (f32) / 1e-12 (f64) of their value plus
+their row's scale (both versions form the same terms and sum them in
+float64, in another order)."""
 
 import os
 import sys
@@ -38,7 +41,7 @@ from nyxus_tpu_torch import columns, taxonomy  # noqa: E402
 from nyxus_tpu_torch.ops import binary  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
 from nyxus_tpu_torch.ops import common, gabor, glcm, glrlm, zones  # noqa: E402
-from nyxus_tpu_torch.ops import zernike  # noqa: E402
+from nyxus_tpu_torch.ops import ih, zernike  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -368,3 +371,60 @@ def test_3d_f32_on_card_against_f64_cpu():
     configurations: every column within its tier (a 3D column taking its 2D
     twin's), the surface columns bit-equal, K13-K16 launched."""
     chip_smoke.check_3d(chip_smoke.counters())
+
+
+# ---------------------------------------------------------------------------
+# K17 ih_stats and IBSI mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("N", chip_smoke.IH_BINS)
+def test_ih_stats(prec, N):
+    """K17 against its plain version: bin indices equal, values within
+    1e-5 (f32) / 1e-12 (f64) of their row's scale, the empty, single-level
+    and one-bin rows included; 32768 bins in f64 read the row from device
+    memory."""
+    dtype = DTYPES[prec]
+    inputs = chip_smoke.ih_inputs(64, N, dtype, seed=N)
+    before = ih.ih_stats.launches
+    got = ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
+    assert ih.ih_stats.launches == before + 1
+    want = ih.ih_features_from_freq_plain(*inputs[:4], -0.0, *inputs[4:])
+    chip_smoke.ih_agree(got, want, inputs, 1e-5 if prec == "f32" else 1e-12)
+
+
+@pytest.mark.cuda
+def test_ih_stats_refuses_bad_inputs():
+    inputs = chip_smoke.ih_inputs(4, 6, torch.float32)
+    with pytest.raises(ValueError):
+        ih.ih_stats(inputs[0][:, :1], *inputs[1:4], -0.0, *inputs[4:])
+    with pytest.raises(ValueError):
+        ih.ih_stats(inputs[0], inputs[1][:3], *inputs[2:4], -0.0,
+                    *inputs[4:])
+    with pytest.raises(TypeError):
+        ih.ih_stats(inputs[0].to(torch.int32), *inputs[1:4], -0.0,
+                    *inputs[4:])
+
+
+@pytest.mark.cuda
+def test_ibsi_f32_on_card_against_f64_cpu():
+    """The IBSI request *ALL* (793 columns) on the 320 x 320 slide with
+    intensities % 59 + 1: every column within its tier, the IH members read
+    off the histogram equal, K1-K12 and K17 launched."""
+    counters = [chip_smoke.counters()[k]
+                for k in chip_smoke.KERNELS_2D + chip_smoke.KERNELS_IH]
+    before = [f.launches for f in counters]
+    fset = taxonomy.parse_feature_request(chip_smoke.FEATURES_ALL, ibsi=True)
+    intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)
+    intens = (intens % 59 + 1).astype(np.uint16)
+    labs, dev = PairRunner(fset, EngineConfig(precision="f32", ibsi=True),
+                           "cuda").run(intens, labels)
+    assert all(f.launches > b for f, b in zip(counters, before))
+    labs64, ref = PairRunner(fset, EngineConfig(precision="f64", ibsi=True),
+                             "cpu").run(intens, labels)
+    hdr, _ = columns.build_header(fset, EngineConfig(ibsi=True))
+    assert len(hdr) - 4 == chip_smoke.WIDTH_IBSI
+    chip_smoke.check_output("IBSI 320x320 slide", hdr[4:], labs, dev, labs64,
+                            ref)
+    chip_smoke.check_ih_columns("IBSI 320x320 slide", hdr[4:], dev, ref)

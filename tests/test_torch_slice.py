@@ -191,15 +191,15 @@ def test_empty_label_image():
 
 
 @pytest.mark.parametrize("features,parse_kw,missing", [
-    (["*ALL*"], {"ibsi": True}, "yet: IntensityHistogramFeatures$"),
+    (["SHARPNESS"], {"imq": True}, "yet: SharpnessFeature$"),
     (["*ALL_IMQ*"], {"imq": True}, "yet: FocusScoreFeature, "
      "PowerSpectrumFeature, SaturationFeature, SharpnessFeature$"),
     (["FOCUS_SCORE"], {"imq": True},
      "yet: FocusScoreFeature, PowerSpectrumFeature$"),
 ])
 def test_unported_families_raise(features, parse_kw, missing):
-    """Requests whose families the port does not serve yet (IBSI's
-    intensity histogram, the image-quality families) raise, naming them."""
+    """Requests whose families the port does not serve yet (the
+    image-quality families) raise, naming them."""
     fset = ttx.parse_feature_request(features, **parse_kw)
     with pytest.raises(NotImplementedError, match=missing):
         registry.families_for(fset)
@@ -348,7 +348,7 @@ def test_labels_beyond_int32_raise():
     assert len(labs) == labels.max()
 
 
-@pytest.mark.parametrize("kw", [{"ibsi": True}, {"mergerois": True},
+@pytest.mark.parametrize("kw", [{"aniso_y": 2.0}, {"mergerois": True},
                                 {"aniso_x": 2.0}])
 def test_unsupported_modes_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -423,3 +423,71 @@ def test_device_selection_and_gpu_functions():
     assert nyxus_tpu_torch.gpu_is_available() == torch.cuda.is_available()
     props = nyxus_tpu_torch.get_gpu_properties()
     assert len(props) == (count if torch.cuda.is_available() else 0)
+
+
+# ---------------------------------------------------------------------------
+# two more reference CSVs of the 320 x 320 slide (test_config_parity's
+# configurations): radiomics binning and preserve_hu
+
+
+def _reference_parity(name, ours, skip_prefixes=()):
+    """(columns checked, failures) of ``ours`` against the reference CSV
+    ``name`` at test_config_parity's p90 1e-4: its FAMILY_TOL columns (the
+    first central moments) skipped, DIAMETER_MIN_ENCLOSING_CIRCLE at 5.0."""
+    ref = pd.read_csv(gzip.open(os.path.join(os.path.dirname(FIXTURE), name),
+                                "rt"))
+    ref = ref.sort_values("ROI_label").set_index("ROI_label")
+    assert list(ref.index) == list(ours.index)
+    failures, checked = [], 0
+    for c in ours.columns:
+        if c not in ref.columns or c in ZERO_BY_CONSTRUCTION \
+                or c.startswith(skip_prefixes):
+            continue
+        a = ours[c].to_numpy(float)
+        b = ref[c].to_numpy(float)
+        both = np.isfinite(a) & np.isfinite(b)
+        if both.sum() == 0:
+            continue
+        rel = np.abs(a[both] - b[both]) / np.maximum(np.abs(b[both]), 1e-6)
+        p90 = float(np.quantile(rel, 0.9))
+        checked += 1
+        if p90 > (5.0 if c == "DIAMETER_MIN_ENCLOSING_CIRCLE" else 1e-4):
+            failures.append((c, p90))
+    return checked, failures
+
+
+def _slide_frame(intens, labels, **cfg):
+    fset = ttx.parse_feature_request(FEATURES_ALL)
+    labs, values = TRunner(fset, TConfig(precision="f64", **cfg),
+                           device="cpu").run(intens, labels, hu_offset=0.0)
+    hdr, _ = tcol.build_header(fset, TConfig(**cfg))
+    return pd.DataFrame(values, columns=hdr[4:], index=labs)
+
+
+def test_radiomics_binning_reference_parity():
+    """coarse_gray_depth -32 (radiomics binning) on the slide with
+    intensities % 59 + 1 against ref_radiomics_320x320_seed11: 642
+    columns, GLDZM and NGLDM skipped as test_config_parity.py skips them
+    (the binary's own defects under a negative grey depth)."""
+    intens, labels = bench.make_dsb_like(h=320, w=320, n_blobs=40, seed=11)
+    intens = (intens % 59 + 1).astype(np.uint16)
+    ours = _slide_frame(intens, labels, coarse_gray_depth=-32)
+    checked, failures = _reference_parity(
+        "ref_radiomics_320x320_seed11.csv.gz", ours,
+        skip_prefixes=("GLDZM_", "NGLDM_"))
+    assert not failures, failures[:25]
+    assert checked == 642, checked
+
+
+def test_preserve_hu_reference_parity():
+    """preserve_hu on a positive float HU-like slide against
+    ref_hu_320x320_seed11 at the binary's effective load map u = round(x)
+    (test_config_parity.test_hu_mode_parity): 743 columns."""
+    intens, labels = bench.make_dsb_like(h=320, w=320, n_blobs=40, seed=11)
+    hu = ((intens.astype(np.int64) % 59) * 30 + 100).astype(np.float32)
+    ours = _slide_frame(np.round(hu).astype(np.uint32), labels,
+                        preserve_hu=True)
+    checked, failures = _reference_parity("ref_hu_320x320_seed11.csv.gz",
+                                          ours)
+    assert not failures, failures[:25]
+    assert checked == 743, checked

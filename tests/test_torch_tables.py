@@ -52,7 +52,8 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
 @pytest.mark.parametrize("rel", ["config.py", "columns.py", "metaparams.py",
                                  "taxonomy/__init__.py",
                                  "pipeline/batching.py",
-                                 "pipeline/hostfeats.py"])
+                                 "pipeline/hostfeats.py",
+                                 "io/writers.py", "blacklist.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -65,7 +66,7 @@ def test_verbatim_copies(rel):
 
 
 @pytest.mark.parametrize("name", ["contour.cpp", "geomfeats.cpp",
-                                  "geomfeats_batch.cpp"])
+                                  "geomfeats_batch.cpp", "csv_writer.cpp"])
 def test_native_sources_are_verbatim_copies(name):
     """The host-geometry library's C++ sources: each is its original plus
     one first-line comment that names the source file."""
@@ -123,8 +124,9 @@ def _port_copy(tmp_path):
 
 
 def test_native_build_links_no_libtiff(tmp_path):
-    """A fresh copy of the port builds its host library with neither
-    -ltiff nor the JAX package's file readers, and links no libtiff."""
+    """A fresh copy of the port builds its host library (geometry and the
+    CSV writer) with neither -ltiff nor the JAX package's file readers, and
+    links no libtiff."""
     root = _port_copy(tmp_path)
     log = tmp_path / "cxx.log"
     cxx = tmp_path / "cxx"
@@ -140,7 +142,7 @@ def test_native_build_links_no_libtiff(tmp_path):
     assert lib.startswith(root)
     args = log.read_text()
     assert "-ltiff" not in args
-    for src in ("tiff_reader", "zarr_codec", "csv_writer", "discover"):
+    for src in ("tiff_reader", "zarr_codec", "discover"):
         assert src not in args
     for src in tnative.SOURCES:
         assert src in args
@@ -260,11 +262,10 @@ def test_registry_metadata():
         assert tf.needs_logw == jf.needs_logw, name
     ported = [n for n, f in treg.FAMILIES.items() if f.ported]
     assert ported == [n for n in jreg.FAMILIES
-                      if n not in ("IntensityHistogramFeatures",
-                                   "FocusScoreFeature",
+                      if n not in ("FocusScoreFeature",
                                    "PowerSpectrumFeature",
                                    "SaturationFeature", "SharpnessFeature")]
-    assert len(ported) == 30
+    assert len(ported) == 31
 
 
 @pytest.mark.parametrize("features", REQUESTS, ids=lambda f: ",".join(f))
@@ -316,7 +317,8 @@ def test_import_pulls_no_jax():
     code = ("import sys, nyxus_tpu_torch\n"
             "import nyxus_tpu_torch.native, nyxus_tpu_torch.pipeline.hostfeats\n"
             "import nyxus_tpu_torch.pipeline.runner3d\n"
-            "import nyxus_tpu_torch.ops.texture3d\n"
+            "import nyxus_tpu_torch.ops.texture3d, nyxus_tpu_torch.ops.ih\n"
+            "import nyxus_tpu_torch.blacklist\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"
@@ -340,3 +342,20 @@ def test_sources_name_no_jax():
                     if s.startswith(("import ", "from ")):
                         assert "jax" not in s and "nyxus_tpu." not in s \
                             and s.split()[1] != "nyxus_tpu", (fn, s)
+
+
+def test_ih_members_and_blacklist_copy():
+    """The port's IH member order is the JAX package's, and its blacklist
+    parses, checks and summarises as the JAX package's does."""
+    from nyxus_tpu.blacklist import RoiBlacklist as JBlack
+    from nyxus_tpu.ops import ih as jih
+    from nyxus_tpu_torch.blacklist import RoiBlacklist as TBlack
+    from nyxus_tpu_torch.ops import ih as tih
+    assert tih.MEMBERS == jih.MEMBERS and len(tih.MEMBERS) == 46
+    for raw in ("27,28,30", "f1.tif:5,6;f2.tif:1"):
+        j, t = JBlack(), TBlack()
+        j.parse_raw_string(raw)
+        t.parse_raw_string(raw)
+        assert j.summary() == t.summary()
+        for f, lab in (("f1.tif", 5), ("f2.tif", 5), ("x", 28), ("f2.tif", 1)):
+            assert j.check(f, lab) == t.check(f, lab)
