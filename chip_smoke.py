@@ -23,10 +23,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    labels, K1's device-memory path): the buckets 8³ to 64³ and a 64 x 256
    x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
    GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
-   uniform cubes.  IBSI (K17): B = 64 histograms of 6, 64, 100, 256 and
-   32768 bins (the last beyond a block's shared memory in f64), with empty,
-   single-level and one-bin rows, bin indices equal and values within 1e-5
-   / 1e-12 of their row's scale; and torch.sort (sort_masked_values) timed
+   uniform cubes; K14 is timed at raw levels and in the binned
+   configuration (64 levels), its launch plan (cluster size, levels a
+   block, count width, passes) printed.  IBSI (K17): B = 64 histograms of
+   6, 64, 100, 256 and 32768 bins (the last beyond a block's shared memory
+   in f64), with empty, single-level and one-bin rows, bin indices equal
+   and values within 1e-5 / 1e-12 of their row's scale; and torch.sort
+   (sort_masked_values) timed
 3. run the request *ALL* (747 columns) through PairRunner in f32 on the
    card and in f64 on the CPU, compare per column at the p90 relative error
    with the tiers of tests/test_tpu_device.py, check that the columns of
@@ -269,9 +272,11 @@ def device_events(prof):
 
 def timed(fn, iters=20):
     """(ms a call between CUDA events, device ms a call) of fn() over
-    ``iters`` calls after a warm-up.  The first includes the host's launch overhead whenever the host
-    enqueues more slowly than the card runs; the second sums the kernels the
-    call ran, from a torch.profiler trace."""
+    ``iters`` calls after a warm-up.  The first includes the host's launch
+    overhead whenever the host enqueues more slowly than the card runs; the
+    second sums the kernels the call ran, from a torch.profiler trace, or,
+    where the trace holds no device event of the calls (it misses cluster
+    launches now and then), is the first again, said so in the log."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -289,8 +294,12 @@ def timed(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev_ms = sum(us for _, us in device_events(prof)) / 1e3 / iters
-    return event_ms, dev_ms
+    seen = device_events(prof)
+    if not seen:
+        log("  (the profiler's trace holds no device event of these calls: "
+            "the CUDA events' time stands for the device time)")
+        return event_ms, event_ms
+    return event_ms, sum(us for _, us in seen) / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -1123,6 +1132,23 @@ def check_kernels_3d():
                     ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                     library_ms=None)
+        # K14's launch plan at raw levels, and K14 in the binned
+        # configuration (64 levels, the AABB taking part)
+        vox = lev[0].numel()
+        for ng in (RAW_NG, 64):
+            S, L, P, narrow, smem = t3.glrlm3d_plan(ng, nr, vox)
+            log("  glrlm3d_runs plan %d x %d, %dx%dx%d: clusters of %d "
+                "blocks, %d levels (%d bytes of %d-bit counts) a block, %d "
+                "passes" % ((ng, nr) + cube_shape[1:]
+                            + (S, L, smem, 16 if narrow else 32, P)))
+        k = timed(lambda: t3.glrlm3d_runs(lev, aabb, 64, nr, f32), iters)
+        p = timed(lambda: t3.glrlm3d_runs_plain(lev, aabb, 64, nr, f32),
+                  iters)
+        log("  time glrlm3d_runs binned 64 levels, B=%d %dx%dx%d: device "
+            "%.4f ms (events %.4f ms) vs plain device %.4f ms; bound %.5f ms"
+            % ((cube_shape[0],) + cube_shape[1:] + (
+                k[1], k[0], p[1], bounds_3d(cube, ng_runs=64)[
+                    "glrlm3d_runs"][0] / HBM_BYTES_S * 1e3)))
         # K1's device-memory path at GLDM's raw 4096 x 27 cells
         B = lev.shape[0]
         same = t3.stencil3d(glev, aabb, t3.N26)

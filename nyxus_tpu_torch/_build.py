@@ -49,7 +49,7 @@ _SIGNATURES = {
     "nyx_glrlm_runs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nyx_stencil8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nyx_zone_dag": [_P, _P, _P, _I, _I, _I, _P],
-    "nyx_zone_cc4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nyx_zone_cc4": [_P] * 6 + [_I] * 5 + [_P],
     "nyx_zone_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "nyx_erosion": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nyx_binary_quads": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "nyx_gabor": [_P] * 8 + [_I] * 5 + [_D, _I, _P],
     "nyx_zernike": [_P] * 7 + [_I] * 5 + [_P],
     "nyx_glcm3d_cooc": [_P] * 5 + [_I] * 8 + [_P],
-    "nyx_glrlm3d_runs": [_P] * 5 + [_I] * 8 + [_P],
+    "nyx_glrlm3d_runs": [_P] * 4 + [_I] * 11 + [_P],
     "nyx_cc3d": [_P] * 6 + [_I] * 5 + [_P],
     "nyx_stencil3d": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
     "nyx_ih_stats": [_P] * 7 + [_I] * 4 + [_D, _P],

@@ -257,17 +257,67 @@ def glrlm3d_runs_plain(lev, valid, ng: int, nr: int, dtype):
     return torch.stack(mats, dim=1)
 
 
+# K14's launch: threads a block (NYX_RUNS3_THREADS), the shared-memory bytes
+# of counts a block aims at, the voxel steps a walking thread aims at, the
+# largest portable cluster, and the most voxels a cube may have for 16-bit
+# counts
+RUNS3_THREADS = 256
+RUNS3_SHARE = 64 * 1024
+RUNS3_STEPS = 32
+CLUSTER_MAX = 8
+RUNS3_NARROW = 65535
+_GLRLM_TABLE = _host_table(GLRLM_SHIFTS)
+
+
+def glrlm3d_plan(ng: int, nr: int, voxels: int):
+    """(S, L, P, narrow, smem) of K14's launch for an [ng, nr] matrix of
+    cubes of ``voxels`` voxels.  P passes of S * L levels each (the last
+    cut at ng), each counted by a cluster of S <= CLUSTER_MAX blocks, block
+    r of pass p owning the levels [(p * S + r) * L, (p * S + r + 1) * L)
+    cut at ng (``glrlm3d_ranges``) as L rows of nr counts in ``smem`` <=
+    SMEM_MAX bytes of shared memory, L a power of two (a level's owner is a
+    shift, not a division).  The counts are 16-bit (``narrow``) when a cube
+    holds at most RUNS3_NARROW voxels (no cell can count more runs), which
+    halves the clusters' shared memory, else 32-bit.  S is the fewest
+    blocks whose RUNS3_SHARE bytes each hold the matrix, raised so that a
+    thread walks about RUNS3_STEPS voxels of a direction, and never above
+    ng; P > 1 when S blocks of SMEM_MAX bytes cannot hold it."""
+    if ng < 1 or nr < 1:
+        raise ValueError("glrlm3d_plan: ng %d and nr %d must be positive"
+                         % (ng, nr))
+    narrow = voxels <= RUNS3_NARROW
+    row = (2 if narrow else 4) * nr
+    lmax = SMEM_MAX // row
+    if lmax == 0:
+        raise ValueError("glrlm3d_runs: a run-length axis of %d does not fit "
+                         "a block's shared memory" % nr)
+    lmax = 1 << (lmax.bit_length() - 1)
+    S = min(CLUSTER_MAX, ng, max(1, -(-ng * row // RUNS3_SHARE),
+                                 -(-voxels // (RUNS3_THREADS * RUNS3_STEPS))))
+    P = -(-ng // (S * lmax))
+    L = 1 << (-(-ng // (P * S)) - 1).bit_length()
+    S = -(-ng // (P * L))
+    return S, L, P, narrow, -(-L * row // 16) * 16
+
+
+def glrlm3d_ranges(ng: int, S: int, L: int, P: int):
+    """The levels (0-based) K14's block (pass p, rank r) counts and writes,
+    in (p, r) order, as the kernel computes them."""
+    return [range(min(ng, (p * S + r) * L), min(ng, (p * S + r + 1) * L))
+            for p in range(P) for r in range(S)]
+
+
 def glrlm3d_runs(lev, valid, ng: int, nr: int, dtype):
     """[B, 13, ng, nr] run-length matrices along GLRLM_SHIFTS: K14
     glrlm3d_runs, replacing nyxus_tpu/ops/texture3d.py:134 _runs3d.
 
     lev: [B, D, H, W] int levels; valid: participation.  Entry (l, j) counts
     maximal runs of level l + 1 of length j + 1 (longer runs in the last
-    column).  On the card one thread walks each scan line of the padded
-    cube, a block 1024 lines of one (ROI, direction), counting in shared
-    memory when 4 * ng * nr fits 227 KB, else in device memory (raw 12-bit
-    levels).  Bound on the card: the serial walk of a line and its strided
-    reads."""
+    column).  On the card one launch: a cluster of blocks per (ROI,
+    direction, pass) holds the matrix in its distributed shared memory,
+    each block walking its share of the scan lines and writing its levels
+    of the output once (``glrlm3d_plan``).  Bound on the card: the walk of
+    the lines, serial within a thread, then writing the output."""
     if not _kernel_device(lev, "glrlm3d_runs"):
         return glrlm3d_runs_plain(lev, valid, ng, nr, dtype)
     if dtype not in (torch.float32, torch.float64):
@@ -280,13 +330,12 @@ def glrlm3d_runs(lev, valid, ng: int, nr: int, dtype):
     out = torch.empty((B, 13, ng, nr), dtype=dtype, device=lev.device)
     if B == 0 or ng == 0 or nr == 0:
         return out
-    gcnt = torch.zeros((B, 13, ng, nr), dtype=torch.int32, device=lev.device)
+    S, L, P, narrow, _ = glrlm3d_plan(ng, nr, D * H * W)
     with torch.cuda.device(lev.device):
         code = _build.lib().nyx_glrlm3d_runs(
-            lev.data_ptr(), valid.data_ptr(), _host_table(GLRLM_SHIFTS),
-            out.data_ptr(), gcnt.data_ptr(), B, D, H, W, ng, nr,
-            int(4 * ng * nr <= SMEM_MAX), int(dtype == torch.float64),
-            _build.stream_of(lev))
+            lev.data_ptr(), valid.data_ptr(), _GLRLM_TABLE, out.data_ptr(),
+            B, D, H, W, ng, nr, S, L.bit_length() - 1, P, int(narrow),
+            int(dtype == torch.float64), _build.stream_of(lev))
     _build.check("glrlm3d_runs", code)
     glrlm3d_runs.launches += 1
     return out

@@ -35,7 +35,7 @@ import math
 import torch
 
 from .. import _build
-from .common import _kernel_device, shifted2d
+from .common import SMEM_MAX, _kernel_device, shifted2d
 
 # fill of the distance of a pixel outside any zone (nyxus_tpu zone_list)
 _FAR = 1 << 30
@@ -236,6 +236,21 @@ def zone_labels(lev, valid):
 zone_labels.launches = 0
 
 
+def zone_cc4_plan(H: int, W: int):
+    """(smem, threads) of K6's launch for H x W crops.  The shared-memory
+    path holds a crop's levels and parents (int32, rows of an odd pitch
+    W | 1) and its valid bytes: 8 * H * (W | 1) + H * W bytes, taken when
+    that is at most SMEM_MAX (up to 160 x 160, 128 x 128, 256 x 64 or
+    1024 x 16), with a warp a row or column, at most 1024 threads (the
+    distance scans run a line a warp; fewer threads measured slower at
+    every bucket, ``PERF.md``).  Larger crops (1024 x 64, 256 x 256) take
+    the device-memory path: smem 0, 256 threads."""
+    smem = 8 * H * (W | 1) + H * W
+    if smem > SMEM_MAX:
+        return 0, 256
+    return smem, min(1024, 32 * max(H, W))
+
+
 def zone_cc4(lev, valid, heights, widths):
     """GLDZM zone labels and border distances: K6 zone_cc4
     (csrc/zone_cc4.cu), replacing nyxus_tpu/ops/zones.py:85
@@ -246,10 +261,12 @@ def zone_cc4(lev, valid, heights, widths):
     valid: [B, H, W] participation mask; heights/widths: [B] AABB sizes.
     Returns (anc, dist), each [B, H, W] int32: anc the lowest raster index
     of each pixel's 4-connected same-level component (BIG = H * W off
-    ``valid``), dist the dist2border.  On the card one block per ROI runs a
-    union-find in device memory, then the row and column scans of the
-    distance, in one launch.  Bound on the card: the union-find's dependent
-    L2 round trips."""
+    ``valid``), dist the dist2border.  On the card one block per ROI, in
+    one launch: where the crop fits shared memory (``zone_cc4_plan``) the
+    union-find runs there and warps scan the rows and columns for the
+    distance; larger crops keep the parents in device memory and walk each
+    line with one thread.  Bound on the card: latency (dependent finds and
+    scan steps), not bytes."""
     if not _kernel_device(lev, "zone_cc4"):
         return zone_cc4_plain(lev, valid, heights, widths)
     _check_planes("zone_cc4", lev, valid)
@@ -267,11 +284,12 @@ def zone_cc4(lev, valid, heights, widths):
     dist = torch.empty_like(lev)
     if lev.numel() == 0:
         return anc, dist
+    smem, threads = zone_cc4_plan(H, W)
     with torch.cuda.device(lev.device):
         code = _build.lib().nyx_zone_cc4(
             lev.data_ptr(), valid.data_ptr(), heights.data_ptr(),
             widths.data_ptr(), anc.data_ptr(), dist.data_ptr(), B, H, W,
-            _build.stream_of(lev))
+            smem, threads, _build.stream_of(lev))
     _build.check("zone_cc4", code)
     zone_cc4.launches += 1
     return anc, dist

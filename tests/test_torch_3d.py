@@ -3,7 +3,10 @@
 surface family), against the JAX package's VolumeRunner on the same volume
 in f64 on the CPU, and against the reference binary's own CSV; the two
 packages' Nyxus3D configurations; and the modes the port does not serve
-yet, which raise NotImplementedError naming their ROADMAP item.
+yet, which raise NotImplementedError naming their ROADMAP item.  The
+comparisons with JAX's VolumeRunner run in two files of their own,
+tests/test_torch_3d_default_jax.py and tests/test_torch_3d_configs_jax.py,
+which import the helpers below.
 
 Volumes: the reference fixture's (tests/test_oversized._blob3d(seed=4,
 shape=(48, 56, 60)), intensities % 59 + 1; two ROIs, buckets 8^3 and 64^3)
@@ -26,7 +29,6 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from conftest import make_blobs3d
 from test_oversized import _blob3d
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -82,26 +84,6 @@ def fixture_frame():
     return nyx.featurize(intens, labels)
 
 
-def test_nyxus3d_default_config_equals_jax(fixture_frame):
-    """Nyxus3D (raw levels for four families, NGTDM zero) equals JAX's
-    VolumeRunner on every one of the 213 columns; the surface columns are
-    the same numpy/scipy code on the same voxels, so they are equal."""
-    intens, labels = _fixture_volume()
-    labs, want, cols = _jax_run(intens, labels)
-    noval = JConfig().noval
-    want = np.where(np.isfinite(want), want, noval)
-    assert list(fixture_frame.columns[4:]) == cols
-    assert list(fixture_frame["ROI_label"]) == list(labs)
-    got = fixture_frame[cols].to_numpy(np.float64)
-    _agree(cols, got, want)
-    surf = [j for j, c in enumerate(cols) if c in (
-        "3AREA", "3VOLUME_CONVEXHULL", "3MAJOR_AXIS_LEN", "3SPHERICITY")]
-    assert len(surf) == 4
-    assert np.array_equal(got[:, surf], want[:, surf])
-    ngtdm = [j for j, c in enumerate(cols) if c.startswith("3NGTDM_")]
-    assert len(ngtdm) == 5 and not got[:, ngtdm].any()
-
-
 def test_nyxus3d_reference_binary_parity(fixture_frame):
     """The port against the reference binary's *3D_ALL* CSV of the fixture
     volume at test_config_parity's p90 1e-4, no exclusions."""
@@ -126,21 +108,6 @@ def test_nyxus3d_reference_binary_parity(fixture_frame):
             failures.append((c, p90))
     assert checked > 200, checked
     assert not failures, failures[:40]
-
-
-def test_volume_runner_binned_config_equals_jax():
-    """VolumeRunner at the binned configuration (K16's NGTDM window at
-    radius 1) equals JAX's on every column of conftest.make_blobs3d."""
-    intens, labels = make_blobs3d()
-    labs, want, cols = _jax_run(intens, labels, **BINNED)
-    fset = ttx.parse_feature_request(FEATURES, dim=3)
-    tlabs, got = VolumeRunner(fset, TConfig(precision="f64", **BINNED),
-                              device="cpu").run(intens,
-                                                labels.astype(np.int32))
-    assert list(tlabs) == list(labs)
-    _agree(cols, got, want)
-    ngtdm = [j for j, c in enumerate(cols) if c.startswith("3NGTDM_")]
-    assert np.isfinite(got[:, ngtdm]).all() and got[:, ngtdm].any()
 
 
 @pytest.mark.parametrize("kw,meta", [
@@ -286,22 +253,6 @@ def ibsi_volume_frame():
     nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", precision="f64",
                                   ibsi=True)
     return nyx.featurize(intens, labels)
-
-
-def test_volume_runner_ibsi_equals_jax():
-    """IBSI *3D_ALL* (raw levels for every texture family, the matrices
-    sized by the volume's power-of-two ceiling, NGLDM's raw levels) equals
-    JAX's VolumeRunner on all 213 columns of conftest.make_blobs3d with
-    intensities % 59 + 1 (the fixture volume's 64^3 bucket takes the JAX
-    package ~16 GB in IBSI mode)."""
-    intens, labels = make_blobs3d()
-    intens = (intens % 59 + 1).astype(np.uint16)
-    labs, want, cols = _jax_run(intens, labels, ibsi=True)
-    fset = ttx.parse_feature_request(FEATURES, dim=3, ibsi=True)
-    tl, got = VolumeRunner(fset, TConfig(precision="f64", ibsi=True),
-                           "cpu").run(intens, labels.astype(np.int32))
-    np.testing.assert_array_equal(tl, labs)
-    _agree(cols, got, want)
 
 
 def test_nyxus3d_ibsi_reference_parity(ibsi_volume_frame):

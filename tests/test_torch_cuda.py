@@ -42,6 +42,7 @@ from nyxus_tpu_torch.ops import binary  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
 from nyxus_tpu_torch.ops import common, gabor, glcm, glrlm, zones  # noqa: E402
 from nyxus_tpu_torch.ops import ih, zernike  # noqa: E402
+from nyxus_tpu_torch.ops import texture3d as t3  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -174,6 +175,47 @@ def test_zone_kernels_special_crops(crop):
     n_zones = {"checkerboard": 32 * 32, "uniform": 1, "empty": 0}[crop]
     assert int(ok.sum()) == n_zones
     assert int(zsize.sum()) == int(valid.sum())
+
+
+def _zone_crop(H, W, kind, seed=0):
+    """(levels, valid, heights, widths) of two H x W crops: "random" 64
+    levels on ~95% of the pixels with zero-level holes (the second crop's
+    AABB smaller than the bucket), "uniform" one level everywhere (one
+    component, the longest union chains), "checkerboard" two levels (every
+    component a single pixel)."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    if kind == "random":
+        lev = r.integers(0, 65, (2, H, W))
+    elif kind == "uniform":
+        lev = np.full((2, H, W), 5)
+    else:
+        lev = np.broadcast_to(1 + (yy + xx) % 2, (2, H, W)).copy()
+    valid = r.random((2, H, W)) < (0.95 if kind == "random" else 1.0)
+    hw = np.array([[H, W], [max(1, H - 7), max(1, W - 11)]], np.int32)
+    inside = (yy[None] < hw[:, 0, None, None]) & (xx[None] < hw[:, 1, None, None])
+    valid &= inside
+    lev = np.where(valid, lev, 0).astype(np.int32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return to(lev), to(valid), to(hw[:, 0]), to(hw[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "uniform", "checkerboard"])
+@pytest.mark.parametrize("hw,in_smem", [((160, 160), True),
+                                        ((161, 161), False),
+                                        ((256, 64), True),
+                                        ((1024, 64), False)], ids=str)
+def test_zone_cc4_paths(hw, in_smem, kind):
+    """K6 on both sides of its shared-memory limit (160 x 160 is the
+    largest square crop of the shared-memory path, 161 x 161 the smallest
+    of the device-memory path) and on 256 x 64 and 1024 x 64: labels and
+    distances equal to the plain version."""
+    assert (zones.zone_cc4_plan(*hw)[0] > 0) == in_smem
+    lev, valid, hts, wds = _zone_crop(*hw, kind)
+    for got, want in zip(zones.zone_cc4(lev, valid, hts, wds),
+                         zones.zone_cc4_plain(lev, valid, hts, wds)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -363,6 +405,76 @@ def test_3d_kernels(prec, cube):
 def test_3d_kernels_special_cubes(kind):
     cube = chip_smoke.synth_cube(4, 16, 16, 16, 30, torch.float32, kind)
     chip_smoke.kernels_3d_agree(_Agree3D(), cube, torch.float32, 1e-6)
+
+
+def _runs_cube(B, D, H, W, ng, kind, seed=0):
+    """Levels and participation of a K14 test cube: "mixed" levels 0..ng+1
+    (0 and ng + 1 are dropped) with a one-level slab, so that runs of every
+    length run along each direction, on ~95% of the voxels; "single" one
+    level on every voxel; "empty" no voxel taking part."""
+    r = np.random.default_rng(seed)
+    lev = r.integers(0, ng + 2, (B, D, H, W))
+    lev[:, :D // 2 + 1, :H // 2 + 1, :] = int(r.integers(1, ng + 1))
+    valid = r.random(lev.shape) < 0.95
+    if kind == "single":
+        lev[:] = min(7, ng)
+        valid[:] = True
+    elif kind == "empty":
+        valid[:] = False
+    return (torch.from_numpy(lev.astype(np.int32)).cuda(),
+            torch.from_numpy(valid).cuda())
+
+
+# (B, D, H, W, ng, nr, kind, the launch plan's (S, P) or None)
+RUNS3_CASES = [
+    (2, 8, 8, 8, 4096, 8, "mixed", (1, 1)),      # one block's share exactly
+    (2, 8, 8, 8, 4096, 9, "mixed", (2, 1)),      # just over it
+    (1, 4, 4, 256, 4096, 256, "mixed", (8, 2)),  # over a cluster's: passes
+    (1, 16, 16, 128, 4096, 128, "mixed", None),
+    (2, 16, 16, 16, 64, 16, "single", None),     # one level
+    (2, 16, 16, 16, 64, 4, "single", None),      # runs longer than nr
+    (2, 16, 16, 16, 64, 3, "mixed", None),
+    (2, 8, 8, 8, 4096, 8, "empty", None),
+    (1, 1, 255, 257, 8, 4, "single", None),      # a count of 65535 runs
+    (1, 64, 128, 128, 4096, 128, "mixed", (8, 2)),  # 32-bit counts, passes
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("case", RUNS3_CASES, ids=str)
+def test_glrlm3d_runs_plans(prec, case):
+    """K14 on matrices just under and just over one block's share of
+    shared memory, over a whole cluster's (the pass axis), a single-level
+    cube, runs longer than nr, an empty ROI, a cell counting 65535 runs
+    (the most a 16-bit count holds: a cube of 65535 voxels) and a 64 x 128
+    x 128 crop (32-bit counts): equal to the plain version."""
+    B, D, H, W, ng, nr, kind, plan = case
+    S, _, P, narrow, _ = t3.glrlm3d_plan(ng, nr, D * H * W)
+    if plan is not None:
+        assert (S, P) == plan
+    assert narrow == (D * H * W <= 65535)
+    lev, valid = _runs_cube(B, D, H, W, ng, kind)
+    dtype = DTYPES[prec]
+    got = t3.glrlm3d_runs(lev, valid, ng, nr, dtype)
+    assert torch.equal(got, t3.glrlm3d_runs_plain(lev, valid, ng, nr, dtype))
+    if kind == "empty":
+        assert not got.any()
+    if D * H * W == 65535:
+        assert int(got.max()) == 65535
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+def test_glrlm3d_runs_64_cube_raw_levels(prec):
+    """K14 on the 64^3 bucket at raw 12-bit levels (a 4096 x 64 matrix, 1
+    MB over a cluster of eight blocks)."""
+    dtype = DTYPES[prec]
+    _, _, raw, aabb, _, _, _ = chip_smoke.synth_cube(2, 64, 64, 64, 3, dtype)
+    valid = aabb & (raw > 0)
+    assert t3.glrlm3d_plan(4096, 64, 64 ** 3)[:3] == (8, 512, 1)
+    assert torch.equal(t3.glrlm3d_runs(raw, valid, 4096, 64, dtype),
+                       t3.glrlm3d_runs_plain(raw, valid, 4096, 64, dtype))
 
 
 @pytest.mark.cuda

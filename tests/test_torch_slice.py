@@ -3,7 +3,10 @@ Nyxus.featurize, against the JAX package on the same slide in f64 on the
 CPU, and against the reference binary's own CSV: intensity + the seven 2D
 texture families GLCM, GLRLM, GLDM, NGTDM, GLSZM, GLDZM and NGLDM (337
 columns), and the request *ALL* (747 columns: those plus the shape,
-contour, host-geometry, moment, Gabor and Zernike families).
+contour, host-geometry, moment, Gabor and Zernike families).  The
+comparisons with JAX's PairRunner on whole slides run in files of their
+own, tests/test_torch_slice_jax.py and tests/test_torch_slice_long_roi.py,
+which import the helpers below.
 
 Tolerances against JAX: rtol 1e-9 / atol 1e-12, except the members that go
 through fast_log2 (rtol 5e-7): the JAX runner's jitted fast_log2 is
@@ -69,17 +72,6 @@ def _port_runner(**kw):
                    TConfig(precision="f64", **kw), device="cpu")
 
 
-@pytest.fixture(scope="module")
-def blob_runs():
-    intens, labels = make_blobs()
-    cfg = JConfig(precision="f64")
-    fset = jtx.parse_feature_request(FEATURES)
-    jl, jv = JRunner(fset, cfg).run(intens, labels)
-    tl, tv = _port_runner().run(intens, labels)
-    hdr, _ = jcol.build_header(fset, cfg)
-    return hdr[4:], (jl, jv), (tl, tv)
-
-
 def _compare(cols, want, got):
     assert got.shape == want.shape
     for j, c in enumerate(cols):
@@ -89,22 +81,6 @@ def _compare(cols, want, got):
         zero = want[:, j] == 0
         np.testing.assert_array_equal(np.signbit(got[zero, j]),
                                       np.signbit(want[zero, j]), err_msg=c)
-
-
-@pytest.mark.parametrize("group", list(GROUPS))
-def test_pair_runner_vs_jax(blob_runs, group):
-    cols, (jl, jv), (tl, tv) = blob_runs
-    assert len(cols) == WIDTH
-    np.testing.assert_array_equal(tl, jl)
-    sel = [j for j, c in enumerate(cols) if GROUPS[group](c)]
-    assert sel
-    _compare([cols[j] for j in sel], jv[:, sel], tv[:, sel])
-
-
-def test_every_column_in_a_group(blob_runs):
-    cols = blob_runs[0]
-    assert sum(any(g(c) for g in GROUPS.values()) for c in cols) == len(cols)
-    assert all(sum(g(c) for g in GROUPS.values()) == 1 for c in cols)
 
 
 def test_against_reference_binary():
@@ -131,38 +107,6 @@ def test_against_reference_binary():
         if p90 > 1e-4:
             failures.append((c, p90))
     assert not failures, failures[:25]
-
-
-def test_nyxus_featurize_frame(blob_runs):
-    intens, labels = make_blobs()
-    want = nyxus_tpu.Nyxus(FEATURES, precision="f64").featurize(intens, labels)
-    got = nyxus_tpu_torch.Nyxus(FEATURES, device="cpu",
-                                precision="f64").featurize(intens, labels)
-    assert list(got.columns) == list(want.columns)
-    assert len(got.columns) == 4 + WIDTH
-    np.testing.assert_array_equal(got["ROI_label"].to_numpy(),
-                                  want["ROI_label"].to_numpy())
-    assert (got["intensity_image"] == want["intensity_image"]).all()
-    cols = list(want.columns[4:])
-    _compare(cols, want[cols].to_numpy(float), got[cols].to_numpy(float))
-
-
-def test_long_roi_slide_vs_jax():
-    """chip_smoke's slide with one 600 x 40 px ROI (bucket 1024 x 64, whose
-    GLRLM run matrix at 64 levels is larger than a block's shared memory on
-    the card) beside small ones: the slice against the JAX package."""
-    import chip_smoke
-    intens, labels = chip_smoke.make_long_roi_slide()
-    cfg = JConfig(precision="f64")
-    fset = jtx.parse_feature_request(FEATURES)
-    jl, jv = JRunner(fset, cfg).run(intens, labels)
-    tl, tv = _port_runner().run(intens, labels)
-    ys, xs = np.nonzero(labels == labels.max())
-    assert ys.max() - ys.min() + 1 > 512 and xs.max() - xs.min() + 1 <= 64
-    assert len(tl) >= 3
-    np.testing.assert_array_equal(tl, jl)
-    hdr, _ = jcol.build_header(fset, cfg)
-    _compare(hdr[4:], jv, tv)
 
 
 def test_blacklisted_rows_stay_unassigned():
@@ -242,53 +186,6 @@ def _compare_all(cols, want, got):
     fin = ~np.isnan(want)
     _compare([cols[j] for j in keep], np.where(fin, want, 0)[:, keep],
              np.where(fin, got, 0)[:, keep])
-
-
-@pytest.fixture(scope="module")
-def all_runs():
-    """The 747-column request on a 160 x 160 slide of 20 ROIs."""
-    intens, labels = make_blobs(160, 160, 20, seed=0)
-    cfg = JConfig(precision="f64")
-    fset = jtx.parse_feature_request(FEATURES_ALL)
-    jl, jv = JRunner(fset, cfg).run(intens, labels)
-    tl, tv = TRunner(ttx.parse_feature_request(FEATURES_ALL),
-                     TConfig(precision="f64"), device="cpu").run(intens,
-                                                                 labels)
-    hdr, _ = jcol.build_header(fset, cfg)
-    return hdr[4:], (jl, jv), (tl, tv)
-
-
-@pytest.mark.parametrize("group", list(ALL_GROUPS))
-def test_all_but_gabor_zernike_vs_jax(all_runs, group):
-    cols, (jl, jv), (tl, tv) = all_runs
-    assert len(cols) == WIDTH_ALL and len(tl) == 20
-    np.testing.assert_array_equal(tl, jl)
-    sel = [j for j, c in enumerate(cols) if ALL_GROUPS[group](c)]
-    assert sel
-    _compare_all([cols[j] for j in sel], jv[:, sel], tv[:, sel])
-    if group == "moments":
-        assert np.isnan(jv[:, sel]).any()
-
-
-def test_all_but_gabor_zernike_groups_cover_every_column(all_runs):
-    cols = all_runs[0]
-    assert all(sum(g(c) for g in ALL_GROUPS.values()) == 1 for c in cols)
-
-
-def test_all_but_gabor_zernike_featurize_frame(all_runs):
-    """Nyxus.featurize: the 747 value columns of the JAX package, in its
-    order; NaN becomes noval in both (api._force_finite)."""
-    intens, labels = make_blobs(160, 160, 20, seed=0)
-    want = nyxus_tpu.Nyxus(FEATURES_ALL, precision="f64").featurize(intens,
-                                                                     labels)
-    got = nyxus_tpu_torch.Nyxus(FEATURES_ALL, device="cpu",
-                                precision="f64").featurize(intens, labels)
-    assert list(got.columns) == list(want.columns)
-    assert len(got.columns) == 4 + WIDTH_ALL
-    cols = list(want.columns[4:])
-    w, g = want[cols].to_numpy(float), got[cols].to_numpy(float)
-    assert np.isfinite(g).all()
-    _compare_all(cols, w, g)
 
 
 @pytest.fixture(scope="module")

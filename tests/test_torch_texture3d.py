@@ -404,3 +404,26 @@ def test_batched_hist_beyond_shared_memory(nbins):
         np.testing.assert_allclose(
             _np(tcommon.batched_hist(_t(idx), _t(w), nbins)),
             _np(jcommon.masked_bincount(_j(idx), _j(w), nbins)), rtol=1e-12)
+
+
+@pytest.mark.parametrize("voxels", [8 ** 3, 32 ** 3, 65535, 64 ** 3,
+                                    64 * 256 * 256])
+@pytest.mark.parametrize("nr", [1, 32, 64, 65, 256])
+@pytest.mark.parametrize("ng", [1, 63, 64, 256, 4096, 4097])
+def test_glrlm3d_plan_covers_levels(ng, nr, voxels):
+    """K14's launch plan: clusters of at most eight blocks, each block's L
+    rows of counts (L a power of two; 16-bit counts only for cubes of at
+    most 65535 voxels) within a block's shared memory, and the level ranges
+    of the blocks over every pass cover 0..ng-1 exactly once, in order."""
+    S, L, P, narrow, smem = tt3.glrlm3d_plan(ng, nr, voxels)
+    assert 1 <= S <= tt3.CLUSTER_MAX and P >= 1 and L & (L - 1) == 0
+    assert narrow == (voxels <= 65535)
+    assert smem == -(-(2 if narrow else 4) * L * nr // 16) * 16
+    assert smem <= tcommon.SMEM_MAX
+    ranges = tt3.glrlm3d_ranges(ng, S, L, P)
+    assert len(ranges) == S * P and all(len(r) <= L for r in ranges)
+    assert [i for r in ranges for i in r] == list(range(ng))
+    if 2 * ng * nr <= tt3.RUNS3_SHARE and voxels == 8 ** 3:
+        assert (S, P) == (1, 1)
+    if 4 * ng * nr > tt3.CLUSTER_MAX * tcommon.SMEM_MAX and not narrow:
+        assert P > 1

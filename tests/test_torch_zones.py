@@ -30,6 +30,7 @@ from test_torch_texture import DEPTHS, SIZES, _jax, _torch
 from nyxus_tpu.ops import gldzm as jgldzm
 from nyxus_tpu.ops import zones as jzones
 
+from nyxus_tpu_torch.ops import common as tcommon
 from nyxus_tpu_torch.ops import zones as tzones
 
 
@@ -229,3 +230,25 @@ def test_cell_keys_exact_beyond_float32():
     _, _, sums, v = tzones.grouped_weight_sums(key, w)
     assert v.tolist() == [[True, True, False]]
     assert sums.tolist() == [[1.0, 1.0, 0.0]]
+
+
+@pytest.mark.parametrize("hw,in_smem", [
+    ((32, 32), True), ((64, 64), True), ((16, 16), True), ((7, 13), True),
+    ((128, 128), True), ((256, 64), True), ((160, 160), True),
+    ((161, 161), False), ((1024, 64), False), ((256, 256), False),
+    ((256, 128), False)])
+def test_zone_cc4_plan_path_choice(hw, in_smem):
+    """K6 takes its shared-memory path exactly when the crop's levels and
+    parents (int32, rows of pitch W | 1) and valid bytes fit a block's
+    shared memory: 160 x 160 is the largest square that does, 161 x 161
+    the smallest that does not; 1024 x 64 runs the device-memory path."""
+    H, W = hw
+    smem, threads = tzones.zone_cc4_plan(H, W)
+    need = 8 * H * (W | 1) + H * W
+    assert (smem > 0) == in_smem == (need <= tcommon.SMEM_MAX)
+    if in_smem:
+        assert smem == need
+        # a warp a row or column, at most 1024 threads
+        assert threads == min(1024, 32 * max(H, W))
+    else:
+        assert threads == 256
