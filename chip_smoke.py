@@ -2,6 +2,8 @@
 """Smoke run of nyxus_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
+    python3 chip_smoke.py --kernel-times [ROOT]
+                                 (K11 and K13 alone, the package under ROOT)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -29,7 +31,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    6, 64, 100, 256 and 32768 bins (the last beyond a block's shared memory
    in f64), with empty, single-level and one-bin rows, bin indices equal
    and values within 1e-5 / 1e-12 of their row's scale; and torch.sort
-   (sort_masked_values) timed
+   (sort_masked_values) timed.  K11 and K13 are timed once more alone
+   (k11_k13_times): K11 at 64 x 32², 64 x 64², 28 x 16² and 2 x 256² with
+   the default bank and at 64 x 32² with the 64-tap bank, K13 at 8 x 32³,
+   2 x 64³ and 1 x 64 x 256 x 256 at 64 levels and at 8 x 32³ at raw
+   levels, each with its launch plan, its device launches a call (from the
+   profiler) and its bound, K11's unfused floor beside it
 3. run the request *ALL* (747 columns) through PairRunner in f32 on the
    card and in f64 on the CPU, compare per column at the p90 relative error
    with the tiers of tests/test_tpu_device.py, check that the columns of
@@ -271,12 +278,16 @@ def device_events(prof):
 
 
 def timed(fn, iters=20):
-    """(ms a call between CUDA events, device ms a call) of fn() over
-    ``iters`` calls after a warm-up.  The first includes the host's launch
-    overhead whenever the host enqueues more slowly than the card runs; the
-    second sums the kernels the call ran, from a torch.profiler trace, or,
-    where the trace holds no device event of the calls (it misses cluster
-    launches now and then), is the first again, said so in the log."""
+    """(ms a call between CUDA events, device ms a call, device launches a
+    call) of fn() over ``iters`` calls after a warm-up.  The first includes
+    the host's launch overhead whenever the host enqueues more slowly than
+    the card runs; the second sums the kernels and copies the call ran,
+    from a torch.profiler trace, and the third counts them.  The trace
+    misses cluster launches now and then: the second is the mean event's
+    time by the events a call rounded (at least one), which is the sum a
+    call when no event is missed; where the trace holds no device event of
+    the calls, the second is the first again and the third None, said so
+    in the log."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -298,8 +309,10 @@ def timed(fn, iters=20):
     if not seen:
         log("  (the profiler's trace holds no device event of these calls: "
             "the CUDA events' time stands for the device time)")
-        return event_ms, event_ms
-    return event_ms, sum(us for _, us in seen) / 1e3 / iters
+        return event_ms, event_ms, None
+    per_call = max(1, round(len(seen) / iters))
+    return (event_ms, sum(us for _, us in seen) / len(seen) * per_call / 1e3,
+            len(seen) / iters)
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +369,42 @@ def counters():
                               texture3d.glcm3d_cooc, texture3d.glrlm3d_runs,
                               texture3d.cc3d, texture3d.stencil3d,
                               ih.ih_stats)))
+
+
+def torch_routines():
+    """The device routines that stay torch, by name: each counts its calls
+    (``calls``, ops/common.py ``counted``)."""
+    from nyxus_tpu_torch.ops import (common, gldzm, glszm, quant, radial,
+                                     zones)
+    return {"radial.extrema": radial.extrema,
+            "zones.grouped_weight_sums": zones.grouped_weight_sums,
+            "common.fast_log2": common.fast_log2,
+            "common.sort_masked_values": common.sort_masked_values,
+            "quant.bin_levels": quant.bin_levels,
+            "glszm.glszm_features_from_zones": glszm.glszm_features_from_zones,
+            "gldzm.gldzm_features_from_zones": gldzm.gldzm_features_from_zones}
+
+
+def torch_bounds():
+    """Bytes each torch routine must move at the main buckets, each input
+    read once and each output written once: in 2D at B = 64 x 32² extrema
+    (the ROI masks and four int32 sizes and origins a ROI in, 16 float32
+    points a ROI out), grouped_weight_sums (GLSZM's H * W zone slots, int64
+    keys and float32 weights in; sorted keys, weights, sums and valid bytes
+    out), fast_log2 (GLCM's [B, 4, 64, 64] float32 in and out) and
+    bin_levels (a float32 crop and two float32 values a ROI in, int32
+    levels out); in 3D at B = 8 x 32³ the GLSZM and GLDZM statistics of
+    K7's zone lists (three float32 values a voxel slot in, 16 or 18
+    float32 features a ROI out)."""
+    B, H, W = 64, 32, 32
+    A = B * H * W
+    V = 8 * 32 ** 3
+    return {"radial.extrema": A + 4 * 4 * B + 16 * 4 * B,
+            "zones.grouped_weight_sums": A * (8 + 4) + A * (8 + 4 + 4 + 1),
+            "common.fast_log2": 2 * B * 4 * 64 * 64 * 4,
+            "quant.bin_levels": A * (4 + 4) + 2 * 4 * B,
+            "glszm.glszm_features_from_zones": 3 * 4 * V + 16 * 4 * 8,
+            "gldzm.gldzm_features_from_zones": 3 * 4 * V + 18 * 4 * 8}
 
 
 def zone_cases(case, dtype, seed=0):
@@ -1044,6 +1093,60 @@ def bounds_3d(cube, ng_glcm=64, ng_runs=RAW_NG):
     }
 
 
+# K11's timed buckets (the main path's three, then 2 x 256^2, which takes
+# the tile path) and K13's (the main 3D bucket, 64^3 and a 64 x 256 x 256
+# crop, at 64 levels)
+K11_TIMED = CASES[:3] + (CASES[6],)
+K13_TIMED = (MAIN_CUBE, (2, 64, 64, 64), (1, 64, 256, 256))
+
+
+def k11_k13_times(iters=20):
+    """K11 and K13 in f32 at K11_TIMED and K13_TIMED with their launch
+    plans, K11 also with the 64-tap bank at the main bucket and K13 at raw
+    12-bit levels (its device-memory path) at MAIN_CUBE: device and events
+    ms a call, device launches a call (from the profiler) and the bounds,
+    K11's unfused floor (every multiply and add an instruction of its own)
+    beside its operations bound.  Runs on any tree's package (a tree
+    without the plans prints none), so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.ops import gabor, texture3d as t3
+    gplan = getattr(gabor, "gabor_plan", None)
+    cplan = getattr(t3, "glcm3d_plan", None)
+    for (B, H, W, hw), bank in [(c, "n16") for c in K11_TIMED] + [
+            (CASES[0], "n64")]:
+        img, hts, wds = gz_inputs((B, H, W, hw), torch.float32)
+        cfg = EngineConfig(**GABOR_BANKS[bank])
+        n, K = cfg.gabor_kersize, 1 + len(cfg.gabor_thetas)
+        plan = gplan(B, H, W, n, K, 4) if gplan else "none in this tree"
+        ev, ms, nl = timed(lambda: gabor.gabor_counts(img, hts, wds, cfg),
+                           iters)
+        ops = gz_bounds(img, hts, wds, cfg)["gabor"][1]
+        log("  K11 gabor %s f32 B=%d %dx%d AABB %s: device %.4f ms (events "
+            "%.4f ms), %s device launches a call; bound %.5f ms "
+            "(operations, an FMA counted as two), unfused floor %.5f ms; "
+            "plan (path, cluster, pixels and filters a thread, smem) %s"
+            % (bank, B, H, W, hw, ms, ev, nl, ops / OPS_S * 1e3,
+               2 * ops / OPS_S * 1e3, plan))
+    for cube_shape, ng in [(c, 64) for c in K13_TIMED] + [(MAIN_CUBE,
+                                                            RAW_NG)]:
+        cube = synth_cube(*cube_shape, 0, torch.float32)
+        _, lev, raw, _, dd, hh, ww = cube
+        lv = lev if ng == 64 else raw
+        plan = cplan(ng, *cube_shape[1:], 1) if cplan else "none in this tree"
+        ev, ms, nl = timed(lambda: t3.glcm3d_cooc(lv, dd, hh, ww, 1, ng,
+                                                  False, False,
+                                                  torch.float32), iters)
+        nbytes = bounds_3d(cube, ng_glcm=ng)["glcm3d_cooc"][0]
+        log("  K13 glcm3d_cooc %d levels f32 B=%d %dx%dx%d: device %.4f ms "
+            "(events %.4f ms), %s device launches a call; bound %.5f ms "
+            "(bytes); plan (path, cluster, directions a block, threads, "
+            "planes, rows, 16-bit, smem) %s"
+            % ((ng,) + cube_shape + (ms, ev, nl, nbytes / HBM_BYTES_S * 1e3,
+                                     plan)))
+
+
 def check_kernels_3d():
     """K13-K16 and K1's device-memory path against their plain versions on
     the card, then their times at MAIN_CUBE (and at 64^3 and the 64 x 256 x
@@ -1164,6 +1267,7 @@ def check_kernels_3d():
             "ms; bound %.5f ms" % ((RAW_NG, B) + cube_shape[1:] + (
                 k[1], k[0], p[1], (B * lev[0].numel() * 8
                                    + B * RAW_NG * 27 * 4) / HBM_BYTES_S * 1e3)))
+    k11_k13_times()
     return res
 
 
@@ -1297,7 +1401,7 @@ def check_ih():
     # (1 byte) once, writes the sorted rows; ~log2(1024) = 10 compares an
     # element
     orig, _, _, roi = synth_bucket(64, 32, 32, (29, 31), 0, torch.float32)
-    ev, ms = timed(lambda: common.sort_masked_values(orig, roi))
+    ev, ms, _ = timed(lambda: common.sort_masked_values(orig, roi))
     A = orig.numel()
     bound = max((A * 9) / HBM_BYTES_S, 10.0 * A / OPS_S) * 1e3
     log("  time sort_masked_values (torch.sort) f32 B=64 32x32: device %.4f "
@@ -1488,6 +1592,8 @@ def throughput_3d(kern):
     torch.cuda.reset_peak_memory_stats()
     for f in kern.values():
         f.launches = 0
+    for f in torch_routines().values():
+        f.calls = 0
     n_rois, outs = 0, []
     t0 = time.perf_counter()
     for intens, labels in vols:
@@ -1501,9 +1607,11 @@ def throughput_3d(kern):
     voxels = sum(int(np.count_nonzero(labels)) for _, labels in vols)
     log("  *3D_ALL* (213 columns) on 2 volumes of 96 x 320 x 320: %d ROIs "
         "(%d ROI voxels) in %.4f s: %.2f ROIs/s, %.3f ROI Mvoxels/s; peak "
-        "device memory %d bytes (%.1f MiB); launches %s"
+        "device memory %d bytes (%.1f MiB); launches %s; torch routines' "
+        "calls %s"
         % (n_rois, voxels, wall, n_rois / wall, voxels / wall / 1e6, peak,
-           peak / 2 ** 20, launches))
+           peak / 2 ** 20, launches,
+           {k: f.calls for k, f in torch_routines().items()}))
     if not all(launches[k] for k in KERNELS_3D + ("batched_hist",
                                                   "zone_stats")):
         raise AssertionError("3D throughput: a kernel was not launched: %r"
@@ -1654,11 +1762,31 @@ def profile_report(what, run, stage_prefix="nyx:"):
 # ---------------------------------------------------------------------------
 
 
+def kernel_times_only(root):
+    """--kernel-times [ROOT]: build the kernels of the package under ROOT
+    (by default this script's tree), print k11_k13_times and the card; no
+    result line.  Two trees timed in one call, in turns, compare the two
+    versions of K11 and K13 on one card."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from nyxus_tpu_torch import _build
+    torch.backends.cudnn.allow_tf32 = False
+    log("card:", card_line())
+    t0 = time.perf_counter()
+    _build.lib()
+    log("kernels of %s built in %.1f s" % (os.path.abspath(root),
+                                           time.perf_counter() - t0))
+    k11_k13_times()
+    log(card_line())
+
+
 def main():
     import torch
     # phase 0
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
+    if sys.argv[1:2] == ["--kernel-times"]:
+        return kernel_times_only(sys.argv[2] if len(sys.argv) > 2 else HERE)
     sys.path.insert(0, HERE)
     try:
         import nyxus_tpu_torch  # noqa: F401
@@ -1713,6 +1841,9 @@ def main():
             kres[k] = v
     log_phase("phase 2, IBSI: K17 against its plain version")
     kres.update(check_ih())
+    for name, nbytes in torch_bounds().items():
+        log("  bound of torch routine %s at its main bucket: %d bytes, %.5f "
+            "ms" % (name, nbytes, nbytes / HBM_BYTES_S * 1e3))
 
     # phase 3
     log_phase("phase 3: %s on the card (f32) against the CPU (f64)"
@@ -1801,6 +1932,8 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         for f in kern.values():
             f.launches = 0
+        for f in torch_routines().values():
+            f.calls = 0
         n_rois, outs = 0, []
         t0 = time.perf_counter()
         for intens, labels in slides:
@@ -1812,9 +1945,9 @@ def main():
         launches = {k: f.launches for k, f in kern.items()}
         peak = torch.cuda.max_memory_allocated()
         log("  %s: %d ROIs in %.4f s: %.2f ROIs/s; peak device memory %d "
-            "bytes (%.1f MiB); launches %s"
+            "bytes (%.1f MiB); launches %s; torch routines' calls %s"
             % (name, n_rois, wall, n_rois / wall, peak, peak / 2 ** 20,
-               launches))
+               launches, {k: f.calls for k, f in torch_routines().items()}))
         if not all(launches[k] for k in used):
             raise AssertionError("%s: a kernel was not launched: %r"
                                  % (name, launches))

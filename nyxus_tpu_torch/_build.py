@@ -54,9 +54,11 @@ _SIGNATURES = {
     "nyx_erosion": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nyx_binary_quads": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "nyx_power_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "nyx_gabor": [_P] * 8 + [_I] * 5 + [_D, _I, _P],
+    "nyx_gabor": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I] * 5
+    + [_D, _I, _I, _I, ctypes.c_longlong, _I, _P],
     "nyx_zernike": [_P] * 7 + [_I] * 5 + [_P],
-    "nyx_glcm3d_cooc": [_P] * 5 + [_I] * 8 + [_P],
+    "nyx_glcm3d_cooc": [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I] * 14
+    + [ctypes.c_longlong, _I, _P],
     "nyx_glrlm3d_runs": [_P] * 4 + [_I] * 11 + [_P],
     "nyx_cc3d": [_P] * 6 + [_I] * 5 + [_P],
     "nyx_stencil3d": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],

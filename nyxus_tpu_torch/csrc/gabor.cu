@@ -11,7 +11,34 @@
 // PixIntens truncation.  Only AABB pixels enter a statistic, so only they
 // are convolved.
 //
-// Two passes over 16 x 16 output tiles of every ROI, one thread a pixel:
+// Two designs, chosen by the wrapper's plan (ops/gabor.py gabor_plan):
+//
+// The cluster path, one launch: one thread-block cluster of C <= 16 blocks
+// of 256 threads per ROI.  The ROI's AABB output pixels are cut into strips
+// of P (1 or 2) pixels along x, numbered row by row over the AABB's actual
+// width, and the K filters into G groups of KG; an item is a (strip,
+// group), and the ROI's items are split evenly over the cluster's blocks,
+// one a thread (so only real AABB pixels are convolved).  A block copies
+// the taps, interleaved as [tap][filter, re/im] by the wrapper, and the
+// input window of its rows (zero outside the bucket) into shared memory
+// with asynchronous copies, and marks the window rows that hold a non-zero.
+// Each thread computes its KG filters' magnitudes at its P pixels in one
+// pass, sliding the input row through registers (one shared load a tap,
+// the tap pairs read as broadcast vectors), skipping the tap rows whose
+// window row is zero for the whole warp, and keeps them in registers: no
+// base plane, the baseline convolved once.  The ROI's baseline max and min
+// are reduced in the block, then across the cluster through distributed
+// shared memory; each thread then counts its pixels into the block's
+// counts, the block adds them into block 0's, and block 0 writes the ROI's
+// K counts, max and min once.  No presets, no global atomics, no scratch.
+// The plan takes all K filters at two pixels a thread where the batch
+// fills the card (the fewest loads and operations a pixel), and fewer
+// filters and pixels a thread where it does not (shorter chains).
+//
+// The tile path, two launches over 16 x 16 output tiles of every ROI, one
+// thread a pixel, for AABBs a cluster cannot hold (more than 16 x 256
+// items), kernels whose taps and window do not fit a block, or more than
+// eight filters:
 //   pass 1, the baseline filter (taps 0): writes its magnitudes into a
 //     [B, H, W] plane at the AABB pixels and folds them into the ROI's max
 //     and min (atomics on the bit patterns of non-negative values);
@@ -21,20 +48,34 @@
 //     atomic per warp).
 // A block stages its input tile with its n - 1 halo and the pass's taps in
 // shared memory; either one reads device memory instead when it does not
-// fit a block (large kersize), so any n works.  The taps are added in a
-// fixed order (row i outer, column j inner) with every product and sum
-// rounded on its own (no FMA contraction), as the plain version adds them:
-// the two agree bit for bit, so the floors, and every count, are equal in
-// both types.  Bound on the card: operations, 4 n^2 multiplies and adds a
-// filter and AABB pixel (reads of the shared tile and the broadcast taps,
-// and the unfused multiply-adds, keep it well below the CUDA cores' rate).
+// fit a block (large kersize), so any n works.
+//
+// Both add the taps in a fixed order (row i outer, column j inner) with
+// every product and sum rounded on its own (no FMA contraction), as the
+// plain version adds them: they agree bit for bit, so the floors, and
+// every count, are equal in both types.  Bound on the card: operations,
+// 4 n^2 multiplies and adds a filter and AABB pixel; unfused, each is an
+// instruction of its own, so the CUDA cores' floor is twice the time of
+// the FMA-counted peak.  The cluster path's register tiling reads a tap
+// pair once for all P pixels and one input value a tap, so its shared
+// loads stay well below its arithmetic: at 64 x 32^2 its convolution
+// issues close to the CUDA cores' rate for the pixels a block holds, and
+// the card's other SMs idle (PERF.md).
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 #define GABOR_TILE 16
 #define GABOR_GROUP 4
 #define GABOR_SMEM_MAX 232448
+#define GABOR_THREADS 256
+#define GABOR_CLUSTER_MAX 16
+#define GABOR_KMAX 8
+#define GABOR_ROWS_MAX 512
+#define GABOR_STATIC_SMEM 4096
 
 __device__ __forceinline__ float g_mul(float a, float b) {
   return __fmul_rn(a, b);
@@ -140,15 +181,15 @@ template <typename T>
 __global__ void gabor_base_kernel(const T* __restrict__ img,
                                   const T* __restrict__ taps,
                                   const int* __restrict__ heights,
-                                  const int* __restrict__ widths,
-                                  T* __restrict__ base, T* maxval, T* cmpval,
-                                  int H, int W, int n, int tiles_x, int tiles,
-                                  int use_tile, int use_taps) {
+                                  const int* __restrict__ widths, int hs,
+                                  int ws, T* __restrict__ base, T* maxval,
+                                  T* cmpval, int H, int W, int n, int tiles_x,
+                                  int tiles, int use_tile, int use_taps) {
   extern __shared__ double smem_d[];
   const int b = blockIdx.x / tiles;
   const int t = blockIdx.x % tiles;
-  const int h = min(heights[b], H);
-  const int w = min(widths[b], W);
+  const int h = min(heights[static_cast<size_t>(b) * hs], H);
+  const int w = min(widths[static_cast<size_t>(b) * ws], W);
   const int ty0 = (t / tiles_x) * GABOR_TILE;
   const int tx0 = (t % tiles_x) * GABOR_TILE;
   if (ty0 >= h || tx0 >= w) return;  // the whole block: no barrier missed
@@ -183,8 +224,8 @@ template <typename T>
 __global__ void gabor_count_kernel(const T* __restrict__ img,
                                    const T* __restrict__ taps,
                                    const int* __restrict__ heights,
-                                   const int* __restrict__ widths,
-                                   const T* __restrict__ base,
+                                   const int* __restrict__ widths, int hs,
+                                   int ws, const T* __restrict__ base,
                                    const T* __restrict__ maxval,
                                    const T* __restrict__ cmpval,
                                    int* __restrict__ counts, int H, int W,
@@ -193,8 +234,8 @@ __global__ void gabor_count_kernel(const T* __restrict__ img,
   extern __shared__ double smem_d[];
   const int b = blockIdx.x / tiles;
   const int t = blockIdx.x % tiles;
-  const int h = min(heights[b], H);
-  const int w = min(widths[b], W);
+  const int h = min(heights[static_cast<size_t>(b) * hs], H);
+  const int w = min(widths[static_cast<size_t>(b) * ws], W);
   const int ty0 = (t / tiles_x) * GABOR_TILE;
   const int tx0 = (t % tiles_x) * GABOR_TILE;
   if (ty0 >= h || tx0 >= w) return;
@@ -231,16 +272,343 @@ __global__ void gabor_count_kernel(const T* __restrict__ img,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster path
+
+// asynchronous copies into shared memory (cp.async): 16 bytes, and one
+// value of T zero-filled when ``in`` is false (the source not read)
+__device__ __forceinline__ void gabor_cp16(void* dst, const void* src) {
+  const unsigned int d =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
 template <typename T>
-static int gabor_launch(const void* img, const void* taps,
-                        const void* heights, const void* widths, void* base,
-                        void* maxval, void* cmpval, void* counts, int B,
-                        int H, int W, int n, int K, double thold,
-                        cudaStream_t st) {
+__device__ __forceinline__ void gabor_cp_zfill(T* dst, const T* src,
+                                               bool in) {
+  const unsigned int d =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  const int n = in ? static_cast<int>(sizeof(T)) : 0;
+  if (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+// a tap's (re, im) pair of T, read as one vector
+template <typename T>
+struct GaborPair;
+template <>
+struct GaborPair<float> {
+  using V = float2;
+};
+template <>
+struct GaborPair<double> {
+  using V = double2;
+};
+
+// counts: int32 [B, K]; maxval, cmpval: [B]; every one written by block 0
+// of the ROI's cluster.  taps: [n * n, KP], tap (i, j)'s (re, im) pairs of
+// the G * KG filters (zeros past K), KP = 2 G KG rounded up to 16 bytes
+// (ops/gabor.py tap_rows).  Item it of the ROI is strip it / G (P pixels
+// along x, strips numbered row by row over the AABB's width) and filter
+// group it % G (filters [g KG, g KG + KG)); thread t of block r owns item
+// r * GABOR_THREADS + t.
+template <typename T, int KG, int P>
+__global__ void __launch_bounds__(GABOR_THREADS)
+    gabor_cluster_kernel(const T* __restrict__ img,
+                         const T* __restrict__ taps,
+                         const int* __restrict__ heights,
+                         const int* __restrict__ widths, int hs, int ws,
+                         int* __restrict__ counts, T* __restrict__ maxval,
+                         T* __restrict__ cmpval, int H, int W, int n, int K,
+                         int G, int C, T thold) {
+  using V2 = typename GaborPair<T>::V;
+  constexpr int NW = GABOR_THREADS / 32;
+  constexpr int VN = 16 / sizeof(T);
+  extern __shared__ __align__(16) double gabor_smem[];
+  __shared__ T part_max[NW], part_min[NW];
+  __shared__ T blk_ext[2];  // this block's max and min, read by the others
+  __shared__ T roi_ext[2];  // the ROI's
+  __shared__ unsigned int cnt_blk[GABOR_KMAX];  // this block's counts
+  __shared__ unsigned int cnt_s[GABOR_KMAX];    // the ROI's, in block 0
+  __shared__ int rowflag[GABOR_ROWS_MAX];       // a window row not all zero
+  const int KP = (2 * G * KG + VN - 1) / VN * VN;
+  T* taps_s = reinterpret_cast<T*>(gabor_smem);
+  const int nn = n * n;
+  T* win = taps_s + nn * KP;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int h = min(heights[static_cast<size_t>(b) * hs], H);
+  const int w = min(widths[static_cast<size_t>(b) * ws], W);
+  const int sw = (w + P - 1) / P;  // strips a row
+  const int items = h * sw * G;
+  // the ROI's items split evenly over the cluster: at most GABOR_THREADS a
+  // block, since the plan holds the bucket's
+  const int per = (items + C - 1) / C;
+  const int it0 = rank * per;
+  const int it1 = min(items, it0 + per);
+  const int it = it0 + threadIdx.x;
+  const bool busy = it0 < it1;  // uniform over the block
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x < GABOR_KMAX) cnt_blk[threadIdx.x] = cnt_s[threadIdx.x] = 0u;
+
+  // the window: the block's strips [s0, s1] lie on output rows [r0, r1],
+  // which read input rows r0 + off - (n - 1) .. r1 + off and columns
+  // off - (n - 1) .. sw * P - 1 + off
+  const int off = (n + 1) / 2;
+  const int r0 = busy ? it0 / G / sw : 0;
+  const int r1 = busy ? (it1 - 1) / G / sw : 0;
+  const int wr = r1 - r0 + n;
+  const int wc = sw * P + n - 1;
+  if (busy) {
+    // the taps (16-byte vectors) and the window (zero outside the bucket),
+    // copied asynchronously: every copy of the block in flight at once
+    const int nv = nn * KP / VN;
+    for (int k = threadIdx.x; k < nv; k += GABOR_THREADS)
+      gabor_cp16(taps_s + k * VN, taps + k * VN);
+    const T* im = img + static_cast<size_t>(H) * W * b;
+    const int gy0 = r0 + off - (n - 1);
+    const int gx0 = off - (n - 1);
+    for (int k = threadIdx.x; k < wr * wc; k += GABOR_THREADS) {
+      const int ry = k / wc;
+      const int gy = gy0 + ry;
+      const int gx = gx0 + (k - ry * wc);
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      gabor_cp_zfill(win + k, in ? im + static_cast<size_t>(gy) * W + gx : im,
+                     in);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (busy) {  // which window rows hold a non-zero: a warp a row
+    for (int ry = warp; ry < wr; ry += NW) {
+      bool nz = false;
+      for (int k = lane; k < wc; k += 32) nz |= win[ry * wc + k] != T(0);
+      nz = __any_sync(0xffffffffu, nz);
+      if (lane == 0) rowflag[ry] = nz;
+    }
+  }
+  __syncthreads();
+
+  // the KG filters' magnitudes at this thread's P pixels, kept in registers
+  const bool valid = it < it1;
+  const int s = valid ? it / G : 0;
+  const int g = valid ? it - s * G : 0;
+  const int y = s / sw;
+  const int x0 = (s - y * sw) * P;
+  T mag[KG][P];
+  if (valid) {
+    T re[KG][P], imv[KG][P];
+#pragma unroll
+    for (int q = 0; q < KG; ++q)
+#pragma unroll
+      for (int p = 0; p < P; ++p) re[q][p] = imv[q][p] = T(0);
+    const int ly = y - r0;
+    const unsigned int act = __activemask();
+    for (int i = 0; i < n; ++i) {
+      // a window row of zeros adds only zeros (a zero's sign never reaches
+      // the magnitude): skipped when it is so for every lane
+      const int wrow = ly + n - 1 - i;
+      if (__all_sync(act, rowflag[wrow] == 0)) continue;
+      // tap (i, j) reads window column x0 + p + n - 1 - j: one new value
+      // a tap as j rises
+      const T* row = win + wrow * wc + x0;
+      const V2* tv =
+          reinterpret_cast<const V2*>(taps_s + i * n * KP + 2 * g * KG);
+      T a[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) a[p] = row[n - 1 + p];
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        V2 t[KG];
+#pragma unroll
+        for (int q = 0; q < KG; ++q) t[q] = tv[q];
+        tv += KP / 2;
+#pragma unroll
+        for (int q = 0; q < KG; ++q)
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            re[q][p] = g_add(re[q][p], g_mul(a[p], t[q].x));
+            imv[q][p] = g_add(imv[q][p], g_mul(a[p], t[q].y));
+          }
+        if (j + 1 < n) {
+#pragma unroll
+          for (int p = P - 1; p > 0; --p) a[p] = a[p - 1];
+          a[0] = row[n - 2 - j];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < KG; ++q)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        mag[q][p] = floor(sqrt(g_add(g_mul(re[q][p], re[q][p]),
+                                     g_mul(imv[q][p], imv[q][p]))));
+  }
+
+  // the ROI's baseline max and min: warp, block, then cluster
+  T mx = -static_cast<T>(INFINITY);
+  T mn = static_cast<T>(INFINITY);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (valid && g == 0 && x0 + p < w) {
+      mx = fmax(mx, mag[0][p]);
+      mn = fmin(mn, mag[0][p]);
+    }
+  for (int o = 16; o > 0; o >>= 1) {
+    mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    mn = fmin(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+  }
+  if (lane == 0) {
+    part_max[warp] = mx;
+    part_min[warp] = mn;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < NW; ++k) {
+      mx = fmax(mx, part_max[k]);
+      mn = fmin(mn, part_min[k]);
+    }
+    blk_ext[0] = mx;
+    blk_ext[1] = mn;
+  }
+  cluster.sync();  // every block's extrema (and block 0's zeroed counts)
+  if (warp == 0) {
+    mx = -static_cast<T>(INFINITY);
+    mn = static_cast<T>(INFINITY);
+    if (lane < C) {
+      const T* e = cluster.map_shared_rank(blk_ext, lane);
+      mx = e[0];
+      mn = e[1];
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      mn = fmin(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    }
+    if (lane == 0) {
+      roi_ext[0] = mx;
+      roi_ext[1] = mn;
+    }
+  }
+  __syncthreads();
+  mx = roi_ext[0];
+  mn = roi_ext[1];
+
+  // the counts: the baseline above its min, each filter above the
+  // threshold; a warp sum (one group) or a lane's add into the block's,
+  // then the block's into block 0's
+  const T denom = fmax(mx, static_cast<T>(1e-30));
+#pragma unroll
+  for (int q = 0; q < KG; ++q) {
+    const int f = g * KG + q;
+    unsigned int c = 0u;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (valid && f < K && x0 + p < w)
+        c += f == 0 ? (mag[q][p] > mn) : (mag[q][p] / denom > thold);
+    if (G == 1) {  // uniform
+      c = __reduce_add_sync(0xffffffffu, c);
+      if (lane == 0 && c) atomicAdd(cnt_blk + q, c);
+    } else if (c) {
+      atomicAdd(cnt_blk + f, c);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < K && cnt_blk[threadIdx.x])
+    nyx_red_add(nyx_mapa(cnt_s + threadIdx.x, 0u), cnt_blk[threadIdx.x]);
+  cluster.sync();  // every count added; no block reads another's after
+  if (rank == 0) {
+    if (threadIdx.x < K)
+      counts[static_cast<size_t>(b) * K + threadIdx.x] =
+          static_cast<int>(cnt_s[threadIdx.x]);
+    if (threadIdx.x == 0) {
+      maxval[b] = mx;
+      cmpval[b] = mn;
+    }
+  }
+}
+
+template <typename T, int KG, int P>
+static int gabor_cluster_launch(const void* img, const void* taps,
+                                const void* heights, const void* widths,
+                                int hs, int ws, void* counts, void* maxval,
+                                void* cmpval, int B, int H, int W, int n,
+                                int K, int G, double thold, int C,
+                                size_t smem, cudaStream_t st) {
+  auto kern = gabor_cluster_kernel<T, KG, P>;
+  static NyxClusterAttrs done;
+  cudaError_t e = nyx_allow_cluster(kern, smem, C, &done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(B) * C, 1, 1);
+  cfg.blockDim = dim3(GABOR_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(img),
+                         static_cast<const T*>(taps),
+                         static_cast<const int*>(heights),
+                         static_cast<const int*>(widths), hs, ws,
+                         static_cast<int*>(counts), static_cast<T*>(maxval),
+                         static_cast<T*>(cmpval), H, W, n, K, G, C,
+                         static_cast<T>(thold));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int P>
+static int gabor_cluster_kg(const void* img, const void* taps,
+                            const void* heights, const void* widths, int hs,
+                            int ws, void* counts, void* maxval, void* cmpval,
+                            int B, int H, int W, int n, int K, int KG, int G,
+                            double thold, int C, size_t smem,
+                            cudaStream_t st) {
+#define GABOR_KG_CASE(kg)                                                    \
+  case kg:                                                                  \
+    return gabor_cluster_launch<T, kg, P>(img, taps, heights, widths, hs,   \
+                                          ws, counts, maxval, cmpval, B, H, \
+                                          W, n, K, G, thold, C, smem, st);
+  switch (KG) {
+    GABOR_KG_CASE(1)
+    GABOR_KG_CASE(2)
+    GABOR_KG_CASE(3)
+    GABOR_KG_CASE(4)
+    GABOR_KG_CASE(5)
+    GABOR_KG_CASE(6)
+    GABOR_KG_CASE(7)
+    GABOR_KG_CASE(8)
+  }
+#undef GABOR_KG_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// The tile path
+
+template <typename T>
+static int gabor_tile_launch(const void* img, const void* taps,
+                             const void* heights, const void* widths, int hs,
+                             int ws, void* base, void* maxval, void* cmpval,
+                             void* counts, int B, int H, int W, int n, int K,
+                             double thold, cudaStream_t st) {
   const int tiles_x = (W + GABOR_TILE - 1) / GABOR_TILE;
   const int tiles_y = (H + GABOR_TILE - 1) / GABOR_TILE;
   const long long nblocks = static_cast<long long>(B) * tiles_x * tiles_y;
-  if (nblocks > 0x7fffffffLL || n < 1 || K < 1)
+  if (nblocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = tiles_x * tiles_y;
   const size_t tw = GABOR_TILE + n - 1;
@@ -257,8 +625,8 @@ static int gabor_launch(const void* img, const void* taps,
   gabor_base_kernel<T><<<static_cast<int>(nblocks), GABOR_TILE * GABOR_TILE,
                          smem1, st>>>(
       static_cast<const T*>(img), static_cast<const T*>(taps),
-      static_cast<const int*>(heights), static_cast<const int*>(widths),
-      static_cast<T*>(base), static_cast<T*>(maxval),
+      static_cast<const int*>(heights), static_cast<const int*>(widths), hs,
+      ws, static_cast<T*>(base), static_cast<T*>(maxval),
       static_cast<T*>(cmpval), H, W, n, tiles_x, tiles, use_tile, use_taps1);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -271,26 +639,65 @@ static int gabor_launch(const void* img, const void* taps,
   gabor_count_kernel<T><<<static_cast<int>(nblocks),
                           GABOR_TILE * GABOR_TILE, smem2, st>>>(
       static_cast<const T*>(img), static_cast<const T*>(taps),
-      static_cast<const int*>(heights), static_cast<const int*>(widths),
-      static_cast<const T*>(base), static_cast<const T*>(maxval),
+      static_cast<const int*>(heights), static_cast<const int*>(widths), hs,
+      ws, static_cast<const T*>(base), static_cast<const T*>(maxval),
       static_cast<const T*>(cmpval), static_cast<int*>(counts), H, W, n, K,
       static_cast<T>(thold), tiles_x, tiles, use_tile, use_taps2);
   return static_cast<int>(cudaGetLastError());
 }
 
-// img: [B, H, W] masked intensities; taps: [K, 2, n, n] of the same type
-// (the baseline filter first); heights, widths: int32 [B]; base: [B, H, W]
-// scratch; maxval / cmpval: [B], preset to -inf / +inf; counts: int32
-// [B, K], zeroed.
+template <typename T>
+static int gabor_launch(const void* img, const void* taps,
+                        const void* heights, const void* widths, int hs,
+                        int ws, void* base, void* maxval, void* cmpval,
+                        void* counts, int B, int H, int W, int n, int K,
+                        double thold, int C, int P, int KG, size_t smem,
+                        cudaStream_t st) {
+  if (n < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (C == 0)
+    return gabor_tile_launch<T>(img, taps, heights, widths, hs, ws, base,
+                                maxval, cmpval, counts, B, H, W, n, K, thold,
+                                st);
+  const int G = KG >= 1 ? (K + KG - 1) / KG : 0;
+  if (C < 0 || C > GABOR_CLUSTER_MAX || K > GABOR_KMAX || KG < 1 ||
+      KG > GABOR_KMAX || (P != 1 && P != 2) ||
+      static_cast<long long>(B) * C > 0x7fffffffLL ||
+      smem + GABOR_STATIC_SMEM > GABOR_SMEM_MAX ||
+      static_cast<long long>(H) * ((W + P - 1) / P) * G >
+          static_cast<long long>(C) * GABOR_THREADS ||
+      GABOR_THREADS + n > GABOR_ROWS_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (P == 1)
+    return gabor_cluster_kg<T, 1>(img, taps, heights, widths, hs, ws, counts,
+                                  maxval, cmpval, B, H, W, n, K, KG, G, thold,
+                                  C, smem, st);
+  return gabor_cluster_kg<T, 2>(img, taps, heights, widths, hs, ws, counts,
+                                maxval, cmpval, B, H, W, n, K, KG, G, thold, C,
+                                smem, st);
+}
+
+// img: [B, H, W] masked intensities; heights, widths: int32, ROI b's at
+// b * hs and b * ws; counts: int32 [B, K]; maxval / cmpval: [B].  C > 0:
+// the cluster path, C blocks a ROI, P pixels and KG filters a thread, smem
+// dynamic bytes (ops/gabor.py gabor_plan), taps: [n * n, KP] (tap_rows);
+// counts, maxval and cmpval are written, base is not read.  C == 0: the
+// tile path; taps: [K, 2, n, n] of the same type (the baseline filter
+// first), base: [B, H, W] scratch, maxval / cmpval preset to -inf / +inf,
+// counts zeroed.
 extern "C" int nyx_gabor(const void* img, const void* taps,
-                         const void* heights, const void* widths, void* base,
-                         void* maxval, void* cmpval, void* counts, int B,
-                         int H, int W, int n, int K, double thold, int is_f64,
-                         void* stream) {
+                         const void* heights, const void* widths, int hs,
+                         int ws, void* base, void* maxval, void* cmpval,
+                         void* counts, int B, int H, int W, int n, int K,
+                         double thold, int C, int P, int KG, long long smem,
+                         int is_f64, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t sm = static_cast<size_t>(smem);
   if (is_f64)
-    return gabor_launch<double>(img, taps, heights, widths, base, maxval,
-                                cmpval, counts, B, H, W, n, K, thold, st);
-  return gabor_launch<float>(img, taps, heights, widths, base, maxval, cmpval,
-                             counts, B, H, W, n, K, thold, st);
+    return gabor_launch<double>(img, taps, heights, widths, hs, ws, base,
+                                maxval, cmpval, counts, B, H, W, n, K, thold,
+                                C, P, KG, sm, st);
+  return gabor_launch<float>(img, taps, heights, widths, hs, ws, base, maxval,
+                             cmpval, counts, B, H, W, n, K, thold, C, P, KG,
+                             sm, st);
 }

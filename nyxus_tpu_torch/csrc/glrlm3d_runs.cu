@@ -61,26 +61,6 @@ struct NyxSteps13 {
   int dx[13];
 };
 
-// the shared::cluster address of ``p`` (this block's shared memory) in the
-// shared memory of the cluster's block ``rank``, and a fire-and-forget add
-__device__ __forceinline__ unsigned int nyx_mapa(const void* p,
-                                                 unsigned int rank) {
-  const unsigned int l =
-      static_cast<unsigned int>(__cvta_generic_to_shared(p));
-  unsigned int r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r)
-               : "r"(l), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void nyx_red_add(unsigned int addr,
-                                            unsigned int v) {
-  asm volatile("red.relaxed.cluster.shared::cluster.add.u32 [%0], %1;"
-               ::"r"(addr), "r"(v)
-               : "memory");
-}
-
 // cell k of the counts: 32-bit words, or (NARROW) 16-bit halves of them
 template <bool NARROW>
 __device__ __forceinline__ unsigned int nyx_count(const unsigned int* cnt,

@@ -10,6 +10,8 @@ tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
@@ -18,6 +20,27 @@ from .. import _build
 SMEM_MAX = 232448
 # entries of a ROI row one K1 block counts
 HIST_CHUNK = 8192
+
+
+def counted(fn):
+    """``fn`` with a count of its calls (``fn.calls``), for the device
+    routines that stay torch: chip_smoke.py reports them beside the
+    kernels' launches."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        wrapper.calls += 1
+        return fn(*args, **kwargs)
+    wrapper.calls = 0
+    return wrapper
+
+
+def roi_sizes(t: torch.Tensor):
+    """An int32 [B] tensor of per-ROI sizes and its element stride, for a
+    kernel that reads ROI b's at b * stride: the runners hand column views
+    of one metadata tensor, which need no copy."""
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    return t, t.stride(0) if t.numel() > 1 else 1
 
 
 def _kernel_device(t: torch.Tensor, name: str) -> bool:
@@ -147,16 +170,13 @@ def safe_div(a, b, default=0.0):
     return torch.where(ok, a / torch.where(ok, b, 1), default)
 
 
+@counted
 def sort_masked_values(intens, mask, pad=float("inf")):
     """Flatten an [B, H, W] crop to sorted [B, A] values with +inf padding
-    (one torch.sort; ``calls`` counts them for chip_smoke.py's report)."""
+    (one torch.sort)."""
     B = intens.shape[0]
     v = torch.where(mask, intens, pad).reshape(B, -1)
-    sort_masked_values.calls += 1
     return torch.sort(v, dim=1).values
-
-
-sort_masked_values.calls = 0
 
 
 def take_per_row(values, idx):
@@ -177,6 +197,7 @@ _LOG2_A = torch.tensor(-0.6296735, dtype=torch.float32)
 _LOG2_B = torch.tensor(1.466967, dtype=torch.float32)
 
 
+@counted
 def fast_log2(x):
     """The reference's float32 quadratic log2 (helpers.h:283-327), bit for
     bit: every texture entropy flows through it, and an exact log differs by

@@ -12,8 +12,9 @@ The convolutions, the baseline statistics and the threshold counts are K11
 version beside it convolves as JAX defines it (the full convolution
 cropped at ceil(n / 2)), adding the taps in the kernel's order so that the
 two agree bit for bit, floors included: the only path for a tensor on the
-CPU; a CUDA tensor launches the kernel or raises.  The scores and the
-degenerate / blank substitutions stay torch.
+CPU; a CUDA tensor launches the kernel or raises.  ``gabor_plan`` chooses
+its launch.  The scores and the degenerate / blank substitutions stay
+torch.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .common import _check_float, _kernel_device
+from .common import SMEM_MAX, _check_float, _kernel_device, roi_sizes
 
 
 def gabor_kernel(f0, sig2lam, gamma, theta, n: int):
@@ -129,18 +130,142 @@ def gabor_counts_plain(img, heights, widths, cfg):
     return torch.cat([baseline[:, None], hits], dim=1), maxval, cmpval
 
 
+# K11's cluster path: threads a block, the largest cluster (non-portable
+# above 8), the most filters, the window rows a block may stage, the shared
+# memory kept for the kernel's static arrays, and the threads that put four
+# warps on each of the H100's 132 SMs (a launch plan aims at least at them)
+GABOR_THREADS = 256
+GABOR_CLUSTER_MAX = 16
+GABOR_KMAX = 8
+GABOR_ROWS_MAX = 512
+GABOR_STATIC_SMEM = 4096
+GABOR_FILL_THREADS = 132 * 4 * 32
+
+
+@functools.lru_cache(maxsize=16)
+def _tap_rows(n, sig2lam, gamma, f0, thetas, freqs, filters, dtype, device):
+    bank = _bank(n, sig2lam, gamma, f0, thetas, freqs, dtype, device)
+    K = bank.shape[0]
+    vec = 16 // bank.element_size()
+    kp = -(-2 * filters // vec) * vec
+    rows = torch.zeros((n * n, kp), dtype=dtype, device=device)
+    rows[:, :2 * K] = bank.permute(2, 3, 0, 1).reshape(n * n, 2 * K)
+    return rows
+
+
+def tap_rows(cfg, dtype, device, filters):
+    """The cluster path's taps: [n * n, KP], row i * n + j holding tap (i,
+    j)'s (re, im) of filters 0..filters-1 (zeros past the bank's K), KP =
+    2 * filters rounded up to 16 bytes, built once per (config, dtype,
+    device, filters)."""
+    return _tap_rows(cfg.gabor_kersize, cfg.gabor_sig2lam, cfg.gabor_gamma,
+                     cfg.gabor_f0, tuple(cfg.gabor_thetas),
+                     tuple(cfg.gabor_freqs), filters, dtype,
+                     torch.device(device))
+
+
+def gabor_window_rows(sw: int, H: int, G: int):
+    """The most output rows a cluster-path block spans when a row holds
+    ``sw`` strips and a strip G items: its at most GABOR_THREADS
+    consecutive items cover at most ceil((GABOR_THREADS - 1) / G) + 1
+    strips, cut at the bucket's H rows."""
+    strips = (GABOR_THREADS + G - 2) // G + 1
+    return min(H, (strips - 1 + sw - 1) // sw + 1)
+
+
+def _cluster_fit(H, W, n, K, esz, KG, P):
+    """(holds, C, smem) of the cluster path with KG filters and P pixels a
+    thread."""
+    G = -(-K // KG)
+    strips = -(-W // P)
+    C = -(-H * strips * G // GABOR_THREADS)
+    vec = 16 // esz
+    taps = n * n * (-(-2 * G * KG // vec) * vec) * esz
+    windows = [(gabor_window_rows(sw, H, G) + n - 1, sw * P + n - 1)
+               for sw in range(1, strips + 1)]
+    smem = taps + max(r * c for r, c in windows) * esz
+    holds = (K <= GABOR_KMAX and C <= GABOR_CLUSTER_MAX
+             and smem + GABOR_STATIC_SMEM <= SMEM_MAX
+             and max(r for r, _ in windows) <= GABOR_ROWS_MAX)
+    return holds, C, smem
+
+
+@functools.lru_cache(maxsize=256)
+def gabor_plan(B: int, H: int, W: int, n: int, K: int, esz: int):
+    """(path, C, P, KG, smem) of K11's launch for B crops of H x W (the
+    AABBs, whose sizes live on the card, are at most that), n x n taps, K
+    filters and ``esz``-byte values.
+
+    The cluster path ("cluster"): a cluster of C blocks of GABOR_THREADS
+    threads a ROI, a thread owning one filter group (KG of the K filters)
+    at a strip of P pixels along x, C the fewest blocks whose threads hold
+    the bucket's H * ceil(W / P) strips times its ceil(K / KG) groups (a
+    ROI's items are split evenly over the cluster, ``gabor_blocks``).  A
+    block's shared memory holds the taps (``tap_rows``) and the input window
+    of its rows (``gabor_window_rows`` rows plus n - 1, by the strips'
+    width plus n - 1), the largest over every AABB width; smem is those
+    dynamic bytes.  It holds the work when K <= GABOR_KMAX, C <=
+    GABOR_CLUSTER_MAX, the window's rows <= GABOR_ROWS_MAX and smem plus
+    the kernel's static arrays fit SMEM_MAX.  Of (KG, P) = (K, 2), (K, 1),
+    (ceil(K / 2), 1), (1, 1) that hold it, in order of fewer operations
+    and loads a pixel, the plan takes the first that gives the batch
+    GABOR_FILL_THREADS threads, else the last (a small batch's threads
+    then run shorter chains).  Otherwise the tile path ("tile", C = P = KG
+    = smem = 0): two launches over 16 x 16 tiles, any AABB, any n."""
+    if min(B, H, W, n, K) < 1 or esz not in (4, 8):
+        raise ValueError("gabor_plan: bad batch %d, bucket %dx%d, n %d, K %d "
+                         "or element size %d" % (B, H, W, n, K, esz))
+    fits = []
+    for KG, P in ((K, 2), (K, 1), (-(-K // 2), 1), (1, 1)):
+        holds, C, smem = _cluster_fit(H, W, n, K, esz, KG, P)
+        if holds and (KG, P) not in [f[:2] for f in fits]:
+            fits.append((KG, P, C, smem))
+    if not fits:
+        return "tile", 0, 0, 0, 0
+    for KG, P, C, smem in fits:
+        if B * H * -(-W // P) * -(-K // KG) >= GABOR_FILL_THREADS:
+            break
+    return "cluster", C, P, KG, smem
+
+
+def gabor_blocks(h: int, w: int, P: int, KG: int, K: int, C: int):
+    """The (AABB pixel (y, x), filter group) pairs each cluster-path block
+    of an h x w AABB convolves, by rank, and the output rows (r0, r1) its
+    window spans (None for a block with nothing to do), as the kernel maps
+    thread t of block r to item r * per + t, per = ceil(items / C) (the
+    ROI's items split evenly over the cluster): strip item // G, group
+    item % G."""
+    G = -(-K // KG)
+    sw = -(-w // P)
+    items = h * sw * G
+    per = -(-items // C)
+    out = []
+    for r in range(C):
+        lo, hi = r * per, min(items, (r + 1) * per)
+        px = []
+        for it in range(lo, hi):
+            s, g = divmod(it, G)
+            y, x0 = s // sw, (s % sw) * P
+            px += [((y, x0 + p), g) for p in range(P) if x0 + p < w]
+        rows = (lo // G // sw, (hi - 1) // G // sw) if lo < hi else None
+        out.append((px, rows))
+    return out
+
+
 def gabor_counts(img, heights, widths, cfg):
     """K11 gabor (csrc/gabor.cu), replacing nyxus_tpu/ops/gabor.py:49
     _gabor_magnitude and the statistics of :69 gabor_features.  See
     gabor_counts_plain for the arguments and results.
 
-    One call launches two passes over 16 x 16 tiles of every ROI's AABB
-    (bucket padding is never convolved): the baseline magnitudes with their
-    per-ROI max and min, then the baseline count and every filter's
-    threshold count.  A block stages its input tile (with its n - 1 halo)
-    and the taps in shared memory, each read from device memory instead
-    when it does not fit.  Bound on the card: the 4 n^2 multiplies and adds
-    a filter and AABB pixel."""
+    Bucket padding is never convolved.  Where ``gabor_plan`` finds that a
+    cluster holds the bucket, one launch: a thread-block cluster a ROI
+    computes the filters' magnitudes at each AABB pixel in one pass
+    (register-tiled strips of P pixels, KG filters a thread), reduces the
+    baseline's max and min across the cluster and writes the counts, max
+    and min once.  Larger AABBs or kernels take the tile path: two passes
+    over 16 x 16 tiles (the baseline magnitudes into a scratch plane with
+    their per-ROI max and min, then the counts).  Bound on the card: the
+    4 n^2 multiplies and adds a filter and AABB pixel."""
     if not _kernel_device(img, "gabor"):
         return gabor_counts_plain(img, heights, widths, cfg)
     _check_float(img, "gabor")
@@ -153,22 +278,34 @@ def gabor_counts(img, heights, widths, cfg):
                             tuple(widths.shape)))
     img = img.contiguous()
     B, H, W = img.shape
-    taps = filter_bank(cfg, img.dtype, img.device)
-    K, _, n, _ = taps.shape
-    hts = heights.to(torch.int32).contiguous()
-    wds = widths.to(torch.int32).contiguous()
+    K = 1 + min(len(cfg.gabor_thetas), len(cfg.gabor_freqs))  # _bank's
+    n = cfg.gabor_kersize
     dev = img.device
-    counts = torch.zeros((B, K), dtype=torch.int32, device=dev)
-    maxval = torch.full((B,), -math.inf, dtype=img.dtype, device=dev)
-    cmpval = torch.full((B,), math.inf, dtype=img.dtype, device=dev)
     if B == 0 or H * W == 0:
-        return counts, maxval, cmpval
-    base = torch.empty((B, H, W), dtype=img.dtype, device=dev)
+        return (torch.zeros((B, K), dtype=torch.int32, device=dev),
+                torch.full((B,), -math.inf, dtype=img.dtype, device=dev),
+                torch.full((B,), math.inf, dtype=img.dtype, device=dev))
+    hts, hs = roi_sizes(heights)
+    wds, ws = roi_sizes(widths)
+    path, C, P, KG, smem = gabor_plan(B, H, W, n, K, img.element_size())
+    if path == "cluster":
+        counts = torch.empty((B, K), dtype=torch.int32, device=dev)
+        maxval = torch.empty((B,), dtype=img.dtype, device=dev)
+        cmpval = torch.empty((B,), dtype=img.dtype, device=dev)
+        taps = tap_rows(cfg, img.dtype, dev, -(-K // KG) * KG)
+        base = None
+    else:
+        counts = torch.zeros((B, K), dtype=torch.int32, device=dev)
+        maxval = torch.full((B,), -math.inf, dtype=img.dtype, device=dev)
+        cmpval = torch.full((B,), math.inf, dtype=img.dtype, device=dev)
+        base = torch.empty((B, H, W), dtype=img.dtype, device=dev)
+        taps = filter_bank(cfg, img.dtype, dev)
     with torch.cuda.device(dev):
         code = _build.lib().nyx_gabor(
             img.data_ptr(), taps.data_ptr(), hts.data_ptr(), wds.data_ptr(),
-            base.data_ptr(), maxval.data_ptr(), cmpval.data_ptr(),
-            counts.data_ptr(), B, H, W, n, K, float(cfg.gabor_thold),
+            hs, ws, None if base is None else base.data_ptr(),
+            maxval.data_ptr(), cmpval.data_ptr(), counts.data_ptr(), B, H, W,
+            n, K, float(cfg.gabor_thold), C, P, KG, smem,
             int(img.dtype == torch.float64), _build.stream_of(img))
     _build.check("gabor", code)
     gabor_counts.launches += 1

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import zones
+from .common import counted
 from .glszm import _grouped_square_sum, _inv
 
 EPS = 2.2e-16  # gldzm.h:68
@@ -48,6 +49,7 @@ def gldzm_features(levels, valid, heights, widths, roi_area, vmin, vmax,
                                      noval, dtype, H + W + 2)
 
 
+@counted
 def gldzm_features_from_zones(zlev, zd, wz, roi_area, vmin, vmax,
                               noval: float, dtype, maxd: int):
     """The 18 statistics from per-zone (level, min border distance) lists.

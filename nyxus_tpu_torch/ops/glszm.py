@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import zones
-from .common import fast_log2
+from .common import counted, fast_log2
 
 EPS = 2.2e-16  # reference: glrlm.h:169 / glszm.h:138 / gldm.h:105
 
@@ -62,6 +62,7 @@ def glszm_features(levels, valid, np_pixels, vmin, vmax, noval: float, dtype):
                                      noval, dtype, H * W + 1)
 
 
+@counted
 def glszm_features_from_zones(zlev, zsize, w, np_pixels, vmin, vmax,
                               noval: float, dtype, size_key: int):
     """The 16 statistics from per-zone (level, size) lists.

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from .common import counted
+
 
 def _floor_ratio_exact(num, den):
     """floor(num / den) computed EXACTLY for f32 inputs whose products fit
@@ -57,6 +59,7 @@ def bin_radiomics(x, vmin, vmax, n_levels: int):
     return torch.where(x == 0, 0, y)
 
 
+@counted
 def bin_levels(x, vmin, vmax, greyinfo: int):
     """Dispatch on the sign of greyinfo like TextureFeature::bin_pixel."""
     if greyinfo > 0:

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from .common import counted
 
+
+@counted
 def extrema(ctx, cfg):
     """8 extremal boundary points P1..P8 in global coordinates
     (extrema.cpp): P1/P2 on the top row (left/right), P3/P4 on the right

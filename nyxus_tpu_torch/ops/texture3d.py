@@ -22,6 +22,7 @@ plain PyTorch version beside it (the only path for a tensor on the CPU; a
 CUDA tensor launches the kernel or raises):
 
 * K13 ``glcm3d_cooc`` (csrc/glcm3d_cooc.cu): 13-direction co-occurrences
+  (``glcm3d_plan`` chooses its launch)
 * K14 ``glrlm3d_runs`` (csrc/glrlm3d_runs.cu): 13-direction run matrices
 * K15 ``cc3d`` (csrc/cc3d.cu): 26/6-connected zone labels, and with 6 the
   in-plane border distance
@@ -38,6 +39,7 @@ through K7 (``zones.zone_list``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,7 +51,7 @@ from . import glrlm as glrlm2d
 from . import glszm as glszm2d
 from . import quant, zones
 from .common import (SMEM_MAX, _kernel_device, masked_bincount, pair_hist,
-                     pair_hist_plain)
+                     pair_hist_plain, roi_sizes)
 from .gldm import gldm_features
 from .ngtdm import ngtdm_stats_chunked
 
@@ -153,6 +155,108 @@ def glcm3d_cooc_plain(levels, depths, heights, widths, offset: int, ng: int,
     return M
 
 
+# K13's cluster path: threads a block, and more where a block walks at least
+# GLCM3_WIDE_VOXELS voxels; the voxels a block aims at; the largest cluster
+# (8: clusters of 16 blocks of 1024 threads and 111 KB did not all fit the
+# H100 at once); the shared memory a block's counts and stage aim at
+# (several blocks an SM); and the most a 16-bit count holds
+GLCM3_THREADS = 256
+GLCM3_WIDE_THREADS = 512
+GLCM3_WIDE_VOXELS = 16384
+GLCM3_VOXELS = 8192
+GLCM3_CLUSTER_MAX = 8
+GLCM3_SMEM_AIM = 16 * 1024
+GLCM3_NARROW = 65535
+
+
+def _glcm3d_brick(D: int, H: int, W: int, C: int, offset: int, budget: int):
+    """The largest brick (Zb, Yb) of at most ceil(D / C) planes whose 8-bit
+    levels with the offset's halo on every side fit ``budget`` bytes: whole
+    planes first, else one plane of as many rows as fit; None if not even
+    one row does."""
+    halo = 2 * offset
+    row = W + halo
+    for Zb in range(-(-D // C), 0, -1):
+        if (Zb + halo) * (H + halo) * row <= budget:
+            return Zb, H
+    Yb = min(H, budget // ((1 + halo) * row) - halo)
+    return (1, Yb) if Yb >= 1 else None
+
+
+def glcm3d_counts_bytes(ng: int, directions: int, narrow: bool):
+    """Shared-memory bytes of a block's counts of ``directions`` ng x ng
+    matrices: 16-bit (``narrow``) or 32-bit cells, in whole 16-byte
+    vectors."""
+    return 16 * -(-directions * ng * ng // (8 if narrow else 4))
+
+
+@functools.lru_cache(maxsize=64)
+def _glcm3d_table(offset: int):
+    """K13's host table: GLCM_SHIFTS as (dz, dy, dx) scaled by ``offset``."""
+    return _host_table([(dz * offset, dy * offset, dx * offset)
+                        for dx, dy, dz in GLCM_SHIFTS])
+
+
+@functools.lru_cache(maxsize=256)
+def glcm3d_plan(ng: int, D: int, H: int, W: int, offset: int,
+                symmetric: bool = False):
+    """(path, C, DG, T, Zb, Yb, narrow, smem) of K13's launch for ng levels, a
+    bucket of D x H x W cubes (the AABBs, whose sizes live on the card, are
+    at most that) and a pair ``offset`` apart.
+
+    The cluster path ("cluster"): a cluster of C <= GLCM3_CLUSTER_MAX blocks
+    of T threads (GLCM3_WIDE_THREADS where a block walks at least
+    GLCM3_WIDE_VOXELS voxels, else GLCM3_THREADS) for each ROI and group of
+    DG of the 13
+    directions, about GLCM3_VOXELS voxels a block.  Each block holds its
+    directions' matrices in shared memory (``glcm3d_counts_bytes``), 16-bit
+    counts (``narrow``) when no block can count more than GLCM3_NARROW into
+    one cell (a cell gains at most one a centre voxel, two with
+    ``symmetric``'s transposed cell), else 32-bit.  The cube is cut into
+    bricks of Zb planes x Yb rows x W (``glcm3d_bricks``), staged with the
+    offset's halo as 8-bit levels (so ng <= 255).  DG is the most
+    directions (up to all 13, the cube then staged once) whose counts and
+    stage fit GLCM3_SMEM_AIM, at least one; smem is their bytes.  Where one
+    direction's counts leave no room for a brick of one row (256 levels and
+    up, or a halo too wide), the device-memory path ("device", C = DG = T =
+    Zb = Yb = smem = 0)."""
+    if ng < 1 or min(D, H, W) < 1 or offset < 0:
+        raise ValueError("glcm3d_plan: bad levels %d, cube %dx%dx%d or "
+                         "offset %d" % (ng, D, H, W, offset))
+    C = min(GLCM3_CLUSTER_MAX, -(-D * H * W // GLCM3_VOXELS))
+    halo = 2 * offset
+    for narrow in ((True, False) if ng <= 255 else ()):
+        brick = _glcm3d_brick(D, H, W, C, offset,
+                              SMEM_MAX - glcm3d_counts_bytes(ng, 1, narrow))
+        if brick is None:
+            continue
+        Zb, Yb = brick
+        nbr = -(-D // Zb) * -(-H // Yb)
+        Cb = min(C, nbr)
+        vox = -(-nbr // Cb) * Zb * Yb * W
+        if narrow and (2 if symmetric else 1) * vox > GLCM3_NARROW:
+            continue
+        stage = (Zb + halo) * (Yb + halo) * (W + halo)
+        DG = max([g for g in range(2, 14) if glcm3d_counts_bytes(
+            ng, g, narrow) + stage <= GLCM3_SMEM_AIM], default=1)
+        T = GLCM3_WIDE_THREADS if vox >= GLCM3_WIDE_VOXELS else GLCM3_THREADS
+        return ("cluster", Cb, DG, T, Zb, Yb, narrow,
+                glcm3d_counts_bytes(ng, DG, narrow) + stage)
+    return "device", 0, 0, 0, 0, 0, False, 0
+
+
+def glcm3d_bricks(d: int, h: int, w: int, C: int, Zb: int, Yb: int):
+    """The bricks (z0, y0, planes, rows) of a d x h x w AABB cube each
+    cluster-path block counts, by rank, as the kernel cuts them."""
+    nby = -(-h // Yb) if h > 0 else 0
+    nbr = -(-d // Zb) * nby if w > 0 else 0
+    out = [[] for _ in range(C)]
+    for br in range(nbr):
+        z0, y0 = (br // nby) * Zb, (br % nby) * Yb
+        out[br % C].append((z0, y0, min(Zb, d - z0), min(Yb, h - y0)))
+    return out
+
+
 def glcm3d_cooc(levels, depths, heights, widths, offset: int, ng: int,
                 symmetric: bool, ibsi: bool, dtype):
     """[B, 13, ng, ng] co-occurrence counts of GLCM_SHIFTS scaled by
@@ -162,10 +266,14 @@ def glcm3d_cooc(levels, depths, heights, widths, offset: int, ng: int,
     levels: [B, D, H, W] binned int levels; depths/heights/widths: [B] AABB
     sizes (the cube both ends of a pair must lie in).  Axis 2 is the
     neighbour's level - 1, axis 3 the centre's.  ``ibsi``'s extra test
-    (levels > 0 at both ends) is the kernel's level range test.  On the card
-    a (ROI, direction, 8192-voxel chunk) block counts in shared memory when
-    4 * ng^2 fits 227 KB, else in device memory.  Bound on the card: the
-    level reads and the count atomics."""
+    (levels > 0 at both ends) is the kernel's level range test.  On the
+    card, where ``glcm3d_plan`` finds a direction's matrix fits a block (up
+    to 255 levels), one launch: a thread-block cluster for each ROI and
+    group of directions stages the cube in bricks, counts in shared memory
+    and writes each cell once; else a (ROI, direction, 8192-voxel chunk)
+    block counts in shared memory when 4 * ng^2 fits 227 KB, otherwise in
+    device memory, and a second launch writes the matrices.  Bound on the
+    card: the level reads and the matrices' write-out."""
     if not _kernel_device(levels, "glcm3d_cooc"):
         return glcm3d_cooc_plain(levels, depths, heights, widths, offset, ng,
                                  symmetric, ibsi, dtype)
@@ -177,18 +285,22 @@ def glcm3d_cooc(levels, depths, heights, widths, offset: int, ng: int,
     levels = levels.to(torch.int32).contiguous()
     B, D, H, W = levels.shape
     out = torch.empty((B, 13, ng, ng), dtype=dtype, device=levels.device)
-    if B == 0 or ng == 0:
-        return out
-    dims = torch.stack([depths, heights, widths]).to(torch.int32).contiguous()
-    gcnt = torch.zeros((B, 13, ng, ng), dtype=torch.int32,
-                       device=levels.device)
-    table = _host_table([(dz * offset, dy * offset, dx * offset)
-                         for dx, dy, dz in GLCM_SHIFTS])
+    if B == 0 or ng == 0 or D * H * W == 0:
+        return out.zero_()
+    (dd, ds), (hh, hs), (ww, ws) = (roi_sizes(t) for t in (depths, heights,
+                                                            widths))
+    path, C, DG, T, Zb, Yb, narrow, smem = glcm3d_plan(ng, D, H, W, offset,
+                                                       symmetric)
+    gcnt = None if path == "cluster" else torch.zeros(
+        (B, 13, ng, ng), dtype=torch.int32, device=levels.device)
     with torch.cuda.device(levels.device):
         code = _build.lib().nyx_glcm3d_cooc(
-            levels.data_ptr(), dims.data_ptr(), table, out.data_ptr(),
-            gcnt.data_ptr(), B, D, H, W, ng, int(symmetric),
-            int(4 * ng * ng <= SMEM_MAX), int(dtype == torch.float64),
+            levels.data_ptr(), dd.data_ptr(), hh.data_ptr(), ww.data_ptr(),
+            ds, hs, ws, _glcm3d_table(offset), out.data_ptr(),
+            None if gcnt is None else gcnt.data_ptr(), B, D, H, W, ng,
+            int(symmetric), int(4 * ng * ng <= SMEM_MAX), C, DG, T, Zb, Yb,
+            offset,
+            int(narrow), smem, int(dtype == torch.float64),
             _build.stream_of(levels))
     _build.check("glcm3d_cooc", code)
     glcm3d_cooc.launches += 1

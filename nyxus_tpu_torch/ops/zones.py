@@ -35,7 +35,7 @@ import math
 import torch
 
 from .. import _build
-from .common import SMEM_MAX, _kernel_device, shifted2d
+from .common import SMEM_MAX, _kernel_device, counted, shifted2d
 
 # fill of the distance of a pixel outside any zone (nyxus_tpu zone_list)
 _FAR = 1 << 30
@@ -358,6 +358,7 @@ def _invalid_key(keys):
     return keys == torch.iinfo(keys.dtype).max
 
 
+@counted
 def grouped_weight_sums(keys, w):
     """For each element (in sorted-key order), the SUM of ``w`` over the
     elements sharing its key (nyxus_tpu/ops/zones.py:201).

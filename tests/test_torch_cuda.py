@@ -287,6 +287,58 @@ def test_gabor_zernike_special_crops(prec, crop):
         assert mx[0] > mn[0] and mx[1] == mn[1] == 0
 
 
+def _gabor_path_inputs(name, dtype):
+    """(img, heights, widths, bank) of a K11 path test: "pixel+flat" a
+    32 x 32 bucket holding a 1-pixel AABB, a 3 x 3 ROI whose baseline is
+    flat (the noval branch) and a blank ROI; "cluster8" the 64 x 64 bucket
+    (a cluster of 8 blocks, two pixels a thread); "cluster16" a 64 x 128
+    bucket (16 blocks, a non-portable cluster); "n160" the 160-tap bank,
+    which only the tile path holds."""
+    if name == "pixel+flat":
+        img = np.zeros((3, 32, 32))
+        img[0, 0, 0] = 500.0
+        img[1, :3, :3] = 1 + np.arange(9).reshape(3, 3) % 2
+        img[2, :20, :17] = 700.0
+        hts = torch.tensor([1, 3, 20], dtype=torch.int32, device="cuda")
+        wds = torch.tensor([1, 3, 17], dtype=torch.int32, device="cuda")
+        return torch.from_numpy(img).to(dtype).cuda(), hts, wds, "n16"
+    case, bank = {"cluster8": ((64, 64, 64, (60, 47)), "n16"),
+                  "cluster16": ((3, 64, 128, (60, 120)), "n16"),
+                  "n160": ((3, 7, 13, (7, 13)), "n160")}[name]
+    return chip_smoke.gz_inputs(case, dtype) + (bank,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plan", "tile"])
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("name", ["pixel+flat", "cluster8", "cluster16",
+                                  "n160"])
+def test_gabor_paths(name, prec, path, monkeypatch):
+    """K11 by the path its plan chooses (the cluster path but for the
+    160-tap bank; one filter a thread on the small "pixel+flat" batch, all
+    five at two pixels on the others) and with the tile path forced
+    through the plan: counts, baseline max and min equal to the plain
+    version's."""
+    dtype = DTYPES[prec]
+    img, hts, wds, bank = _gabor_path_inputs(name, dtype)
+    cfg = EngineConfig(**chip_smoke.GABOR_BANKS[bank])
+    B, H, W = img.shape
+    planned = gabor.gabor_plan(B, H, W, cfg.gabor_kersize,
+                               1 + len(cfg.gabor_thetas), img.element_size())
+    assert planned[0] == ("tile" if name == "n160" else "cluster")
+    if name.startswith("cluster"):
+        assert planned[1] == int(name[7:])
+    if path == "tile":
+        monkeypatch.setattr(gabor, "gabor_plan",
+                            lambda *a: ("tile", 0, 0, 0, 0))
+    got = gabor.gabor_counts(img, hts, wds, cfg)
+    for g, w in zip(got, gabor.gabor_counts_plain(img, hts, wds, cfg)):
+        assert torch.equal(g, w)
+    if name == "pixel+flat":
+        _, mx, mn = got
+        assert mx[1] == mn[1] and mx[0] == mn[0]
+
+
 @pytest.mark.cuda
 def test_gabor_zernike_refuse_bad_inputs():
     img = torch.zeros((2, 16, 16), dtype=torch.int32, device="cuda")
@@ -462,6 +514,51 @@ def test_glrlm3d_runs_plans(prec, case):
         assert not got.any()
     if D * H * W == 65535:
         assert int(got.max()) == 65535
+
+
+def _glcm3d_path_inputs(name, dtype):
+    """(levels, depths, heights, widths, offset, ng, symmetric, ibsi) of a
+    K13 path test: "uniform65535" two 255 x 257 planes of one level, whose
+    block of the first plane counts 65535 pairs into one cell along
+    (0, 0, 1) (the most a 16-bit count holds); "sym+ibsi" raw levels 0..63
+    with the transpose added and the zero levels dropped; "offset2" the
+    main 3D bucket at 64 levels two voxels apart; "cube64" the 64^3 bucket
+    (bricks of four planes)."""
+    if name == "uniform65535":
+        lev = torch.ones((1, 2, 255, 257), dtype=torch.int32, device="cuda")
+        dims = [torch.tensor([n], dtype=torch.int32, device="cuda")
+                for n in (2, 255, 257)]
+        return (lev, *dims, 1, 8, False, False)
+    shape = {"sym+ibsi": (4, 16, 16, 16), "offset2": chip_smoke.MAIN_CUBE,
+             "cube64": (2, 64, 64, 64)}[name]
+    _, lev, raw, _, dd, hh, ww = chip_smoke.synth_cube(*shape, 7, dtype)
+    if name == "sym+ibsi":
+        return (raw % 64, dd, hh, ww, 1, 64, True, True)
+    return (lev, dd, hh, ww, 2 if name == "offset2" else 1, 64, False, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plan", "device"])
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("name", ["uniform65535", "sym+ibsi", "offset2",
+                                  "cube64"])
+def test_glcm3d_cooc_paths(name, prec, path, monkeypatch):
+    """K13 by the cluster path its plan chooses and with the device-memory
+    path forced through the plan: equal to the plain version."""
+    dtype = DTYPES[prec]
+    lev, dd, hh, ww, o, ng, sym, ibsi = _glcm3d_path_inputs(name, dtype)
+    plan = t3.glcm3d_plan(ng, *lev.shape[1:], o, sym)
+    assert plan[0] == "cluster"
+    if name == "uniform65535":
+        assert plan[6] and plan[1:2] + plan[4:6] == (2, 1, 255)
+    if path == "device":
+        monkeypatch.setattr(t3, "glcm3d_plan",
+                            lambda *a: ("device", 0, 0, 0, 0, 0, False, 0))
+    got = t3.glcm3d_cooc(lev, dd, hh, ww, o, ng, sym, ibsi, dtype)
+    assert torch.equal(got, t3.glcm3d_cooc_plain(lev, dd, hh, ww, o, ng, sym,
+                                                 ibsi, dtype))
+    if name == "uniform65535":
+        assert int(got[0, 12, 0, 0]) == 65535
 
 
 @pytest.mark.cuda
