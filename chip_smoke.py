@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT]
-                                 (K11 and K13 alone, the package under ROOT)
+                                 (K11, K13, K15 and K16 alone, the package
+                                 under ROOT)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -36,7 +37,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the default bank and at 64 x 32² with the 64-tap bank, K13 at 8 x 32³,
    2 x 64³ and 1 x 64 x 256 x 256 at 64 levels and at 8 x 32³ at raw
    levels, each with its launch plan, its device launches a call (from the
-   profiler) and its bound, K11's unfused floor beside it
+   profiler) and its bound, K11's unfused floor beside it; and K15 and K16
+   (k15_k16_times) in every mode the 3D families call them in (26- and
+   6-connected labels, the latter with the distances; the N26 and N24
+   tables; the window of radius 1) at 8 x 32³, 42 x 16³, 2 x 64³ and 1 x
+   64 x 256 x 256, with the same figures.  K15 and K16 are also held
+   exactly on a 16 x 64 x 64 bucket (K15's 32-bit parents) and with K15's
+   device-memory and K16's voxel paths forced
 3. run the request *ALL* (747 columns) through PairRunner in f32 on the
    card and in f64 on the CPU, compare per column at the p90 relative error
    with the tiers of tests/test_tpu_device.py, check that the columns of
@@ -68,7 +75,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 5. torch.profiler traces of one warm slide of the 747-column request, of
    one warm volume of *3D_ALL* and of one warm 8-bit slide of the IBSI
    request: device time by kernel, host time of each runner stage (nyx:D3_*
-   for the 3D families)
+   for the 3D families), and for the volume K13-K16's device time and
+   launches over the run
 
 The last three lines are the card's name and power limit, the kernels'
 JSON line (K1-K17; the 2D kernels' launches from the timed 747-column
@@ -1017,30 +1025,13 @@ def kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=False):
     for lv, valid, ng in ((lev, aabb, 64), (raw, rvalid, RAW_NG)):
         agree("glrlm3d_runs", t3.glrlm3d_runs(lv, valid, ng, nr, dtype),
               t3.glrlm3d_runs_plain(lv, valid, ng, nr, dtype))
-    for lv, zero_i, gvalid in ((lev, 1, aabb), (raw, 0, rvalid)):
-        sv = aabb & (lv != zero_i)
-        slev = torch.where(sv, lv, -1)
-        dlev = torch.where(aabb, lv, 0)
-        for inp, valid, conn in ((slev, sv, 26), (dlev, gvalid, 6)):
-            got = t3.cc3d(inp, valid, conn, hh, ww)
-            want = t3.cc3d_plain(inp, valid, conn, hh, ww)
-            for g, w in zip(got, want):
-                if w is not None:
-                    agree("cc3d", g, w)
-            d = want[1]
-            for g, w in zip(zones.zone_list(want[0], inp, valid, d),
-                            zones.zone_list_plain(want[0], inp, valid, d)):
-                if w is not None:
-                    agree("zone_stats", g, w)
+    for inp, valid, want in k15_k16_agree(agree, cube):
+        d = want[1]
+        for g, w in zip(zones.zone_list(want[0], inp, valid, d),
+                        zones.zone_list_plain(want[0], inp, valid, d)):
+            if w is not None:
+                agree("zone_stats", g, w)
     glev = torch.where(aabb, raw, -9)
-    for lv, table in ((glev, t3.N26), (lev, t3.N24_NGLDM)):
-        agree("stencil3d", t3.stencil3d(lv, aabb, table),
-              t3.stencil3d_plain(lv, aabb, table))
-    nlev = torch.where(aabb, lev, 0)
-    for radius in (1, 2):
-        for g, w in zip(t3.stencil3d(nlev, aabb, radius=radius),
-                        t3.stencil3d_plain(nlev, aabb, radius=radius)):
-            agree("stencil3d", g, w)
     same = t3.stencil3d_plain(glev, aabb, t3.N26)
     cells = common._composite((raw - 1).reshape(B, -1), same.reshape(B, -1),
                               RAW_NG, 27)
@@ -1067,15 +1058,53 @@ def kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=False):
                               2 * n * unit * total))
 
 
+def k15_k16_agree(agree, cube):
+    """K15 with both connectivities on GLSZM's and GLDZM's inputs at 64 and
+    at raw levels, and K16 with the GLDM (N26) and NGLDM (N24) tables and
+    NGTDM windows of radius 1 and 2, against their plain versions on one
+    synth_cube, by whichever paths the plans choose; returns K15's (levels,
+    valid, plain result) for the zone lists."""
+    import torch
+    from nyxus_tpu_torch.ops import texture3d as t3
+    _, lev, raw, aabb, _, hh, ww = cube
+    labels = []
+    for lv, zero_i, gvalid in ((lev, 1, aabb), (raw, 0, aabb & (raw > 0))):
+        sv = aabb & (lv != zero_i)
+        slev = torch.where(sv, lv, -1)
+        dlev = torch.where(aabb, lv, 0)
+        for inp, valid, conn in ((slev, sv, 26), (dlev, gvalid, 6)):
+            got = t3.cc3d(inp, valid, conn, hh, ww)
+            want = t3.cc3d_plain(inp, valid, conn, hh, ww)
+            for g, w in zip(got, want):
+                if w is not None:
+                    agree("cc3d", g, w)
+            labels.append((inp, valid, want))
+    glev = torch.where(aabb, raw, -9)
+    for lv, table in ((glev, t3.N26), (lev, t3.N24_NGLDM)):
+        agree("stencil3d", t3.stencil3d(lv, aabb, table),
+              t3.stencil3d_plain(lv, aabb, table))
+    nlev = torch.where(aabb, lev, 0)
+    for radius in (1, 2):
+        for g, w in zip(t3.stencil3d(nlev, aabb, radius=radius),
+                        t3.stencil3d_plain(nlev, aabb, radius=radius)):
+            agree("stencil3d", g, w)
+    return labels
+
+
 def bounds_3d(cube, ng_glcm=64, ng_runs=RAW_NG):
     """(bytes, operations) K13-K16 must move and do on one synth_cube at the
     timed arguments (the main path's: GLCM at 64 levels, runs at raw 12-bit
     levels, GLSZM's 26-connected labels, GLDM's 26-shift table), each input
-    read once and each output written once (int32 levels, labels and
-    counts, 1-byte masks, float32 matrices).  Operations: K13 one count a
-    pair with both ends in the AABB, K14 one compare a voxel and direction,
-    K15 one compare a voxel and forward neighbour (13), K16 one compare a
-    voxel and shift (26)."""
+    read once and each output written once (int32 levels, labels, distances
+    and counts, 1-byte masks, float32 matrices).  Operations: K13 one count
+    a pair with both ends in the AABB, K14 one compare a voxel and
+    direction, K15 one compare a voxel and forward neighbour (13), K16 one
+    compare a voxel and shift (26).  Beside them the other modes of K15 and
+    K16: GLDZM's 6-connected labels with the distances ("cc3d_dist": 13
+    bytes a voxel, three compares and the four directions' scan steps),
+    NGLDM's 24-shift table ("stencil3d_n24") and NGTDM's window of radius 1
+    ("stencil3d_window": 13 bytes a voxel, an add to the sum and one to the
+    count a neighbour)."""
     _, lev, _, aabb, dd, hh, ww = cube
     B, D, H, W = lev.shape
     A = B * D * H * W
@@ -1090,6 +1119,9 @@ def bounds_3d(cube, ng_glcm=64, ng_runs=RAW_NG):
         "glrlm3d_runs": (A * 5 + B * 13 * ng_runs * max(D, H, W) * 4, 13 * A),
         "cc3d": (A * 5 + A * 4, 13 * A),
         "stencil3d": (A * 5 + A * 4, 26 * A),
+        "cc3d_dist": (A * 5 + A * 8 + 8 * B, 7 * A),
+        "stencil3d_n24": (A * 5 + A * 4, 24 * A),
+        "stencil3d_window": (A * 5 + A * 8, 52 * A),
     }
 
 
@@ -1147,6 +1179,87 @@ def k11_k13_times(iters=20):
                                      plan)))
 
 
+# K15's and K16's timed buckets: the main 3D bucket, the main path's
+# commonest (42 x 16^3: each throughput volume has one), 64^3 and a 64 x 256
+# x 256 crop
+K15_K16_TIMED = (MAIN_CUBE, (42, 16, 16, 16), (2, 64, 64, 64),
+                 (1, 64, 256, 256))
+
+
+def k15_k16_modes(cube):
+    """K15's and K16's calls on one synth_cube as the 3D families make them,
+    by mode: (the bounds_3d row, the kernel's call, the launch plan or None
+    where the tree has no plans).  GLSZM's
+    26-connected labels at raw levels, GLDZM's 6-connected labels and
+    distances at 64 levels, GLDM's N26 table at raw levels, NGLDM's N24
+    table and NGTDM's window of radius 1 at 64 levels."""
+    import torch
+    from nyxus_tpu_torch.ops import texture3d as t3
+    _, lev, raw, aabb, dd, hh, ww = cube
+    shape = tuple(lev.shape)
+    cplan = getattr(t3, "cc3d_plan", None)
+    splan = getattr(t3, "stencil3d_plan", None)
+    sv = aabb & (raw != 0)
+    slev = torch.where(sv, raw, -1)
+    dlev = torch.where(aabb, lev, 0)
+    glev = torch.where(aabb, raw, -9)
+    return {
+        "cc3d 26": ("cc3d", lambda: t3.cc3d(slev, sv, 26),
+                    cplan(*shape) if cplan else None),
+        "cc3d 6 + distances": (
+            "cc3d_dist", lambda: t3.cc3d(dlev, aabb, 6, hh, ww),
+            cplan(*shape, True) if cplan else None),
+        "stencil3d N26": ("stencil3d", lambda: t3.stencil3d(glev, aabb, t3.N26),
+                          splan(*shape, 1) if splan else None),
+        "stencil3d N24": ("stencil3d_n24",
+                          lambda: t3.stencil3d(lev, aabb, t3.N24_NGLDM),
+                          splan(*shape, 1) if splan else None),
+        "stencil3d window r=1": (
+            "stencil3d_window", lambda: t3.stencil3d(dlev, aabb, radius=1),
+            splan(*shape, 1) if splan else None),
+    }
+
+
+def k15_k16_times(iters=20):
+    """K15 and K16 in every mode (k15_k16_modes) at K15_K16_TIMED: device
+    and events ms a call, device launches a call (from the profiler), the
+    bound and the launch plan (K15: path, cluster, planes a block, threads,
+    32-bit parents, smem; K16: path, planes, rows, threads, smem).  Runs on
+    any tree's package (a tree without the plans prints none), so that two
+    trees can be timed in turn (--kernel-times)."""
+    import torch
+    for cube_shape in K15_K16_TIMED:
+        cube = synth_cube(*cube_shape, 0, torch.float32)
+        bnd = bounds_3d(cube)
+        for mode, (row, kern, plan) in k15_k16_modes(cube).items():
+            ev, ms, nl = timed(kern, iters)
+            nbytes, ops = bnd[row]
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+            log("  %s f32 B=%d %dx%dx%d: device %.4f ms (events %.4f ms), %s "
+                "device launches a call; bound %.5f ms (%s); plan %s"
+                % ((mode,) + cube_shape + (
+                    ms, ev, nl, max(bytes_ms, ops_ms),
+                    "bytes" if bytes_ms >= ops_ms else "operations",
+                    plan or "none in this tree")))
+
+
+def forced_second_paths():
+    """The wrappers' plans replaced by ones that choose K15's device-memory
+    path and K16's voxel path, whatever the shape; returns the originals
+    (restore_plans puts them back)."""
+    from nyxus_tpu_torch.ops import texture3d as t3
+    saved = (t3.cc3d_plan, t3.stencil3d_plan)
+    t3.cc3d_plan = lambda B, D, H, W, dist=False: ("device", 0, 0, 0,
+                                                   D * H * W > 65535, 0)
+    t3.stencil3d_plan = lambda B, D, H, W, halo: ("voxel", 0, 0, 0, 0)
+    return saved
+
+
+def restore_plans(saved):
+    from nyxus_tpu_torch.ops import texture3d as t3
+    t3.cc3d_plan, t3.stencil3d_plan = saved
+
+
 def check_kernels_3d():
     """K13-K16 and K1's device-memory path against their plain versions on
     the card, then their times at MAIN_CUBE (and at 64^3 and the 64 x 256 x
@@ -1192,6 +1305,21 @@ def check_kernels_3d():
                 raise AssertionError("cc3d: %d zones in the %s cubes" % (n,
                                                                          kind))
         log("  %s: empty and uniform 16^3 cubes agree (0 and 4 zones)" % prec)
+        # K15's 32-bit parents (a cube of 65536 voxels) on the special
+        # kinds, then K15's device-memory and K16's voxel paths, forced
+        for kind in ("empty", "uniform", "blob"):
+            k15_k16_agree(agree, synth_cube(2, 16, 64, 64, 32, dtype, kind))
+        saved = forced_second_paths()
+        try:
+            for kind in ("empty", "uniform", "blob"):
+                k15_k16_agree(agree, synth_cube(4, 16, 16, 16, 33, dtype,
+                                                kind))
+            k15_k16_agree(agree, synth_cube(*MAIN_CUBE, 34, dtype))
+        finally:
+            restore_plans(saved)
+        log("  %s: K15 and K16 agree on 16 x 64 x 64 cubes (32-bit parents) "
+            "and with K15's device-memory and K16's voxel paths forced"
+            % prec)
 
     for cube_shape in (MAIN_CUBE, (2, 64, 64, 64), (1, 64, 256, 256)):
         cube = synth_cube(*cube_shape, 0, torch.float32)
@@ -1268,6 +1396,7 @@ def check_kernels_3d():
                 k[1], k[0], p[1], (B * lev[0].numel() * 8
                                    + B * RAW_NG * 27 * 4) / HBM_BYTES_S * 1e3)))
     k11_k13_times()
+    k15_k16_times()
     return res
 
 
@@ -1722,9 +1851,16 @@ def check_ibsi(kern):
     return card, cpu, cols
 
 
-def profile_report(what, run, stage_prefix="nyx:"):
+# K13-K16's device kernels by name, for their totals over a profiled volume
+KERNEL_NAMES_3D = {"K13 glcm3d_cooc": "glcm3d_", "K14 glrlm3d_runs": "glrlm3d_",
+                   "K15 cc3d": "cc3d_", "K16 stencil3d": "stencil3d_"}
+
+
+def profile_report(what, run, stage_prefix="nyx:", totals=None):
     """Profile one warm run: wall, device busy share, the top device
-    kernels, and the host ms (and card span) of each nyx:* runner stage."""
+    kernels, the device ms and launches of each group of ``totals`` (label
+    -> a substring of its kernels' names), and the host ms (and card span)
+    of each nyx:* runner stage."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1746,6 +1882,11 @@ def profile_report(what, run, stage_prefix="nyx:"):
     for name, (tot, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:12]:
         log("    %8.3f ms %5d x  %s" % (tot / 1e3, cnt, name[:100]))
+    for label, part in (totals or {}).items():
+        hits = [v for name, v in by_name.items() if part in name]
+        log("  %s over the run: device %.4f ms in %d launches"
+            % (label, sum(t for t, _ in hits) / 1e3,
+               sum(c for _, c in hits)))
     stages = {}
     for e in prof.events():
         if e.name.startswith(stage_prefix):
@@ -1764,9 +1905,9 @@ def profile_report(what, run, stage_prefix="nyx:"):
 
 def kernel_times_only(root):
     """--kernel-times [ROOT]: build the kernels of the package under ROOT
-    (by default this script's tree), print k11_k13_times and the card; no
-    result line.  Two trees timed in one call, in turns, compare the two
-    versions of K11 and K13 on one card."""
+    (by default this script's tree), print k11_k13_times, k15_k16_times
+    and the card; no result line.  Two trees timed in one call, in turns,
+    compare the two versions of K11, K13, K15 and K16 on one card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -1777,6 +1918,7 @@ def kernel_times_only(root):
     log("kernels of %s built in %.1f s" % (os.path.abspath(root),
                                            time.perf_counter() - t0))
     k11_k13_times()
+    k15_k16_times()
     log(card_line())
 
 
@@ -2014,7 +2156,8 @@ def main():
     log("  host ROI discovery: %.2f ms a slide (of %.2f ms a slide end to end)"
         % ((time.perf_counter() - t0) * 1e3 / len(slides), wall * 1e3 / len(slides)))
     log_phase("phase 5, 3D: profile of one warm volume of *3D_ALL*")
-    profile_report("volume 1 of *3D_ALL*", lambda: runner_3d.run(*vols[0]))
+    profile_report("volume 1 of *3D_ALL*", lambda: runner_3d.run(*vols[0]),
+                   totals=KERNEL_NAMES_3D)
     log_phase("phase 5, IBSI: profile of one warm 8-bit slide of the IBSI "
               "request")
     profile_report("slide 8 of the IBSI request",

@@ -60,8 +60,8 @@ _SIGNATURES = {
     "nyx_glcm3d_cooc": [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I] * 14
     + [ctypes.c_longlong, _I, _P],
     "nyx_glrlm3d_runs": [_P] * 4 + [_I] * 11 + [_P],
-    "nyx_cc3d": [_P] * 6 + [_I] * 5 + [_P],
-    "nyx_stencil3d": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    "nyx_cc3d": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 10 + [_P],
+    "nyx_stencil3d": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 8 + [_P],
     "nyx_ih_stats": [_P] * 7 + [_I] * 4 + [_D, _P],
 }
 

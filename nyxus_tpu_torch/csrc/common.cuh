@@ -66,3 +66,105 @@ __device__ __forceinline__ void nyx_red_add(unsigned int addr,
                ::"r"(addr), "r"(v)
                : "memory");
 }
+
+// union-find over parents in the cluster's distributed shared memory: a
+// relaxed load and store at a shared::cluster address, and a
+// compare-and-swap there returning the value before it, of 32-bit and of
+// 16-bit parents
+__device__ __forceinline__ unsigned int nyx_ld_cluster32(unsigned int addr) {
+  unsigned int v;
+  asm volatile("ld.relaxed.cluster.shared::cluster.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned short nyx_ld_cluster16(
+    unsigned int addr) {
+  unsigned short v;
+  asm volatile("ld.relaxed.cluster.shared::cluster.u16 %0, [%1];"
+               : "=h"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void nyx_st_cluster32(unsigned int addr,
+                                                 unsigned int v) {
+  asm volatile("st.relaxed.cluster.shared::cluster.u32 [%0], %1;"
+               ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void nyx_st_cluster16(unsigned int addr,
+                                                 unsigned short v) {
+  asm volatile("st.relaxed.cluster.shared::cluster.u16 [%0], %1;"
+               ::"r"(addr), "h"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned int nyx_atom_cas_cluster(
+    unsigned int addr, unsigned int cmp, unsigned int v) {
+  unsigned int old;
+  asm volatile(
+      "atom.relaxed.cluster.shared::cluster.cas.b32 %0, [%1], %2, %3;"
+      : "=r"(old)
+      : "r"(addr), "r"(cmp), "r"(v)
+      : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned short nyx_atom_cas16_cluster(
+    unsigned int addr, unsigned short cmp, unsigned short v) {
+  unsigned short old;
+  asm volatile(
+      "atom.relaxed.cluster.shared::cluster.cas.b16 %0, [%1], %2, %3;"
+      : "=h"(old)
+      : "r"(addr), "h"(cmp), "h"(v)
+      : "memory");
+  return old;
+}
+
+// warp scans: the inclusive max over lanes 0..lane, and the min over lanes
+// lane..31
+#define NYX_FULL 0xffffffffu
+
+__device__ __forceinline__ int nyx_scan_max(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(NYX_FULL, v, o);
+    if (lane >= o) v = max(v, n);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int nyx_scan_min_rev(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_down_sync(NYX_FULL, v, o);
+    if (lane + o < 32) v = min(v, n);
+  }
+  return v;
+}
+
+// asynchronous copies of 16 or 4 bytes into shared memory (cp.async)
+__device__ __forceinline__ void nyx_cp16(void* dst, const void* src) {
+  const unsigned int d =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void nyx_cp4(void* dst, const void* src) {
+  const unsigned int d =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void nyx_cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}

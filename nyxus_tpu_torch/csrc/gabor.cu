@@ -275,15 +275,9 @@ __global__ void gabor_count_kernel(const T* __restrict__ img,
 // ---------------------------------------------------------------------------
 // The cluster path
 
-// asynchronous copies into shared memory (cp.async): 16 bytes, and one
-// value of T zero-filled when ``in`` is false (the source not read)
-__device__ __forceinline__ void gabor_cp16(void* dst, const void* src) {
-  const unsigned int d =
-      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
+// an asynchronous copy into shared memory (cp.async) of one value of T,
+// zero-filled when ``in`` is false (the source not read); 16-byte copies
+// are common.cuh's nyx_cp16
 template <typename T>
 __device__ __forceinline__ void gabor_cp_zfill(T* dst, const T* src,
                                                bool in) {
@@ -373,7 +367,7 @@ __global__ void __launch_bounds__(GABOR_THREADS)
     // copied asynchronously: every copy of the block in flight at once
     const int nv = nn * KP / VN;
     for (int k = threadIdx.x; k < nv; k += GABOR_THREADS)
-      gabor_cp16(taps_s + k * VN, taps + k * VN);
+      nyx_cp16(taps_s + k * VN, taps + k * VN);
     const T* im = img + static_cast<size_t>(H) * W * b;
     const int gy0 = r0 + off - (n - 1);
     const int gx0 = off - (n - 1);

@@ -45,8 +45,6 @@
 // column, with one thread.
 #include "common.cuh"
 
-#define NYX_FULL 0xffffffffu
-
 // ---------------------------------------------------------------------------
 // shared-memory path
 
@@ -75,25 +73,6 @@ __device__ void nyx_sunite(int* par, int a, int b) {
     b = nyx_sfind(par, old);
     a = nyx_sfind(par, a);
   }
-}
-
-// inclusive max over lanes 0..lane, and min over lanes lane..31
-__device__ __forceinline__ int nyx_scan_max(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(NYX_FULL, v, o);
-    if (lane >= o) v = max(v, n);
-  }
-  return v;
-}
-
-__device__ __forceinline__ int nyx_scan_min_rev(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_down_sync(NYX_FULL, v, o);
-    if (lane + o < 32) v = min(v, n);
-  }
-  return v;
 }
 
 // One line (a row or a column) of n pixels at stride ``step`` through the

@@ -25,9 +25,10 @@ CUDA tensor launches the kernel or raises):
   (``glcm3d_plan`` chooses its launch)
 * K14 ``glrlm3d_runs`` (csrc/glrlm3d_runs.cu): 13-direction run matrices
 * K15 ``cc3d`` (csrc/cc3d.cu): 26/6-connected zone labels, and with 6 the
-  in-plane border distance
+  in-plane border distance (``cc3d_plan`` chooses its launch)
 * K16 ``stencil3d`` (csrc/stencil3d.cu): same-level neighbour counts over a
-  shift table, or window sums and counts
+  shift table, or window sums and counts (``stencil3d_plan`` chooses its
+  launch)
 
 The plain versions keep the JAX package's formulations (shifted copies,
 pointer jumping, the min-index fixpoint), different algorithms from the
@@ -516,6 +517,71 @@ def cc3d_plain(lev, valid, connectivity: int, heights=None, widths=None):
     return anc, border_distance3d_plain(lev, heights, widths)
 
 
+# K15's cluster path: the most blocks a cluster (16, beyond the portable 8),
+# the most threads a block (a thread a voxel of its slab up to it), the
+# blocks a batch aims at (about four on each of the card's 132 SMs), the
+# fewest voxels a block takes, and the largest cube whose global indices
+# (and BIG) fit 16-bit parents
+CC3_CLUSTER_MAX = 16
+CC3_THREADS_MAX = 1024
+CC3_FILL = 512
+CC3_MIN_VOXELS = 256
+CC3_NARROW = 65535
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def cc3d_smem(H: int, W: int, Zs: int, wide: bool, dist: bool) -> int:
+    """Shared-memory bytes of a K15 cluster-path block over slabs of Zs
+    planes: the slab and the next plane's int32 levels and valid bytes
+    (each rounded up to 16 bytes), then the 16- or 32-bit (``wide``)
+    parents of the slab or, with ``dist``, its distance tiles of H rows at
+    the pitch W | 1, whichever is larger (the tiles reuse the parents'
+    memory)."""
+    staged = (Zs + 1) * H * W
+    pars = Zs * H * W * (4 if wide else 2)
+    tiles = Zs * H * (W | 1) * 4 if dist else 0
+    return _r16(4 * staged) + _r16(staged) + max(pars, tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def cc3d_plan(B: int, D: int, H: int, W: int, dist: bool = False):
+    """(path, C, Zs, T, wide, smem) of K15's launch for B cubes of D x H x W
+    voxels, with the distances (``dist``) or not.
+
+    The cluster path ("cluster"): a cluster of C <= CC3_CLUSTER_MAX blocks
+    of T threads a ROI, block r owning the slab of Zs planes from r * Zs
+    (every block at least one plane: C = ceil(D / Zs)), with ``wide``
+    32-bit parents where D * H * W > CC3_NARROW, else 16-bit; smem is
+    ``cc3d_smem``.  C starts at the fewest blocks that make B * C reach
+    CC3_FILL, no more than give each block CC3_MIN_VOXELS, and grows until
+    a slab fits a block's shared memory; T is a thread a voxel of the slab,
+    at most CC3_THREADS_MAX.  Where no cluster of at most min(D,
+    CC3_CLUSTER_MAX) slabs fits, and for the labels alone (no distances),
+    the device-memory path ("device", C = Zs = T = smem = 0): without the
+    distances' row and column walks to save, the device-memory path's
+    launches over every voxel of the batch measured as fast or faster than
+    a cluster of at most 16 blocks a ROI (PERF.md, section 6)."""
+    if min(B, D, H, W) < 1:
+        raise ValueError("cc3d_plan: bad batch %d of %dx%dx%d cubes"
+                         % (B, D, H, W))
+    A = D * H * W
+    wide = A > CC3_NARROW
+    if not dist:
+        return "device", 0, 0, 0, wide, 0
+    cmax = min(CC3_CLUSTER_MAX, D)
+    first = max(1, min(cmax, -(-CC3_FILL // B), -(-A // CC3_MIN_VOXELS)))
+    for c in range(first, cmax + 1):
+        Zs = -(-D // c)
+        smem = cc3d_smem(H, W, Zs, wide, dist)
+        if smem <= SMEM_MAX:
+            T = min(CC3_THREADS_MAX, 32 * -(-Zs * H * W // 32))
+            return "cluster", -(-D // Zs), Zs, T, wide, smem
+    return "device", 0, 0, 0, wide, 0
+
+
 def cc3d(lev, valid, connectivity: int, heights=None, widths=None):
     """3D zone labels: K15 cc3d (csrc/cc3d.cu), replacing
     nyxus_tpu/ops/texture3d.py:173 cc3d_labels and, with 6-connectivity,
@@ -525,20 +591,26 @@ def cc3d(lev, valid, connectivity: int, heights=None, widths=None):
     (GLSZM) or 6 (GLDZM); heights/widths: [B] AABB sizes, given with 6 for
     the distances.  Returns (anc, dist | None), int32 [B, D, H, W]: anc the
     lowest raster index of each voxel's same-level component (D * H * W off
-    ``valid``), dist the in-plane dist2border.  On the card union-find over
-    every voxel of the batch in three launches, then one block a (ROI,
-    plane) for the distances.  Bound on the card: the union-find's
-    dependent L2 round trips."""
+    ``valid``), dist the in-plane dist2border.  On the card, with the
+    distances where ``cc3d_plan`` finds the slabs fit a cluster (every
+    main-path bucket up to 64^3), one launch: a thread-block cluster a ROI
+    runs union-find on its slabs in shared memory, merges them through
+    distributed shared memory and computes the distances from the same
+    staged levels; else, and for the labels alone, union-find over every
+    voxel of the batch in device memory (three launches, a fourth for the
+    distances).  Bound on the card: the union-find's dependent finds and
+    links."""
     if connectivity not in (26, 6):
         raise ValueError("cc3d: connectivity 26 or 6, not %r" % connectivity)
     if not _kernel_device(lev, "cc3d"):
         return cc3d_plain(lev, valid, connectivity, heights, widths)
     _check_cube("cc3d", lev, valid)
     want_dist = connectivity == 6 and heights is not None
+    hh = ww = None
+    hs = ws = 1
     if want_dist:
         _check_per_roi("cc3d", lev, heights, widths)
-        heights = heights.to(torch.int32).contiguous()
-        widths = widths.to(torch.int32).contiguous()
+        (hh, hs), (ww, ws) = roi_sizes(heights), roi_sizes(widths)
     lev = lev.to(torch.int32).contiguous()
     valid = valid.to(torch.bool).contiguous()
     B, D, H, W = lev.shape
@@ -546,13 +618,15 @@ def cc3d(lev, valid, connectivity: int, heights=None, widths=None):
     dist = torch.empty_like(lev) if want_dist else None
     if lev.numel() == 0:
         return anc, dist
+    _, C, Zs, T, wide, smem = cc3d_plan(B, D, H, W, want_dist)
     with torch.cuda.device(lev.device):
         code = _build.lib().nyx_cc3d(
             lev.data_ptr(), valid.data_ptr(),
-            heights.data_ptr() if want_dist else 0,
-            widths.data_ptr() if want_dist else 0, anc.data_ptr(),
+            hh.data_ptr() if want_dist else 0,
+            ww.data_ptr() if want_dist else 0, hs, ws, anc.data_ptr(),
             dist.data_ptr() if want_dist else 0, B, D, H, W,
-            int(connectivity == 26), _build.stream_of(lev))
+            int(connectivity == 26), C, Zs, T, int(wide), smem,
+            _build.stream_of(lev))
     _build.check("cc3d", code)
     cc3d.launches += 1
     return anc, dist
@@ -591,6 +665,92 @@ def stencil3d_plain(lev, part, shifts=None, radius: int = 0):
     return nsum, ncnt
 
 
+# K16's slab path: the largest halo it stages (a table of unit shifts has
+# 1, a window its radius), the most threads a block, the blocks a batch aims
+# at (about one a streaming multiprocessor of the card's 132), the planes
+# and rows a tile aims at, and the shared memory a tile may take
+STENCIL3_HALO_MAX = 2
+STENCIL3_THREADS = 512
+STENCIL3_FILL = 128
+STENCIL3_TILE = 8
+STENCIL3_SMEM_AIM = 144 * 1024
+
+
+def stencil3d_smem(W: int, Zt: int, Yt: int, halo: int) -> int:
+    """Shared-memory bytes of a K16 slab-path tile of Zt planes x Yt rows x
+    W with ``halo`` planes and rows on each side: int32 level rows padded
+    by 4 zeros on each side (16 bytes) and part-byte rows padded by 16
+    bytes on each side, each rounded up to 16 bytes."""
+    PL = -(-W // 4) * 4 + 8
+    PB = _r16(W) + 32
+    return (Zt + 2 * halo) * (Yt + 2 * halo) * (4 * PL + PB)
+
+
+@functools.lru_cache(maxsize=256)
+def stencil3d_plan(B: int, D: int, H: int, W: int, halo: int):
+    """(path, Zt, Yt, T, smem) of K16's launch for B cubes of D x H x W
+    voxels and a neighbourhood of ``halo`` voxels (1 for a table of unit
+    shifts, a window's radius; 0 where the slab path cannot take the
+    table).
+
+    The slab path ("slab"): a block of T threads (a thread a column (y, x)
+    of the tile, at most STENCIL3_THREADS) for each ROI, slab of Zt planes
+    and tile of Yt rows, staging the tile and its halo in
+    ``stencil3d_smem`` bytes.  Zt and Yt start at STENCIL3_TILE (cut at D
+    and H) and are halved, the larger first, while the tile passes
+    STENCIL3_SMEM_AIM, then while the batch has fewer than STENCIL3_FILL
+    blocks and a side is above 2.  A halo of 0 or beyond STENCIL3_HALO_MAX
+    takes the voxel path ("voxel", Zt = Yt = T = smem = 0)."""
+    if min(B, D, H, W) < 1:
+        raise ValueError("stencil3d_plan: bad batch %d of %dx%dx%d cubes"
+                         % (B, D, H, W))
+    if not 1 <= halo <= STENCIL3_HALO_MAX:
+        return "voxel", 0, 0, 0, 0
+    Zt, Yt = min(D, STENCIL3_TILE), min(H, STENCIL3_TILE)
+
+    def halve(Zt, Yt):
+        return ((-(-Zt // 2), Yt) if Zt >= Yt else (Zt, -(-Yt // 2)))
+
+    while stencil3d_smem(W, Zt, Yt, halo) > STENCIL3_SMEM_AIM \
+            and max(Zt, Yt) > 1:
+        Zt, Yt = halve(Zt, Yt)
+    while B * -(-D // Zt) * -(-H // Yt) < STENCIL3_FILL and max(Zt, Yt) > 2:
+        Zt, Yt = halve(Zt, Yt)
+    return ("slab", Zt, Yt, min(STENCIL3_THREADS, 32 * -(-Yt * W // 32)),
+            stencil3d_smem(W, Zt, Yt, halo))
+
+
+# a shift table as a mask over the 3^3 neighbourhood, bit (dz + 1) * 9 +
+# (dy + 1) * 3 + dx + 1 a shift (csrc/stencil3d.cu)
+def _shift_bit(dz: int, dy: int, dx: int) -> int:
+    return 1 << ((dz + 1) * 9 + (dy + 1) * 3 + dx + 1)
+
+
+@functools.lru_cache(maxsize=16)
+def _table_of(shifts: tuple):
+    """(host table, n, mask) of a shift table: mask -1 where the slab path
+    cannot count it (a shift beyond one voxel, a repeated shift, none)."""
+    bits = [_shift_bit(*s) for s in shifts
+            if max(abs(v) for v in s) <= 1 and s != (0, 0, 0)]
+    mask = sum(set(bits))
+    if not shifts or len(set(bits)) != len(shifts):
+        mask = -1
+    return _host_table(shifts), len(shifts), mask
+
+
+def _stencil3d_table(shifts):
+    """``_table_of`` the shifts, built once for N26 and N24_NGLDM."""
+    if shifts is N26:
+        return _N26_TABLE
+    if shifts is N24_NGLDM:
+        return _N24_TABLE
+    return _table_of(tuple(tuple(int(v) for v in s) for s in shifts))
+
+
+_N26_TABLE = _table_of(tuple(N26))
+_N24_TABLE = _table_of(tuple(N24_NGLDM))
+
+
 def stencil3d(lev, part, shifts=None, radius: int = 0):
     """K16 stencil3d (csrc/stencil3d.cu), replacing the shifted3d loops of
     nyxus_tpu/ops/texture3d.py:350 gldm3d_all, :402 ngldm3d_all and :369
@@ -602,7 +762,11 @@ def stencil3d(lev, part, shifts=None, radius: int = 0):
     whose neighbour takes part with the centre's level; else returns int32
     (nsum, ncnt), the sum of the levels and the number of the neighbours
     taking part in the Chebyshev window of ``radius`` (centre excluded).
-    One thread a voxel.  Bound on the card: memory traffic."""
+    On the card one launch: where ``stencil3d_plan`` takes the table (unit
+    shifts, each once) or the window (radius 1 or 2), a block a (ROI, slab,
+    row tile) stages its tile in shared memory and each thread walks a
+    column along z; else one thread a voxel.  Bound on the card: memory
+    traffic."""
     if not _kernel_device(lev, "stencil3d"):
         return stencil3d_plain(lev, part, shifts, radius)
     _check_cube("stencil3d", lev, part)
@@ -618,12 +782,15 @@ def stencil3d(lev, part, shifts=None, radius: int = 0):
     ncnt = torch.empty_like(lev) if shifts is None else None
     if lev.numel() > 0:
         ptr = lambda t: 0 if t is None else t.data_ptr()
-        table = None if shifts is None else _host_table(shifts)
+        table, n, mask = (None, 0, -1) if shifts is None \
+            else _stencil3d_table(shifts)
+        halo = int(radius) if shifts is None else int(mask >= 0)
+        _, Zt, Yt, T, smem = stencil3d_plan(B, D, H, W, halo)
         with torch.cuda.device(lev.device):
             code = _build.lib().nyx_stencil3d(
-                lev.data_ptr(), part.data_ptr(), table,
-                0 if shifts is None else len(shifts), int(radius), ptr(same),
-                ptr(nsum), ptr(ncnt), B, D, H, W, _build.stream_of(lev))
+                lev.data_ptr(), part.data_ptr(), table, n, mask, int(radius),
+                ptr(same), ptr(nsum), ptr(ncnt), B, D, H, W, Zt, Yt, T, smem,
+                _build.stream_of(lev))
         _build.check("stencil3d", code)
         stencil3d.launches += 1
     return same if shifts is not None else (nsum, ncnt)

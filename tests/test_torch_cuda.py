@@ -574,6 +574,130 @@ def test_glrlm3d_runs_64_cube_raw_levels(prec):
                        t3.glrlm3d_runs_plain(raw, valid, 4096, 64, dtype))
 
 
+def _zone_cube(name, seed=0):
+    """(levels, valid, heights, widths) of a K15 path test, int32 and bool
+    on the card: "one-voxel" ROIs whose AABB is one voxel; "snake" a level-7
+    path through 2 x 32^3 cubes that runs up one column, along the top
+    plane, down another column and along the bottom plane again, so that it
+    crosses every slab boundary of a cluster several times and its blocks'
+    roots merge through the cluster; "zero-plane" levels 0..3 (0 a zero
+    level for the distances) with a plane and a row of zeros and AABBs
+    smaller than the bucket; the non-cubic buckets 3 x 8 x 16 x 32 and 2 x
+    32 x 8 x 16; "narrow" a 15 x 17 x 257 cube of 65535 voxels (16-bit
+    parents) and "wide" a 16 x 64 x 64 cube of 65536 (32-bit)."""
+    r = np.random.default_rng(seed)
+    shape = {"one-voxel": (6, 8, 8, 8), "snake": (2, 32, 32, 32),
+             "zero-plane": (3, 16, 16, 32), "nc-8x16x32": (3, 8, 16, 32),
+             "nc-32x8x16": (2, 32, 8, 16), "narrow": (1, 15, 17, 257),
+             "wide": (1, 16, 64, 64)}[name]
+    B, D, H, W = shape
+    lev = r.integers(1, 4, shape)
+    valid = r.random(shape) < 0.95
+    hh = np.full(B, H, np.int32)
+    ww = np.full(B, W, np.int32)
+    if name == "one-voxel":
+        valid[:] = False
+        valid[:, 0, 0, 0] = True
+        hh[:] = ww[:] = 1
+    elif name == "snake":
+        for x0, x1 in ((3, 20), (20, 28)):
+            lev[:, :, 3, x0] = lev[:, :, 3, x1] = 7
+            valid[:, :, 3, x0] = valid[:, :, 3, x1] = True
+        lev[:, -1, 3, 3:21] = lev[:, 0, 3, 20:29] = 7
+        valid[:, -1, 3, 3:21] = valid[:, 0, 3, 20:29] = True
+    elif name == "zero-plane":
+        lev = r.integers(0, 4, shape)
+        lev[:, 5] = 0
+        lev[:, :, 7] = 0
+        valid = lev > 0
+        hh[:] = H - 3
+        ww[:] = W - 5
+    return (torch.from_numpy(lev.astype(np.int32)).cuda(),
+            torch.from_numpy(valid).cuda(), torch.from_numpy(hh).cuda(),
+            torch.from_numpy(ww).cuda())
+
+
+ZONE_CUBES = ["one-voxel", "snake", "zero-plane", "nc-8x16x32",
+              "nc-32x8x16", "narrow", "wide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plan", "cluster", "device"])
+@pytest.mark.parametrize("name", ZONE_CUBES)
+def test_cc3d_paths(name, path, monkeypatch):
+    """K15 by the paths its plan chooses, with the cluster path forced
+    through the plan (the labels alone, which the plan gives the
+    device-memory path) and with the device-memory path forced, 26- and
+    6-connected, the latter with the distances: equal to the plain
+    version."""
+    lev, valid, hh, ww = _zone_cube(name)
+    B, D, H, W = lev.shape
+    plan = t3.cc3d_plan(B, D, H, W, True)
+    assert plan[0] == "cluster" and plan[4] == (D * H * W > 65535)
+    assert t3.cc3d_plan(B, D, H, W)[0] == "device"
+    if path == "cluster":
+        monkeypatch.setattr(t3, "cc3d_plan", lambda *a: plan)
+    elif path == "device":
+        monkeypatch.setattr(t3, "cc3d_plan",
+                            lambda *a: ("device", 0, 0, 0, False, 0))
+    for conn in (26, 6):
+        got = t3.cc3d(lev, valid, conn, hh, ww)
+        want = t3.cc3d_plain(lev, valid, conn, hh, ww)
+        assert torch.equal(got[0], want[0]), conn
+        if conn == 6:
+            assert torch.equal(got[1], want[1])
+    if name == "snake":   # one component, labelled by its first voxel
+        anc = got[0] if conn == 26 else t3.cc3d(lev, valid, 26)[0]
+        assert bool((anc[:, :, 3, 3] == 3 * 32 + 3).all())
+
+
+def _stencil_cube(name, seed=0):
+    """(levels, part) of a K16 path test on the card: "one-voxel" ROIs
+    whose only voxel taking part is (0, 0, 0); the non-cubic buckets 3 x 8
+    x 16 x 32 and 2 x 32 x 8 x 16; "odd" 2 x 5 x 7 x 13 (rows not 16-byte
+    aligned); "extremes" levels drawn from the int32 extremes, -1, 0 and 1,
+    so that equal levels and wrapped window sums meet every sign."""
+    r = np.random.default_rng(seed)
+    shape = {"one-voxel": (6, 8, 8, 8), "nc-8x16x32": (3, 8, 16, 32),
+             "nc-32x8x16": (2, 32, 8, 16), "odd": (2, 5, 7, 13),
+             "extremes": (2, 16, 16, 16)}[name]
+    lev = r.integers(-3, 4, shape)
+    part = r.random(shape) < 0.8
+    if name == "one-voxel":
+        part[:] = False
+        part[:, 0, 0, 0] = True
+    elif name == "extremes":
+        lev = r.choice(np.array([-2 ** 31, 2 ** 31 - 1, -1, 0, 1]), shape)
+    return (torch.from_numpy(lev.astype(np.int32)).cuda(),
+            torch.from_numpy(part).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plan", "voxel"])
+@pytest.mark.parametrize("name", ["one-voxel", "nc-8x16x32", "nc-32x8x16",
+                                  "odd", "extremes"])
+def test_stencil3d_paths(name, path, monkeypatch):
+    """K16 by the slab path its plan chooses and with the voxel path forced
+    through the plan: the N26 and N24 tables, N6 (a mask given at run
+    time), a table with a two-voxel shift (the voxel path by the plan) and
+    windows of radius 1, 2 and 3 (the last the voxel path by the plan):
+    equal to the plain version."""
+    lev, part = _stencil_cube(name)
+    B, D, H, W = lev.shape
+    for halo in (1, 2):
+        assert t3.stencil3d_plan(B, D, H, W, halo)[0] == "slab"
+    if path == "voxel":
+        monkeypatch.setattr(t3, "stencil3d_plan",
+                            lambda *a: ("voxel", 0, 0, 0, 0))
+    for table in (t3.N26, t3.N24_NGLDM, t3.N6, [(0, 0, 2), (1, -1, 0)]):
+        assert torch.equal(t3.stencil3d(lev, part, table),
+                           t3.stencil3d_plain(lev, part, table)), table
+    for radius in (1, 2, 3):
+        for g, w in zip(t3.stencil3d(lev, part, radius=radius),
+                        t3.stencil3d_plain(lev, part, radius=radius)):
+            assert torch.equal(g, w), radius
+
+
 @pytest.mark.cuda
 def test_3d_f32_on_card_against_f64_cpu():
     """*3D_ALL* on the fixture volume at the default and binned

@@ -1,13 +1,14 @@
-"""The launch plans of K11 ``gabor`` and K13 ``glcm3d_cooc``
-(nyxus_tpu_torch/ops/gabor.py gabor_plan, ops/texture3d.py glcm3d_plan),
-checked in plain Python at every bucket shape chip_smoke.py holds the
-kernels at (its CASES and CUBES), the Gabor banks of chip_smoke.GABOR_BANKS
+"""The launch plans of K11 ``gabor``, K13 ``glcm3d_cooc``, K15 ``cc3d`` and
+K16 ``stencil3d`` (nyxus_tpu_torch/ops/gabor.py gabor_plan, ops/texture3d.py
+glcm3d_plan, cc3d_plan, stencil3d_plan), checked in plain Python at every
+bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
+3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
 and 1 to 4096 grey levels: the shared memory a block asks for is within a
-Hopper block's, clusters have at most 16 blocks, 16-bit counts are taken
-only where no cell can pass 65535, every AABB pixel or voxel is owned by
-exactly one block (``gabor_blocks`` and ``glcm3d_bricks`` cut the work as
-the kernels do), and the second path is taken exactly where the first
-cannot hold the work.  No card and no JAX are needed."""
+Hopper block's, clusters have at most 16 blocks, 16-bit counts and parents
+are taken only where no cell can pass 65535, every AABB pixel or voxel is
+owned by exactly one block (``gabor_blocks`` and ``glcm3d_bricks`` cut the
+work as the kernels do), and the second path is taken exactly where the
+first cannot hold the work.  No card and no JAX are needed."""
 
 import os
 import sys
@@ -26,8 +27,9 @@ from nyxus_tpu_torch.ops.common import SMEM_MAX  # noqa: E402
 
 BUCKETS_2D = sorted({(B, H, W) for B, H, W, _ in chip_smoke.CASES}
                     | {(3, 64, 128)})
-BUCKETS_3D = sorted({c[1:] for c in chip_smoke.CUBES}
-                    | {(16, 16, 16), (2, 255, 257)})
+BUCKETS_3D_SET = {c[1:] for c in chip_smoke.CUBES} | {(16, 16, 16),
+                                                       (2, 255, 257)}
+BUCKETS_3D = sorted(BUCKETS_3D_SET)
 
 
 def _bank(name):
@@ -201,3 +203,127 @@ def test_glcm3d_plan_main_cubes():
     assert plan(8, 2, 255, 257, 1)[:7] == ("cluster", 2, 1, 512, 1, 255,
                                            True)
     assert plan(8, 2, 255, 257, 1, True)[6] is False
+
+
+# the 3D main path's bucket shapes (D, H, W): the ROIs of
+# chip_smoke.make_volume_3d(1) and (2), each padded up the batching ladder
+MAIN_BUCKETS_3D = [
+    (8, 8, 8), (8, 8, 16), (8, 8, 32), (8, 16, 8), (8, 16, 16), (8, 16, 32),
+    (8, 32, 8), (8, 32, 16), (8, 32, 32), (16, 8, 8), (16, 8, 16),
+    (16, 8, 32), (16, 16, 8), (16, 16, 16), (16, 16, 32), (16, 32, 8),
+    (16, 32, 16), (16, 32, 32), (32, 8, 8), (32, 8, 16), (32, 8, 32),
+    (32, 16, 8), (32, 16, 16), (32, 16, 32), (32, 32, 8), (32, 32, 16),
+    (32, 32, 32), (64, 32, 64), (64, 64, 32), (64, 64, 64)]
+PLAN_BUCKETS_3D = sorted(set(MAIN_BUCKETS_3D) | BUCKETS_3D_SET
+                         | {(15, 17, 257), (16, 64, 64), (5, 7, 13),
+                            (1, 1, 1), (16, 128, 128), (16, 128, 130)})
+
+
+@pytest.mark.parametrize("dist", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 42])
+@pytest.mark.parametrize("cube", PLAN_BUCKETS_3D, ids=str)
+def test_cc3d_plan(cube, B, dist):
+    D, H, W = cube
+    path, C, Zs, T, wide, smem = tt3.cc3d_plan(B, D, H, W, dist)
+    # 16-bit parents exactly while every global index and BIG fit them
+    assert wide == (D * H * W > tt3.CC3_NARROW)
+    # the cluster path exactly where slabs of one cluster's fewest planes
+    # fit a block, and only with the distances
+    cmax = min(tt3.CC3_CLUSTER_MAX, D)
+    least = tt3.cc3d_smem(H, W, -(-D // cmax), wide, dist)
+    assert (path == "cluster") == (least <= SMEM_MAX and dist)
+    if path == "device":
+        assert (C, Zs, T, smem) == (0, 0, 0, 0)
+        return
+    assert 1 <= C <= tt3.CC3_CLUSTER_MAX and 1 <= Zs <= D
+    # every plane in exactly one block, every block at least one plane
+    assert C * Zs >= D and (C - 1) * Zs < D
+    assert smem == tt3.cc3d_smem(H, W, Zs, wide, dist) <= SMEM_MAX
+    # a thread a voxel of the slab, at most CC3_THREADS_MAX
+    assert T == min(tt3.CC3_THREADS_MAX, 32 * -(-Zs * H * W // 32))
+    # no more blocks than fill the card, nor than give each CC3_MIN_VOXELS,
+    # unless a slab of fewer planes would not fit
+    first = max(1, min(cmax, -(-tt3.CC3_FILL // B),
+                       -(-D * H * W // tt3.CC3_MIN_VOXELS)))
+    if C > first:
+        assert tt3.cc3d_smem(H, W, -(-D // (C - 1)), wide, dist) > SMEM_MAX
+
+
+def test_cc3d_plan_main_path_and_limits():
+    """Every main-path bucket takes the cluster path, one launch, for
+    6-connected labels with the distances (GLDZM), and the device-memory
+    path for the labels alone (GLSZM); with the distances 8 x 32^3 clusters
+    of 16 blocks of two planes, 42 x 16^3 of 8 blocks of two planes, 2 x
+    64^3 of 16 blocks of four planes with 32-bit parents; the 16/32-bit
+    parent boundary at 65535 voxels; the 64 x 256 x 256 crop, whose planes
+    do not fit, the device-memory path; 16 x 128 x 128 fits a block (one
+    plane a block) where 16 x 128 x 130 does not."""
+    plan = tt3.cc3d_plan
+    for D, H, W in MAIN_BUCKETS_3D:
+        for B in (1, 2, 42):
+            assert plan(B, D, H, W, True)[0] == "cluster"
+            assert plan(B, D, H, W)[0] == "device"
+    assert plan(8, 32, 32, 32, True)[:5] == ("cluster", 16, 2, 1024, False)
+    assert plan(42, 16, 16, 16, True)[:5] == ("cluster", 8, 2, 512, False)
+    assert plan(2, 64, 64, 64, True)[:5] == ("cluster", 16, 4, 1024, True)
+    assert plan(1, 15, 17, 257, True)[4] is False      # 65535 voxels
+    assert plan(1, 16, 64, 64, True)[4] is True        # 65536 voxels
+    assert plan(1, 64, 256, 256)[0] == "device"
+    assert plan(1, 64, 256, 256, True)[0] == "device"
+    assert plan(1, 16, 128, 128, True)[:3] == ("cluster", 16, 1)
+    assert plan(1, 16, 128, 130, True)[0] == "device"
+
+
+@pytest.mark.parametrize("halo", [0, 1, 2, 3])
+@pytest.mark.parametrize("B", [1, 8, 42])
+@pytest.mark.parametrize("cube", PLAN_BUCKETS_3D, ids=str)
+def test_stencil3d_plan(cube, B, halo):
+    D, H, W = cube
+    path, Zt, Yt, T, smem = tt3.stencil3d_plan(B, D, H, W, halo)
+    assert (path == "slab") == (1 <= halo <= tt3.STENCIL3_HALO_MAX)
+    if path == "voxel":
+        assert (Zt, Yt, T, smem) == (0, 0, 0, 0)
+        return
+    assert 1 <= Zt <= min(D, tt3.STENCIL3_TILE)
+    assert 1 <= Yt <= min(H, tt3.STENCIL3_TILE)
+    assert smem == tt3.stencil3d_smem(W, Zt, Yt, halo) <= SMEM_MAX
+    assert smem <= tt3.STENCIL3_SMEM_AIM or (Zt, Yt) == (1, 1)
+    # each side the tile aim halved some times (ceilings)
+    for side, n in ((Zt, min(D, tt3.STENCIL3_TILE)),
+                    (Yt, min(H, tt3.STENCIL3_TILE))):
+        sizes = {n}
+        while n > 1:
+            n = -(-n // 2)
+            sizes.add(n)
+        assert side in sizes
+    # halved only while the batch had fewer than STENCIL3_FILL blocks (or
+    # the tile passed the aim), down to sides of 2
+    blocks = B * -(-D // Zt) * -(-H // Yt)
+    full = (min(D, tt3.STENCIL3_TILE), min(H, tt3.STENCIL3_TILE))
+    if (Zt, Yt) != full and smem * 4 <= tt3.STENCIL3_SMEM_AIM:
+        assert blocks <= 4 * tt3.STENCIL3_FILL
+    assert blocks >= tt3.STENCIL3_FILL or max(Zt, Yt) <= 2 \
+        or (Zt, Yt) == full
+    # a thread a column of the tile, at most STENCIL3_THREADS
+    assert T % 32 == 0 and T == min(tt3.STENCIL3_THREADS,
+                                     32 * -(-Yt * W // 32))
+
+
+def test_stencil3d_plan_main_path():
+    """Every main-path bucket takes the slab path, one launch, for the N26
+    and N24 tables (halo 1) and windows of radius 1 and 2; the shift tables
+    the slab path counts (unit shifts, each once) carry their mask, others
+    (a shift of two voxels, a repeated shift, none) take the voxel path."""
+    for D, H, W in MAIN_BUCKETS_3D:
+        for B in (1, 2, 42):
+            for halo in (1, 2):
+                assert tt3.stencil3d_plan(B, D, H, W, halo)[0] == "slab"
+    _, n26, m26 = tt3._stencil3d_table(tt3.N26)
+    _, n24, m24 = tt3._stencil3d_table(tt3.N24_NGLDM)
+    assert (n26, m26) == (26, 0x7ffffff & ~(1 << 13))
+    assert (n24, m24) == (24, m26 & ~((1 << 4) | (1 << 22)))
+    assert tt3._stencil3d_table(tt3.N26) is tt3._stencil3d_table(tt3.N26)
+    assert tt3._stencil3d_table(tt3.N6)[2] == sum(
+        1 << ((dz + 1) * 9 + (dy + 1) * 3 + dx + 1) for dz, dy, dx in tt3.N6)
+    for table in ([(0, 0, 2)], [(0, 0, 1), (0, 0, 1)], []):
+        assert tt3._stencil3d_table(table)[2] == -1
