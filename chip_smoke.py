@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT]
-                                 (K11, K13, K15 and K16 alone, the package
-                                 under ROOT)
+                                 (K1, K5, K11, K13, K15 and K16 alone, the
+                                 package under ROOT)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -22,8 +22,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    matrices exceed a block's shared memory; checkerboard, uniform and empty
    crops for the zone and shape kernels; a 256² solid disk whose long
    erosion runs beside short ones; blank and flat-baseline ROIs and Gabor
-   kernels of 9 to 160 taps a side for K11 and K12).  3D (K13-K16, K7 on 3D
-   labels, K1's device-memory path): the buckets 8³ to 64³ and a 64 x 256
+   kernels of 9 to 160 taps a side for K11 and K12; K5 on crops of widths 1
+   to 1024, a spiral, a comb, a checkerboard, uniform and empty crops, by
+   its plan and with its block path forced, and K1 on every plan: NGTDM's
+   three channels, rows merged across a cluster, bins split over a row's
+   blocks, uniform ROIs, zero weights, indices out of range, unaligned
+   rows).  3D (K13-K16, K7 on 3D labels, K1's split path): the buckets 8³
+   to 64³ and a 64 x 256
    x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
    GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
    uniform cubes; K14 is timed at raw levels and in the binned
@@ -32,7 +37,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    6, 64, 100, 256 and 32768 bins (the last beyond a block's shared memory
    in f64), with empty, single-level and one-bin rows, bin indices equal
    and values within 1e-5 / 1e-12 of their row's scale; and torch.sort
-   (sort_masked_values) timed.  K11 and K13 are timed once more alone
+   (sort_masked_values) timed.  K1 and K5 are timed once more alone
+   (k1_k5_times): K5 at 64 x 32², 47 x 64², 28 x 16² and 1 x 1024 x 64, by
+   its plan, with its block path forced and its dependent chain alone; K1
+   at 100 bins (64 x 32², 47 x 64²), NGTDM's three channels, 8 x 32³ at 64
+   bins and GLDM's raw 4096 x 27 cells.  K11 and K13 are timed once more alone
    (k11_k13_times): K11 at 64 x 32², 64 x 64², 28 x 16² and 2 x 256² with
    the default bank and at 64 x 32² with the 64-tap bank, K13 at 8 x 32³,
    2 x 64³ and 1 x 64 x 256 x 256 at 64 levels and at 8 x 32³ at raw
@@ -462,6 +471,153 @@ def zone_kernels_agree(agree, lev, valid, hts, wds):
                 agree("zone_stats", got, want)
 
 
+def dag_cases(seed=0, device="cuda"):
+    """(name, levels, valid) inputs of K5 beyond the synth buckets, levels
+    0-2 on ~90% of the pixels (long zones): crops 17 high of widths 1, 8,
+    33, 63, 96, 99 and 130 (2, 4 and 8 columns a lane, in vectors or one by
+    one), 256 (the warp path's widest) and 257 (the block path's
+    narrowest), the long ROI's 1024 x 64, a 16 x 1024 rectangle and a
+    one-row crop, and 40 x 40 crops: a spiral of level 1 in level 2 (and
+    its mirror), a comb (teeth joined along the bottom row), a
+    checkerboard, a uniform crop and an empty one."""
+    import torch
+    r = np.random.default_rng(seed)
+    out = []
+    for B, H, W in ((3, 17, 1), (3, 17, 8), (3, 17, 33), (3, 17, 63),
+                    (3, 17, 96), (3, 17, 99), (3, 17, 130), (2, 17, 256),
+                    (2, 17, 257), (1, 1024, 64), (2, 16, 1024), (2, 1, 200)):
+        out.append(("random %dx%dx%d" % (B, H, W), r.integers(0, 3, (B, H, W)),
+                    r.random((B, H, W)) < 0.9))
+    H = W = 40
+    yy, xx = np.mgrid[0:H, 0:W]
+    full = np.ones((1, H, W), bool)
+    spiral = np.full((H, W), 2)
+    t, lft, btm, rgt = 0, 0, H - 1, W - 1
+    while t <= btm and lft <= rgt:
+        spiral[t, lft:rgt + 1] = 1
+        spiral[t:btm + 1, rgt] = 1
+        spiral[btm, lft:rgt + 1] = 1
+        spiral[t + 2:btm + 1, lft] = 1
+        t, lft, btm, rgt = t + 2, lft + 2, btm - 2, rgt - 2
+    for name, lev, valid in (
+            ("spiral", spiral[None], full),
+            ("spiral mirrored", spiral[None, :, ::-1], full),
+            ("comb", np.where((xx % 2 == 0) | (yy == H - 1), 1, 2)[None],
+             full),
+            ("checkerboard", (1 + (yy + xx) % 2)[None], full),
+            ("uniform", np.full((1, H, W), 7), full),
+            ("empty", np.full((1, H, W), 7), ~full)):
+        out.append((name, lev, valid))
+    return [(name, torch.from_numpy(np.where(valid, lev, 0).astype(
+        np.int32)).to(device), torch.from_numpy(np.ascontiguousarray(
+            valid)).to(device)) for name, lev, valid in out]
+
+
+def dag_block_plan(B, H, W):
+    """A plan for K5 that sends every shape to its block path (a warp of
+    threads a 32 columns, at most 8)."""
+    return "block", min(8, max(1, -(-W // 32))), 1, 1
+
+
+def forced_dag_block():
+    """K5's plan replaced by dag_block_plan; returns the original (put it
+    back with zones.zone_dag_plan = saved)."""
+    from nyxus_tpu_torch.ops import zones
+    saved = zones.zone_dag_plan
+    zones.zone_dag_plan = dag_block_plan
+    return saved
+
+
+def hist_cases(dtype, seed=0, device="cuda"):
+    """(name, idx, weights, nbins) inputs of K1 on each of its plans and
+    edges: three channels over NGTDM's 65 bins at 64 x 32² (0/1, float and
+    0/1 weights); rows of several chunks (2 x 1024 x 64, the 3D 8 x 32³ at
+    64 bins and one 16 x 1024 row, a cluster merged through distributed
+    shared memory); GLDM's raw 4096 x 27 cells at 8 x 32³ (bins cut into
+    slices) and in two channels of rows of 65536 (slices of a cluster of
+    two); a uniform ROI
+    (every entry in one bin, in both paths); all-zero weights and indices
+    all out of range; 91-entry rows and an unaligned view (one entry a
+    load); and 1,000,000 bins (18 slices)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def idx(B, A, lo, hi):
+        return torch.randint(lo, hi, (B, A), generator=g, device=device,
+                             dtype=torch.int32)
+
+    def ones(B, A, p=0.8):
+        return (torch.rand((B, A), generator=g, device=device) < p).to(dtype)
+
+    def floats(B, A):
+        return torch.rand((B, A), generator=g, device=device,
+                          dtype=dtype) * 40 * ones(B, A)
+
+    raw = RAW_NG * 27
+    cells = idx(8, 32768, -1, raw)
+    cells[:, ::3] = idx(8, cells[:, ::3].shape[1], 0, 200)  # popular cells
+    uni = torch.full((4, 1024), 5, dtype=torch.int32, device=device)
+    uni[:, ::7] = -1                # background entries, dropped
+    rows91 = idx(5, 91, -1, 40)
+    wide = idx(3, 1025, -1, 100)
+    return [
+        ("channels 64x32^2, 65 bins", idx(64, 1024, -1, 67),
+         torch.stack((ones(64, 1024), floats(64, 1024), ones(64, 1024))), 65),
+        ("2 rows of 1024x64, 64 bins", idx(2, 65536, -1, 64),
+         ones(2, 65536), 64),
+        ("2 rows of 1024x64, 64 bins, float", idx(2, 65536, -1, 64),
+         floats(2, 65536), 64),
+        ("8 rows of 32^3, 64 bins, two channels", idx(8, 32768, -1, 64),
+         torch.stack((ones(8, 32768), floats(8, 32768))), 64),
+        ("1 row of 16x1024, 100 bins", idx(1, 16384, -1, 101),
+         floats(1, 16384), 100),
+        ("4096 x 27 cells at 8 x 32^3", cells, ones(8, 32768), raw),
+        ("4096 x 27 cells at 8 x 32^3, float", cells, floats(8, 32768), raw),
+        ("4096 x 27 cells, 2 rows of 65536, two channels",
+         torch.cat((cells[:2], cells[2:4]), dim=1),
+         torch.stack((ones(2, 65536), floats(2, 65536))), raw),
+        ("uniform ROI, one bin", uni, torch.ones((4, 1024), dtype=dtype,
+                                                 device=device), 100),
+        ("uniform ROI, one bin, float", uni, floats(4, 1024) + 1, 100),
+        ("uniform ROI, split bins", torch.full((2, 32768), 100000,
+                                               dtype=torch.int32,
+                                               device=device),
+         floats(2, 32768), raw),
+        ("all-zero weights", idx(8, 1024, 0, 64),
+         torch.zeros((8, 1024), dtype=dtype, device=device), 64),
+        ("indices out of range", torch.where(
+            idx(8, 1024, 0, 2) == 0, idx(8, 1024, -50, 0),
+            idx(8, 1024, 64, 120)), floats(8, 1024), 64),
+        ("91-entry rows", rows91, floats(5, 91), 40),
+        ("unaligned view", wide[:, 1:], floats(3, 1025)[:, 1:], 100),
+        ("1,000,000 bins", idx(2, 4096, -1, 1000000), floats(2, 4096),
+         1000000),
+    ]
+
+
+def hist_agree(agree, idx, w, nbins):
+    """K1 against its plain version: equal where every weight is 0 or 1
+    (counts), else within the rounding of a sum of n terms taken in
+    another order, 2 n u sum|w| (u the type's unit roundoff) a bin."""
+    import torch
+    from nyxus_tpu_torch.ops import common
+    got = common.batched_hist(idx, w, nbins)
+    want = common.batched_hist_plain(idx, w, nbins)
+    if got.shape != want.shape:
+        raise AssertionError("batched_hist: shape %s != %s"
+                             % (tuple(got.shape), tuple(want.shape)))
+    unit = torch.finfo(w.dtype).eps / 2
+    n = common.batched_hist_plain(idx, torch.ones_like(idx, dtype=torch.float64),
+                                  nbins)
+    for c, wc in enumerate(w if w.dim() == 3 else [w]):
+        g, x = (got[c], want[c]) if w.dim() == 3 else (got, want)
+        if bool(((wc == 0) | (wc == 1)).all()):
+            agree("batched_hist", g, x)
+        else:
+            tot = common.batched_hist_plain(idx, wc.abs().double(), nbins)
+            agree("batched_hist", g, x, 1.0, 2 * n * unit * tot)
+
+
 def shape_cases(case, dtype, seed=0):
     """(name, mask, heights, widths) inputs of the shape kernels K8-K10 on
     a synth bucket: the ROI mask (an ellipse with ~3% holes) and its AABB."""
@@ -804,6 +960,25 @@ def check_kernels():
                           glrlm.run_matrices_plain(lv, valid, ng, nr, dtype))
         for name, zl, zv, hts, wds in special_zone_cases():
             zone_kernels_agree(agree, zl, zv, hts, wds)
+        # K5 on its own cases, by its plan and with the block path forced;
+        # K1 on every plan and edge
+        dag = dag_cases()
+        for name, zl, zv in dag:
+            agree("zone_dag", zones.zone_labels(zl, zv),
+                  zones.zone_labels_plain(zl, zv))
+        saved = forced_dag_block()
+        try:
+            for name, zl, zv in dag:
+                agree("zone_dag", zones.zone_labels(zl, zv),
+                      zones.zone_labels_plain(zl, zv))
+        finally:
+            zones.zone_dag_plan = saved
+        for name, idx, w, nb in hist_cases(dtype):
+            hist_agree(agree, idx, w, nb)
+        log("  %s: K5 on %d more crops (widths 1 to 1024, spiral, comb, "
+            "checkerboard, uniform, empty) by its plan and with the block "
+            "path forced, and K1 on %d cases of its plans agree"
+            % (prec, len(dag), len(hist_cases(dtype))))
         steps = []
         for name, sm, hts, wds in special_shape_cases():
             shape_kernels_agree(agree, sm, hts, wds, dtype)
@@ -940,11 +1115,12 @@ def check_kernels():
                                                   False))
             log("  time glcm_cooc device-memory path 256 levels, B=64 32x32: "
                 "device %.4f ms (events %.4f ms)" % (ms[1], ms[0]))
+    k1_k5_times()
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 2, 3D: K13-K16 and K1's device-memory path
+# phase 2, 3D: K13-K16 and K1's split path
 
 
 # (B, D, H, W) batches of the 3D buckets 8^3 to 64^3 and a 64 x 256 x 256
@@ -1001,7 +1177,7 @@ def kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=False):
     at 4096 raw levels (device memory); K15 with both connectivities on
     GLSZM's and GLDZM's inputs at both level sets; K16 with the GLDM (N26)
     and NGLDM (N24) tables and NGTDM windows of radius 1 and 2; K1 on
-    GLDM's 4096 x 27 cells (device memory) with 0/1 weights and float
+    GLDM's 4096 x 27 cells (split path) with 0/1 weights and float
     weights (within ``rtol``, or within the rounding bound of a sum taken
     in another order where a cell sums many terms), and at 64 bins with
     0/1 weights and dyadic weights (multiples of 1/4: a bin's sum, below
@@ -1123,6 +1299,102 @@ def bounds_3d(cube, ng_glcm=64, ng_runs=RAW_NG):
         "stencil3d_n24": (A * 5 + A * 4, 24 * A),
         "stencil3d_window": (A * 5 + A * 8, 52 * A),
     }
+
+
+# K5's timed buckets: the main path's three and the long ROI's
+K5_TIMED = ((64, 32, 32), (47, 64, 64), (28, 16, 16), (1, 1024, 64))
+
+
+def k1_k5_inputs():
+    """K1's timed calls as (name, idx, weights, nbins): the intensity
+    histogram's 100 bins at 64 x 32² (the main bucket) and 47 x 64²,
+    NGTDM's three channels of 65 bins at 64 x 32², the 3D 8 x 32³ rows at
+    64 bins (four chunks of the first design) and GLDM's raw 4096 x 27
+    cells at 8 x 32³ (beyond a block's shared memory), all f32."""
+    import torch
+    out = []
+    for B, H, W, hw in (CASES[0], (47, 64, 64, (60, 47))):
+        _, lev, _, roi = synth_bucket(B, H, W, hw, 0, torch.float32)
+        flat = (lev - 1).reshape(B, -1)
+        cnt = roi.reshape(B, -1).to(torch.float32)
+        out.append(("100 bins B=%d %dx%d" % (B, H, W), flat, cnt, 100))
+        if (B, H, W) == (64, 32, 32):
+            diff = torch.rand(cnt.shape, generator=torch.Generator(
+                device="cuda").manual_seed(0), device="cuda") * 30
+            out.append(("NGTDM's 3 channels of 65 bins B=64 32x32", lev
+                        .reshape(B, -1), torch.stack((cnt, cnt * diff, cnt)),
+                        65))
+    cube = synth_cube(*MAIN_CUBE, 0, torch.float32)
+    _, lev, raw, aabb, _, _, _ = cube
+    B = lev.shape[0]
+    ones = aabb.reshape(B, -1).to(torch.float32)
+    out.append(("64 bins B=8 32x32x32", (lev - 1).reshape(B, -1), ones, 64))
+    from nyxus_tpu_torch.ops import common, texture3d as t3
+    same = t3.stencil3d_plain(torch.where(aabb, raw, -9), aabb, t3.N26)
+    cells = common._composite((raw - 1).reshape(B, -1), same.reshape(B, -1),
+                              RAW_NG, 27)
+    out.append(("4096 x 27 cells B=8 32x32x32", cells, ones, RAW_NG * 27))
+    return out
+
+
+def k1_k5_times(iters=20):
+    """K5 at K5_TIMED and K1 at k1_k5_inputs, f32, with their launch plans:
+    device and events ms a call, device launches a call (from the
+    profiler) and the bytes bound; K5 also with the block path forced and,
+    where the tree has it, the dependent chain of its warp path alone (no
+    loads: the floor of the sweep); and a one-block torch fill_, the fixed
+    cost of any launch on the profiler's clock.  K1's channel form is three calls where
+    the tree's K1 takes no channels.  Runs on any tree's package (a tree
+    without the plans prints none), so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.ops import common, zones
+    dplan = getattr(zones, "zone_dag_plan", None)
+    hplan = getattr(common, "batched_hist_plan", None)
+    for B, H, W in K5_TIMED:
+        hw = {32: (29, 31), 64: (60, 47), 16: (13, 9)}.get(W, (600, 40))
+        _, zl, zv, _, _ = zone_cases((B, H, W, hw), torch.float32)[0]
+        nbytes = bounds(B, H, W)["zone_dag"][0]
+        ev, ms, nl = timed(lambda: zones.zone_labels(zl, zv), iters)
+        log("  K5 zone_dag f32 B=%d %dx%d: device %.4f ms (events %.4f ms), "
+            "%s device launches a call; bound %.5f ms (bytes); plan (path, "
+            "warps a row, ROIs a block, columns a lane) %s"
+            % (B, H, W, ms, ev, nl, nbytes / HBM_BYTES_S * 1e3,
+               dplan(B, H, W) if dplan else "none in this tree"))
+        if dplan:
+            saved = forced_dag_block()
+            try:
+                ev, ms, nl = timed(lambda: zones.zone_labels(zl, zv), iters)
+            finally:
+                zones.zone_dag_plan = saved
+            log("  K5 zone_dag block path forced f32 B=%d %dx%d: device %.4f "
+                "ms (events %.4f ms)" % (B, H, W, ms, ev))
+        if hasattr(zones, "zone_dag_chain"):
+            ev, ms, nl = timed(lambda: zones.zone_dag_chain(B, H), iters)
+            log("  K5 zone_dag chain alone (H = %d dependent row steps, no "
+                "loads) B=%d: device %.4f ms (events %.4f ms)"
+                % (H, B, ms, ev))
+    # the fixed cost of any launch on the profiler's clock: one small fill_
+    small = torch.empty(64, device="cuda")
+    ev, ms, nl = timed(lambda: small.fill_(0), iters)
+    log("  a launch's floor (torch fill_ of 64 floats, one block): device "
+        "%.4f ms (events %.4f ms)" % (ms, ev))
+    for name, idx, w, nb in k1_k5_inputs():
+        C, B, A = (w.shape if w.dim() == 3 else (1,) + tuple(w.shape))
+        if w.dim() == 3 and not hplan:
+            def call():
+                for wc in w:
+                    common.batched_hist(idx, wc, nb)
+        else:
+            def call():
+                common.batched_hist(idx, w, nb)
+        ev, ms, nl = timed(call, iters)
+        nbytes = B * A * 4 + C * B * A * 4 + C * B * nb * 4
+        log("  K1 batched_hist %s f32: device %.4f ms (events %.4f ms), %s "
+            "device launches a call; bound %.5f ms (bytes); plan (path, "
+            "cluster, chunk, threads, copies, bins a block, smem) %s"
+            % (name, ms, ev, nl, nbytes / HBM_BYTES_S * 1e3,
+               hplan(B, A, nb, C, 4) if hplan else "none in this tree"))
 
 
 # K11's timed buckets (the main path's three, then 2 x 256^2, which takes
@@ -1261,7 +1533,7 @@ def restore_plans(saved):
 
 
 def check_kernels_3d():
-    """K13-K16 and K1's device-memory path against their plain versions on
+    """K13-K16 and K1's split path against their plain versions on
     the card, then their times at MAIN_CUBE (and at 64^3 and the 64 x 256 x
     256 crop, printed only); returns per-kernel results."""
     import torch
@@ -1380,7 +1652,7 @@ def check_kernels_3d():
             % ((cube_shape[0],) + cube_shape[1:] + (
                 k[1], k[0], p[1], bounds_3d(cube, ng_runs=64)[
                     "glrlm3d_runs"][0] / HBM_BYTES_S * 1e3)))
-        # K1's device-memory path at GLDM's raw 4096 x 27 cells
+        # K1's split path at GLDM's raw 4096 x 27 cells
         B = lev.shape[0]
         same = t3.stencil3d(glev, aabb, t3.N26)
         cells = common._composite((raw - 1).reshape(B, -1),
@@ -1390,7 +1662,7 @@ def check_kernels_3d():
                   iters)
         p = timed(lambda: common.batched_hist_plain(cells, ones, RAW_NG * 27),
                   iters)
-        log("  time batched_hist device-memory path %d x 27 cells, B=%d "
+        log("  time batched_hist split path %d x 27 cells, B=%d "
             "%dx%dx%d: device %.4f ms (events %.4f ms) vs plain device %.4f "
             "ms; bound %.5f ms" % ((RAW_NG, B) + cube_shape[1:] + (
                 k[1], k[0], p[1], (B * lev[0].numel() * 8
@@ -1905,9 +2177,10 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 
 def kernel_times_only(root):
     """--kernel-times [ROOT]: build the kernels of the package under ROOT
-    (by default this script's tree), print k11_k13_times, k15_k16_times
-    and the card; no result line.  Two trees timed in one call, in turns,
-    compare the two versions of K11, K13, K15 and K16 on one card."""
+    (by default this script's tree), print k1_k5_times, k11_k13_times,
+    k15_k16_times and the card; no result line.  Two trees timed in one
+    call, in turns, compare the two versions of K1, K5, K11, K13, K15 and
+    K16 on one card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -1917,6 +2190,7 @@ def kernel_times_only(root):
     _build.lib()
     log("kernels of %s built in %.1f s" % (os.path.abspath(root),
                                            time.perf_counter() - t0))
+    k1_k5_times()
     k11_k13_times()
     k15_k16_times()
     log(card_line())
@@ -1973,7 +2247,7 @@ def main():
     # phase 2
     log_phase("phase 2: kernels against their plain versions")
     kres = check_kernels()
-    log_phase("phase 2, 3D: K13-K16 and K1's device-memory path against "
+    log_phase("phase 2, 3D: K13-K16 and K1's split path against "
               "their plain versions")
     for k, v in check_kernels_3d().items():
         if k in kres:

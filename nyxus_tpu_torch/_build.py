@@ -43,12 +43,13 @@ _D = ctypes.c_double
 # entry point -> argtypes (pointers, host int tables and the stream as
 # c_void_p, ints as c_int, doubles as c_double)
 _SIGNATURES = {
-    "nyx_batched_hist": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nyx_batched_hist": [_P, _P, _P] + [_I] * 11 + [_P],
     "nyx_glcm_cooc": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8
     + [_I, _I, _P],
     "nyx_glrlm_runs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nyx_stencil8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "nyx_zone_dag": [_P, _P, _P, _I, _I, _I, _P],
+    "nyx_zone_dag": [_P, _P, _P] + [_I] * 7 + [_P],
+    "nyx_zone_dag_chain": [_P, _I, _I, _I, _P],
     "nyx_zone_cc4": [_P] * 6 + [_I] * 5 + [_P],
     "nyx_zone_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "nyx_erosion": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -18,8 +18,21 @@ from .. import _build
 
 # shared memory a Hopper block can use (227 KB)
 SMEM_MAX = 232448
-# entries of a ROI row one K1 block counts
-HIST_CHUNK = 8192
+# K1's launch plan (batched_hist_plan): streaming multiprocessors of the
+# card; threads a block at most; entries a thread loads at once (16 bytes of
+# int32); channels of weights at most; blocks (a cluster) a row's entries
+# are split over at most; entries a block of a split row counts at most
+# (each slice of the bins reads its entries again); slices of a row's bins
+# at most while the batch leaves SMs idle; shared memory the per-warp
+# copies of a block's bins may take
+SMS = 132
+HIST_THREADS = 1024
+HIST_STEP = 4
+HIST_CMAX = 4
+HIST_CLUSTER = 8
+HIST_SPLIT_CHUNK = 32768
+HIST_SPLIT_FILL = 16
+HIST_COPY_BYTES = 32768
 
 
 def counted(fn):
@@ -74,7 +87,13 @@ def _check_float(t: torch.Tensor, name: str):
 
 def batched_hist_plain(idx, weights, nbins: int):
     """Plain version of K1: out[b, k] = sum_a weights[b, a] * (idx[b, a] == k),
-    entries with idx outside [0, nbins) dropped."""
+    entries with idx outside [0, nbins) dropped.  weights [C, B, A] (C
+    channels over the one idx) gives [C, B, nbins]."""
+    if weights.dim() == 3:
+        C, B, A = weights.shape
+        return batched_hist_plain(idx.expand(C, B, A).reshape(C * B, A),
+                                  weights.reshape(C * B, A),
+                                  nbins).reshape(C, B, nbins)
     B = idx.shape[0]
     ok = (idx >= 0) & (idx < nbins)
     out = torch.zeros((B, nbins), dtype=weights.dtype, device=weights.device)
@@ -83,42 +102,91 @@ def batched_hist_plain(idx, weights, nbins: int):
     return out
 
 
+def batched_hist_plan(B: int, A: int, nbins: int, C: int, esz: int):
+    """(path, S, chunk, threads, copies, L, smem) of K1's launch for B rows
+    of A entries into nbins bins, C channels of weights of esz bytes.
+
+    A row's bins are cut into slices of L bins, and each slice is counted
+    by S blocks (a thread-block cluster when S > 1), block r taking the
+    entries [r * chunk, (r + 1) * chunk); threads the least power of two
+    (64 to HIST_THREADS) that covers a chunk in one step.
+    - "smem": the C x nbins bins fit a block's SMEM_MAX: one slice, L =
+      nbins, ``copies`` of it a block (a power of two, at most a copy a
+      warp, within HIST_COPY_BYTES and with no more bins than the chunk has
+      entries); S as many as a row needs at HIST_THREADS threads loading
+      HIST_STEP entries once each, at most HIST_CLUSTER.
+    - "split": they do not: S as many as give each block at most
+      HIST_SPLIT_CHUNK entries, at most HIST_CLUSTER; the least number of
+      slices whose C x L bins fit, or more (each reads its entries again,
+      from L2) while the batch leaves SMS idle, up to HIST_SPLIT_FILL;
+      copies 1."""
+    slices = 1
+    while C * -(-nbins // slices) * esz > SMEM_MAX:
+        slices += 1
+    per_block = HIST_THREADS * HIST_STEP if slices == 1 else HIST_SPLIT_CHUNK
+    S = max(1, min(HIST_CLUSTER, -(-A // per_block)))
+    chunk = -(-A // S)
+    chunk = max(HIST_STEP, -(-chunk // HIST_STEP) * HIST_STEP)
+    if slices > 1:
+        slices = max(slices, min(HIST_SPLIT_FILL, -(-SMS // max(B * S, 1))))
+    L = -(-nbins // slices)
+    threads = 64
+    while threads < HIST_THREADS and threads * HIST_STEP < chunk:
+        threads *= 2
+    copies = 1
+    row = C * L * esz
+    if slices == 1:
+        while (copies * 2 <= threads // 32
+               and copies * 2 * row <= HIST_COPY_BYTES
+               and copies * 2 * nbins <= chunk):
+            copies *= 2
+    return ("smem" if slices == 1 else "split", S, chunk, threads, copies, L,
+            copies * row)
+
+
 def batched_hist(idx, weights, nbins: int):
     """K1 batched_hist (csrc/batched_hist.cu), replacing
     nyxus_tpu/ops/common.py:19 masked_bincount.
 
-    idx: [B, A] integer; weights: [B, A] float32/float64 on the same device
-    -> [B, nbins] of weights.dtype.  On the card a (ROI, chunk of HIST_CHUNK
-    entries) block counts in shared memory where the bins fit a block's
-    227 KB, and a ROI of several chunks adds its blocks' bins into the
-    output with device-memory atomics; more bins (raw 12-bit levels) are
-    counted straight into the output in device memory.  Bound on the card:
-    the 8-12 bytes an entry read and atomic contention on popular bins."""
+    idx: [B, A] integer; weights: [B, A], or [C, B, A] for C <= HIST_CMAX
+    channels over the one idx, float32/float64 on the same device ->
+    [B, nbins] ([C, B, nbins]) of weights.dtype.  On the card one launch
+    into ``torch.empty``: a row is a block, or a cluster of blocks that
+    count their chunks in shared memory and merge through distributed
+    shared memory; bins beyond a block's 227 KB are cut into slices, each
+    counted so over the whole row (``batched_hist_plan``).  Bound on the
+    card: the read of idx and the weights; at the main path's sizes the
+    launch, the load latency and the shared-memory atomics."""
     if not _kernel_device(idx, "batched_hist"):
         return batched_hist_plain(idx, weights, nbins)
     _check_float(weights, "batched_hist")
-    if idx.dim() != 2 or idx.shape != weights.shape \
+    w3 = weights if weights.dim() == 3 else weights[None]
+    if idx.dim() != 2 or w3.dim() != 3 or w3.shape[1:] != idx.shape \
+            or not 1 <= w3.shape[0] <= HIST_CMAX \
             or weights.device != idx.device:
         raise ValueError("batched_hist: idx %s and weights %s must be [B, A] "
-                         "on one device" % (tuple(idx.shape),
-                                            tuple(weights.shape)))
+                         "and [B, A] or [C <= %d, B, A] on one device"
+                         % (tuple(idx.shape), tuple(weights.shape),
+                            HIST_CMAX))
     idx = idx.to(torch.int32).contiguous()
-    weights = weights.contiguous()
-    B, A = idx.shape
-    in_smem = nbins * weights.element_size() <= SMEM_MAX
-    # one block a row writes its bins out; several add into zeros
-    alloc = torch.empty if in_smem and A <= HIST_CHUNK else torch.zeros
-    out = alloc((B, nbins), dtype=weights.dtype, device=idx.device)
+    w3 = w3.contiguous()
+    C, B, A = w3.shape
+    out = torch.empty((C, B, nbins), dtype=w3.dtype, device=idx.device)
     if B == 0 or nbins == 0 or A == 0:
-        return out.zero_()
-    with torch.cuda.device(idx.device):
-        code = _build.lib().nyx_batched_hist(
-            idx.data_ptr(), weights.data_ptr(), out.data_ptr(), B, A, nbins,
-            HIST_CHUNK, int(in_smem), int(weights.dtype == torch.float64),
-            _build.stream_of(idx))
-    _build.check("batched_hist", code)
-    batched_hist.launches += 1
-    return out
+        out.zero_()
+    else:
+        path, S, chunk, threads, copies, L, _ = batched_hist_plan(
+            B, A, nbins, C, w3.element_size())
+        vec = A % HIST_STEP == 0 and chunk % HIST_STEP == 0 \
+            and idx.data_ptr() % 16 == 0 and w3.data_ptr() % 16 == 0
+        with torch.cuda.device(idx.device):
+            code = _build.lib().nyx_batched_hist(
+                idx.data_ptr(), w3.data_ptr(), out.data_ptr(), B, A, nbins, C,
+                S, chunk, threads, copies, L, int(vec),
+                int(w3.dtype == torch.float64), _build.stream_of(idx))
+        _build.check("batched_hist", code)
+        batched_hist.launches += 1
+    return out if weights.dim() == 3 else out[0]
 
 
 batched_hist.launches = 0

@@ -14,7 +14,8 @@ Faithful notes:
 * Ngp = number of distinct non-zero levels over the whole (binned) AABB
 
 The neighbourhood sums are K4 (common.stencil8); N, S and the present-level
-set are K1 histograms (common.masked_bincount).
+set are one K1 launch over the levels (common.masked_bincount with three
+channels of weights).
 """
 
 from __future__ import annotations
@@ -39,12 +40,12 @@ def ngtdm_matrices(levels, valid, nmax: int, dtype):
                       nsum.to(dtype) / torch.clamp(ncnt, min=1).to(dtype), 0)
 
     nb = nmax + 1
-    flat_lev = lev.reshape(B, -1)
     wzone = is_zone.reshape(B, -1).to(dtype)
-    N = masked_bincount(flat_lev, wzone, nb)                     # [B, nb]
     diff = torch.abs(lev.to(dtype) - ave).reshape(B, -1)
-    S = masked_bincount(flat_lev, wzone * diff, nb)
-    present = masked_bincount(flat_lev, valid.reshape(B, -1).to(dtype), nb) > 0
+    # N, S and the valid count per level: three channels over one index
+    N, S, cnt = masked_bincount(lev.reshape(B, -1), torch.stack(
+        (wzone, wzone * diff, valid.reshape(B, -1).to(dtype))), nb)
+    present = cnt > 0
     present[:, 0] = False
     return N, S, present
 

@@ -852,8 +852,9 @@ def gldm3d_all(levels, valid, zeroI: int, ng: int, vmin, vmax, noval: float,
 def ngtdm3d_all(levels, valid, zeroI: int, nmax: int, radius: int, vmin,
                 vmax, noval: float, dtype, ibsi: bool):
     """Chebyshev-window NGTDM (nyxus_tpu/ops/texture3d.py:369): every
-    in-cube voxel is a neighbour (background included).  K16 sums, K1 the
-    per-level N and S, the statistics over chunks of ROIs
+    in-cube voxel is a neighbour (background included).  K16 sums, one K1
+    launch the per-level N, S and present levels, the statistics over
+    chunks of ROIs
     (ngtdm_stats_chunked)."""
     B = levels.shape[0]
     lev = torch.where(valid, levels.to(torch.int32), 0)
@@ -862,13 +863,12 @@ def ngtdm3d_all(levels, valid, zeroI: int, nmax: int, radius: int, vmin,
     ave = torch.where(is_zone, nsum.to(dtype)
                       / torch.clamp(ncnt, min=1).to(dtype), 0)
     nb = nmax + 1
-    flat_lev = lev.reshape(B, -1)
     wzone = is_zone.reshape(B, -1).to(dtype)
-    N = masked_bincount(flat_lev, wzone, nb)
     diff = torch.abs(lev.to(dtype) - ave).reshape(B, -1)
-    S = masked_bincount(flat_lev, wzone * diff, nb)
-    present = masked_bincount(flat_lev, valid.reshape(B, -1).to(dtype),
-                              nb) > 0
+    # N, S and the valid count per level: one K1 launch of three channels
+    N, S, cnt = masked_bincount(lev.reshape(B, -1), torch.stack(
+        (wzone, wzone * diff, valid.reshape(B, -1).to(dtype))), nb)
+    present = cnt > 0
     present[:, 0] = False
     return ngtdm_stats_chunked(N, S, present, levels, valid, noval, dtype,
                                ibsi)

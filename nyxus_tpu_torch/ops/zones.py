@@ -11,7 +11,8 @@ Three functions here are kernels written by hand for the card, each with a
 plain PyTorch version beside it (the only path for a tensor on the CPU; a
 CUDA tensor launches the kernel or raises):
 
-* K5 ``zone_labels`` (csrc/zone_dag.cu): one top-to-bottom sweep
+* K5 ``zone_labels`` (csrc/zone_dag.cu): one top-to-bottom sweep, a warp
+  a ROI with its rows in registers (``zone_dag_plan``)
 * K6 ``zone_cc4`` (csrc/zone_cc4.cu): union-find, plus the GLDZM border
   distance in the same launch
 * K7 zone_stats, ``zone_list`` (csrc/zone_stats.cu): per-zone atomics, no
@@ -206,15 +207,46 @@ def zone_list_plain(anc, lev, valid, dist=None):
 # K5, K6, K7
 
 
+# K5's warp path: columns a lane holds in registers (1, 2, 4 or 8, so rows
+# of up to 256 pixels), ROIs (warps) a block at most, and the ROIs the card
+# holds at one warp a block before blocks take more (132 SMs x 8)
+DAG_COLS_MAX = 8
+DAG_WARPS_MAX = 8
+DAG_ONE_WARP_ROIS = 132 * 8
+
+
+def zone_dag_plan(B: int, H: int, W: int):
+    """(path, warps a row, ROIs a block, columns a lane) of K5's launch for
+    B crops of H x W.  "warp": rows of at most 32 * DAG_COLS_MAX pixels, one
+    warp a ROI and a row, lane j holding the C columns [jC, jC + C) (C the
+    least power of two with 32 C >= W), one ROI a block up to
+    DAG_ONE_WARP_ROIS ROIs and more beyond (at most DAG_WARPS_MAX).
+    "block": wider rows, one block a ROI of 32 to 256 threads (the least
+    power of two >= W, at most 256), warps a row = threads / 32, ROIs a
+    block 1, columns a thread ceil(W / threads)."""
+    if W <= 32 * DAG_COLS_MAX:
+        C = 1
+        while 32 * C < W:
+            C *= 2
+        R = min(DAG_WARPS_MAX, max(1, -(-B // DAG_ONE_WARP_ROIS)))
+        return "warp", 1, R, C
+    threads = 32
+    while threads < W and threads < 256:
+        threads *= 2
+    return "block", threads // 32, 1, -(-W // threads)
+
+
 def zone_labels(lev, valid):
     """GLSZM zone labels: K5 zone_dag (csrc/zone_dag.cu), replacing
     nyxus_tpu/ops/zones.py:32 zone_labels.
 
     lev: [B, H, W] int levels; valid: [B, H, W] participation mask.  Returns
     [B, H, W] int32: the raster index of each pixel's zone seed, BIG = H * W
-    off ``valid``.  On the card one block per ROI sweeps the rows once, with
-    the labels in device memory (any bucket size).  Bound on the card: H
-    dependent row steps."""
+    off ``valid``.  On the card one sweep of the rows, in one launch: a warp
+    a ROI with the previous row in registers and a shuffle scan a row for
+    rows of up to 256 pixels, else a block a ROI with the labels in device
+    memory (``zone_dag_plan``).  Bound on the card: H dependent row
+    steps."""
     if not _kernel_device(lev, "zone_dag"):
         return zone_labels_plain(lev, valid)
     _check_planes("zone_dag", lev, valid)
@@ -224,9 +256,11 @@ def zone_labels(lev, valid):
     anc = torch.empty_like(lev)
     if lev.numel() == 0:
         return anc
+    path, warps, R, C = zone_dag_plan(B, H, W)
     with torch.cuda.device(lev.device):
         code = _build.lib().nyx_zone_dag(
             lev.data_ptr(), valid.data_ptr(), anc.data_ptr(), B, H, W,
+            0 if path == "warp" else 1, C, R, 32 * warps,
             _build.stream_of(lev))
     _build.check("zone_dag", code)
     zone_labels.launches += 1
@@ -234,6 +268,20 @@ def zone_labels(lev, valid):
 
 
 zone_labels.launches = 0
+
+
+def zone_dag_chain(B: int, H: int, device="cuda"):
+    """K5's warp path with no loads: H dependent row steps (the edge
+    shuffles, the ballot, the five-step scan and the carry) in B warps, one
+    int32 a warp out.  Only for timing the floor of the sweep; not counted
+    as a launch of K5."""
+    out = torch.empty((B,), dtype=torch.int32, device=device)
+    R = zone_dag_plan(B, H, 1)[2]
+    with torch.cuda.device(out.device):
+        code = _build.lib().nyx_zone_dag_chain(out.data_ptr(), B, H, R,
+                                               _build.stream_of(out))
+    _build.check("zone_dag_chain", code)
+    return out
 
 
 def zone_cc4_plan(H: int, W: int):

@@ -22,7 +22,10 @@ matrices, runs, labels, distances, stencil counts and sums) are integers
 and must be equal; K1's float sums over 3D rows hold rtol 1e-6 / 1e-12 on
 the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
 64 x 256 x 256 crop) the rounding bound of a sum in another order, 2 n u
-sum(w); they are exact on dyadic weights.  K17's bin indices and counts are
+sum(w); they are exact on dyadic weights.  K1 on its own cases
+(chip_smoke.hist_cases: channels, cluster-merged rows, split bins, uniform
+ROIs) is equal on 0/1 weights and within that bound on float weights.
+K17's bin indices and counts are
 equal, its values within 1e-5 (f32) / 1e-12 (f64) of their value plus
 their row's scale (both versions form the same terms and sum them in
 float64, in another order)."""
@@ -353,11 +356,58 @@ def test_gabor_zernike_refuse_bad_inputs():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plan", "block"])
+@pytest.mark.parametrize("crop", [c[0] for c in chip_smoke.dag_cases(
+    device="cpu")])
+def test_zone_dag_cases(crop, path, monkeypatch):
+    """K5 equal to its plain version on widths 1, 8, 33, 63, 96, 99, 130,
+    256 and 257, the long ROI's 1024 x 64, a 16 x 1024 rectangle, a one-row crop
+    and spiral, comb, checkerboard, uniform and empty crops, by its plan
+    (the warp path up to 256 wide) and with the block path forced."""
+    (_, lev, valid), = [c for c in chip_smoke.dag_cases() if c[0] == crop]
+    if path == "block":
+        monkeypatch.setattr(zones, "zone_dag_plan", chip_smoke.dag_block_plan)
+    assert torch.equal(zones.zone_labels(lev, valid),
+                       zones.zone_labels_plain(lev, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.hist_cases(
+    torch.float32, device="cpu")])
+def test_batched_hist_cases(case, prec):
+    """K1 equal to its plain version where the weights are 0/1 (f32 and
+    f64), float weights within 2 n u sum|w| a bin: the channel form, rows of
+    several chunks merged across a cluster, bins split over a cluster, a
+    one-bin uniform ROI in both, all-zero weights, indices out of range,
+    rows of one entry a load, and the device-memory path; no zeroing
+    launch before the cluster paths (the output is torch.empty)."""
+    (_, idx, w, nb), = [c for c in chip_smoke.hist_cases(DTYPES[prec])
+                        if c[0] == case]
+    chip_smoke.hist_agree(_Agree(), idx, w, nb)
+    before = common.batched_hist.launches
+    common.batched_hist(idx, w, nb)
+    assert common.batched_hist.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_batched_hist_refuses_bad_inputs():
+    idx = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        common.batched_hist(idx, torch.ones((5, 2, 8), device="cuda"), 4)
+    with pytest.raises(ValueError):
+        common.batched_hist(idx, torch.ones((2, 9), device="cuda"), 4)
+    with pytest.raises(TypeError):
+        common.batched_hist(idx, torch.ones((2, 8), dtype=torch.int32,
+                                            device="cuda"), 4)
+
+
+@pytest.mark.cuda
 def test_shared_memory_limits_raise():
     """K1 counts a histogram larger than a block's shared memory (30000
-    float64 bins, 240 KB) in device memory instead of refusing it, for a
-    row of one chunk and of several."""
-    for A in (4, 3 * common.HIST_CHUNK + 5):
+    float64 bins, 240 KB) over a cluster's blocks instead of refusing it,
+    for a row of a few entries and of several blocks' worth."""
+    for A in (4, 3 * 8192 + 5):
         idx = (torch.arange(A, dtype=torch.int32, device="cuda") * 7919
                % 30007)[None]
         w = torch.ones((1, A), dtype=torch.float64, device="cuda")

@@ -1,6 +1,8 @@
-"""The launch plans of K11 ``gabor``, K13 ``glcm3d_cooc``, K15 ``cc3d`` and
-K16 ``stencil3d`` (nyxus_tpu_torch/ops/gabor.py gabor_plan, ops/texture3d.py
-glcm3d_plan, cc3d_plan, stencil3d_plan), checked in plain Python at every
+"""The launch plans of K1 ``batched_hist``, K5 ``zone_dag``, K11 ``gabor``,
+K13 ``glcm3d_cooc``, K15 ``cc3d`` and K16 ``stencil3d`` (nyxus_tpu_torch/ops/
+common.py batched_hist_plan, ops/zones.py zone_dag_plan, ops/gabor.py
+gabor_plan, ops/texture3d.py glcm3d_plan, cc3d_plan, stencil3d_plan; K1
+and K5 at the shapes their own tests below name), checked in plain Python at every
 bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
 3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
 and 1 to 4096 grey levels: the shared memory a block asks for is within a
@@ -21,8 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
+from nyxus_tpu_torch.ops import common as tcommon  # noqa: E402
 from nyxus_tpu_torch.ops import gabor as tgabor  # noqa: E402
 from nyxus_tpu_torch.ops import texture3d as tt3  # noqa: E402
+from nyxus_tpu_torch.ops import zones as tzones  # noqa: E402
 from nyxus_tpu_torch.ops.common import SMEM_MAX  # noqa: E402
 
 BUCKETS_2D = sorted({(B, H, W) for B, H, W, _ in chip_smoke.CASES}
@@ -327,3 +331,148 @@ def test_stencil3d_plan_main_path():
         1 << ((dz + 1) * 9 + (dy + 1) * 3 + dx + 1) for dz, dy, dx in tt3.N6)
     for table in ([(0, 0, 2)], [(0, 0, 1), (0, 0, 1)], []):
         assert tt3._stencil3d_table(table)[2] == -1
+
+
+# K5's shapes (B, H, W): the main buckets, the long ROI, an 8192-wide and an
+# 8192-high rectangle, the warp path's widest rows and the block path's
+# narrowest, the batching ladder's ends, and the widths the card tests hold
+DAG_SHAPES = sorted({(64, 32, 32), (47, 64, 64), (28, 16, 16), (1, 1024, 64),
+                     (2, 16, 8192), (1, 8192, 64), (2, 17, 256),
+                     (2, 17, 257), (2, 16, 1024), (2, 1, 200), (4, 8, 8),
+                     (1, 8192, 8192), (5000, 32, 32), (20000, 16, 16)}
+                    | {(3, 17, w) for w in (1, 8, 33, 63, 96, 99, 130)})
+
+
+@pytest.mark.parametrize("bhw", DAG_SHAPES, ids=str)
+def test_zone_dag_plan(bhw):
+    """The warp path exactly for rows of at most 32 * DAG_COLS_MAX pixels,
+    with the fewest columns a lane (a power of two) that cover the row,
+    every column in exactly one lane's range; at most DAG_WARPS_MAX ROIs a
+    block and one while the card holds the batch a warp a block; the block
+    path's threads cover the row in chunks of ceil(W / threads) columns.
+    No cluster, and only the block path's static 1280 bytes of shared
+    memory."""
+    B, H, W = bhw
+    path, warps, R, C = tzones.zone_dag_plan(B, H, W)
+    assert (path == "warp") == (W <= 32 * tzones.DAG_COLS_MAX)
+    if path == "warp":
+        assert warps == 1 and C in (1, 2, 4, 8)
+        assert 32 * C >= W and (C == 1 or 16 * C < W)
+        owners = [x // C for x in range(W)]      # lane j: [jC, jC + C)
+        assert all(0 <= o < 32 for o in owners)
+        assert sorted(set(range(W))) == sorted(
+            x for j in range(32) for x in range(j * C, min(W, j * C + C)))
+        assert 1 <= R <= tzones.DAG_WARPS_MAX
+        assert (R == 1) == (B <= tzones.DAG_ONE_WARP_ROIS)
+        assert -(-B // R) * R >= B
+    else:
+        T = 32 * warps
+        assert R == 1 and T in (32, 64, 128, 256)
+        assert T * C >= W and (T == 256 or T >= W)
+        assert C == -(-W // T)
+        assert (256 * 4 + 256) <= SMEM_MAX       # sv and sc
+
+
+def test_zone_dag_plan_main_path():
+    """Every bucket of the main path (sides of the ladder up to 256) and the
+    long ROI's 1024 x 64 take the warp path; one column a lane at 32 and 16
+    wide, two at 64."""
+    assert tzones.zone_dag_plan(64, 32, 32) == ("warp", 1, 1, 1)
+    assert tzones.zone_dag_plan(28, 16, 16) == ("warp", 1, 1, 1)
+    assert tzones.zone_dag_plan(47, 64, 64) == ("warp", 1, 1, 2)
+    assert tzones.zone_dag_plan(1, 1024, 64) == ("warp", 1, 1, 2)
+    for w in (8, 16, 32, 64, 128, 256):
+        assert tzones.zone_dag_plan(225, 8192, w)[0] == "warp"
+    assert tzones.zone_dag_plan(2, 16, 1024) == ("block", 8, 1, 4)
+
+
+def _hist_shapes():
+    """K1's (B, A, nbins): the main buckets' histograms (100 and 64 bins,
+    NGTDM's 65, GLDM's 64 x 9) at 64 x 32², 47 x 64² and 28 x 16²; the long
+    ROI's 1024 x 64 row; an 8192-wide rectangle; the 3D 8 x 32³ rows of
+    four first-design chunks; GLDM's raw 4096 x 27 cells at 8 x 32³; IH's
+    32768 bins; 1,000,000 bins (beyond 16 blocks); one entry; 91 entries."""
+    out = set()
+    for B, A in ((64, 1024), (47, 4096), (28, 256)):
+        for nb in (100, 64, 65, 576):
+            out.add((B, A, nb))
+    out |= {(2, 65536, 64), (1, 16 * 8192, 100), (1, 8192 * 8192, 64),
+            (8, 32768, 64), (8, 32768, 4096 * 27), (64, 1024, 32768),
+            (2, 4096, 1000000), (1, 1, 5), (5, 91, 40), (42, 4096, 4097)}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("esz", [4, 8])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", _hist_shapes(), ids=str)
+def test_batched_hist_plan(shape, C, esz):
+    """Shared memory within a Hopper block's; clusters of at most
+    HIST_CLUSTER blocks, no more than a row needs at one step a thread (at
+    HIST_SPLIT_CHUNK entries a block where the bins are split);
+    every entry of a row in exactly one block's chunk; the row's bins cut
+    into slices of L, one slice (the smem path) exactly where a block holds
+    the C x nbins bins, else the fewest that fit or more up to
+    HIST_SPLIT_FILL while the batch leaves SMs idle; every bin of every
+    channel in exactly one slice, and within a slice written by exactly one
+    block of its cluster."""
+    B, A, nbins = shape
+    path, S, chunk, threads, copies, L, smem = tcommon.batched_hist_plan(
+        B, A, nbins, C, esz)
+    assert smem == copies * C * L * esz <= SMEM_MAX
+    per_block = tcommon.HIST_THREADS * tcommon.HIST_STEP if path == "smem" \
+        else tcommon.HIST_SPLIT_CHUNK
+    assert S == max(1, min(tcommon.HIST_CLUSTER, -(-A // per_block)))
+    # chunks: block r of a cluster counts [r * chunk, (r + 1) * chunk)
+    assert chunk % tcommon.HIST_STEP == 0
+    ranges = [(min(A, r * chunk), min(A, r * chunk + chunk))
+              for r in range(S)]
+    assert sum(b - a for a, b in ranges) == A
+    assert all(ranges[r][1] == ranges[r + 1][0] for r in range(S - 1))
+    assert ranges[0][0] == 0 and ranges[-1][1] == A
+    # threads: a power of two from 64 covering a chunk in one step of
+    # HIST_STEP entries, or all of HIST_THREADS
+    assert threads in (64, 128, 256, 512, 1024)
+    assert threads * tcommon.HIST_STEP >= chunk \
+        or threads == tcommon.HIST_THREADS
+    assert copies >= 1 and copies & (copies - 1) == 0
+    assert copies <= threads // 32
+    slices = -(-nbins // L)
+    assert (path == "smem") == (slices == 1) == (C * nbins * esz <= SMEM_MAX)
+    if path == "smem":
+        assert copies * C * nbins * esz <= max(tcommon.HIST_COPY_BYTES,
+                                               C * nbins * esz)
+    else:
+        fits = [k for k in range(1, slices + 1)
+                if C * -(-nbins // k) * esz <= SMEM_MAX]
+        assert copies == 1 and slices == max(fits[0], min(
+            tcommon.HIST_SPLIT_FILL, -(-tcommon.SMS // (B * S))))
+    # bins: slice k holds [k * L, (k + 1) * L); in it, cluster block r
+    # writes [r * Lr, (r + 1) * Lr) with Lr = ceil(n / S)
+    owned = []
+    for k in range(slices):
+        n = min(L, nbins - k * L)
+        Lr = -(-n // S)
+        owned += [k * L + j for r in range(S)
+                  for j in range(r * Lr, min(n, r * Lr + Lr))]
+    assert owned == list(range(nbins))
+
+
+def test_batched_hist_plan_main_path():
+    """The main bucket's histograms take one block of 256 threads a row
+    with a copy of the bins a warp; NGTDM's three channels the same; 47 x
+    64^2 one block of 1024 threads; the 3D 8 x 32^3 rows a cluster of 8
+    blocks (one launch, no zeroing launch); GLDM's raw 4096 x 27 cells at
+    8 x 32^3 sixteen slices of one block a row (f32 and f64), at 2 x 64^3
+    nine slices of a cluster of 8; the long ROI's rows clusters of 8."""
+    plan = tcommon.batched_hist_plan
+    assert plan(64, 1024, 100, 1, 4) == ("smem", 1, 1024, 256, 8, 100, 3200)
+    assert plan(64, 1024, 65, 3, 4)[:5] == ("smem", 1, 1024, 256, 8)
+    assert plan(47, 4096, 100, 1, 4)[:4] == ("smem", 1, 4096, 1024)
+    assert plan(28, 256, 100, 1, 4)[:4] == ("smem", 1, 256, 64)
+    assert plan(8, 32768, 64, 1, 4)[:4] == ("smem", 8, 4096, 1024)
+    assert plan(2, 65536, 64, 1, 4)[:3] == ("smem", 8, 8192)
+    for esz in (4, 8):
+        assert plan(8, 32768, 4096 * 27, 1, esz)[:6] == (
+            "split", 1, 32768, 1024, 1, 6912)
+    assert plan(2, 262144, 4096 * 27, 1, 4)[:2] == ("split", 8)
+    assert -(-4096 * 27 // plan(2, 262144, 4096 * 27, 1, 4)[5]) == 9

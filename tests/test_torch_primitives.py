@@ -52,6 +52,27 @@ def test_masked_bincount(prec, nbins):
         rtol=rtol, atol=rtol * 100)
 
 
+@pytest.mark.parametrize("nbins", [9, 65, 100])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_masked_bincount_channels(C, nbins):
+    """K1's channel form (weights [C, B, A] over one idx) against C calls of
+    the JAX package's masked_bincount, in f64: 0/1 channels equal, float
+    channels within rtol 1e-12."""
+    r = np.random.default_rng(10 * C + nbins)
+    idx = r.integers(-3, nbins + 3, size=(7, 300)).astype(np.int32)
+    chans = [(r.random((7, 300)) < 0.7).astype(np.float64) if c % 2 == 0
+             else r.normal(0, 10, (7, 300)) for c in range(C)]
+    got = _t(tc.masked_bincount(torch.from_numpy(idx),
+                                torch.from_numpy(np.stack(chans)), nbins))
+    assert got.shape == (C, 7, nbins)
+    for c, w in enumerate(chans):
+        want = _j(jc.masked_bincount(jnp.asarray(idx), jnp.asarray(w), nbins))
+        if c % 2 == 0:
+            np.testing.assert_array_equal(got[c], want)
+        else:
+            np.testing.assert_allclose(got[c], want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("ni,nj", [(64, 9), (64, 64), (5, 33)])
 def test_pair_hist(ni, nj):
     r = np.random.default_rng(ni * nj)

@@ -264,6 +264,25 @@ def test_ngtdm_matrices(size, depth):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_ngtdm_matrices_one_histogram_call(depth, monkeypatch):
+    """N, S and the present levels come from one K1 call of three channels
+    over the levels (JAX: three masked_bincount calls), equal to JAX's."""
+    calls = []
+    orig = tngtdm.masked_bincount
+    monkeypatch.setattr(tngtdm, "masked_bincount", lambda *a: (
+        calls.append(tuple(a[1].shape)), orig(*a))[1])
+
+    def tfn(ctx, cfg):
+        lev = ctx.texture_levels(depth)
+        return tngtdm.ngtdm_matrices(lev, _valid(ctx, lev, depth), abs(depth),
+                                     torch.float64)
+    tN, _, tp = _torch(32, depth, tfn)
+    assert len(calls) == 1 and calls[0][0] == 3
+    assert tuple(tN.shape) == calls[0][1:2] + (abs(depth) + 1,)
+    assert tp.dtype == torch.bool and not bool(tp[:, 0].any())
+
+
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("depth", DEPTHS)
 @pytest.mark.parametrize("family", FAMILIES)

@@ -337,8 +337,9 @@ def test_ngldm3d(shape):
 @pytest.mark.parametrize("raw", [False, True])
 def test_ngtdm3d(monkeypatch, shape, radius, raw):
     """K16's plain window sums give JAX's per-level N and S (the
-    masked_bincount inputs), and the features agree, with the IBSI gate at
-    raw levels."""
+    masked_bincount inputs: JAX's three calls are the port's one call of
+    three channels over the same index), and the features agree, with the
+    IBSI gate at raw levels."""
     lev, _, dd, hh, ww = _case(shape, 9, nlev=3, raw=raw)
     aabb = _aabb(lev, dd, hh, ww)
     nlev = np.where(aabb, lev, 0)
@@ -355,10 +356,12 @@ def test_ngtdm3d(monkeypatch, shape, radius, raw):
         tlog.append(a[:2]), orig(*a))[1])
     got = tt3.ngtdm3d_all(_t(nlev), _t(aabb), zero_i, 4, radius, _t(vmin),
                           _t(vmax), NOVAL, torch.float64, ibsi=raw)
-    assert len(tlog) == len(log) == 3
-    for (tidx, tw), (jidx, jw) in zip(tlog, log):
+    assert len(tlog) == 1 and len(log) == 3
+    tidx, tw = tlog[0]
+    assert tuple(tw.shape[:1]) == (3,)
+    for c, (jidx, jw) in enumerate(log):
         np.testing.assert_array_equal(_np(tidx), _np(jidx))
-        np.testing.assert_allclose(_np(tw), _np(jw), rtol=1e-12)
+        np.testing.assert_allclose(_np(tw[c]), _np(jw), rtol=1e-12)
     _close_members(got, want)
     if raw:
         assert np.isnan(_np(got["NGTDM_COARSENESS"])[1])
