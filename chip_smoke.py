@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT]
-                                 (K1, K5, K11, K13, K15 and K16 alone, the
-                                 package under ROOT)
+                                 (K1, K3, K5, K9, K11, K13, K15 and K16
+                                 alone, the package under ROOT)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -27,9 +27,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    its plan and with its block path forced, and K1 on every plan: NGTDM's
    three channels, rows merged across a cluster, bins split over a row's
    blocks, uniform ROIs, zero weights, indices out of range, unaligned
-   rows).  3D (K13-K16, K7 on 3D labels, K1's split path): the buckets 8³
-   to 64³ and a 64 x 256
-   x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
+   rows; K3 on uniform, checkerboard, one-pixel and empty crops, levels
+   outside 1..ng, ragged widths, odd heights, the long ROI and 2048 and
+   4096 levels, and K9 on full, checkerboard, one-pixel, empty and ragged
+   masks, the long ROI's and 256², each by its plan and on every path its
+   plan can take, forced).  3D (K13-K16, K7 on 3D labels, K1's split
+   path): the buckets 8³ to 64³ and a 64 x 256 x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
    GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
    uniform cubes; K14 is timed at raw levels and in the binned
    configuration (64 levels), its launch plan (cluster size, levels a
@@ -618,6 +621,166 @@ def hist_agree(agree, idx, w, nbins):
             agree("batched_hist", g, x, 1.0, 2 * n * unit * tot)
 
 
+def runs_cases(seed=0, device="cuda"):
+    """(name, levels, valid, ng, nr) inputs of K3 beyond the synth buckets:
+    a uniform ROI (one run the length of each line; and with nr 8, every
+    run clamped) and a checkerboard (every run of length 1) at 64 x 32²;
+    one valid pixel a ROI; an empty mask; valid levels outside 1..ng (0,
+    negative, ng + 1 and 1000: dropped, each ending its neighbours' runs);
+    widths that 4 and 32 do not divide and odd heights (3 x 7 x 13, 3 x 33
+    x 70, 2 x 17 x 30); the long ROI's 2 x 1024 x 64 at 64 levels and nr
+    1024 (device-memory counts); 2048 levels at 2 x 32² (16-bit counts)
+    and 4096 (device-memory counts)."""
+    import torch
+    r = np.random.default_rng(seed)
+    out = []
+    yy, xx = np.mgrid[0:32, 0:32]
+    full = np.ones((64, 32, 32), bool)
+    out.append(("uniform", np.full((64, 32, 32), 5), full, 64, 32))
+    out.append(("uniform nr 8", np.full((64, 32, 32), 5), full, 64, 8))
+    out.append(("checkerboard", np.broadcast_to(1 + (yy + xx) % 2,
+                                                (64, 32, 32)), full, 64, 32))
+    one = np.zeros((8, 16, 16), bool)
+    one[np.arange(8), r.integers(0, 16, 8), r.integers(0, 16, 8)] = True
+    out.append(("one pixel", r.integers(1, 65, (8, 16, 16)), one, 64, 16))
+    out.append(("empty", r.integers(1, 65, (4, 32, 32)),
+                np.zeros((4, 32, 32), bool), 64, 32))
+    far = r.choice(np.array([-3, -1, 0, 17, 1000]), (4, 32, 32))
+    out.append(("levels outside 1..ng",
+                np.where(r.random((4, 32, 32)) < 0.6,
+                         r.integers(1, 4, (4, 32, 32)), far),
+                r.random((4, 32, 32)) < 0.9, 16, 32))
+    for B, H, W in ((3, 7, 13), (3, 33, 70), (2, 17, 30)):
+        out.append(("random %dx%dx%d" % (B, H, W),
+                    r.integers(1, 4, (B, H, W)), r.random((B, H, W)) < 0.9,
+                    8, max(H, W)))
+    out.append(("long 2x1024x64", r.integers(1, 3, (2, 1024, 64)),
+                r.random((2, 1024, 64)) < 0.95, 64, 1024))
+    for ng in (2048, 4096):
+        out.append(("%d levels" % ng,
+                    np.where(r.random((2, 32, 32)) < 0.5,
+                             r.integers(1, ng + 1, (2, 32, 32)), ng),
+                    r.random((2, 32, 32)) < 0.95, ng, 32))
+    return [(name, torch.from_numpy(np.ascontiguousarray(lev).astype(
+        np.int32)).to(device), torch.from_numpy(np.ascontiguousarray(
+            valid)).to(device), ng, nr) for name, lev, valid, ng, nr in out]
+
+
+def runs_paths(H, W, ng, nr):
+    """Every (path, code bits) K3's kernel can take for these sizes: counts
+    in 32-bit or (H * W <= 65535) 16-bit shared memory or in device memory,
+    the crop staged as 16-bit (ng < 65535) or 32-bit codes or read from
+    device memory (code bits 0), where the block's shared memory holds
+    them."""
+    from nyxus_tpu_torch.ops import glrlm
+    from nyxus_tpu_torch.ops.common import SMEM_MAX
+    out = []
+    for path in ("smem32", "smem16", "device"):
+        for code in (16, 32, 0):
+            if (code == 16 and ng >= 65535) or (path == "smem16"
+                                                and H * W > 65535):
+                continue
+            if glrlm.glrlm_runs_layout(H, W, ng, nr, path,
+                                       code)[2] <= SMEM_MAX:
+                out.append((path, code))
+    return out
+
+
+def forced_runs_plan(path, code):
+    """K3's plan replaced by one that takes (path, code bits) whatever the
+    shape; returns the original (put it back with glrlm.glrlm_runs_plan =
+    saved)."""
+    from nyxus_tpu_torch.ops import glrlm
+    saved = glrlm.glrlm_runs_plan
+
+    def plan(B, H, W, ng, nr, esz):
+        return (path, code, 16 if path == "smem16" else 32, 1,
+                glrlm.glrlm_runs_layout(H, W, ng, nr, path, code)[2])
+    glrlm.glrlm_runs_plan = plan
+    return saved
+
+
+def runs_paths_agree(agree, lev, valid, ng, nr, dtype):
+    """K3 against its plain version on every path of runs_paths; returns
+    the number of paths."""
+    from nyxus_tpu_torch.ops import glrlm
+    want = glrlm.run_matrices_plain(lev, valid, ng, nr, dtype)
+    agree("glrlm_runs", glrlm.run_matrices(lev, valid, ng, nr, dtype), want)
+    paths = runs_paths(*lev.shape[1:], ng, nr)
+    for path, code in paths:
+        saved = forced_runs_plan(path, code)
+        try:
+            agree("glrlm_runs", glrlm.run_matrices(lev, valid, ng, nr, dtype),
+                  want)
+        finally:
+            glrlm.glrlm_runs_plan = saved
+    return len(paths)
+
+
+def quads_cases(seed=0, device="cuda"):
+    """Masks of K9 beyond the synth buckets: full (uniform) and
+    checkerboard 64 x 32² crops, one pixel a ROI, an empty mask, heights and
+    widths that are odd or not a multiple of 4, 16 or 32 (3 x 7 x 13, 5 x
+    31 x 32, 3 x 33 x 70, 2 x 17 x 30, 1 x 40 x 1000), rows of 96 (three
+    words, 16-byte loads), the long ROI's 2 x 1024 x 64 and 2 x 256²."""
+    import torch
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:32, 0:32]
+    out = [("full", np.ones((64, 32, 32), bool)),
+           ("checkerboard", np.broadcast_to((yy + xx) % 2 == 0,
+                                            (64, 32, 32))),
+           ("empty", np.zeros((4, 32, 32), bool))]
+    one = np.zeros((8, 16, 16), bool)
+    one[np.arange(8), r.integers(0, 16, 8), r.integers(0, 16, 8)] = True
+    out.append(("one pixel", one))
+    for B, H, W in ((3, 7, 13), (5, 31, 32), (3, 33, 70), (2, 17, 30),
+                    (1, 40, 1000), (2, 100, 96), (2, 1024, 64),
+                    (2, 256, 256)):
+        out.append(("random %dx%dx%d" % (B, H, W),
+                    r.random((B, H, W)) < r.choice([0.05, 0.5, 0.95])))
+    return [(name, torch.from_numpy(np.ascontiguousarray(m)).to(device))
+            for name, m in out]
+
+
+def quads_paths(B, H, W):
+    """Every K9 plan for B masks of H x W: the warp path in 32-bit words a
+    row up to 32 x 32 and in 64-bit words two rows a lane up to 64 x 64,
+    the block path where its bit rows fit shared memory, the device path."""
+    from nyxus_tpu_torch.ops import binary
+    from nyxus_tpu_torch.ops.common import SMEM_MAX, SMS
+    NW = -(-W // 32)
+    smem = 4 * binary.binary_quads_words(H, W)
+    rois = min(binary.QUADS_WARP_ROIS, max(1, -(-B // SMS)))
+    out = []
+    if H <= 32 and W <= 32:
+        out.append(("warp", rois, 1, 0))
+    if H <= binary.QUADS_WARP_SIDE and W <= binary.QUADS_WARP_SIDE:
+        out.append(("warp", rois, 2, 0))
+    if smem + binary.QUADS_STATIC_SMEM <= SMEM_MAX:
+        out.append(("block", 1, NW, smem))
+    out.append(("device", 1, NW, 0))
+    return out
+
+
+def quads_paths_agree(agree, mask):
+    """K9 against its plain version by its plan and with each plan of
+    quads_paths forced; returns the number of paths."""
+    from nyxus_tpu_torch.ops import binary
+    want = binary.binary_quads_plain(mask)
+    for got, w in zip(binary.binary_quads(mask), want):
+        agree("binary_quads", got, w)
+    paths = quads_paths(*mask.shape)
+    saved = binary.binary_quads_plan
+    for plan in paths:
+        binary.binary_quads_plan = lambda B, H, W, plan=plan: plan
+        try:
+            for got, w in zip(binary.binary_quads(mask), want):
+                agree("binary_quads", got, w)
+        finally:
+            binary.binary_quads_plan = saved
+    return len(paths)
+
+
 def shape_cases(case, dtype, seed=0):
     """(name, mask, heights, widths) inputs of the shape kernels K8-K10 on
     a synth bucket: the ROI mask (an ellipse with ~3% holes) and its AABB."""
@@ -846,28 +1009,17 @@ def shape_bounds(mask, heights, widths, planes):
     input read once and each output written once.  K8: the steps this data
     takes (one more than its count, the last finding the interior empty),
     5 operations (a 5-way min and the test) per interior pixel a step.
-    K9: 10 operations per 2 x 2 window, and the box counts as a pyramid
-    makes them: every box of scale s, at any of its origins, is the union of
-    four origin-0 boxes of scale s/2 (3 ORs) and adds one to its count.
-    K10: per nonzero weight, 2 subtractions, 24 multiplies and 16
-    additions."""
+    K9: quads_bound.  K10: per nonzero weight, 2 subtractions, 24
+    multiplies and 16 additions."""
     from nyxus_tpu_torch.ops import binary
     B, H, W = mask.shape
     n = binary.erosion_counts_plain(mask, heights, widths).double()
     interior = ((heights - 3).clamp(min=0) * (widths - 3).clamp(min=0)).double()
-    SB, S = binary.n_scales(H, W)
-    boxes = 0
-    for s in (SB >> i for i in range(S)):
-        shifts = (((0, 0), (s // 2, 0), (0, s // 2), (s // 2, s // 2))
-                  if s <= 32 else ((0, 0),))
-        boxes += sum(-(-(H + oy) // s) * -(-(W + ox) // s)
-                     for ox, oy in shifts)
     nz = sum(float((p != 0).sum()) for p in planes)
     esz = planes[0].element_size()
     return {
         "erosion": (B * H * W + 4 * B, 5 * float(((n + 1) * interior).sum())),
-        "binary_quads": (B * H * W + 4 * B * (3 + 4 * S),
-                         B * (10 * (H + 1) * (W + 1) + 4 * boxes)),
+        "binary_quads": quads_bound(B, H, W),
         "power_sums": (len(planes) * B * H * W * esz + 8 * B * len(planes) * 16,
                        42 * nz),
     }
@@ -979,6 +1131,14 @@ def check_kernels():
             "checkerboard, uniform, empty) by its plan and with the block "
             "path forced, and K1 on %d cases of its plans agree"
             % (prec, len(dag), len(hist_cases(dtype))))
+        n3 = [runs_paths_agree(agree, lv, vv, ng, nr, dtype)
+              for _, lv, vv, ng, nr in runs_cases()]
+        n9 = [quads_paths_agree(agree, m) for _, m in quads_cases()]
+        log("  %s: K3 on %d crops (uniform, checkerboard, one pixel, empty, "
+            "levels outside 1..ng, ragged widths and odd heights, the long "
+            "ROI, 2048 and 4096 levels) by its plan and on %d forced paths, "
+            "and K9 on %d masks by its plan and on %d forced paths, agree"
+            % (prec, len(n3), sum(n3), len(n9), sum(n9)))
         steps = []
         for name, sm, hts, wds in special_shape_cases():
             shape_kernels_agree(agree, sm, hts, wds, dtype)
@@ -1395,6 +1555,95 @@ def k1_k5_times(iters=20):
             "cluster, chunk, threads, copies, bins a block, smem) %s"
             % (name, ms, ev, nl, nbytes / HBM_BYTES_S * 1e3,
                hplan(B, A, nb, C, 4) if hplan else "none in this tree"))
+
+
+# K3's timed calls: the main path's three buckets at 64 levels, IBSI's 256
+# at 64 x 32², the uniform and checkerboard 64 x 32² crops of runs_cases and
+# the long ROI's device-memory counts; K9's the main three buckets, the
+# long ROI's and 2 x 256²
+K3_K9_TIMED = CASES[:3] + ((2, 1024, 64, (600, 40)),)
+
+
+def quads_bound(B, H, W):
+    """(bytes, operations) K9 must move and do: the mask read once and the
+    int32 counts written once; 10 operations a 2 x 2 window, and the box
+    counts as a pyramid makes them, every box of scale s at any of its
+    origins the union of four origin-0 boxes of scale s/2 (3 ORs) adding
+    one to its count."""
+    from nyxus_tpu_torch.ops import binary
+    SB, S = binary.n_scales(H, W)
+    boxes = 0
+    for s in (SB >> i for i in range(S)):
+        shifts = (((0, 0), (s // 2, 0), (0, s // 2), (s // 2, s // 2))
+                  if s <= 32 else ((0, 0),))
+        boxes += sum(-(-(H + oy) // s) * -(-(W + ox) // s)
+                     for ox, oy in shifts)
+    return (B * H * W + 4 * B * (3 + 4 * S),
+            B * (10 * (H + 1) * (W + 1) + 4 * boxes))
+
+
+def k3_k9_times(iters=20):
+    """K3 and K9 in f32 at K3_K9_TIMED with their launch plans: device and
+    events ms a call, device launches a call (from the profiler) and the
+    bound.  K3 as GLRLM calls it under MATLAB binning (the AABB valid, nr
+    the bucket's side) at 64 levels, at 256 levels at 64 x 32² and on the
+    uniform and checkerboard crops; K9 on the synth buckets' ROI masks and
+    2 x 256², and at 64 x 32² also on its 64-bit warp path forced (where
+    the tree has the plan).  Runs on any tree's package (a tree without
+    the plans prints none), so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.ops import binary, glrlm
+    rplan = getattr(glrlm, "glrlm_runs_plan", None)
+    qplan = getattr(binary, "binary_quads_plan", None)
+    f32 = torch.float32
+
+    def runs(name, lev, valid, ng, nr):
+        B, H, W = lev.shape
+        ev, ms, nl = timed(lambda: glrlm.run_matrices(lev, valid, ng, nr,
+                                                      f32), iters)
+        nbytes = B * H * W * 5 + B * 4 * ng * nr * 4
+        log("  K3 glrlm_runs %s %d levels f32 B=%d %dx%d: device %.4f ms "
+            "(events %.4f ms), %s device launches a call; bound %.5f ms "
+            "(bytes); plan (path, code bits, count bits, ROIs a block, smem) "
+            "%s" % (name, ng, B, H, W, ms, ev, nl, nbytes / HBM_BYTES_S * 1e3,
+                    rplan(B, H, W, ng, nr, 4) if rplan
+                    else "none in this tree"))
+
+    for B, H, W, hw in K3_K9_TIMED:
+        orig, lev, aabb, roi = synth_bucket(B, H, W, hw, 0, f32)
+        runs("synth", lev, aabb, 64, max(H, W))
+        if (B, H, W) == (64, 32, 32):
+            lev256 = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
+            runs("synth", lev256, aabb, 256, 32)
+            for name, lv, vv, ng, nr in runs_cases():
+                if name in ("uniform", "checkerboard"):
+                    runs(name, lv, vv, ng, nr)
+        _, sm, _, _ = shape_cases((B, H, W, hw), f32)[0]
+        masks = [(sm, "synth")]
+        if (B, H, W) == (2, 1024, 64):
+            _, _, _, big = synth_bucket(2, 256, 256, (250, 199), 0, f32)
+            masks.append((big, "synth"))
+        if (B, H, W) == (64, 32, 32) and qplan:
+            masks.append((sm, "64-bit warp path forced"))
+        for m, name in masks:
+            mB, mH, mW = m.shape
+            plan = qplan(mB, mH, mW) if qplan else "none in this tree"
+            if name == "64-bit warp path forced":
+                plan = ("warp", plan[1], 2, 0)
+                binary.binary_quads_plan = lambda B, H, W, p=plan: p
+            try:
+                ev, ms, nl = timed(lambda: binary.binary_quads(m), iters)
+            finally:
+                if qplan:
+                    binary.binary_quads_plan = qplan
+            nbytes, ops = quads_bound(mB, mH, mW)
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+            log("  K9 binary_quads %s f32 B=%d %dx%d: device %.4f ms (events "
+                "%.4f ms), %s device launches a call; bound %.5f ms (%s); "
+                "plan (path, ROIs a block, words a row, smem) %s"
+                % (name, mB, mH, mW, ms, ev, nl, max(bytes_ms, ops_ms),
+                   "bytes" if bytes_ms >= ops_ms else "operations", plan))
 
 
 # K11's timed buckets (the main path's three, then 2 x 256^2, which takes
@@ -2177,10 +2426,10 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 
 def kernel_times_only(root):
     """--kernel-times [ROOT]: build the kernels of the package under ROOT
-    (by default this script's tree), print k1_k5_times, k11_k13_times,
-    k15_k16_times and the card; no result line.  Two trees timed in one
-    call, in turns, compare the two versions of K1, K5, K11, K13, K15 and
-    K16 on one card."""
+    (by default this script's tree), print k1_k5_times, k3_k9_times,
+    k11_k13_times, k15_k16_times and the card; no result line.  Two trees
+    timed in one call, in turns, compare the two versions of K1, K3, K5, K9,
+    K11, K13, K15 and K16 on one card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -2191,6 +2440,7 @@ def kernel_times_only(root):
     log("kernels of %s built in %.1f s" % (os.path.abspath(root),
                                            time.perf_counter() - t0))
     k1_k5_times()
+    k3_k9_times()
     k11_k13_times()
     k15_k16_times()
     log(card_line())

@@ -46,14 +46,14 @@ _SIGNATURES = {
     "nyx_batched_hist": [_P, _P, _P] + [_I] * 11 + [_P],
     "nyx_glcm_cooc": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8
     + [_I, _I, _P],
-    "nyx_glrlm_runs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nyx_glrlm_runs": [_P] * 4 + [_I] * 14 + [_P],
     "nyx_stencil8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nyx_zone_dag": [_P, _P, _P] + [_I] * 7 + [_P],
     "nyx_zone_dag_chain": [_P, _I, _I, _I, _P],
     "nyx_zone_cc4": [_P] * 6 + [_I] * 5 + [_P],
     "nyx_zone_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "nyx_erosion": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "nyx_binary_quads": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "nyx_binary_quads": [_P] * 4 + [ctypes.c_longlong] + [_I] * 9 + [_P],
     "nyx_power_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nyx_gabor": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I] * 5
     + [_D, _I, _I, _I, ctypes.c_longlong, _I, _P],

@@ -58,11 +58,17 @@ class Nyxus:
 
     ``device``: where the features are computed, "cuda" (the default, the
     current CUDA device) or e.g. "cuda:1"; "cpu" runs the plain PyTorch
-    versions of the kernels and is meant for tests."""
+    versions of the kernels and is meant for tests.  ``n_devices`` other
+    than None, 0 or 1 raises ``NotImplementedError``: the port does not
+    shard over cards yet (ROADMAP queue 1 item 10)."""
 
     _valid_output_types = list(_VALID_OUTPUT_TYPES)
 
     def __init__(self, features, device="cuda", **kwargs):
+        if kwargs.get("n_devices", 1) not in (None, 0, 1):
+            raise NotImplementedError(
+                "nyxus_tpu_torch does not support multi-device 2D yet: "
+                "ROADMAP.md queue 1 item 10 [S 15] (multi-GPU)")
         self.features = list(features)
         self._blacklist = RoiBlacklist()
         updates = {}

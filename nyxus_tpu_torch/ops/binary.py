@@ -20,7 +20,8 @@ path for a tensor on the CPU; a CUDA tensor launches the kernel or raises):
 
 * K8 ``erosion_counts`` (csrc/erosion.cu): one block per ROI, its own exit
 * K9 ``binary_quads`` (csrc/binary_quads.cu): the quad counts and every
-  scale's and origin's box counts in one launch
+  scale's and origin's box counts in one launch, from the mask packed into
+  bit rows (``binary_quads_plan``)
 
 The Euler number and the log-log fit stay torch, from K9's counts.
 """
@@ -30,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .common import SMEM_MAX, _kernel_device
+from .common import SMEM_MAX, SMS, _kernel_device
 
 EROSION_CAP = 1000  # SANITY_MAX_NUM_EROSIONS (erosion.h:42)
 
@@ -175,11 +176,49 @@ def binary_quads_plain(mask):
     return quads, boxes.contiguous()
 
 
+QUADS_WARP_SIDE = 64    # the warp path's largest H and W
+QUADS_WARP_ROIS = 8     # at most this many ROIs (warps) a block
+QUADS_STATIC_SMEM = 4 * (3 + 4 * 31)    # the block path's count slots
+
+
+def binary_quads_plan(B: int, H: int, W: int):
+    """(path, ROIs a block, words a row, smem bytes) of K9's launch for B
+    masks of H x W.  "warp": H and W at most QUADS_WARP_SIDE, a warp a ROI
+    holding a row a lane in a 32-bit word up to 32 x 32, else two rows a
+    lane in 64-bit words (two words a row), as many ROIs a block as keep
+    every SM busy (at most QUADS_WARP_ROIS), no shared memory.  "block": a
+    block a ROI, the rows in ceil(W / 32) words each in shared memory with
+    the half-height second buffer of the pyramid's even levels
+    (``binary_quads_words``), where they fit beside the count slots.
+    "device": the same two buffers in a device scratch, no shared memory
+    beyond the count slots."""
+    NW = -(-W // 32)
+    if H <= QUADS_WARP_SIDE and W <= QUADS_WARP_SIDE:
+        words = 1 if H <= 32 and W <= 32 else 2
+        return "warp", min(QUADS_WARP_ROIS, max(1, -(-B // SMS))), words, 0
+    smem = 4 * binary_quads_words(H, W)
+    if smem + QUADS_STATIC_SMEM <= SMEM_MAX:
+        return "block", 1, NW, smem
+    return "device", 1, NW, 0
+
+
+def binary_quads_words(H: int, W: int) -> int:
+    """32-bit words of K9's bit rows a ROI on the block and device paths:
+    level 1 (H rows of ceil(W / 32) words) and level 2 (ceil(H / 2) rows of
+    ceil(ceil(W / 2) / 32) words), whose buffers the later levels reuse."""
+    return H * -(-W // 32) + -(-H // 2) * -(-(-(-W // 2)) // 32)
+
+
 def binary_quads(mask):
     """K9 binary_quads (csrc/binary_quads.cu), replacing
     nyxus_tpu/ops/binary.py:70 euler_number's pattern counts and :93
     _box_count_at_scale as :105 fract_dim_boxcount calls it.  mask:
-    [B, H, W] bool -> (quads, boxes) as binary_quads_plain returns them."""
+    [B, H, W] bool -> (quads, boxes) as binary_quads_plain returns them.
+    On the card one launch: the mask packed into bit rows, the quads as
+    popcounts of row pairs and the boxes of every scale and origin from an
+    OR pyramid of the rows, a warp a ROI up to 64 x 64 and a block a ROI
+    beyond (``binary_quads_plan``).  Bound on the card: the read of the
+    mask; at the main buckets the launch and the load latency."""
     if not _kernel_device(mask, "binary_quads"):
         return binary_quads_plain(mask)
     _check_mask("binary_quads", mask)
@@ -190,10 +229,22 @@ def binary_quads(mask):
     boxes = torch.empty((B, S, 4), dtype=torch.int32, device=mask.device)
     if B == 0:
         return quads, boxes
+    if H * W == 0:
+        quads.zero_()
+        return quads, boxes.zero_()
+    path, rois, words_a_row, smem = binary_quads_plan(B, H, W)
+    scratch, words = None, binary_quads_words(H, W)
+    if path == "device":
+        scratch = torch.empty((B, words), dtype=torch.int32,
+                              device=mask.device)
+    aligned = mask.data_ptr() % 16 == 0
+    vec = aligned and W % (16 if path == "warp" else 32) == 0
     with torch.cuda.device(mask.device):
         code = _build.lib().nyx_binary_quads(
-            mask.data_ptr(), quads.data_ptr(), boxes.data_ptr(), B, H, W, SB,
-            S, _build.stream_of(mask))
+            mask.data_ptr(), quads.data_ptr(), boxes.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), words, B, H, W,
+            S, ("warp", "block", "device").index(path), rois, words_a_row,
+            smem, int(vec), _build.stream_of(mask))
     _build.check("binary_quads", code)
     binary_quads.launches += 1
     return quads, boxes

@@ -69,7 +69,7 @@ def _kernel_device(t: torch.Tensor, name: str) -> bool:
 def device_counts(shape, device):
     """None when a block's [..., n, m] count matrix (the last two axes of
     ``shape``) fits in its shared memory as 32-bit integers; else the zeroed
-    int32 buffer in device memory that K2 and K3 count into instead."""
+    int32 buffer in device memory that K2 counts into instead."""
     if 4 * shape[-1] * shape[-2] <= SMEM_MAX:
         return None
     return torch.zeros(shape, dtype=torch.int32, device=device)

@@ -14,8 +14,10 @@ Faithful behavior notes:
 * blank ROI (raw min == max) -> every member soft-NAN (glrlm.cpp:49-72)
 * empty matrix at an angle -> that angle's features are 0.0 (not NAN)
 
-The run matrices are K3 (``run_matrices``, csrc/glrlm_runs.cu): one thread
-walks each scan line, with no sheared copy of the crop.
+The run matrices are K3 (``run_matrices``, csrc/glrlm_runs.cu): a block a
+(ROI, angle) stages the crop once in shared memory and a warp takes a scan
+line, a lane a pixel, with no sheared copy of the crop
+(``glrlm_runs_plan``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .common import _kernel_device, device_counts, fast_log2, pair_hist_plain
+from .common import SMEM_MAX, _kernel_device, fast_log2, pair_hist_plain
 
 EPS = 2.2e-16  # reference: glrlm.h:169 / glszm.h:138 / gldm.h:105
 
@@ -111,18 +113,83 @@ def run_matrices_plain(lev, valid, ng: int, nr: int, dtype):
     return torch.stack(mats, dim=1)
 
 
+_RUNS_MODES = {"smem32": 0, "smem16": 1, "device": 2}
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def glrlm_runs_layout(H: int, W: int, ng: int, nr: int, path: str,
+                      code_bits: int):
+    """(row stride of the staged codes, bytes of counts, shared memory
+    bytes) of K3's block for a plan's path and code bits (0: the crop is
+    read from device memory).  The stride keeps a warp walking a column on
+    32 banks: 16-bit codes take W + 2 where 4 divides W (an odd number of
+    words a row), 32-bit codes an odd number of words."""
+    if code_bits == 32:
+        ws = W | 1
+    else:
+        ws = W + 2 if W % 4 == 0 else W
+    nm = ng * nr
+    cnt = {"smem32": _round16(4 * nm), "smem16": _round16(4 * (-(-nm // 2))),
+           "device": 0}[path]
+    crop = H * ws * code_bits // 8
+    return ws, cnt, cnt + crop
+
+
+def glrlm_runs_plan(B: int, H: int, W: int, ng: int, nr: int, esz: int):
+    """(path, code bits, count bits, ROIs a block, smem bytes) of K3's
+    launch for B crops of H x W into [ng, nr] matrices of esz-byte floats.
+
+    One block a (ROI, angle), 4 B blocks.  The crop is staged in shared
+    memory as 16-bit codes while ng < 65535, else 32-bit ones; the counts
+    go, in this order of preference:
+    - "smem32": 32-bit counts in shared memory, beside the staged crop;
+    - "smem16": 16-bit counts, two a word, where H * W <= 65535 (no count
+      can pass 65535), beside the staged crop;
+    - the same two with the crop read from device memory (code bits 0)
+      where the crop does not fit beside them;
+    - "device": 32-bit counts in a device buffer, the crop staged where it
+      fits a block alone, else read from device memory.
+    The counts are integers, so esz (the output's element size, which sets
+    only the write-out's vector width) does not change the plan."""
+    if esz not in (4, 8):
+        raise ValueError("glrlm_runs_plan: element size 4 or 8, got %d" % esz)
+    code = 16 if ng < 65535 else 32
+    small = H * W <= 65535
+    for staged in (code, 0):
+        for path, bits in (("smem32", 32), ("smem16", 16)):
+            if bits == 16 and not small:
+                continue
+            smem = glrlm_runs_layout(H, W, ng, nr, path, staged)[2]
+            if smem <= SMEM_MAX:
+                return path, staged, bits, 1, smem
+    smem = glrlm_runs_layout(H, W, ng, nr, "device", code)[2]
+    if smem <= SMEM_MAX:
+        return "device", code, 32, 1, smem
+    return "device", 0, 32, 1, 0
+
+
+def glrlm_runs_threads(H: int, W: int) -> int:
+    """Threads of K3's block, a warp a scan line (two a step where no line
+    is longer than 32): 16 warps up to 64 x 64 (on the card 16 beat 8 and
+    32 at 16², 32² and 64²), 32 beyond for the longer lists of lines."""
+    return 512 if H * W <= 4096 else 1024
+
+
 def run_matrices(lev, valid, ng: int, nr: int, dtype):
     """[B, 4, ng, nr] run-length matrices for angles 0, 45, 90, 135: K3
     glrlm_runs, replacing nyxus_tpu/ops/glrlm.py:85 run_matrices.
 
     lev: [B, H, W] int levels (1-based); valid: [B, H, W] bool participation.
     Entry (l, j) counts maximal runs of level l+1 with length j+1 (longer
-    runs clamp into the last column).  On the card one block per (ROI,
-    angle) counts the matrix in 32-bit integers and one thread walks each
-    scan line: in shared memory when 4 * ng * nr fits a block's 227 KB,
-    else in a zeroed int32 buffer in device memory (a 1024 px bucket side at
-    64 levels).  Bound on the card: the serial walk of a line (at most
-    max(H, W) pixels) and its strided, L1-cached reads."""
+    runs clamp into the last column).  On the card one launch of a block
+    a (ROI, angle): the crop staged once as codes, a warp a scan line and
+    a lane a pixel, run ends from a ballot, one atomic a run into counts in
+    shared memory or, beyond it, in an int32 device buffer
+    (``glrlm_runs_plan``).  Bound on the card: at the main buckets the
+    launch, the staging latency and the line steps."""
     if not _kernel_device(lev, "glrlm_runs"):
         return run_matrices_plain(lev, valid, ng, nr, dtype)
     if dtype not in (torch.float32, torch.float64):
@@ -137,14 +204,27 @@ def run_matrices(lev, valid, ng: int, nr: int, dtype):
     valid = valid.to(torch.bool).contiguous()
     B, H, W = lev.shape
     out = torch.empty((B, 4, ng, nr), dtype=dtype, device=lev.device)
-    if B == 0:
+    if out.numel() == 0:
         return out
-    gcnt = device_counts((B, 4, ng, nr), lev.device)
+    if H * W == 0:
+        return out.zero_()
+    esz = out.element_size()
+    path, code_bits, _, _, smem = glrlm_runs_plan(B, H, W, ng, nr, esz)
+    ws, cnt_bytes, _ = glrlm_runs_layout(H, W, ng, nr, path, code_bits)
+    gcnt = None
+    if path == "device":
+        gcnt = torch.empty((B, 4, ng, nr), dtype=torch.int32,
+                           device=lev.device)
+    vec = W % 4 == 0 and lev.data_ptr() % 16 == 0 \
+        and valid.data_ptr() % 4 == 0
+    vec_out = (ng * nr) % 4 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(lev.device):
         code = _build.lib().nyx_glrlm_runs(
             lev.data_ptr(), valid.data_ptr(), out.data_ptr(),
             0 if gcnt is None else gcnt.data_ptr(), B, H, W, ng, nr,
-            int(dtype == torch.float64), _build.stream_of(lev))
+            _RUNS_MODES[path], code_bits, ws, cnt_bytes, smem,
+            glrlm_runs_threads(H, W), int(vec), int(vec_out), int(esz == 8),
+            _build.stream_of(lev))
     _build.check("glrlm_runs", code)
     run_matrices.launches += 1
     return out

@@ -231,3 +231,24 @@ def test_ibsi_construction(cls, features, width):
     nyx = getattr(nyxus_tpu_torch, cls)(features, device="cpu", ibsi=True)
     assert nyx.cfg.ibsi and len(nyx.header) - 4 == width
     assert nyx.get_params("ibsi") == {"ibsi": True}
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_n_devices_beyond_one_raises(n):
+    """The 2D Nyxus refuses a request to shard over cards, as Nyxus3D does,
+    naming the ROADMAP item, instead of dropping it."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        _nyx(["MEAN"], n_devices=n)
+    with pytest.raises(NotImplementedError, match="multi-device 3D"):
+        nyxus_tpu_torch.Nyxus3D(["*3D_ALL*"], device="cpu", n_devices=n)
+
+
+@pytest.mark.parametrize("n", [None, 0, 1])
+def test_n_devices_of_one_card_runs(n):
+    """n_devices None, 0 and 1 mean one card: the 2D Nyxus builds and
+    featurizes as without it."""
+    intens, labels = _pair()
+    got = _nyx(["MEAN", "AREA_PIXELS_COUNT"], n_devices=n).featurize(
+        intens, labels)
+    want = _nyx(["MEAN", "AREA_PIXELS_COUNT"]).featurize(intens, labels)
+    assert got.equals(want)

@@ -25,6 +25,9 @@ the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
 sum(w); they are exact on dyadic weights.  K1 on its own cases
 (chip_smoke.hist_cases: channels, cluster-merged rows, split bins, uniform
 ROIs) is equal on 0/1 weights and within that bound on float weights.
+K3 and K9 are equal on their own cases (chip_smoke.runs_cases,
+quads_cases) by their plans and on every path their plans can take,
+forced.
 K17's bin indices and counts are
 equal, its values within 1e-5 (f32) / 1e-12 (f64) of their value plus
 their row's scale (both versions form the same terms and sum them in
@@ -255,6 +258,53 @@ def test_shape_kernels_special_crops(prec, crop):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("crop", [c[0] for c in chip_smoke.runs_cases(
+    device="cpu")])
+def test_glrlm_runs_paths(crop, prec):
+    """K3 equal to its plain version on a uniform ROI (and with every run
+    clamped to nr 8), a checkerboard, one valid pixel a ROI, an empty mask,
+    valid levels outside 1..ng, widths that 4 and 32 do not divide, odd
+    heights, the long ROI's 2 x 1024 x 64 and 2048 and 4096 levels: by its
+    plan, then on every path its kernel can take there (32-bit, 16-bit or
+    device-memory counts; the crop staged as 16- or 32-bit codes or read
+    from device memory), each forced."""
+    (_, lev, valid, ng, nr), = [c for c in chip_smoke.runs_cases()
+                                if c[0] == crop]
+    assert chip_smoke.runs_paths_agree(_Agree(), lev, valid, ng, nr,
+                                       DTYPES[prec]) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("crop", [c[0] for c in chip_smoke.quads_cases(
+    device="cpu")])
+def test_binary_quads_paths(crop, prec, monkeypatch):
+    """K9 equal to its plain version on full, checkerboard, one-pixel and
+    empty masks, ragged and odd shapes, rows of 96 and 1000 pixels, the
+    long ROI's 2 x 1024 x 64 and 2 x 256²: by its plan and with each of its
+    paths forced (the warp path up to 32 x 32, the block path, the device
+    path); and the Euler numbers and box-count dimensions in f32 and f64
+    from the kernel's counts equal to those from the plain counts."""
+    (_, mask), = [c for c in chip_smoke.quads_cases() if c[0] == crop]
+    assert chip_smoke.quads_paths_agree(_Agree(), mask) >= 2
+    dtype = DTYPES[prec]
+    B, H, W = mask.shape
+    hts = torch.full((B,), H, dtype=torch.int32, device="cuda")
+    wds = torch.full((B,), W, dtype=torch.int32, device="cuda")
+    for path in chip_smoke.quads_paths(B, H, W):
+        monkeypatch.setattr(binary, "binary_quads_plan",
+                            lambda B, H, W, path=path: path)
+        quads, boxes = binary.binary_quads(mask)
+        pq, pb = binary.binary_quads_plain(mask)
+        assert torch.equal(binary.euler_number(mask, dtype, quads),
+                           binary.euler_number(mask, dtype, pq))
+        assert torch.equal(
+            binary.fract_dim_boxcount(mask, hts, wds, dtype, boxes),
+            binary.fract_dim_boxcount(mask, hts, wds, dtype, pb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_gabor_zernike_kernels(prec, case):
     """K11 at the main path's bank, a five-filter bank and (on the main
@@ -419,9 +469,10 @@ def test_shared_memory_limits_raise():
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", list(DTYPES))
 def test_device_memory_counts(prec):
-    """K2 at 256 levels and K3 at 256 x 512 and 64 x 1024 matrices count in
-    device memory (more than a block's shared memory) and equal their plain
-    versions."""
+    """K2 at 256 levels and K3 at 256 x 512 and 64 x 1024 matrices (more
+    than a block's shared memory as 32-bit counts: K3 counts the 64 x 1024
+    ones of a 32² crop in 16-bit shared memory, the rest in device memory)
+    equal their plain versions."""
     dtype = DTYPES[prec]
     for case in ((64, 32, 32, (29, 31)), (2, 1024, 64, (600, 40))):
         orig, lev, aabb, roi = _bucket(case, dtype)

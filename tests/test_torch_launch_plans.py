@@ -1,8 +1,10 @@
-"""The launch plans of K1 ``batched_hist``, K5 ``zone_dag``, K11 ``gabor``,
-K13 ``glcm3d_cooc``, K15 ``cc3d`` and K16 ``stencil3d`` (nyxus_tpu_torch/ops/
-common.py batched_hist_plan, ops/zones.py zone_dag_plan, ops/gabor.py
-gabor_plan, ops/texture3d.py glcm3d_plan, cc3d_plan, stencil3d_plan; K1
-and K5 at the shapes their own tests below name), checked in plain Python at every
+"""The launch plans of K1 ``batched_hist``, K3 ``glrlm_runs``, K5
+``zone_dag``, K9 ``binary_quads``, K11 ``gabor``, K13 ``glcm3d_cooc``, K15
+``cc3d`` and K16 ``stencil3d`` (nyxus_tpu_torch/ops/common.py
+batched_hist_plan, ops/glrlm.py glrlm_runs_plan, ops/zones.py zone_dag_plan,
+ops/binary.py binary_quads_plan, ops/gabor.py gabor_plan, ops/texture3d.py
+glcm3d_plan, cc3d_plan, stencil3d_plan; K1, K3, K5 and K9 at the shapes
+their own tests below name), checked in plain Python at every
 bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
 3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
 and 1 to 4096 grey levels: the shared memory a block asks for is within a
@@ -23,8 +25,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
+from nyxus_tpu_torch.ops import binary as tbinary  # noqa: E402
 from nyxus_tpu_torch.ops import common as tcommon  # noqa: E402
 from nyxus_tpu_torch.ops import gabor as tgabor  # noqa: E402
+from nyxus_tpu_torch.ops import glrlm as tglrlm  # noqa: E402
 from nyxus_tpu_torch.ops import texture3d as tt3  # noqa: E402
 from nyxus_tpu_torch.ops import zones as tzones  # noqa: E402
 from nyxus_tpu_torch.ops.common import SMEM_MAX  # noqa: E402
@@ -476,3 +480,138 @@ def test_batched_hist_plan_main_path():
             "split", 1, 32768, 1024, 1, 6912)
     assert plan(2, 262144, 4096 * 27, 1, 4)[:2] == ("split", 8)
     assert -(-4096 * 27 // plan(2, 262144, 4096 * 27, 1, 4)[5]) == 9
+
+
+# K3's (B, H, W, ng, nr): the main path's three buckets at 64 levels, IBSI's
+# 256 levels at 64 x 32², raw 12-bit levels (4096), the long ROI's 2 x 1024
+# x 64 and 2 x 256² at 64 levels, 3 x 7 x 13; and 2048 levels (16-bit
+# counts), 256 levels on the long ROI, an 8192-long column (too long a crop
+# to stage) and 70000 levels (32-bit codes)
+RUNS_SHAPES = [(64, 32, 32, 64, 32), (47, 64, 64, 64, 64),
+               (28, 16, 16, 64, 16), (64, 32, 32, 256, 32),
+               (64, 32, 32, 4096, 32), (2, 1024, 64, 64, 1024),
+               (2, 256, 256, 64, 256), (3, 7, 13, 64, 13),
+               (2, 32, 32, 2048, 32), (2, 1024, 64, 256, 1024),
+               (1, 8192, 64, 16, 8192), (1, 64, 64, 70000, 64)]
+
+
+@pytest.mark.parametrize("esz", [4, 8])
+@pytest.mark.parametrize("shape", RUNS_SHAPES, ids=str)
+def test_glrlm_runs_plan(shape, esz):
+    """One (ROI, angle) a block; the crop staged as 16-bit codes below
+    65535 levels (32-bit above) or, where it does not fit, read from device
+    memory; the counts in 32-bit shared memory, else 16-bit shared memory
+    where H * W <= 65535, each first with the crop staged and then without,
+    else in device memory: the plan is the first of those that fits a
+    Hopper block's shared memory, the same for both element sizes, and its
+    layout is glrlm_runs_layout's: a row stride that keeps a column's warp
+    on 32 banks and 16-byte aligned counts before the crop."""
+    B, H, W, ng, nr = shape
+    plan = tglrlm.glrlm_runs_plan(B, H, W, ng, nr, esz)
+    assert plan == tglrlm.glrlm_runs_plan(B, H, W, ng, nr, 4)
+    path, code, bits, rois, smem = plan
+    assert rois == 1 and smem <= SMEM_MAX
+    assert bits == (16 if path == "smem16" else 32)
+    assert bits == 32 or H * W <= 65535
+    full = 16 if ng < 65535 else 32
+    assert code in (full, 0)
+    options = [("smem32", full), ("smem16", full), ("smem32", 0),
+               ("smem16", 0), ("device", full), ("device", 0)]
+    fits = [(p, c) for p, c in options
+            if (p != "smem16" or H * W <= 65535)
+            and tglrlm.glrlm_runs_layout(H, W, ng, nr, p, c)[2] <= SMEM_MAX]
+    assert (path, code) == fits[0]
+    ws, cnt, total = tglrlm.glrlm_runs_layout(H, W, ng, nr, path, code)
+    assert total == smem and cnt % 16 == 0
+    assert cnt >= {"smem32": 4 * ng * nr, "smem16": 2 * ng * nr,
+                   "device": 0}[path]
+    assert smem == cnt + H * ws * code // 8
+    assert ws >= W
+    if code == 16:
+        assert ws % 4 != 0 and (ws % 2 == 1 or (ws // 2) % 2 == 1)
+    elif code == 32:
+        assert ws % 2 == 1
+
+
+def test_glrlm_runs_plan_main_path():
+    """The main buckets and IBSI's 256 levels count in 32-bit shared memory
+    beside the staged 16-bit crop (a row stride of W + 2); 2048 levels at
+    32² in 16-bit counts; raw 12-bit levels and the long ROI's 64 x 1024
+    matrices in device memory with the crop staged; 2 x 256² keeps shared
+    memory (64 KB of counts, 129 KB of crop)."""
+    plan = tglrlm.glrlm_runs_plan
+    assert plan(64, 32, 32, 64, 32, 4) == ("smem32", 16, 32, 1,
+                                           4 * 64 * 32 + 2 * 32 * 34)
+    assert plan(47, 64, 64, 64, 64, 4) == ("smem32", 16, 32, 1,
+                                           4 * 64 * 64 + 2 * 64 * 66)
+    assert plan(28, 16, 16, 64, 16, 4) == ("smem32", 16, 32, 1,
+                                           4 * 64 * 16 + 2 * 16 * 18)
+    assert plan(64, 32, 32, 256, 32, 8) == ("smem32", 16, 32, 1,
+                                            4 * 256 * 32 + 2 * 32 * 34)
+    assert plan(2, 32, 32, 2048, 32, 4) == ("smem16", 16, 16, 1,
+                                            2 * 2048 * 32 + 2 * 32 * 34)
+    assert plan(64, 32, 32, 4096, 32, 4) == ("device", 16, 32, 1,
+                                             2 * 32 * 34)
+    assert plan(2, 1024, 64, 64, 1024, 4) == ("device", 16, 32, 1,
+                                              2 * 1024 * 66)
+    assert plan(2, 256, 256, 64, 256, 4) == ("smem32", 16, 32, 1,
+                                             4 * 64 * 256 + 2 * 256 * 258)
+    assert plan(1, 8192, 64, 16, 8192, 4) == ("device", 0, 32, 1, 0)
+
+
+# K9's (B, H, W): the main path's three buckets, the long ROI's, 2 x 256²,
+# 3 x 7 x 13, a row and a column past the 32-bit warp path and past the
+# warp path, an 8192² crop (beyond shared memory) and a large batch of 32²
+# masks
+QUADS_SHAPES = [(64, 32, 32), (47, 64, 64), (28, 16, 16), (2, 1024, 64),
+                (2, 256, 256), (3, 7, 13), (1, 1, 33), (1, 33, 1),
+                (1, 1, 65), (1, 65, 1), (1, 8192, 8192), (5000, 32, 32),
+                (3, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", QUADS_SHAPES, ids=str)
+def test_binary_quads_plan(shape):
+    """The warp path exactly where H and W are at most 64 (one 32-bit word
+    a row up to 32 x 32, else two), with as many ROIs a block as keep
+    every SM busy (at most QUADS_WARP_ROIS); else one ROI a block,
+    ceil(W / 32) words a row, the block path where its two
+    buffers fit a Hopper block's shared memory beside the count slots, the
+    device path otherwise; every level of the pyramid fits the buffer it is
+    built in (odd levels the first, even levels the second)."""
+    B, H, W = shape
+    path, rois, words, smem = tbinary.binary_quads_plan(B, H, W)
+    warp = H <= 64 and W <= 64
+    assert (path == "warp") == warp
+    if warp:
+        assert (words, smem) == (1 if H <= 32 and W <= 32 else 2, 0)
+        assert rois == min(tbinary.QUADS_WARP_ROIS,
+                           max(1, -(-B // tcommon.SMS)))
+        return
+    nw = -(-W // 32)
+    assert rois == 1 and words == nw
+    need = 4 * tbinary.binary_quads_words(H, W)
+    fits = need + tbinary.QUADS_STATIC_SMEM <= SMEM_MAX
+    assert path == ("block" if fits else "device")
+    assert smem == (need if fits else 0)
+    first, second = H * nw, tbinary.binary_quads_words(H, W) - H * nw
+    gh, gw = H, W
+    for level in range(tbinary.n_scales(H, W)[1]):
+        size = gh * -(-gw // 32)
+        assert size <= (first if level % 2 == 0 else second)
+        gh, gw = -(-gh // 2), -(-gw // 2)
+
+
+def test_binary_quads_plan_main_path():
+    """The main buckets a warp a ROI, one ROI a block (64, 47 and 28 blocks
+    of one warp), 64 x 64 in 64-bit words; the long ROI's 1024 x 64 and
+    256² a block a ROI with the bit rows in shared memory; an 8192² crop in
+    device memory."""
+    plan = tbinary.binary_quads_plan
+    assert plan(64, 32, 32) == ("warp", 1, 1, 0)
+    assert plan(28, 16, 16) == ("warp", 1, 1, 0)
+    assert plan(3, 7, 13) == ("warp", 1, 1, 0)
+    assert plan(47, 64, 64) == ("warp", 1, 2, 0)
+    assert plan(3, 64, 128) == ("block", 1, 4, 4 * (64 * 4 + 32 * 2))
+    assert plan(2, 1024, 64) == ("block", 1, 2, 4 * (1024 * 2 + 512 * 1))
+    assert plan(2, 256, 256) == ("block", 1, 8, 4 * (256 * 8 + 128 * 4))
+    assert plan(1, 8192, 8192) == ("device", 1, 256, 0)
