@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT]
-                                 (K1, K3, K5, K9, K11, K13, K15 and K16
-                                 alone, the package under ROOT)
+                                 (K1, K3, K5, K9, K10, K11, K12, K13, K15
+                                 and K16 alone, the package under ROOT)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -31,7 +31,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    outside 1..ng, ragged widths, odd heights, the long ROI and 2048 and
    4096 levels, and K9 on full, checkerboard, one-pixel, empty and ragged
    masks, the long ROI's and 256², each by its plan and on every path its
-   plan can take, forced).  3D (K13-K16, K7 on 3D labels, K1's split
+   plan can take, forced; K10, every moment sum and centre of a bucket in
+   one launch, with and without logw, and K12, the Zernike sums and
+   magnitudes, on blank, flat-baseline, checkerboard, 256² disk, 64 x 32²
+   and 1024 x 64 crops by their plans and on every path forced).  3D (K13-K16, K7 on 3D labels, K1's split
    path): the buckets 8³ to 64³ and a 64 x 256 x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
    GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
    uniform cubes; K14 is timed at raw levels and in the binned
@@ -339,10 +342,10 @@ def timed(fn, iters=20):
 # phase 2: kernels against their plain versions
 
 
-def synth_bucket(B, H, W, roi_hw, seed, dtype, empty=False):
+def synth_bucket(B, H, W, roi_hw, seed, dtype, empty=False, device="cuda"):
     """A padded bucket of B elliptical ROIs of AABB roi_hw inside H x W
-    crops: (masked original intensities, MATLAB levels at 64, the AABB
-    validity mask, the ROI mask)."""
+    crops on ``device``: (masked original intensities, MATLAB levels at 64,
+    the AABB validity mask, the ROI mask)."""
     import torch
     from nyxus_tpu_torch.ops import quant
     r = np.random.default_rng(seed)
@@ -354,12 +357,12 @@ def synth_bucket(B, H, W, roi_hw, seed, dtype, empty=False):
     if empty:
         roi = np.zeros((B, H, W), bool)
     intens = np.floor(r.normal(2000, 500, (B, H, W))).clip(1, 65535)
-    orig = torch.from_numpy(np.where(roi, intens, 0)).to(dtype).cuda()
+    orig = torch.from_numpy(np.where(roi, intens, 0)).to(dtype).to(device)
     vmax = orig.reshape(B, -1).amax(dim=1).clamp(min=1)
     lev = quant.bin_levels(orig, vmax[:, None, None], vmax[:, None, None], 64)
     aabb = torch.from_numpy(np.broadcast_to((yy < h) & (xx < w),
-                                            (B, H, W)).copy()).cuda()
-    return orig, lev, aabb, torch.from_numpy(roi.copy()).cuda()
+                                            (B, H, W)).copy()).to(device)
+    return orig, lev, aabb, torch.from_numpy(roi.copy()).to(device)
 
 
 CASES = ((64, 32, 32, (29, 31)), (64, 64, 64, (60, 47)), (28, 16, 16, (13, 9)),
@@ -384,8 +387,8 @@ def counters():
                               glrlm.run_matrices, common.stencil8,
                               zones.zone_labels, zones.zone_cc4,
                               zones.zone_list, binary.erosion_counts,
-                              binary.binary_quads, moments.power_sums,
-                              gabor.gabor_counts, zernike.zernike_sums,
+                              binary.binary_quads, moments.moment_power_sums,
+                              gabor.gabor_counts, zernike.zernike_moments,
                               texture3d.glcm3d_cooc, texture3d.glrlm3d_runs,
                               texture3d.cc3d, texture3d.stencil3d,
                               ih.ih_stats)))
@@ -817,18 +820,32 @@ def special_shape_cases():
     return out
 
 
-def weight_planes(mask, dtype, seed=0):
-    """Two K10 weight planes on a mask, as the moment families hand them
-    over: intensities I in 1..4000 and I * log(d + 0.001) with d a random
-    distance in 0..20 (negative and positive weights)."""
+def moment_inputs(mask, dtype, seed=0, uniform=False):
+    """(intens, area, logw) of K10 on a mask, as the runner hands them
+    over: intensities in 1..4000 (or 1000 everywhere with ``uniform``) on
+    and off the mask (the kernel masks them), the mask's pixel count (at
+    least 1: a ROI has a pixel) and logw = log(d + 0.001) on the mask, d a
+    random distance in 0..20 (negative and positive weights)."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    m = mask.to(dtype)
-    inten = torch.floor(torch.rand(mask.shape, generator=g, device="cuda",
-                                   dtype=dtype) * 4000 + 1) * m
-    lw = torch.log(torch.rand(mask.shape, generator=g, device="cuda",
-                              dtype=dtype) * 20 + 0.001) * m
-    return [inten, inten * lw]
+    g = torch.Generator(device=mask.device).manual_seed(seed)
+    inten = torch.floor(torch.rand(mask.shape, generator=g, device=mask.device,
+                                   dtype=dtype) * 4000 + 1)
+    if uniform:
+        inten = torch.full_like(inten, 1000)
+    lw = torch.log(torch.rand(mask.shape, generator=g, device=mask.device,
+                              dtype=dtype) * 20 + 0.001) * mask.to(dtype)
+    area = mask.reshape(mask.shape[0], -1).sum(dim=1).clamp(min=1)
+    return inten, area.to(torch.int32), lw
+
+
+def moment_planes_of(intens, mask, logw):
+    """K10's four weight planes, as moments.moment_sums_plain forms them."""
+    import torch
+    from nyxus_tpu_torch.ops import moments
+    mw = mask.to(intens.dtype)
+    mi = torch.where(mask, intens, 0)
+    return [mw, mi, moments.moment_planes(mi, logw)[1],
+            moments.moment_planes(mw, logw)[1]]
 
 
 def sums_scale(planes, centre=None):
@@ -836,8 +853,9 @@ def sums_scale(planes, centre=None):
     the rounding of a power sum whose terms are added in another order."""
     import torch
     B, H, W = planes[0].shape
-    xs = torch.arange(W, dtype=torch.float64, device="cuda")[None, None, :]
-    ys = torch.arange(H, dtype=torch.float64, device="cuda")[None, :, None]
+    dev = planes[0].device
+    xs = torch.arange(W, dtype=torch.float64, device=dev)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float64, device=dev)[None, :, None]
     out = []
     for k, w in enumerate(planes):
         x, y = xs, ys
@@ -851,37 +869,97 @@ def sums_scale(planes, centre=None):
     return torch.stack(out, dim=1)
 
 
-def shape_kernels_agree(agree, mask, hts, wds, dtype, seed=0):
-    """K8, K9 and K10 against their plain versions on one input.  K10 runs
-    as the moment families run it (two planes raw, then centred on each
-    plane's own centroid) and as the ellipse runs it (the mask alone,
-    centred); it agrees within rtol 1e-6 (f32) or 1e-12 (f64) of
-    sums_scale, the size of a sum's rounding in another order."""
+def bits(t):
+    """The bit patterns of a float tensor (NaNs compare equal)."""
     import torch
-    from nyxus_tpu_torch.ops import binary, moments
+    return t.contiguous().view(torch.int64 if t.dtype == torch.float64
+                               else torch.int32)
+
+
+def moment_sums_agree(agree, intens, mask, area, logw):
+    """K10 (moments.moment_power_sums) against its plain version on one
+    input, with and without logw: the raw sums within rtol 1e-6 (f32) /
+    1e-12 (f64) of sums_scale; each centre bit-equal to the plain one
+    where the three raw sums it reads are bit-equal, else within that
+    rtol; the centred and the ellipse's sums within the same rtol of the
+    plain sums around the kernel's own centres."""
+    import torch
+    from nyxus_tpu_torch.ops import moments
+    dtype = intens.dtype
+    rtol = 1e-6 if dtype == torch.float32 else 1e-12
+    planes = moment_planes_of(intens, mask, logw)
+    for lw in (logw, None):
+        P = 4 if lw is not None else 2
+        got = moments.moment_power_sums(intens, mask, area, lw)
+        want = moments.moment_sums_plain(intens, mask, area, lw)
+        agree("power_sums", got.raw, want.raw, rtol, sums_scale(planes[:P]))
+        same = ((got.raw[:, :, 0, 0] == want.raw[:, :, 0, 0])
+                & (got.raw[:, :, 1, 0] == want.raw[:, :, 1, 0])
+                & (got.raw[:, :, 0, 1] == want.raw[:, :, 0, 1]))
+        same = torch.cat([same, same[:, :1]], dim=1)
+        if not torch.equal(bits(got.centres)[same], bits(want.centres)[same]):
+            raise AssertionError("power_sums: a centre differs where its "
+                                 "sums are equal")
+        agree("power_sums", got.centres, want.centres, rtol,
+              want.centres.abs().double() + 1)
+        cen = got.centres[:, :P]
+        agree("power_sums", got.central,
+              moments.power_sums_plain(planes[:P], cen), rtol,
+              sums_scale(planes[:P], cen))
+        ell = got.centres[:, P:]
+        agree("power_sums", got.ellipse,
+              moments.power_sums_plain(planes[:1], ell)[:, 0], rtol,
+              sums_scale(planes[:1], ell)[:, 0])
+
+
+def power_sums_paths(B, H, W, esz, P):
+    """K10's launch plans to force beside power_sums_plan's own: one block
+    a (ROI, plane) with the plane staged where it fits, a cluster of three
+    (chunks that end mid-row), and the same two reading the inputs again
+    (no staging)."""
+    from nyxus_tpu_torch.ops import moments
+    A = H * W
+    plan = moments.power_sums_plan(B, H, W, esz, P)
+    threads = plan[3]
+    room = moments.SMEM_MAX - moments.PS_STATIC_SMEM
+    paths = []
+    for C in (1, 3):
+        chunk = -(-A // C)
+        C = -(-A // chunk) if A else 1
+        if chunk * esz <= room:
+            paths.append(("staged", C, chunk, threads, chunk * esz))
+        paths.append(("global", C, chunk, threads, 0))
+    return [plan] + [p for p in paths if p != plan]
+
+
+def moment_paths_agree(agree, intens, mask, area, logw):
+    """moment_sums_agree by K10's plan and on each of power_sums_paths,
+    forced; returns how many paths were held."""
+    from nyxus_tpu_torch.ops import moments
+    B, H, W = mask.shape
+    paths = power_sums_paths(B, H, W, intens.element_size(), 4)
+    saved = moments.power_sums_plan
+    try:
+        for path in paths:
+            moments.power_sums_plan = lambda *a, p=path: p
+            moment_sums_agree(agree, intens, mask, area, logw)
+    finally:
+        moments.power_sums_plan = saved
+    return len(paths)
+
+
+def shape_kernels_agree(agree, mask, hts, wds, dtype, seed=0):
+    """K8, K9 and K10 against their plain versions on one input, K10 on
+    random and on uniform intensities (moment_sums_agree)."""
+    from nyxus_tpu_torch.ops import binary
     agree("erosion", binary.erosion_counts(mask, hts, wds),
           binary.erosion_counts_plain(mask, hts, wds))
     for got, want in zip(binary.binary_quads(mask),
                          binary.binary_quads_plain(mask)):
         agree("binary_quads", got, want)
-    rtol = 1e-6 if dtype == torch.float32 else 1e-12
-    planes = weight_planes(mask, dtype, seed)
-    raw = moments.power_sums_plain(planes)
-    agree("power_sums", moments.power_sums(planes), raw, rtol,
-          sums_scale(planes))
-    m00 = raw[:, :, 0, 0]
-    ok = m00 != 0
-    centre = torch.stack([torch.where(ok, raw[:, :, 1, 0], 0)
-                          / torch.where(ok, m00, 1),
-                          torch.where(ok, raw[:, :, 0, 1], 0)
-                          / torch.where(ok, m00, 1)], dim=2).to(dtype)
-    agree("power_sums", moments.power_sums(planes, centre),
-          moments.power_sums_plain(planes, centre), rtol,
-          sums_scale(planes, centre))
-    m = [mask.to(dtype)]
-    agree("power_sums", moments.power_sums(m, centre[:, :1]),
-          moments.power_sums_plain(m, centre[:, :1]), rtol,
-          sums_scale(m, centre[:, :1]))
+    for uniform in (False, True):
+        inten, area, lw = moment_inputs(mask, dtype, seed, uniform)
+        moment_sums_agree(agree, inten, mask, area, lw)
 
 
 # Gabor banks K11 is held at: the main path's (16 taps a side, four
@@ -912,8 +990,9 @@ def gz_inputs(case, dtype, seed=0):
 def special_gz_cases(dtype):
     """(name, img, heights, widths): a 32 x 32 bucket holding a blank ROI
     (one intensity) and a 3 x 3 ROI of intensities 1 and 2 whose baseline
-    magnitudes are all 0 (flat: maxval == cmpval), and the three 256² disks
-    of special_shape_cases with intensities 1..4000."""
+    magnitudes are all 0 (flat: maxval == cmpval), a 32 x 32 checkerboard
+    of intensities 1..4000, and the three 256² disks of special_shape_cases
+    with intensities 1..4000."""
     import torch
     yy, xx = np.mgrid[0:32, 0:32]
     img = np.zeros((2, 32, 32))
@@ -923,61 +1002,136 @@ def special_gz_cases(dtype):
     out = [("blank+flat", torch.from_numpy(img).to(dtype).cuda(),
             torch.tensor([30, 3], dtype=torch.int32, device="cuda"),
             torch.tensor([25, 3], dtype=torch.int32, device="cuda"))]
-    (_, disk, hts, wds), = [c for c in special_shape_cases()
-                            if c[0] == "disk256"]
-    out.append(("disk256", weight_planes(disk, dtype)[0], hts, wds))
+    for name, m, hts, wds in special_shape_cases():
+        if name in ("checkerboard", "disk256"):
+            out.append((name, moment_inputs(m, dtype)[0] * m, hts, wds))
     return out
 
 
+# the Zernike tier of f32 against f64 (PREFIX_TOL), which the magnitudes
+# hold against the plain version's beside the rounding of their sums; the
+# blank ROIs' value, written by the kernel
+ZERNIKE_TIER = PREFIX_TOL["ZERNIKE2D"]
+ZERNIKE_NOVAL = 7.5
+
+
+def roi_extrema(img):
+    """(vmin, vmax) of each ROI's nonzero intensities (the synthetic ROIs
+    hold no zero)."""
+    import torch
+    B = img.shape[0]
+    nz = img != 0
+    return (torch.where(nz, img, torch.inf).reshape(B, -1).amin(dim=1),
+            torch.where(nz, img, -torch.inf).reshape(B, -1).amax(dim=1))
+
+
+def zernike_agree(agree, img, hts, wds):
+    """K12 (zernike.zernike_moments) against its plain version on one
+    bucket, fed K10's plain raw sums: the 60 sums within ZERNIKE_RTOL of
+    the sums of their terms' absolute values; the magnitudes within
+    ZERNIKE_TIER of the plain ones plus those sums' rounding, the blank
+    ROIs' ZERNIKE_NOVAL bit for bit."""
+    import math
+    import torch
+    from nyxus_tpu_torch.ops import moments, zernike
+    raw = moments.power_sums_plain([img])[:, 0]
+    vmin, vmax = roi_extrema(img)
+    args = (img, raw, hts, wds, vmin, vmax, ZERNIKE_NOVAL)
+    got, got_sums = zernike.zernike_moments(*args, sums=True)
+    want = zernike.zernike_moments_plain(*args)
+    want_sums, scale = zernike.zernike_sums_plain(
+        img, *zernike.zernike_inputs(raw, hts, wds, img.dtype), scale=True)
+    agree("zernike", got_sums, want_sums, ZERNIKE_RTOL, scale)
+    const = torch.tensor([(n + 1) / math.pi for n, _ in zernike.NM],
+                         dtype=torch.float64, device=img.device)
+    agree("zernike", got, want, 1.0,
+          ZERNIKE_TIER * want.abs().double()
+          + const * (scale[:, 0] + scale[:, 1]) * ZERNIKE_RTOL)
+    blank = vmax == vmin
+    if not torch.equal(bits(got[blank]), bits(want[blank])):
+        raise AssertionError("zernike: a blank ROI's value differs")
+
+
+def zernike_paths(B, H, W):
+    """K12's launch plans to force beside zernike_plan's own: one block a
+    ROI and a cluster of three."""
+    from nyxus_tpu_torch.ops import zernike
+    A = H * W
+    T = zernike.ZK_THREADS
+    plan = zernike.zernike_plan(B, H, W)
+    paths = []
+    for C in (1, 3):
+        chunk = -(-A // C)
+        chunk = -(-chunk // T) * T
+        paths.append((-(-A // chunk) if A else 1, chunk))
+    return [plan] + [p for p in dict.fromkeys(paths) if p != plan]
+
+
+def zernike_paths_agree(agree, img, hts, wds):
+    """zernike_agree by K12's plan and on each of zernike_paths, forced;
+    returns how many paths were held."""
+    from nyxus_tpu_torch.ops import zernike
+    paths = zernike_paths(*img.shape)
+    saved = zernike.zernike_plan
+    try:
+        for path in paths:
+            zernike.zernike_plan = lambda *a, p=path: p
+            zernike_agree(agree, img, hts, wds)
+    finally:
+        zernike.zernike_plan = saved
+    return len(paths)
+
+
 def gz_kernels_agree(agree, img, hts, wds, banks):
-    """K11 (counts, baseline max and min) at each of ``banks`` and K12 (the
-    60 sums around the centroid) against their plain versions on one
-    bucket.  Both K11 versions add the taps in one order with every
-    operation rounded on its own, so they agree bit for bit; K12 agrees
-    within ZERNIKE_RTOL of the sums of its terms' absolute values."""
+    """K11 (counts, baseline max and min) at each of ``banks`` and K12
+    (zernike_agree) against their plain versions on one bucket.  Both K11
+    versions add the taps in one order with every operation rounded on its
+    own, so they agree bit for bit."""
     from nyxus_tpu_torch.config import EngineConfig
-    from nyxus_tpu_torch.ops import gabor, zernike
+    from nyxus_tpu_torch.ops import gabor
     for bank in banks:
         cfg = EngineConfig(**GABOR_BANKS[bank])
         for got, want in zip(gabor.gabor_counts(img, hts, wds, cfg),
                              gabor.gabor_counts_plain(img, hts, wds, cfg)):
             agree("gabor", got, want)
-    cx, cy, rad, s = zernike.zernike_inputs(img, hts, wds)
-    want, scale = zernike.zernike_sums_plain(img, cx, cy, rad, s, scale=True)
-    agree("zernike", zernike.zernike_sums(img, cx, cy, rad, s), want,
-          ZERNIKE_RTOL, scale)
+    zernike_agree(agree, img, hts, wds)
 
 
 def gz_bounds(img, hts, wds, cfg):
     """(bytes, operations) K11 and K12 must move and do on these inputs,
     each input read once and each output written once.  K11: every AABB
     pixel convolved with the 1 + F filters, 4 operations (two multiplies,
-    two adds) a tap and filter.  K12: 372 operations a nonzero pixel inside
-    the unit disk (coordinates 10, angle recurrences 56, radius powers 10,
-    radial polynomials 84, the 30 pairs of terms with their float64 sums
-    210) and 10 outside it, all charged at the float32 rate."""
+    two adds) a tap and filter.  K12: the crop, three raw sums, the AABB
+    sizes and the extrema in, 30 magnitudes out; 372 operations a nonzero
+    pixel inside the unit disk (coordinates 10, angle recurrences 56,
+    radius powers 10, radial polynomials 84, the 30 pairs of terms with
+    their float64 sums 210) and 10 outside it, and 7 a magnitude, all
+    charged at the float32 rate."""
     import torch
-    from nyxus_tpu_torch.ops import zernike
+    from nyxus_tpu_torch.ops import moments, zernike
     B, H, W = img.shape
     esz = img.element_size()
     K = 1 + len(cfg.gabor_thetas)
     n = cfg.gabor_kersize
     px = float((hts.double() * wds.double()).sum())
-    cx, cy, rad, s = zernike.zernike_inputs(img, hts, wds)
+    raw = moments.power_sums_plain([img])[:, 0]
+    s = raw[:, 0, 0].clamp(min=1e-30)
+    cx = raw[:, 1, 0] / s + 1
+    cy = raw[:, 0, 1] / s + 1
+    rad = torch.minimum(hts, wds).double()
     xs = torch.arange(1, W + 1, dtype=torch.float64, device=img.device)
     ys = torch.arange(1, H + 1, dtype=torch.float64, device=img.device)
-    x = (xs[None, None, :] - cx.double()[:, None, None]) \
-        / rad.double()[:, None, None]
-    y = (ys[None, :, None] - cy.double()[:, None, None]) \
-        / rad.double()[:, None, None]
+    x = (xs[None, None, :] - cx[:, None, None]) / rad[:, None, None]
+    y = (ys[None, :, None] - cy[:, None, None]) / rad[:, None, None]
     r = torch.sqrt(x * x + y * y)
     nz = img != 0
     disk = float((nz & (r >= zernike.EPS64) & (r <= 1)).sum())
     return {
         "gabor": (B * H * W * esz + K * 2 * n * n * esz + B * K * 4
                   + 2 * B * esz, 4.0 * n * n * K * px),
-        "zernike": (B * H * W * esz + 4 * B * esz + B * 60 * 8,
-                    372 * disk + 10 * (float(nz.sum()) - disk)),
+        "zernike": (B * H * W * esz + B * (3 * 8 + 2 * 4 + 2 * esz)
+                    + B * 30 * esz,
+                    372 * disk + 10 * (float(nz.sum()) - disk) + 7 * 30 * B),
     }
 
 
@@ -1009,20 +1163,48 @@ def shape_bounds(mask, heights, widths, planes):
     input read once and each output written once.  K8: the steps this data
     takes (one more than its count, the last finding the interior empty),
     5 operations (a 5-way min and the test) per interior pixel a step.
-    K9: quads_bound.  K10: per nonzero weight, 2 subtractions, 24
-    multiplies and 16 additions."""
+    K9: quads_bound.  K10: power_sums_bound of its four planes."""
     from nyxus_tpu_torch.ops import binary
     B, H, W = mask.shape
     n = binary.erosion_counts_plain(mask, heights, widths).double()
     interior = ((heights - 3).clamp(min=0) * (widths - 3).clamp(min=0)).double()
-    nz = sum(float((p != 0).sum()) for p in planes)
-    esz = planes[0].element_size()
     return {
         "erosion": (B * H * W + 4 * B, 5 * float(((n + 1) * interior).sum())),
         "binary_quads": quads_bound(B, H, W),
-        "power_sums": (len(planes) * B * H * W * esz + 8 * B * len(planes) * 16,
-                       42 * nz),
+        "power_sums": power_sums_bound(planes),
     }
+
+
+def power_sums_bound(planes):
+    """(bytes, operations) K10 must move and do on its four planes
+    (moment_planes_of): the crop and logw of the planes' type and the
+    1-byte mask read once, a 4-byte area a ROI; the nine sets of 16
+    float64 sums and the five centres written once.  The two logw products
+    a pixel; a nonzero weight's raw terms (24 multiplies, 16 additions),
+    and 2 subtractions more around each of its centres (two for the
+    mask's)."""
+    B, H, W = planes[0].shape
+    esz = planes[0].element_size()
+    nz = [float((p != 0).sum()) for p in planes]
+    return (B * H * W * (2 * esz + 1) + 4 * B
+            + B * (9 * 16 * 8 + 5 * 2 * esz),
+            2.0 * B * H * W + sum(82 * n for n in nz) + 42 * nz[0])
+
+
+def k10_k12_cases(dtype):
+    """(name, masked intensities, heights, widths) that K10 and K12 are
+    held on by every plan: special_gz_cases (blank, flat-baseline,
+    checkerboard, 256² disks), the 64 x 32² and 2 x 1024 x 64 synth
+    buckets."""
+    import torch
+    out = special_gz_cases(dtype)
+    for B, H, W, hw in (CASES[0], CASES[7]):
+        orig = synth_bucket(B, H, W, hw, 1, dtype)[0]
+        out.append(("synth %dx%dx%d" % (B, H, W), orig,
+                    torch.full((B,), hw[0], dtype=torch.int32, device="cuda"),
+                    torch.full((B,), hw[1], dtype=torch.int32,
+                               device="cuda")))
+    return out
 
 
 def check_kernels():
@@ -1145,6 +1327,14 @@ def check_kernels():
             steps.append((name, erosion_steps(sm, hts, wds)))
         for name, gi, hts, wds in special_gz_cases(dtype):
             gz_kernels_agree(agree, gi, hts, wds, ["n16", "n9"])
+        n10 = n12 = 0
+        for name, img, hts, wds in k10_k12_cases(dtype):
+            n10 += moment_paths_agree(agree, img, img != 0,
+                                      *moment_inputs(img != 0, dtype)[1:])
+            n12 += zernike_paths_agree(agree, img, hts, wds)
+        log("  %s: K10 on %d and K12 on %d forced paths and plans (blank, "
+            "flat-baseline, checkerboard, 256² disk, 64 x 32² and 1024 x 64 "
+            "crops) agree" % (prec, n10, n12))
         _, gi, hts, wds = special_gz_cases(dtype)[0]
         _, mx, mn = gabor.gabor_counts(gi, hts, wds, EngineConfig())
         if not (mx[0] > mn[0] and mx[1] == mn[1]):
@@ -1168,10 +1358,12 @@ def check_kernels():
         _, zl, zv, hts, wds = zone_cases((B, H, W, hw), torch.float32)[0]
         anc, dist = zones.zone_cc4_plain(zl, zv, hts, wds)
         _, sm, shts, swds = shape_cases((B, H, W, hw), torch.float32)[0]
-        planes = weight_planes(sm, torch.float32)
+        inten, sarea, slw = moment_inputs(sm, torch.float32)
+        planes = moment_planes_of(inten, sm, slw)
         gimg, ghts, gwds = gz_inputs((B, H, W, hw), torch.float32)
         gcfg = EngineConfig()
-        zin = zernike.zernike_inputs(gimg, ghts, gwds)
+        zin = (gimg, moments.power_sums_plain([gimg])[:, 0], ghts, gwds,
+               *roi_extrema(gimg), ZERNIKE_NOVAL)
         pairs = {
             "batched_hist": (lambda: common.batched_hist(flat, cnt, 100),
                              lambda: common.batched_hist_plain(flat, cnt, 100)),
@@ -1196,13 +1388,14 @@ def check_kernels():
                         lambda: binary.erosion_counts_plain(sm, shts, swds)),
             "binary_quads": (lambda: binary.binary_quads(sm),
                              lambda: binary.binary_quads_plain(sm)),
-            "power_sums": (lambda: moments.power_sums(planes),
-                           lambda: moments.power_sums_plain(planes)),
+            "power_sums": (
+                lambda: moments.moment_power_sums(inten, sm, sarea, slw),
+                lambda: moments.moment_sums_plain(inten, sm, sarea, slw)),
             "gabor": (lambda: gabor.gabor_counts(gimg, ghts, gwds, gcfg),
                       lambda: gabor.gabor_counts_plain(gimg, ghts, gwds,
                                                        gcfg)),
-            "zernike": (lambda: zernike.zernike_sums(gimg, *zin),
-                        lambda: zernike.zernike_sums_plain(gimg, *zin)),
+            "zernike": (lambda: zernike.zernike_moments(*zin),
+                        lambda: zernike.zernike_moments_plain(*zin)),
         }
         main = (B, H, W) == (64, 32, 32)
         iters = 20 if main else 5   # the other buckets' times are printed only
@@ -1234,8 +1427,9 @@ def check_kernels():
             res["batched_hist"]["library_ms"] = lib[1]
             log("  time batched_hist library scatter_add_: device %.4f ms "
                 "(events %.4f ms)" % (lib[1], lib[0]))
-            # K10's raw sums as one einsum over both planes (not called by
-            # the port): sum_hw w[b,h,w] Y[q,h] X[p,w], Y = h^q, X = w^p
+            # K10's raw sums as one einsum over its four planes (not called
+            # by the port; the centred sums need their centres first):
+            # sum_hw w[b,h,w] Y[q,h] X[p,w], Y = h^q, X = w^p
             wcat = torch.cat(planes).contiguous()
             pw = torch.arange(4, device="cuda", dtype=torch.float32)
             X = torch.arange(W, device="cuda", dtype=torch.float32)[None, :] \
@@ -1698,6 +1892,148 @@ def k11_k13_times(iters=20):
             "planes, rows, 16-bit, smem) %s"
             % ((ng,) + cube_shape + (ms, ev, nl, nbytes / HBM_BYTES_S * 1e3,
                                      plan)))
+
+
+# K10's and K12's timed buckets: the main path's three, 2 x 256² and the
+# long ROI's 1 x 1024 x 64
+K10_K12_TIMED = CASES[:3] + ((2, 256, 256, (250, 199)),
+                             (1, 1024, 64, (600, 40)))
+
+
+def k10_parent_calls(moments, inten, mask, area, logw):
+    """The six K10 calls of a bucket before the fused launch, with the
+    torch work around them, as the families made them: the mask weights;
+    the mask's and the masked intensity's raw sums (morphology), the
+    ellipse's centroid and its centred sums; for the intensity moments and
+    then the shape moments, the weighted plane, the raw sums, the centres
+    (safe_div in the compute dtype) and the centred sums, the intensity
+    moments forming their weighted plane twice (once for the raw call,
+    once for the centred one).  ``moments`` is a tree's ops.moments with
+    power_sums(planes, centre)."""
+    import torch
+    from nyxus_tpu_torch.ops.common import safe_div
+    dt = inten.dtype
+    mw = mask.to(dt)
+    mi = torch.where(mask, inten, 0)
+    S = moments.power_sums([mw, mi])[:, 0].to(dt)
+    n = area.to(dt)
+    moments.power_sums([mw], torch.stack([S[:, 1, 0] / n, S[:, 0, 1] / n],
+                                         dim=1)[:, None, :])
+    for w, twice in ((mi, True), (mw, False)):
+        raw = moments.power_sums(moments.moment_planes(w, logw))
+        planes = moments.moment_planes(w, logw) if twice else None
+        centres = []
+        for k in range(2):
+            Sk = raw[:, k].to(dt)
+            centres.append(torch.stack([safe_div(Sk[:, 1, 0], Sk[:, 0, 0]),
+                                        safe_div(Sk[:, 0, 1], Sk[:, 0, 0])],
+                                       dim=1))
+        moments.power_sums(planes or moments.moment_planes(w, logw),
+                           torch.stack(centres, dim=1))
+
+
+def k10_k12_times(iters=20):
+    """K10 and K12 in f32 at K10_K12_TIMED with their launch plans: device
+    and events ms a call, device launches a call (from the profiler) and
+    the bound.  K10 as the families call it: where the tree has the fused
+    launch (moment_power_sums) that launch, with its plan, and at the main
+    bucket also its staging off (its second pass reading the inputs
+    again) and its plain version; else k10_parent_calls, its six launches
+    and their torch work; and the library einsum of its four planes' raw
+    sums.  K12 as the family calls it (zernike_features, fed K10's plain
+    sums) and its plain version, or, where the tree has no plan, its kernel
+    alone (zernike_sums); at the main bucket also one block a ROI and a
+    cluster of four, forced.  Runs on
+    any tree's package, so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.ops import moments, zernike
+    fused = hasattr(moments, "moment_power_sums")
+    zplan = getattr(zernike, "zernike_plan", None)
+    f32 = torch.float32
+    for B, H, W, hw in K10_K12_TIMED:
+        _, _, _, mask = synth_bucket(B, H, W, hw, 0, f32)
+        inten, area, lw = moment_inputs(mask, f32)
+        planes = moment_planes_of(inten, mask, lw)
+        nbytes, ops = power_sums_bound(planes)
+        bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
+        calls = [("fused, by its plan %s" % (moments.power_sums_plan(
+            B, H, W, 4, 4),), None)] if fused else [
+            ("the parent's six calls", None)]
+        if fused and (B, H, W) == (64, 32, 32):
+            plan = moments.power_sums_plan(B, H, W, 4, 4)
+            calls.append(("fused, staging off", ("global",) + plan[1:4]
+                          + (0,)))
+        if fused:
+            calls.append(("plain version (moment_sums_plain)", None))
+        for name, force in calls:
+            saved = getattr(moments, "power_sums_plan", None)
+            if force:
+                moments.power_sums_plan = lambda *a, p=force: p
+            if name.startswith("plain"):
+                fn = (lambda: moments.moment_sums_plain(inten, mask, area, lw))
+            elif fused:
+                fn = (lambda: moments.moment_power_sums(inten, mask, area, lw))
+            else:
+                fn = (lambda: k10_parent_calls(moments, inten, mask, area, lw))
+            try:
+                ev, ms, nl = timed(fn, iters)
+            finally:
+                if force:
+                    moments.power_sums_plan = saved
+            log("  K10 power_sums %s f32 B=%d %dx%d: device %.4f ms (events "
+                "%.4f ms), %s device launches a call; bound %.5f ms (%s)"
+                % (name, B, H, W, ms, ev, nl, bound,
+                   "bytes" if nbytes / HBM_BYTES_S >= ops / OPS_S
+                   else "operations"))
+        wcat = torch.cat(planes).contiguous()
+        dev = mask.device
+        pw = torch.arange(4, device=dev, dtype=f32)
+        X = torch.arange(W, device=dev, dtype=f32)[None, :] ** pw[:, None]
+        Y = torch.arange(H, device=dev, dtype=f32)[None, :] ** pw[:, None]
+        ev, ms, nl = timed(lambda: torch.einsum("bhw,qh,pw->bpq", wcat, Y, X),
+                           iters)
+        log("  K10 library einsum of the four planes' raw sums f32 B=%d "
+            "%dx%d: device %.4f ms (events %.4f ms)" % (B, H, W, ms, ev))
+        img = inten * mask
+        hts = torch.full((B,), hw[0], dtype=torch.int32, device=dev)
+        wds = torch.full((B,), hw[1], dtype=torch.int32, device=dev)
+        vmin, vmax = roi_extrema(img)
+        raw = moments.power_sums_plain([img])[:, 0].contiguous()
+        nbytes, ops = gz_bounds(img, hts, wds, EngineConfig())["zernike"]
+        bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
+        calls = [("zernike_features", None)]
+        if zplan and (B, H, W) == (64, 32, 32):
+            calls += [("one block a ROI, forced", (1, 1024)),
+                      ("a cluster of four, forced", (4, 256))]
+        if not zplan:
+            calls.append(("kernel alone (zernike_sums)", None))
+        else:
+            calls.append(("plain version (zernike_moments_plain)", None))
+        for name, force in calls:
+            if name.startswith("kernel alone"):
+                zin = zernike.zernike_inputs(img, hts, wds, raw)
+                fn = (lambda: zernike.zernike_sums(img, *zin))
+            elif name.startswith("plain"):
+                fn = (lambda: zernike.zernike_moments_plain(
+                    img, raw, hts, wds, vmin, vmax, ZERNIKE_NOVAL))
+            else:
+                fn = (lambda: zernike.zernike_features(
+                    img, hts, wds, vmin, vmax, ZERNIKE_NOVAL, f32, raw=raw))
+            if force:
+                zernike.zernike_plan = lambda *a, p=force: p
+            try:
+                ev, ms, nl = timed(fn, iters)
+            finally:
+                if force:
+                    zernike.zernike_plan = zplan
+            log("  K12 zernike %s f32 B=%d %dx%d: device %.4f ms (events %.4f "
+                "ms), %s device launches a call; bound %.5f ms (operations); "
+                "plan (C, chunk) %s" % (
+                    name, B, H, W, ms, ev, nl, bound,
+                    "none" if name.startswith("plain") else force
+                    or (zplan(B, H, W) if zplan else "none in this tree")))
 
 
 # K15's and K16's timed buckets: the main 3D bucket, the main path's
@@ -2427,9 +2763,9 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 def kernel_times_only(root):
     """--kernel-times [ROOT]: build the kernels of the package under ROOT
     (by default this script's tree), print k1_k5_times, k3_k9_times,
-    k11_k13_times, k15_k16_times and the card; no result line.  Two trees
-    timed in one call, in turns, compare the two versions of K1, K3, K5, K9,
-    K11, K13, K15 and K16 on one card."""
+    k10_k12_times, k11_k13_times, k15_k16_times and the card; no result
+    line.  Two trees timed in one call, in turns, compare the two versions
+    of K1, K3, K5, K9, K10, K11, K12, K13, K15 and K16 on one card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -2441,6 +2777,7 @@ def kernel_times_only(root):
                                            time.perf_counter() - t0))
     k1_k5_times()
     k3_k9_times()
+    k10_k12_times()
     k11_k13_times()
     k15_k16_times()
     log(card_line())

@@ -54,10 +54,11 @@ _SIGNATURES = {
     "nyx_zone_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "nyx_erosion": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nyx_binary_quads": [_P] * 4 + [ctypes.c_longlong] + [_I] * 9 + [_P],
-    "nyx_power_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nyx_power_sums": [_P] * 4 + [_I, _P, _P] + [_I] * 9 + [_P],
     "nyx_gabor": [_P] * 4 + [_I, _I] + [_P] * 4 + [_I] * 5
     + [_D, _I, _I, _I, ctypes.c_longlong, _I, _P],
-    "nyx_zernike": [_P] * 7 + [_I] * 5 + [_P],
+    "nyx_zernike": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _D, _P, _P, _P]
+    + [_I] * 6 + [_P],
     "nyx_glcm3d_cooc": [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I] * 14
     + [ctypes.c_longlong, _I, _P],
     "nyx_glrlm3d_runs": [_P] * 4 + [_I] * 11 + [_P],

@@ -6,11 +6,13 @@
 
 #define NYX_BLOCK 256
 
-// Dynamic shared memory above the default 48 KB has to be opted into per
-// kernel (up to 227 KB a block on Hopper).
+// Dynamic shared memory that takes a block past the default 48 KB (with
+// the kernel's static_bytes) has to be opted into per kernel (up to 227 KB
+// a block on Hopper).
 template <typename K>
-static cudaError_t nyx_allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+static cudaError_t nyx_allow_smem(K kernel, size_t bytes,
+                                  size_t static_bytes = 0) {
+  if (bytes + static_bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
@@ -27,13 +29,14 @@ struct NyxClusterAttrs {
 
 template <typename K>
 static cudaError_t nyx_allow_cluster(K kernel, size_t bytes, int cluster,
-                                     NyxClusterAttrs* done) {
+                                     NyxClusterAttrs* done,
+                                     size_t static_bytes = 0) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= NYX_DEVICES_MAX) return cudaErrorInvalidDevice;
   if (bytes > done->smem[dev]) {
-    e = nyx_allow_smem(kernel, bytes);
+    e = nyx_allow_smem(kernel, bytes, static_bytes);
     if (e != cudaSuccess) return e;
     done->smem[dev] = bytes;
   }
@@ -167,4 +170,58 @@ __device__ __forceinline__ void nyx_cp4(void* dst, const void* src) {
 
 __device__ __forceinline__ void nyx_cp_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Warp reduce-scatter of N float64 sums, N a power of two: each step swaps
+// half of what a lane holds with the lane OFF away and adds the half it
+// keeps, so the warp takes N / 2 + N / 4 + ... shuffles a lane where N
+// shuffle trees take 5 N.  Afterwards v[0 .. max(N / 32, 1)) hold the
+// warp's totals of sums [base, ...), base returned.  Below 32 sums the last
+// steps are butterflies: lanes that differ only in their low 5 - log2(N)
+// bits hold the same totals.
+template <int N, int OFF = 16>
+__device__ __forceinline__ int nyx_reduce_scatter(double* v, int lane) {
+  if constexpr (OFF == 0) {
+    return 0;
+  } else if constexpr (N == 1) {
+    v[0] += __shfl_xor_sync(NYX_FULL, v[0], OFF);
+    return nyx_reduce_scatter<1, OFF / 2>(v, lane);
+  } else {
+    constexpr int h = N / 2;
+    const bool hi = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const double give = hi ? v[i] : v[i + h];
+      const double keep = hi ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(NYX_FULL, give, OFF);
+    }
+    return (hi ? h : 0) + nyx_reduce_scatter<h, OFF / 2>(v, lane);
+  }
+}
+
+// The block's totals of the N float64 sums each thread holds in v: a warp
+// reduce-scatter, the warps' totals through red ([warps][N] doubles of
+// shared memory), then thread k < N adds sum k over the warps in warp order
+// into out[k].  blockDim.x is a multiple of 32.  The caller synchronises
+// before out is read, and before red is written again.
+template <int N>
+__device__ __forceinline__ void nyx_block_sums(double* v, double* red,
+                                               double* out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int base = nyx_reduce_scatter<N>(v, lane);
+  bool owner = true;
+  if constexpr (N < 32) owner = (lane & (32 / N - 1)) == 0;
+  if (owner) {
+#pragma unroll
+    for (int i = 0; i < (N >= 32 ? N / 32 : 1); ++i)
+      red[warp * N + base + i] = v[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    double s = 0.0;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      s += red[w * N + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
 }

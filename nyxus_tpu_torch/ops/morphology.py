@@ -5,12 +5,11 @@ Reference: src/nyx/features/basic_morphology.cpp:16-70,
 ellipse_fitting.cpp:20-65.
 
 The coordinate sums (centroid, weighted centroid, the ellipse's centred
-second moments) come from K10 ``moments.power_sums`` in AABB-local
-coordinates: the centroid is ``x0 + sum(m * x_local) / n``, the value of
-JAX's global-coordinate sum up to rounding.  The mask and intensity planes'
-raw sums are taken once per batch (cached on the BatchContext) and shared
-by both families.  COMPACTNESS's distance spread and the closed forms stay
-torch.
+second moments) come from K10 in AABB-local coordinates
+(``moments.moment_sums``, one launch a batch shared with the moment and
+Zernike families): the centroid is ``x0 + sum(m * x_local) / n``, the
+value of JAX's global-coordinate sum up to rounding.  COMPACTNESS's
+distance spread and the closed forms stay torch.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import math
 import torch
 
 from .common import safe_div
-from .moments import power_sums
+from .moments import moment_sums
 
 
 def local_grids(ctx):
@@ -36,17 +35,15 @@ def local_grids(ctx):
 
 def mask_intensity_sums(ctx):
     """K10's raw sums of the mask and the masked intensity planes:
-    float64 [B, 2, 4, 4], built once per batch."""
-    return ctx.cached("morphology_sums", lambda: power_sums(
-        [ctx.mask_weights, ctx.masked_intens]))
+    float64 [B, 2, 4, 4]."""
+    return moment_sums(ctx).raw[:, :2]
 
 
 def local_centroid(ctx):
-    """(cx, cy) AABB-local centroid over the aux_area count n, [B] each."""
-    dt = ctx.intens.dtype
-    S = mask_intensity_sums(ctx)[:, 0].to(dt)
-    n = ctx.area.to(dt)
-    return S[:, 1, 0] / n, S[:, 0, 1] / n
+    """(cx, cy) AABB-local centroid over the aux_area count n, [B] each
+    (K10's ellipse centre)."""
+    c = moment_sums(ctx).centres[:, -1]
+    return c[:, 0], c[:, 1]
 
 
 def basic_morphology(ctx, cfg):
@@ -114,12 +111,10 @@ def ellipse_fitting(ctx, cfg):
     """EllipseFittingFeature (ellipse_fitting.cpp:20-65)."""
     dt = ctx.intens.dtype
     n = ctx.area.to(dt)
-    lcx, lcy = local_centroid(ctx)
     # second moments normalize by the FED pixel count k = raw_pixels.size()
     # (ellipse_fitting.cpp:47-50), around the aux_area-based centroid
     k = torch.clamp(mask_intensity_sums(ctx)[:, 0, 0, 0].to(dt), min=1)
-    C = power_sums([ctx.mask_weights],
-                   torch.stack([lcx, lcy], dim=1)[:, None, :])[:, 0].to(dt)
+    C = moment_sums(ctx).ellipse.to(dt)
     uxx = C[:, 2, 0] / k + 1.0 / 12.0
     uyy = C[:, 0, 2] / k + 1.0 / 12.0
     uxy = C[:, 1, 1] / k

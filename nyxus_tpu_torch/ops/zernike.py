@@ -7,13 +7,13 @@ intensity centroid (1-based pixel coordinates), radial polynomials via the
 Prata recurrence with precomputed H1/H2/H3 coefficients, outputs
 |A_{nm}| = sqrt(AR^2 + AI^2) for (n - m) even, n <= 9.
 
-The 60 sums (AR, AI for 30 (n, m)) are K12 ``zernike`` (csrc/zernike.cu),
-written by hand for the card, with a plain PyTorch version beside it that
-forms every term as JAX does (the only path for a tensor on the CPU; a
-CUDA tensor launches the kernel or raises).  Both accumulate in float64
-whatever the compute dtype.  The centroid comes from K10's power sums of
-the masked intensities; the (n + 1) / pi factors, the magnitudes and the
-blank substitution stay torch.
+The 60 sums (AR, AI for 30 (n, m)) and the magnitudes are K12 ``zernike``
+(csrc/zernike.cu), written by hand for the card, with a plain PyTorch
+version beside it that forms every term as JAX does (the only path for a
+tensor on the CPU; a CUDA tensor launches the kernel or raises).  Both accumulate in float64
+whatever the compute dtype.  The kernel reads the centroid from K10's power
+sums of the masked intensities and writes the magnitudes, the blank
+substitution included: one launch a bucket.
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .common import _check_float, _kernel_device
-from .moments import power_sums
+from .common import SMS, _check_float, _kernel_device, roi_sizes
 
 ORDER = 9
 # float64's machine epsilon, the lower radius bound in both dtypes (JAX's
@@ -127,80 +126,121 @@ def zernike_sums_plain(img, cx, cy, rad, s, scale=False):
     return (sums, absum) if scale else sums
 
 
-# pixels one K12 block takes on before the wrapper adds another block per
-# ROI; at most _MAX_CHUNKS blocks per ROI
-_PX_PER_BLOCK = 256
-_MAX_CHUNKS = 64
+# K12's launch plan (zernike_plan): pixels a block takes at a time (its
+# threads); blocks (a cluster) a ROI at most; the kernel's static shared
+# memory (the warps' 64 sums and the block's).  A thread holds 60 float64
+# sums, so a block takes an SM's registers (251 a thread in float32, 225
+# in float64): more blocks than SMs run in a second wave.
+ZK_THREADS = 256
+ZK_CLUSTER = 8
+ZK_STATIC_SMEM = 8 * (ZK_THREADS // 32 * 64 + 64)
 
 
-def zernike_sums(img, cx, cy, rad, s):
-    """K12 zernike (csrc/zernike.cu), replacing the 60 products and
-    reductions of nyxus_tpu/ops/zernike.py:38 zernike_features.  See
-    zernike_sums_plain for the arguments and result.  Blocks of ROI x
-    chunk, each thread a strip of the crop's nonzero pixels (a zero
-    intensity adds nothing) with the 60 float64 sums in registers; a bucket
-    above _PX_PER_BLOCK pixels takes several blocks per ROI that add their
-    partial sums with double atomics."""
-    if not _kernel_device(img, "zernike"):
-        return zernike_sums_plain(img, cx, cy, rad, s)
-    _check_float(img, "zernike")
-    B = img.shape[0] if img.dim() == 3 else -1
-    vecs = (cx, cy, rad, s)
-    if B < 0 or any(v.shape != (B,) or v.dtype != img.dtype
-                    or v.device != img.device for v in vecs):
-        raise ValueError("zernike: img %s must be [B, H, W] with [B] "
-                         "centroids, radii and sums of its dtype and device"
-                         % (tuple(img.shape),))
-    img = img.contiguous()
-    _, H, W = img.shape
-    cx, cy, rad, s = (v.contiguous() for v in vecs)
-    chunks = max(1, min(_MAX_CHUNKS, -(-H * W // _PX_PER_BLOCK)))
-    alloc = torch.zeros if chunks > 1 else torch.empty
-    out = alloc((B, 2, len(NM)), dtype=torch.float64, device=img.device)
-    if B == 0 or H * W == 0:
-        return out.zero_()
-    with torch.cuda.device(img.device):
-        code = _build.lib().nyx_zernike(
-            img.data_ptr(), cx.data_ptr(), cy.data_ptr(), rad.data_ptr(),
-            s.data_ptr(), _H_ALL.ctypes.data, out.data_ptr(), B, H, W,
-            chunks, int(img.dtype == torch.float64), _build.stream_of(img))
-    _build.check("zernike", code)
-    zernike_sums.launches += 1
-    return out
+def zernike_plan(B: int, H: int, W: int):
+    """(C, chunk) of K12's launch over B crops of H x W: C blocks (a
+    thread-block cluster) of ZK_THREADS threads a ROI, block r taking
+    pixels [r * chunk, (r + 1) * chunk), chunk a whole number of pixels a
+    thread.  As many blocks a ROI as the batch can have in one wave on the
+    SMS (a block an SM), at most ZK_CLUSTER and no more than give each
+    thread a pixel."""
+    A = H * W
+    T = ZK_THREADS
+    C = max(1, min(ZK_CLUSTER, SMS // max(B, 1), -(-A // T)))
+    chunk = -(-A // C)
+    chunk = -(-chunk // T) * T
+    if A:
+        C = -(-A // chunk)
+    return C, chunk
 
 
-zernike_sums.launches = 0
-
-
-def zernike_inputs(img, heights, widths, raw=None):
-    """(cx, cy, rad, s) of zernike_sums, in img's dtype, from K10's raw
-    power sums of img (float64 [B, 4, 4], computed when not given): the
-    centroid S10 / S00 + 1, S01 / S00 + 1 in JAX's 1-based coordinates
+def zernike_inputs(raw, heights, widths, dtype):
+    """(cx, cy, rad, s) of zernike_sums_plain in ``dtype``, from K10's raw
+    power sums of the masked intensities (float64 [B, 4, 4]): the centroid
+    S10 / S00 + 1, S01 / S00 + 1 in JAX's 1-based coordinates
     (zernike.py:46-53), rad = min(h, w) and s = S00."""
-    dt = img.dtype
-    if raw is None:
-        raw = power_sums([img])[:, 0]
     s = raw[:, 0, 0]
     den = torch.clamp(s, min=1e-30)
-    cx = (raw[:, 1, 0] / den + 1).to(dt)
-    cy = (raw[:, 0, 1] / den + 1).to(dt)
-    rad = torch.minimum(heights, widths).to(dt)
-    return cx, cy, rad, s.to(dt)
+    cx = (raw[:, 1, 0] / den + 1).to(dtype)
+    cy = (raw[:, 0, 1] / den + 1).to(dtype)
+    rad = torch.minimum(heights, widths).to(dtype)
+    return cx, cy, rad, s.to(dtype)
 
 
-def zernike_features(intens_masked, heights, widths, vmin, vmax,
-                     noval: float, dtype, raw=None):
-    """ZERNIKE2D: [B, 30].  ``raw``: K10's float64 [B, 4, 4] power sums of
-    ``intens_masked`` when the caller has them (the intensity moments share
-    that launch)."""
-    img = intens_masked.to(dtype)
-    cx, cy, rad, s = zernike_inputs(img, heights, widths, raw)
-    S = zernike_sums(img, cx, cy, rad, s)
+def zernike_moments_plain(img, raw, heights, widths, vmin, vmax, noval,
+                          sums=False):
+    """Plain version of K12: JAX's zernike_features (zernike.py:38) on the
+    masked intensities ``img`` [B, H, W], K10's raw sums ``raw`` of them
+    (float64 [B, 4, 4]), the AABB sizes and the ROIs' extrema: the 30
+    magnitudes [B, 30] in img's dtype, ``noval`` where vmax == vmin; with
+    ``sums`` also zernike_sums_plain's float64 [B, 2, 30]."""
+    dt = img.dtype
+    S = zernike_sums_plain(img, *zernike_inputs(raw, heights, widths, dt))
     const = torch.tensor([(n_ + 1) / math.pi for n_, _ in NM],
                          dtype=torch.float64, device=img.device)
     ar = const * S[:, 0]
     ai = -(const * S[:, 1])
-    vals = torch.sqrt(ar * ar + ai * ai).to(dtype)
+    vals = torch.sqrt(ar * ar + ai * ai).to(dt)
     blank = (vmax == vmin)[:, None]
-    return {"ZERNIKE2D": torch.where(
-        blank, torch.tensor(noval, dtype=dtype, device=img.device), vals)}
+    mags = torch.where(blank, torch.tensor(noval, dtype=dt,
+                                           device=img.device), vals)
+    return (mags, S) if sums else mags
+
+
+def zernike_moments(img, raw, heights, widths, vmin, vmax, noval,
+                    sums=False):
+    """K12 zernike (csrc/zernike.cu), replacing
+    nyxus_tpu/ops/zernike.py:38 zernike_features: zernike_moments_plain's
+    result (see there for the arguments) in one launch, the centroid, the
+    sums and the magnitudes formed in the kernel.  A cluster of blocks a
+    ROI by zernike_plan, each thread a pixel in turn with the 60 float64
+    sums in registers."""
+    if not _kernel_device(img, "zernike"):
+        return zernike_moments_plain(img, raw, heights, widths, vmin, vmax,
+                                     noval, sums)
+    _check_float(img, "zernike")
+    B = img.shape[0] if img.dim() == 3 else -1
+    if B < 0 or raw.shape != (B, 4, 4) or raw.dtype != torch.float64 \
+            or any(v.shape != (B,) or v.dtype != img.dtype
+                   for v in (vmin, vmax)) \
+            or any(t.device != img.device
+                   for t in (raw, heights, widths, vmin, vmax)) \
+            or heights.shape != (B,) or widths.shape != (B,):
+        raise ValueError("zernike: img %s must be [B, H, W] with float64 [B, "
+                         "4, 4] sums, [B] sizes and [B] extrema of its dtype "
+                         "on its device" % (tuple(img.shape),))
+    _, H, W = img.shape
+    dt = img.dtype
+    mags = torch.empty((B, len(NM)), dtype=dt, device=img.device)
+    S = torch.empty((B, 2, len(NM)), dtype=torch.float64,
+                    device=img.device) if sums else None
+    if B:
+        img = img.contiguous()
+        if raw.stride(1) != 4 or raw.stride(2) != 1:
+            raw = raw.contiguous()
+        heights, hs = roi_sizes(heights)
+        widths, ws = roi_sizes(widths)
+        if vmin.stride(0) != vmax.stride(0):
+            vmin, vmax = vmin.contiguous(), vmax.contiguous()
+        C, chunk = zernike_plan(B, H, W)
+        with torch.cuda.device(img.device):
+            code = _build.lib().nyx_zernike(
+                img.data_ptr(), raw.data_ptr(), raw.stride(0),
+                heights.data_ptr(), hs, widths.data_ptr(), ws,
+                vmin.data_ptr(), vmax.data_ptr(), vmin.stride(0),
+                float(noval), _H_ALL.ctypes.data, mags.data_ptr(),
+                None if S is None else S.data_ptr(), B, H, W, C, chunk,
+                int(dt == torch.float64), _build.stream_of(img))
+        _build.check("zernike", code)
+        zernike_moments.launches += 1
+    return (mags, S) if sums else mags
+
+
+zernike_moments.launches = 0
+
+
+def zernike_features(intens_masked, heights, widths, vmin, vmax,
+                     noval: float, dtype, raw):
+    """ZERNIKE2D: [B, 30].  ``raw``: K10's float64 [B, 4, 4] raw sums of
+    ``intens_masked`` (moments.moment_sums' plane 1)."""
+    return {"ZERNIKE2D": zernike_moments(intens_masked.to(dtype), raw,
+                                         heights, widths, vmin, vmax, noval)}

@@ -100,12 +100,6 @@ class BatchContext:
             lambda: torch.where(self.mask, self.intens, 0))
 
     @property
-    def mask_weights(self):
-        """[B, H, W] the mask as 0/1 weights of the compute dtype."""
-        return self.cached("mask_weights",
-                           lambda: self.mask.to(self.intens.dtype))
-
-    @property
     def aabb_mask(self):
         """[B, H, W] True inside each ROI's AABB (excludes bucket padding)."""
         def build():
@@ -505,22 +499,17 @@ _SMOM_RENAME = {
 }
 
 
-def _intensity_sums(ctx: BatchContext):
-    """K10's raw power sums of the masked intensities (and, with the logw
-    plane, of their contour-weighted plane): one launch shared by the
-    intensity moments and Zernike."""
-    return ctx.cached("intensity_power_sums", lambda: ops_moments.power_sums(
-        ops_moments.moment_planes(ctx.masked_intens, ctx.logw)))
-
-
 def _moments_family(prefix):
+    # K10's planes of the family: the weights, then weights * logw
+    own, weighted = (1, 2) if prefix == "IMOM" else (0, 3)
+
     def fn(ctx: BatchContext, cfg: EngineConfig):
-        if prefix == "IMOM":
-            out = ops_moments.moments_all(ctx, ctx.masked_intens, prefix,
-                                          ctx.logw, _intensity_sums(ctx))
-        else:
-            out = ops_moments.moments_all(ctx, ctx.mask_weights, prefix,
-                                          ctx.logw)
+        ms = ops_moments.moment_sums(ctx)
+        w = ms.raw.shape[1] > weighted
+        out = ops_moments.moments_all(
+            ms.raw[:, own], ms.central[:, own], prefix, ctx.intens.dtype,
+            ms.raw[:, weighted] if w else None,
+            ms.central[:, weighted] if w else None)
         if prefix == "SMOM":
             renamed = {}
             for k, v in out.items():
@@ -546,7 +535,7 @@ def _gabor_family(ctx: BatchContext, cfg: EngineConfig):
 def _zernike_family(ctx: BatchContext, cfg: EngineConfig):
     return ops_zernike.zernike_features(
         ctx.masked_intens, ctx.heights, ctx.widths, ctx.vmin, ctx.vmax,
-        cfg.noval, ctx.intens.dtype, raw=_intensity_sums(ctx)[:, 0])
+        cfg.noval, ctx.intens.dtype, ops_moments.moment_sums(ctx).raw[:, 1])
 
 
 FAMILIES["BasicMorphologyFeatures"].fn = _basic_morphology_family

@@ -14,10 +14,14 @@ rounding then differs by more than 1e-6.  K10's power sums (accumulated in
 float64 by both versions) hold rtol 1e-6 (f32 inputs) or 1e-12 (f64) of the
 sum of their terms' absolute values, the size of a sum's rounding when its
 terms are added in another order: a central moment's terms cancel, so its
-own value is no scale.  K11's counts and baseline extrema are equal in
-both types (both versions add the taps in one order, each operation
+own value is no scale.  K10's centres are bit-equal to the plain ones where
+the raw sums they read are, and its centred sums are held against the plain
+sums around its own centres.  K11's counts and baseline extrema are equal
+in both types (both versions add the taps in one order, each operation
 rounded on its own); K12's sums (float64, the same terms in both versions)
-hold 1e-12 of the sum of their terms' absolute values.  K13-K16 (3D
+hold 1e-12 of the sum of their terms' absolute values, its magnitudes the
+Zernike tier (2e-2) beside that rounding, a blank ROI's value bit for bit.
+K10 and K12 are held by their plans and on every path, forced.  K13-K16 (3D
 matrices, runs, labels, distances, stencil counts and sums) are integers
 and must be equal; K1's float sums over 3D rows hold rtol 1e-6 / 1e-12 on
 the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
@@ -47,7 +51,7 @@ from nyxus_tpu_torch import columns, taxonomy  # noqa: E402
 from nyxus_tpu_torch.ops import binary  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
 from nyxus_tpu_torch.ops import common, gabor, glcm, glrlm, zones  # noqa: E402
-from nyxus_tpu_torch.ops import ih, zernike  # noqa: E402
+from nyxus_tpu_torch.ops import ih, moments, zernike  # noqa: E402
 from nyxus_tpu_torch.ops import texture3d as t3  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner  # noqa: E402
 
@@ -401,8 +405,48 @@ def test_gabor_zernike_refuse_bad_inputs():
     with pytest.raises(ValueError):
         gabor.gabor_counts(img.double(), hw[:1], hw, EngineConfig())
     v = torch.ones(2, dtype=torch.float64, device="cuda")
+    raw = torch.zeros((2, 4, 4), dtype=torch.float64, device="cuda")
     with pytest.raises(ValueError):
-        zernike.zernike_sums(img.double(), v, v, v.float(), v)
+        zernike.zernike_moments(img.double(), raw, hw, hw, v, v.float(), 0.0)
+    with pytest.raises(ValueError):
+        zernike.zernike_moments(img.double(), raw[:, :2], hw, hw, v, v, 0.0)
+    with pytest.raises(TypeError):
+        zernike.zernike_moments(img, raw, hw, hw, v, v, 0.0)
+
+
+@pytest.mark.cuda
+def test_power_sums_refuses_bad_inputs():
+    """K10's wrapper raises on what its kernel does not take: an integer
+    crop, a mask that is not bool, a logw plane of another dtype."""
+    x = torch.ones((2, 16, 16), dtype=torch.float32, device="cuda")
+    m = x > 0
+    area = torch.full((2,), 256, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        moments.moment_power_sums(x.int(), m, area)
+    with pytest.raises(ValueError):
+        moments.moment_power_sums(x, m.float(), area)
+    with pytest.raises(ValueError):
+        moments.moment_power_sums(x, m, area, x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("name", ["blank+flat", "checkerboard", "disk256",
+                                  "synth 64x32x32", "synth 2x1024x64"])
+def test_k10_k12_paths(name, prec):
+    """K10 (the fused sums and centres, with and without logw) and K12 (the
+    60 sums and the 30 magnitudes) by their plans and on every forced path
+    (K10: one block a (ROI, plane) and a cluster of three, each staged and
+    not; K12: one block a ROI and a cluster of three) on a blank ROI beside
+    a flat-baseline one, a checkerboard, the 256² disks and two synth
+    buckets."""
+    dtype = DTYPES[prec]
+    (_, img, hts, wds), = [c for c in chip_smoke.k10_k12_cases(dtype)
+                           if c[0] == name]
+    mask = img != 0
+    _, area, logw = chip_smoke.moment_inputs(mask, dtype)
+    assert chip_smoke.moment_paths_agree(_Agree(), img, mask, area, logw) >= 3
+    assert chip_smoke.zernike_paths_agree(_Agree(), img, hts, wds) >= 2
 
 
 @pytest.mark.cuda

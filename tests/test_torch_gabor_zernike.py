@@ -29,6 +29,7 @@ from nyxus_tpu.ops import zernike as jzernike
 
 from nyxus_tpu_torch.config import EngineConfig as TConfig
 from nyxus_tpu_torch.ops import gabor as tgabor
+from nyxus_tpu_torch.ops import moments as tmoments
 from nyxus_tpu_torch.ops import zernike as tzernike
 from nyxus_tpu_torch.pipeline import batching, labels
 
@@ -85,6 +86,11 @@ def _aabb(hts, wds, size):
     return (ys[None] < hts[:, None, None]) & (xs[None] < wds[:, None, None])
 
 
+def _raw(img):
+    """K10's raw sums of the masked intensities, which Zernike reads."""
+    return tmoments.power_sums_plain([torch.from_numpy(img)])[:, 0]
+
+
 def _assert_close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
     zero = want == 0
@@ -135,7 +141,7 @@ def test_zernike_vs_jax(size):
     got = tzernike.zernike_features(
         torch.from_numpy(img), torch.from_numpy(hts), torch.from_numpy(wds),
         torch.from_numpy(vmin), torch.from_numpy(vmax), -0.0,
-        torch.float64)["ZERNIKE2D"].numpy()
+        torch.float64, _raw(img))["ZERNIKE2D"].numpy()
     assert got.shape == want.shape == (len(img), 30)
     _assert_close(got, want)
     assert np.signbit(got[-2]).all() and (got[-2] == 0).all()   # blank
@@ -165,7 +171,7 @@ def test_zernike_against_numpy_oracle():
     got = tzernike.zernike_features(
         torch.from_numpy(img), torch.from_numpy(hts), torch.from_numpy(wds),
         torch.from_numpy(vmin), torch.from_numpy(vmax), -0.0,
-        torch.float64)["ZERNIKE2D"].numpy()
+        torch.float64, _raw(img))["ZERNIKE2D"].numpy()
     for b in range(len(img) - 2):
         want = oracles.zernike_oracle(img[b, :hts[b], :wds[b]])
         np.testing.assert_allclose(got[b], want, rtol=1e-7, atol=1e-10)
@@ -176,8 +182,8 @@ def test_zernike_sums_scale():
     terms of the blank ROI (one intensity) are those of any other."""
     img, _, hts, wds, _, _ = _bucket(16)
     t = torch.from_numpy(img)
-    cx, cy, rad, s = tzernike.zernike_inputs(t, torch.from_numpy(hts),
-                                             torch.from_numpy(wds))
+    cx, cy, rad, s = tzernike.zernike_inputs(_raw(img), torch.from_numpy(hts),
+                                             torch.from_numpy(wds), t.dtype)
     sums, scale = tzernike.zernike_sums_plain(t, cx, cy, rad, s, scale=True)
     assert sums.dtype == scale.dtype == torch.float64
     assert (sums.abs() <= scale * (1 + 1e-12)).all()

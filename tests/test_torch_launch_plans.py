@@ -1,10 +1,12 @@
 """The launch plans of K1 ``batched_hist``, K3 ``glrlm_runs``, K5
-``zone_dag``, K9 ``binary_quads``, K11 ``gabor``, K13 ``glcm3d_cooc``, K15
-``cc3d`` and K16 ``stencil3d`` (nyxus_tpu_torch/ops/common.py
-batched_hist_plan, ops/glrlm.py glrlm_runs_plan, ops/zones.py zone_dag_plan,
-ops/binary.py binary_quads_plan, ops/gabor.py gabor_plan, ops/texture3d.py
-glcm3d_plan, cc3d_plan, stencil3d_plan; K1, K3, K5 and K9 at the shapes
-their own tests below name), checked in plain Python at every
+``zone_dag``, K9 ``binary_quads``, K10 ``power_sums``, K11 ``gabor``, K12
+``zernike``, K13 ``glcm3d_cooc``, K15 ``cc3d`` and K16 ``stencil3d``
+(nyxus_tpu_torch/ops/common.py batched_hist_plan, ops/glrlm.py
+glrlm_runs_plan, ops/zones.py zone_dag_plan, ops/binary.py
+binary_quads_plan, ops/moments.py power_sums_plan, ops/gabor.py gabor_plan,
+ops/zernike.py zernike_plan, ops/texture3d.py glcm3d_plan, cc3d_plan,
+stencil3d_plan; K1, K3, K5, K9, K10 and K12 at the shapes their own tests
+below name), checked in plain Python at every
 bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
 3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
 and 1 to 4096 grey levels: the shared memory a block asks for is within a
@@ -29,7 +31,9 @@ from nyxus_tpu_torch.ops import binary as tbinary  # noqa: E402
 from nyxus_tpu_torch.ops import common as tcommon  # noqa: E402
 from nyxus_tpu_torch.ops import gabor as tgabor  # noqa: E402
 from nyxus_tpu_torch.ops import glrlm as tglrlm  # noqa: E402
+from nyxus_tpu_torch.ops import moments as tmoments  # noqa: E402
 from nyxus_tpu_torch.ops import texture3d as tt3  # noqa: E402
+from nyxus_tpu_torch.ops import zernike as tzernike  # noqa: E402
 from nyxus_tpu_torch.ops import zones as tzones  # noqa: E402
 from nyxus_tpu_torch.ops.common import SMEM_MAX  # noqa: E402
 
@@ -615,3 +619,100 @@ def test_binary_quads_plan_main_path():
     assert plan(2, 1024, 64) == ("block", 1, 2, 4 * (1024 * 2 + 512 * 1))
     assert plan(2, 256, 256) == ("block", 1, 8, 4 * (256 * 8 + 128 * 4))
     assert plan(1, 8192, 8192) == ("device", 1, 256, 0)
+
+
+# K10's and K12's (B, H, W): every bucket of chip_smoke.CASES (2 x 256² and
+# 2 x 1024 x 64 among them), 1 x 1024 x 64, a 64 x 128 bucket and an 8192²
+# crop (beyond a cluster's shared memory)
+MOMENT_SHAPES = sorted({(B, H, W) for B, H, W, _ in chip_smoke.CASES}
+                       | {(1, 1024, 64), (3, 64, 128), (1, 8192, 8192)})
+
+
+def _each_pixel_once(A, C, chunk):
+    """Block r of C taking pixels [r * chunk, (r + 1) * chunk): the blocks'
+    ranges are disjoint and contiguous, so each of A pixels is owned once
+    exactly when they reach A and the last one starts inside it."""
+    return C * chunk >= A and (C - 1) * chunk < max(A, 1)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("esz", [4, 8])
+@pytest.mark.parametrize("shape", MOMENT_SHAPES, ids=str)
+def test_power_sums_plan(shape, esz, P):
+    """K10: at most 16 blocks a (ROI, plane, centre), each owning a pixel
+    and every pixel owned by one; the staged chunk and the static shared
+    memory within a Hopper block's; the plane staged exactly where its
+    chunk fits; one block a (ROI, plane, centre) wherever a crop of at
+    most PS_FILL_PX pixels fits, more for larger crops while the batch's P
+    + 1 blocks a ROI leave SMs idle; threads a power of two from 64 to
+    PS_THREADS taking a chunk at PS_PX pixels a thread where they can."""
+    B, H, W = shape
+    A = H * W
+    path, C, chunk, threads, smem = tmoments.power_sums_plan(B, H, W, esz, P)
+    assert 1 <= C <= tmoments.PS_CLUSTER
+    assert _each_pixel_once(A, C, chunk)
+    room = SMEM_MAX - tmoments.PS_STATIC_SMEM
+    assert smem + tmoments.PS_STATIC_SMEM <= SMEM_MAX
+    assert (path == "staged") == (chunk * esz <= room)
+    assert smem == (chunk * esz if path == "staged" else 0)
+    if A * esz <= room and A <= tmoments.PS_FILL_PX:
+        assert C == 1
+    if A > tmoments.PS_FILL_PX and C < tmoments.PS_CLUSTER:
+        assert B * (P + 1) * C >= tcommon.SMS   # fills the card
+    assert threads in (64, 128, 256) and threads <= tmoments.PS_THREADS
+    assert threads == tmoments.PS_THREADS or threads * tmoments.PS_PX >= chunk
+    assert threads == 64 or threads // 2 * tmoments.PS_PX < chunk
+
+
+def test_power_sums_plan_main_path():
+    """The main buckets one staged block a (ROI, plane, centre), a launch a
+    call: 4 KB of plane at 32² f32, 16 KB at 64² (32 KB in f64); 2 x 256²
+    a cluster of 14 blocks (140 for 132 SMs) and the long ROI's 1 x 1024 x
+    64 of 16; an 8192² crop unstaged."""
+    plan = tmoments.power_sums_plan
+    assert plan(64, 32, 32, 4) == ("staged", 1, 1024, 256, 4096)
+    assert plan(47, 64, 64, 4) == ("staged", 1, 4096, 256, 16384)
+    assert plan(47, 64, 64, 8) == ("staged", 1, 4096, 256, 32768)
+    assert plan(28, 16, 16, 4) == ("staged", 1, 256, 64, 1024)
+    assert plan(2, 256, 256, 4) == ("staged", 14, 4682, 256, 18728)
+    assert plan(1, 1024, 64, 8) == ("staged", 16, 4096, 256, 32768)
+    assert plan(64, 32, 32, 4, 2)[:2] == ("staged", 1)
+    assert plan(1, 8192, 8192, 4)[:3] == ("global", 16, 8192 * 8192 // 16)
+
+
+@pytest.mark.parametrize("shape", MOMENT_SHAPES
+                         + [(132, 32, 32), (133, 32, 32), (225, 32, 32)],
+                         ids=str)
+def test_zernike_plan(shape):
+    """K12: at most ZK_CLUSTER (8) blocks a ROI, each owning a pixel and
+    every pixel owned by one, a chunk a whole number of pixels a thread,
+    the static shared memory within a Hopper block's; the batch in one
+    wave of a block an SM where it can (more blocks only while they fit
+    the SMs and each thread keeps a pixel), one block a ROI where it
+    cannot.  The element size does not enter: a block takes an SM's
+    registers in both types."""
+    B, H, W = shape
+    A = H * W
+    C, chunk = tzernike.zernike_plan(B, H, W)
+    T = tzernike.ZK_THREADS
+    assert 1 <= C <= tzernike.ZK_CLUSTER
+    assert chunk % T == 0 and _each_pixel_once(A, C, chunk)
+    assert tzernike.ZK_STATIC_SMEM <= SMEM_MAX
+    assert B * C <= tcommon.SMS or C == 1
+    if C < tzernike.ZK_CLUSTER and chunk > T:
+        assert B * (C + 1) > tcommon.SMS   # one more block a ROI would not fit
+
+
+def test_zernike_plan_main_path():
+    """One launch a call at the main buckets, in one wave: 64 x 32² a
+    cluster of two blocks a ROI (two pixels a thread, 128 blocks for 132
+    SMs), 47 x 64² two (eight pixels a thread), 28 x 16² one block a ROI
+    (a pixel a thread); 2 x 256² and 1 x 1024 x 64 eight; a slide's 225 x
+    32² one block a ROI in two waves."""
+    plan = tzernike.zernike_plan
+    assert plan(64, 32, 32) == (2, 512)
+    assert plan(47, 64, 64) == (2, 2048)
+    assert plan(28, 16, 16) == (1, 256)
+    assert plan(2, 256, 256) == (8, 8192)
+    assert plan(1, 1024, 64) == (8, 8192)
+    assert plan(225, 32, 32) == (1, 1024)

@@ -3,8 +3,11 @@ f64 on the CPU: the binary-mask features (ops/binary.py: erosion, Euler
 number, box-count fractal dimension), the power sums of ops/moments.py, and
 every member of the eight device families of the slice (basic morphology,
 ellipse, erosion, Euler, fractal box count, extrema, intensity and shape
-moments).  The port runs the plain versions of K8-K10 here
-(tests/test_torch_cuda.py holds the kernels against them on the card).
+moments, and Zernike).  The port runs the plain versions of K8-K10 here
+(tests/test_torch_cuda.py holds the kernels against them on the card), and
+Zernike (K12), whose centroid K10's sums give, beside them; K10's plain
+version is pinned bit for bit to the torch calls the families made before
+the kernel fused them.
 
 Inputs are the padded 16 x 16, 32 x 32 and 64 x 64 buckets of seeded
 conftest.make_blobs slides, assembled like the runners' dense path, with a
@@ -35,17 +38,19 @@ from nyxus_tpu.config import EngineConfig as JConfig
 from nyxus_tpu.ops import binary as jbinary
 from nyxus_tpu.ops import moments as jmoments
 
+import chip_smoke
 import nyxus_tpu_torch.registry as treg
 from nyxus_tpu_torch.config import EngineConfig as TConfig
 from nyxus_tpu_torch.ops import binary as tbinary
 from nyxus_tpu_torch.ops import moments as tmoments
+from nyxus_tpu_torch.ops.common import safe_div
 from nyxus_tpu_torch.pipeline import batching, labels
 
 SIZES = (16, 32, 64)
 DEVICE_FAMILIES = ("BasicMorphologyFeatures", "EllipseFittingFeature",
                    "ErosionPixelsFeature", "EulerNumberFeature",
                    "FractalDimensionFeature", "ExtremaFeature",
-                   "Imoms2D_feature", "Smoms2D_feature")
+                   "Imoms2D_feature", "Smoms2D_feature", "ZernikeFeature")
 ZERO_BY_CONSTRUCTION = ("CENTRAL_MOMENT_01", "CENTRAL_MOMENT_10",
                         "IMOM_CM_01", "IMOM_CM_10")
 _KEYS = ("intens", "mask", "area", "vmin", "vmax", "y0", "x0", "smin",
@@ -313,3 +318,111 @@ def test_family_members(family, size):
         # the 16 px bucket's ROIs have a negative weighted mass: their
         # weighted normalised moments are NaN on both sides
         assert any(np.isnan(v).any() for v in want.values())
+
+
+def _old_moment_calls(intens, mask, area, logw):
+    """The torch calls the morphology, ellipse and moment families made one
+    family at a time before K10 fused them: (morphology's raw sums of the
+    mask and the masked intensity, its local centroid, the ellipse's
+    centred sums, and for the intensity then the shape moments the raw
+    sums, the centres and the centred sums of moment_planes)."""
+    dt = intens.dtype
+    mw, mi = mask.to(dt), torch.where(mask, intens, 0)
+    morph = tmoments.power_sums_plain([mw, mi])
+    S = morph[:, 0].to(dt)
+    n = area.to(dt)
+    lc = torch.stack([S[:, 1, 0] / n, S[:, 0, 1] / n], dim=1)
+    ellipse = tmoments.power_sums_plain([mw], lc[:, None, :])[:, 0]
+    fams = []
+    for weights in (mi, mw):
+        planes = tmoments.moment_planes(weights, logw)
+        raw = tmoments.power_sums_plain(planes)
+        centres = []
+        for k in range(len(planes)):
+            Sk = raw[:, k].to(dt)
+            centres.append(torch.stack([safe_div(Sk[:, 1, 0], Sk[:, 0, 0]),
+                                        safe_div(Sk[:, 0, 1], Sk[:, 0, 0])],
+                                       dim=1))
+        centres = torch.stack(centres, dim=1)
+        fams.append((raw, centres, tmoments.power_sums_plain(planes, centres)))
+    return morph, lc, ellipse, fams
+
+
+def _moment_case(case, dtype):
+    """(intens, mask, area, logw) of a chip_smoke.CASES bucket (its index)
+    or a hand-made 32 x 32 crop: "empty" (no pixel, area 0), "one-pixel",
+    "uniform" (a full AABB of one intensity), "zero-m00" (a ROI of zero
+    intensities).  Intensities lie off the mask too (the planes mask them);
+    logw is log(d + 0.001) on the mask with d mostly 0, so the weighted
+    masses are negative."""
+    rng = np.random.default_rng(7)
+    if isinstance(case, int):
+        B, H, W, hw = chip_smoke.CASES[case]
+        orig, _, _, mask = chip_smoke.synth_bucket(
+            B, H, W, hw, case, dtype, empty=hw == (0, 0), device="cpu")
+        intens = orig + (~mask) * 7
+    else:
+        mask = torch.zeros((1, 32, 32), dtype=torch.bool)
+        intens = torch.from_numpy(rng.integers(1, 4000, (1, 32, 32))).to(dtype)
+        if case == "one-pixel":
+            mask[0, 5, 9] = True
+        elif case in ("uniform", "zero-m00"):
+            mask[0, :29, :31] = True
+            intens = torch.full_like(intens, 1000 if case == "uniform" else 0)
+    d = torch.from_numpy(rng.integers(0, 3, tuple(mask.shape))).to(dtype)
+    logw = torch.where(mask, torch.log(d + 0.001), 0)
+    area = mask.reshape(mask.shape[0], -1).sum(dim=1).to(torch.int32)
+    return intens, mask, area, logw
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test: the plain sums of the 256² and 1024 x
+    64 buckets take a fraction of a second alone, and tens of seconds when
+    each parallel region of a busy machine waits for eight threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _same_bits(a, b):
+    idt = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(idt),
+                                              b.contiguous().view(idt))
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("prec", ["f32", "f64"])
+@pytest.mark.parametrize("case", list(range(len(chip_smoke.CASES)))
+                         + ["empty", "one-pixel", "uniform", "zero-m00"])
+def test_moment_sums_plain_is_the_old_call_sequence(case, prec, weighted,
+                                                    one_thread):
+    """K10's plain version (moments.moment_sums_plain, one entry for every
+    sum and centre) equals, bit for bit, what the families' separate
+    calls gave: the same planes, centres and sums, in f32 and f64."""
+    dtype = torch.float32 if prec == "f32" else torch.float64
+    intens, mask, area, logw = _moment_case(case, dtype)
+    logw = logw if weighted else None
+    ms = tmoments.moment_sums_plain(intens, mask, area, logw)
+    morph, lc, ellipse, (imoms, smoms) = _old_moment_calls(intens, mask,
+                                                           area, logw)
+    P = 4 if weighted else 2
+    assert ms.raw.shape == ms.central.shape == (len(mask), P, 4, 4)
+    assert ms.centres.shape == (len(mask), P + 1, 2)
+    assert ms.centres.dtype == dtype
+    # (plane, the family's sums of it): mask, masked intensity, then the
+    # two weighted planes
+    old = [(0, smoms, 0), (1, imoms, 0)] + ([(2, imoms, 1), (3, smoms, 1)]
+                                            if weighted else [])
+    for p, (raw, centres, central), k in old:
+        assert _same_bits(ms.raw[:, p], raw[:, k]), p
+        assert _same_bits(ms.centres[:, p], centres[:, k]), p
+        assert _same_bits(ms.central[:, p], central[:, k]), p
+    assert _same_bits(ms.raw[:, :2], morph)
+    assert _same_bits(ms.centres[:, P], lc)
+    assert _same_bits(ms.ellipse, ellipse)
+    if case == "zero-m00":
+        assert (ms.centres[:, 1] == 0).all() and (ms.raw[:, 1] == 0).all()
+    if weighted and case in (0, "uniform"):
+        assert (ms.raw[:, 2:, 0, 0] < 0).all()    # negative weighted masses
