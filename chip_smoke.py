@@ -2,9 +2,11 @@
 """Smoke run of nyxus_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
-    python3 chip_smoke.py --kernel-times [ROOT]
-                                 (K1, K3, K5, K9, K10, K11, K12, K13, K15
-                                 and K16 alone, the package under ROOT)
+    python3 chip_smoke.py --kernel-times [ROOT [GROUP,...]]
+                                 (K1, K3, K5, K7, K8, K9, K10, K11, K12,
+                                 K13, K15 and K16 alone, the package under
+                                 ROOT; GROUP one of k1_k5, k3_k9, k7_k8,
+                                 k10_k12, k11_k13, k15_k16)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -31,11 +33,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    outside 1..ng, ragged widths, odd heights, the long ROI and 2048 and
    4096 levels, and K9 on full, checkerboard, one-pixel, empty and ragged
    masks, the long ROI's and 256², each by its plan and on every path its
-   plan can take, forced; K10, every moment sum and centre of a bucket in
+   plan can take, forced; K7 on every bucket and zone crop and on
+   uniform and per-pixel crops, A = 65535 and 65536, 7 x 13 and labels
+   off every zone or at pixels that are no seeds, and K8 on every bucket
+   and shape crop and on the cap, widths 31 to 65, the 256² disk, 1024 x
+   64 and 1025 x 64, each by its plan and on every plan forced; K10, every moment sum and centre of a bucket in
    one launch, with and without logw, and K12, the Zernike sums and
    magnitudes, on blank, flat-baseline, checkerboard, 256² disk, 64 x 32²
-   and 1024 x 64 crops by their plans and on every path forced).  3D (K13-K16, K7 on 3D labels, K1's split
-   path): the buckets 8³ to 64³ and a 64 x 256 x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
+   and 1024 x 64 crops by their plans and on every path forced).  3D
+   (K13-K16, K7 on 3D labels on every plan forced, also on uniform 64³
+   cubes, K1's split path): the buckets 8³ to 64³ and a 64 x 256 x 256 crop, 64 and 4096 (raw 12-bit) levels, both connectivities, the
    GLDM and NGLDM shift tables, NGTDM windows of radius 1 and 2, empty and
    uniform cubes; K14 is timed at raw levels and in the binned
    configuration (64 levels), its launch plan (cluster size, levels a
@@ -471,10 +478,112 @@ def zone_kernels_agree(agree, lev, valid, hts, wds):
     for got, want in zip(zones.zone_cc4(lev, valid, hts, wds), (cc4, dist)):
         agree("zone_cc4", got, want)
     for anc, d in ((dag, None), (cc4, dist)):
-        for got, want in zip(zones.zone_list(anc, lev, valid, d),
-                             zones.zone_list_plain(anc, lev, valid, d)):
-            if want is not None:
-                agree("zone_stats", got, want)
+        zone_stats_paths_agree(agree, anc, lev, valid, d)
+
+
+def zone_stats_plans(B, A, has_dist):
+    """Every K7 plan for B ROIs of A pixels: one block a ROI; clusters of 2
+    and 16 blocks a ROI (slabs of 4 pixels and empty slabs included); the
+    device path; each where its shared memory fits a block."""
+    from nyxus_tpu_torch.ops import zones
+    from nyxus_tpu_torch.ops.common import SMEM_MAX
+    out = []
+    for C in (1, 2, 16):
+        S = zones.zone_stats_slab(A, C)
+        smem = zones.zone_stats_smem(S, has_dist)
+        T = min(zones.ZS_THREADS_MAX, 32 * max(1, -(-S // 128)))
+        if smem <= SMEM_MAX:
+            out.append(("smem" if C == 1 else "cluster", C, T, smem))
+    out.append(("device", 0, 256, 0))
+    return out
+
+
+def forced_zone_stats_plan(plan):
+    """K7's plan replaced by one that returns ``plan`` whatever the shape;
+    returns the original (put it back with zones.zone_stats_plan = saved)."""
+    from nyxus_tpu_torch.ops import zones
+    saved = zones.zone_stats_plan
+    zones.zone_stats_plan = lambda B, A, has_dist: plan
+    return saved
+
+
+def zone_stats_paths_agree(agree, anc, lev, valid, dist):
+    """K7 against zone_list_plain by its plan and on every plan of
+    zone_stats_plans, forced; returns the number of forced plans."""
+    from nyxus_tpu_torch.ops import zones
+    want = zones.zone_list_plain(anc, lev, valid, dist)
+
+    def check():
+        for got, w in zip(zones.zone_list(anc, lev, valid, dist), want):
+            if w is not None:
+                agree("zone_stats", got, w)
+    check()
+    plans = zone_stats_plans(anc.shape[0], anc[0].numel(), dist is not None)
+    for plan in plans:
+        saved = forced_zone_stats_plan(plan)
+        try:
+            check()
+        finally:
+            zones.zone_stats_plan = saved
+    return len(plans)
+
+
+# K7's own cases (zone_stats_case), beyond the synth buckets
+ZONE_STATS_CASES = ("uniform 64x32²", "per-pixel 64x32²", "A=65535",
+                    "A=65536", "7x13", "labels A and non-seeds",
+                    "3D 8x32³", "3D 2x64³", "3D uniform 2x64³")
+
+
+def zone_stats_case(name, device="cuda", seed=0):
+    """[(anc, lev, valid, dist | None)] of one of ZONE_STATS_CASES, the
+    labels from the plain versions as GLSZM (K5's, no distances) and GLDZM
+    (K6's, with the distances) hand them to K7; in 3D K15's 26-connected
+    labels at raw levels and 6-connected labels and distances at 64 levels.
+    "uniform": one level on every pixel (one zone a ROI); "per-pixel": a
+    level a pixel (a zone a pixel); A = 65535 (255 x 257, scalar loads) and
+    65536 (256 x 256, 16-byte loads), clusters of 16 blocks; 7 x 13 (A not
+    a multiple of 4: scalar loads and stores); "labels A and non-seeds": valid pixels labelled A (off
+    every zone) or with the raster index of a pixel that is no seed."""
+    import torch
+    from nyxus_tpu_torch.ops import texture3d as t3, zones
+    r = np.random.default_rng(seed)
+    if name.startswith("3D"):
+        B, D = (8, 32) if "8x32" in name else (2, 64)
+        _, lev, raw, aabb, dd, hh, ww = synth_cube(
+            B, D, D, D, seed, torch.float32,
+            "uniform" if "uniform" in name else "blob", device)
+        sv = aabb & (raw != 0)
+        slev = torch.where(sv, raw, -1)
+        dlev = torch.where(aabb, lev, 0)
+        anc26, _ = t3.cc3d_plain(slev, sv, 26)
+        anc6, dist6 = t3.cc3d_plain(dlev, aabb, 6, hh, ww)
+        return [(anc26, slev, sv, None), (anc6, dlev, aabb, dist6)]
+    shape = {"A=65535": (2, 255, 257), "A=65536": (2, 256, 256),
+             "7x13": (3, 7, 13)}.get(name, (64, 32, 32))
+    B, H, W = shape
+    if name.startswith("uniform"):
+        lev = np.full(shape, 5)
+        valid = np.ones(shape, bool)
+    elif name.startswith("per-pixel"):
+        lev = np.broadcast_to(1 + np.arange(H * W).reshape(H, W), shape)
+        valid = np.ones(shape, bool)
+    else:
+        lev = r.integers(1, 4, shape)
+        valid = r.random(shape) < 0.95
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    lev = to(np.where(valid, lev, 0).astype(np.int32))
+    valid = to(valid)
+    hts = torch.full((B,), H, dtype=torch.int32, device=device)
+    wds = torch.full((B,), W, dtype=torch.int32, device=device)
+    dag = zones.zone_labels_plain(lev, valid)
+    cc4, dist = zones.zone_cc4_plain(lev, valid, hts, wds)
+    if name == "labels A and non-seeds":
+        pick = to(r.random(shape) < 0.05)
+        other = to(r.integers(0, H * W, shape).astype(np.int32))
+        off = to(r.random(shape) < 0.05)
+        dag = torch.where(pick, other, torch.where(off, H * W, dag))
+        cc4 = torch.where(pick, other, torch.where(off, H * W, cc4))
+    return [(dag, lev, valid, None), (cc4, lev, valid, dist)]
 
 
 def dag_cases(seed=0, device="cuda"):
@@ -795,7 +904,7 @@ def shape_cases(case, dtype, seed=0):
     return [("roi", roi, hts, wds)]
 
 
-def special_shape_cases():
+def special_shape_cases(device="cuda"):
     """Hand-made crops: 32 x 32 empty, full and checkerboard ones (a full
     AABB never erodes, its frozen border feeding the interior, so its count
     stops at the cap of 1000), and a 256 x 256 bucket holding a solid disk
@@ -808,15 +917,15 @@ def special_shape_cases():
     for name, m in (("empty", np.zeros((1, 32, 32), bool)),
                     ("full", np.ones((1, 32, 32), bool)),
                     ("checkerboard", ((yy + xx) % 2 == 0)[None])):
-        hw = torch.full((1,), 32, dtype=torch.int32, device="cuda")
-        out.append((name, torch.from_numpy(m).cuda(), hw, hw))
+        hw = torch.full((1,), 32, dtype=torch.int32, device=device)
+        out.append((name, torch.from_numpy(m).to(device), hw, hw))
     yy, xx = np.mgrid[0:256, 0:256]
     disk = np.zeros((3, 256, 256), bool)
     for k, r in enumerate((127.5, 9.5, 3.5)):
         disk[k] = (yy - r) ** 2 + (xx - r) ** 2 <= r * r
-    out.append(("disk256", torch.from_numpy(disk).cuda(),
-                torch.tensor([256, 20, 8], dtype=torch.int32, device="cuda"),
-                torch.tensor([256, 20, 8], dtype=torch.int32, device="cuda")))
+    out.append(("disk256", torch.from_numpy(disk).to(device),
+                torch.tensor([256, 20, 8], dtype=torch.int32, device=device),
+                torch.tensor([256, 20, 8], dtype=torch.int32, device=device)))
     return out
 
 
@@ -948,12 +1057,106 @@ def moment_paths_agree(agree, intens, mask, area, logw):
     return len(paths)
 
 
-def shape_kernels_agree(agree, mask, hts, wds, dtype, seed=0):
-    """K8, K9 and K10 against their plain versions on one input, K10 on
-    random and on uniform intensities (moment_sums_agree)."""
+def erosion_plans(B, H, W):
+    """Every K8 plan for B masks of H x W: the warp path in 32-bit (W <= 32)
+    and 64-bit words (W <= 64) at H <= 128; the block path where its
+    planes fit, with its plan's threads and with 64 (a thread walking many
+    rows); the device path."""
     from nyxus_tpu_torch.ops import binary
-    agree("erosion", binary.erosion_counts(mask, hts, wds),
-          binary.erosion_counts_plain(mask, hts, wds))
+    from nyxus_tpu_torch.ops.common import SMEM_MAX
+    out = []
+    if H <= binary.EROSION_WARP_H:
+        for bits, wmax in ((32, 32), (64, binary.EROSION_WARP_W)):
+            if W <= wmax:
+                out.append(("warp", bits, 32, 0))
+    NW = -(-W // 64)
+    smem = 16 * H * NW
+    if smem <= SMEM_MAX:
+        T = 32 * -(-NW * min(H, binary.EROSION_THREADS_MAX // NW) // 32)
+        out += [("block", 64, t, smem) for t in sorted({T, 64})]
+    out.append(("device", 8, 256, 0))
+    return out
+
+
+def forced_erosion_plan(plan):
+    """K8's plan replaced by one that returns ``plan`` whatever the shape;
+    returns the original (put it back with binary.erosion_plan = saved)."""
+    from nyxus_tpu_torch.ops import binary
+    saved = binary.erosion_plan
+    binary.erosion_plan = lambda B, H, W: plan
+    return saved
+
+
+def erosion_paths_agree(agree, mask, hts, wds):
+    """K8 against erosion_counts_plain by its plan and on every plan of
+    erosion_plans, forced; returns the number of forced plans."""
+    from nyxus_tpu_torch.ops import binary
+    want = binary.erosion_counts_plain(mask, hts, wds)
+    agree("erosion", binary.erosion_counts(mask, hts, wds), want)
+    plans = erosion_plans(*mask.shape)
+    for plan in plans:
+        saved = forced_erosion_plan(plan)
+        try:
+            agree("erosion", binary.erosion_counts(mask, hts, wds), want)
+        finally:
+            binary.erosion_plan = saved
+    return len(plans)
+
+
+# K8's own cases (erosion_case), beyond the synth buckets
+EROSION_CASES = ("full 32²", "w31", "w32", "w33", "w63", "w64", "w65",
+                 "7x13", "128x64", "129x64", "disk256", "long 1024x64",
+                 "tall 1024x64")
+
+
+def erosion_case(name, device="cuda", seed=0):
+    """(mask, heights, widths) of one of EROSION_CASES: two full 32² AABBs
+    (the cap: the frozen border feeds the interior); three solid ellipses of
+    AABB 40 x W in a 44 x W bucket, W = 31 to 65 (32- and 64-bit rows, the
+    block path past 64), the third with ~5% holes; 3 x 7 x 13 random
+    masks (no 16-byte rows); an ellipse filling 128 x 64 (the warp path's
+    largest: 4 rows a lane) and 129 x 64 (the block path's); the 256² disk
+    beside disks of 9 and 4 steps (special_shape_cases); the long ROI's 2 x
+    1024 x 64 bucket (a 600 x 40 ellipse); an ellipse filling 1024 x 64
+    (150 steps)."""
+    import torch
+    r = np.random.default_rng(seed)
+
+    def ellipse(B, H, W, h, w):
+        yy, xx = np.mgrid[0:H, 0:W]
+        e = (((yy - (h - 1) / 2) / (h / 2)) ** 2
+             + ((xx - (w - 1) / 2) / (w / 2)) ** 2 <= 1.0)
+        return np.broadcast_to(e, (B, H, W)).copy()
+
+    if name == "disk256":
+        return [c for c in special_shape_cases(device) if c[0] == name][0][1:]
+    if name == "full 32²":
+        m, hw = np.ones((2, 32, 32), bool), (32, 32)
+    elif name.startswith("w"):
+        W = int(name[1:])
+        m, hw = ellipse(3, 44, W, 40, W), (40, W)
+        m[2] &= r.random((44, W)) >= 0.05
+    elif name == "7x13":
+        m, hw = r.random((3, 7, 13)) < 0.9, (7, 13)
+    elif name == "long 1024x64":
+        m, hw = ellipse(2, 1024, 64, 600, 40), (600, 40)
+    elif name == "tall 1024x64":
+        m, hw = ellipse(1, 1024, 64, 1024, 64), (1024, 64)
+    else:
+        H = int(name.split("x")[0])
+        m, hw = ellipse(2, H, 64, H, 64), (H, 64)
+    B = m.shape[0]
+    return (torch.from_numpy(np.ascontiguousarray(m)).to(device),
+            torch.full((B,), hw[0], dtype=torch.int32, device=device),
+            torch.full((B,), hw[1], dtype=torch.int32, device=device))
+
+
+def shape_kernels_agree(agree, mask, hts, wds, dtype, seed=0):
+    """K8, K9 and K10 against their plain versions on one input, K8 on every
+    path (erosion_paths_agree), K10 on random and on uniform intensities
+    (moment_sums_agree)."""
+    from nyxus_tpu_torch.ops import binary
+    erosion_paths_agree(agree, mask, hts, wds)
     for got, want in zip(binary.binary_quads(mask),
                          binary.binary_quads_plain(mask)):
         agree("binary_quads", got, want)
@@ -1158,18 +1361,47 @@ def erosion_steps(mask, heights, widths):
     return binary.erosion_counts_plain(mask, heights, widths).tolist()
 
 
+def erosion_work(mask, heights, widths):
+    """[B] steps each ROI's count needs evaluated: up to the step that
+    empties its interior, or to the first step that changes nothing (its
+    count is then the cap), at most the cap; the plain version's loop with
+    that second stop, on the plain version's own step."""
+    import torch
+    from nyxus_tpu_torch.ops import binary
+    B = mask.shape[0]
+    interior = binary.erosion_interior(mask, heights, widths)
+    img = mask.to(torch.int32)
+    steps = torch.zeros(B, dtype=torch.int64, device=mask.device)
+    done = torch.zeros(B, dtype=torch.bool, device=mask.device)
+    while not bool(done.all()):
+        new = binary.erosion_step(img, interior)
+        steps = torch.where(done, steps, steps + 1)
+        stop = ((new * interior).sum(dim=(1, 2)) == 0) \
+            | (new == img).all(dim=2).all(dim=1) \
+            | (steps >= binary.EROSION_CAP)
+        done = done | stop
+        img = new
+    return steps
+
+
+def erosion_bound(mask, heights, widths):
+    """(bytes, operations) K8 must move and do: the mask and the AABB sizes
+    read once, the counts written once; 5 operations (a 5-way min and the
+    test) per interior pixel a step, over the steps erosion_work finds."""
+    B, H, W = mask.shape
+    interior = ((heights - 3).clamp(min=0) * (widths - 3).clamp(min=0))
+    ops = 5 * float((erosion_work(mask, heights, widths).double()
+                     * interior.double()).sum())
+    return B * H * W + 12 * B, ops
+
+
 def shape_bounds(mask, heights, widths, planes):
     """(bytes, operations) K8-K10 must move and do on these inputs, each
-    input read once and each output written once.  K8: the steps this data
-    takes (one more than its count, the last finding the interior empty),
-    5 operations (a 5-way min and the test) per interior pixel a step.
-    K9: quads_bound.  K10: power_sums_bound of its four planes."""
-    from nyxus_tpu_torch.ops import binary
+    input read once and each output written once.  K8: erosion_bound.  K9:
+    quads_bound.  K10: power_sums_bound of its four planes."""
     B, H, W = mask.shape
-    n = binary.erosion_counts_plain(mask, heights, widths).double()
-    interior = ((heights - 3).clamp(min=0) * (widths - 3).clamp(min=0)).double()
     return {
-        "erosion": (B * H * W + 4 * B, 5 * float(((n + 1) * interior).sum())),
+        "erosion": erosion_bound(mask, heights, widths),
         "binary_quads": quads_bound(B, H, W),
         "power_sums": power_sums_bound(planes),
     }
@@ -1321,6 +1553,18 @@ def check_kernels():
             "ROI, 2048 and 4096 levels) by its plan and on %d forced paths, "
             "and K9 on %d masks by its plan and on %d forced paths, agree"
             % (prec, len(n3), sum(n3), len(n9), sum(n9)))
+        n7 = [zone_stats_paths_agree(agree, *inp)
+              for name in ZONE_STATS_CASES if not name.startswith("3D")
+              for inp in zone_stats_case(name)]
+        n8 = [erosion_paths_agree(agree, *erosion_case(name))
+              for name in EROSION_CASES]
+        log("  %s: K7 on %d inputs (uniform and per-pixel crops, A = 65535 "
+            "and 65536, 7 x 13, labels A and non-seeds) by its plan and on "
+            "%d forced plans, and K8 on %d masks (the cap, widths 31 to 65, "
+            "128 and 129 x 64, the 256² disk, 1024 x 64) by its plan "
+            "and on %d "
+            "forced plans, agree" % (prec, len(n7), sum(n7), len(n8),
+                                     sum(n8)))
         steps = []
         for name, sm, hts, wds in special_shape_cases():
             shape_kernels_agree(agree, sm, hts, wds, dtype)
@@ -1427,6 +1671,13 @@ def check_kernels():
             res["batched_hist"]["library_ms"] = lib[1]
             log("  time batched_hist library scatter_add_: device %.4f ms "
                 "(events %.4f ms)" % (lib[1], lib[0]))
+            # K7's sizes and minimum distances as scatter_add_ and
+            # scatter_reduce_("amin") into filled [B, A + 1] rows (not
+            # called by the port)
+            lib = timed(zone_stats_library(anc, zv, dist))
+            res["zone_stats"]["library_ms"] = lib[1]
+            log("  time zone_stats library scatter_add_ + scatter_reduce_ "
+                "amin: device %.4f ms (events %.4f ms)" % (lib[1], lib[0]))
             # K10's raw sums as one einsum over its four planes (not called
             # by the port; the centred sums need their centres first):
             # sum_hw w[b,h,w] Y[q,h] X[p,w], Y = h^q, X = w^p
@@ -1485,7 +1736,7 @@ MAIN_CUBE = (8, 32, 32, 32)
 RAW_NG = 4096   # the matrix size of raw 12-bit levels (GLRLM/GLSZM/GLDM)
 
 
-def synth_cube(B, D, H, W, seed, dtype, kind="blob"):
+def synth_cube(B, D, H, W, seed, dtype, kind="blob", device="cuda"):
     """A padded 3D bucket of B ellipsoid ROIs with ~3% holes, the first
     filling its D x H x W cube and the others AABBs of random sizes:
     (masked 12-bit intensities, MATLAB levels at 64, raw levels, the AABB
@@ -1514,17 +1765,18 @@ def synth_cube(B, D, H, W, seed, dtype, kind="blob"):
     intens = np.floor(r.normal(2000, 500, roi.shape)).clip(1, 4095)
     if kind == "uniform":
         intens[:] = 1000.0
-    orig = torch.from_numpy(np.where(roi, intens, 0)).to(dtype).cuda()
+    orig = torch.from_numpy(np.where(roi, intens, 0)).to(dtype).to(device)
     vmax = orig.reshape(B, -1).amax(dim=1).clamp(min=1)[:, None, None, None]
     lev = quant.bin_levels(orig, vmax, vmax, 64)
-    dd, hh, ww = (torch.from_numpy(dims[:, k].astype(np.int32)).cuda()
+    dd, hh, ww = (torch.from_numpy(dims[:, k].astype(np.int32)).to(device)
                   for k in range(3))
     aabb = texture3d._in_aabb3d((D, H, W), dd, hh, ww)
     return orig, lev, orig.to(torch.int32), aabb, dd, hh, ww
 
 
 def kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=False):
-    """K13-K16, K7 on the 3D labels and K1 against their plain versions on
+    """K13-K16, K7 on the 3D labels (on every plan, forced) and K1 against
+    their plain versions on
     one synth_cube, with the inputs the 3D families hand them: K13 at 64
     levels (offsets 1 and 2, with and without the transpose) and, with
     ``big_glcm``, at 4096 raw levels (device memory); K14 at 64 levels and
@@ -1556,11 +1808,7 @@ def kernels_3d_agree(agree, cube, dtype, rtol, big_glcm=False):
         agree("glrlm3d_runs", t3.glrlm3d_runs(lv, valid, ng, nr, dtype),
               t3.glrlm3d_runs_plain(lv, valid, ng, nr, dtype))
     for inp, valid, want in k15_k16_agree(agree, cube):
-        d = want[1]
-        for g, w in zip(zones.zone_list(want[0], inp, valid, d),
-                        zones.zone_list_plain(want[0], inp, valid, d)):
-            if w is not None:
-                agree("zone_stats", g, w)
+        zone_stats_paths_agree(agree, want[0], inp, valid, want[1])
     glev = torch.where(aabb, raw, -9)
     same = t3.stencil3d_plain(glev, aabb, t3.N26)
     cells = common._composite((raw - 1).reshape(B, -1), same.reshape(B, -1),
@@ -1838,6 +2086,139 @@ def k3_k9_times(iters=20):
                 "plan (path, ROIs a block, words a row, smem) %s"
                 % (name, mB, mH, mW, ms, ev, nl, max(bytes_ms, ops_ms),
                    "bytes" if bytes_ms >= ops_ms else "operations", plan))
+
+
+def zone_stats_library(anc, valid, dist):
+    """The PyTorch calls that compute K7's sizes (and minimum distances):
+    scatter_add_ (and scatter_reduce_ "amin") into filled [B, A + 1] rows,
+    the labels off ``valid`` sent to slot A; a function of no arguments,
+    its int64 index and weights made once (the yardstick of K7's library
+    time; the port never calls it)."""
+    import torch
+    B = anc.shape[0]
+    A = anc[0].numel()
+    vf = valid.reshape(B, -1)
+    idx = torch.where(vf, anc.reshape(B, -1), A).long()
+    ones = vf.to(torch.int32)
+    df = None if dist is None else dist.reshape(B, -1).to(torch.int32)
+
+    def call():
+        size = torch.zeros((B, A + 1), dtype=torch.int32, device=anc.device)
+        size.scatter_add_(1, idx, ones)
+        if df is not None:
+            dmin = torch.full((B, A + 1), 1 << 30, dtype=torch.int32,
+                              device=anc.device)
+            dmin.scatter_reduce_(1, idx, df, "amin")
+    return call
+
+
+# K7's timed shapes: the main path's three 2D buckets and the 3D cubes
+# 8 x 32³, 42 x 16³ and 2 x 64³; K8's the main three, 1 x 1024 x 64, the
+# 256² disk and the cap
+K7_K8_CUBES = (MAIN_CUBE, (42, 16, 16, 16), (2, 64, 64, 64))
+# a 32² bucket as full as a slide's (300 ROIs, more than the SMs)
+K7_K8_WIDE = (300, 32, 32, (29, 31))
+
+
+def k7_k8_times(iters=20):
+    """K7 and K8 in f32 with their launch plans: device and events ms a
+    call, device launches a call (from the profiler) and the bound.  K7 on
+    GLSZM's labels (no distances) and GLDZM's (with them) at the main
+    buckets (AABB participation) and at K7_K8_CUBES (K15's 26-connected
+    labels at raw levels, 6-connected labels and distances at 64 levels),
+    each beside its library calls (zone_stats_library); K8 on the synth
+    buckets' ROI masks, the long ROI's 1 x 1024 x 64, the 256² disk, a full
+    32² AABB (the cap) and an ellipse filling 1024 x 64 (erosion_case's
+    "tall"), the longest ROI's count and the steps it needs
+    beside each time, by its plan and on every plan of erosion_plans,
+    forced.  Runs on any tree's package (a tree without the plans prints
+    none and times the plan alone), so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.ops import binary, texture3d as t3, zones
+    zplan = getattr(zones, "zone_stats_plan", None)
+    eplan = getattr(binary, "erosion_plan", None)
+    f32 = torch.float32
+
+    def k7(name, anc, lev, valid, dist, forced=False):
+        B = anc.shape[0]
+        A = anc[0].numel()
+        lib_ev, lib_ms, _ = timed(zone_stats_library(anc, valid, dist),
+                                  iters)
+        nbytes = 2 * B * A * (13 if dist is not None else 9)
+        plans = [None] + (zone_stats_plans(B, A, dist is not None)
+                          if zplan and forced else [])
+        for plan in plans:
+            saved = forced_zone_stats_plan(plan) if plan else None
+            try:
+                ev, ms, nl = timed(
+                    lambda: zones.zone_list(anc, lev, valid, dist), iters)
+            finally:
+                if saved:
+                    zones.zone_stats_plan = saved
+            log("  K7 zone_stats %s f32 B=%d A=%d: device %.4f ms (events "
+                "%.4f ms), %s device launches a call; library %.4f ms "
+                "(events %.4f ms); bound %.5f ms (bytes); plan (path, C, "
+                "threads, smem) %s%s"
+                % (name, B, A, ms, ev, nl, lib_ms, lib_ev,
+                   nbytes / HBM_BYTES_S * 1e3,
+                   plan or (zplan(B, A, dist is not None) if zplan
+                            else "none in this tree"),
+                   " forced" if plan else ""))
+
+    for B, H, W, hw in CASES[:3] + (K7_K8_WIDE,):
+        _, zl, zv, hts, wds = zone_cases((B, H, W, hw), f32)[0]
+        cc4, dist = zones.zone_cc4_plain(zl, zv, hts, wds)
+        dag = zones.zone_labels_plain(zl, zv)
+        tag = "%dx%d" % (H, W)
+        tag = "%s B=%d" % (tag, B) if B == K7_K8_WIDE[0] else tag
+        k7("GLDZM %s (dist)" % tag, cc4, zl, zv, dist, True)
+        k7("GLSZM %s" % tag, dag, zl, zv, None, True)
+    for cube_shape in K7_K8_CUBES:
+        _, lev, raw, aabb, dd, hh, ww = synth_cube(*cube_shape, 0, f32)
+        sv = aabb & (raw != 0)
+        slev = torch.where(sv, raw, -1)
+        dlev = torch.where(aabb, lev, 0)
+        tag = "3D %dx%dx%d" % cube_shape[1:]
+        anc6, dist6 = t3.cc3d_plain(dlev, aabb, 6, hh, ww)
+        k7("GLDZM %s (dist)" % tag, anc6, dlev, aabb, dist6, True)
+        k7("GLSZM %s" % tag, t3.cc3d_plain(slev, sv, 26)[0], slev, sv, None,
+           True)
+
+    masks = []
+    for B, H, W, hw in CASES[:3] + (K7_K8_WIDE, (1, 1024, 64, (600, 40))):
+        _, sm, hts, wds = shape_cases((B, H, W, hw), f32)[0]
+        masks.append(("synth", sm, hts, wds))
+    masks += [(name, *c[1:]) for c in special_shape_cases()
+              for name in (c[0],) if name in ("disk256", "full")]
+    masks.append(("tall", *erosion_case("tall 1024x64")))
+    for name, m, hts, wds in masks:
+        B, H, W = m.shape
+        count = max(erosion_steps(m, hts, wds))
+        if hasattr(binary, "erosion_step"):
+            nbytes, ops = erosion_bound(m, hts, wds)
+            need = "%d steps needed" % int(erosion_work(m, hts, wds).max())
+            bound = "%.5f ms (%s)" % (
+                max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3,
+                "bytes" if nbytes / HBM_BYTES_S >= ops / OPS_S
+                else "operations")
+        else:  # a tree without the plain step: the other tree's bound holds
+            need, bound = "steps needed not counted", "not computed"
+        plans = [None] + (erosion_plans(B, H, W) if eplan else [])
+        for plan in plans:
+            saved = forced_erosion_plan(plan) if plan else None
+            try:
+                ev, ms, nl = timed(lambda: binary.erosion_counts(m, hts, wds),
+                                   iters)
+            finally:
+                if saved:
+                    binary.erosion_plan = saved
+            log("  K8 erosion %s f32 B=%d %dx%d (longest count %d, %s): "
+                "device %.4f ms (events %.4f ms), %s device launches a call; "
+                "bound %s; plan (path, word bits, threads, smem) %s%s"
+                % (name, B, H, W, count, need, ms, ev, nl, bound,
+                   plan or (eplan(B, H, W) if eplan else "none in this tree"),
+                   " forced" if plan else ""))
 
 
 # K11's timed buckets (the main path's three, then 2 x 256^2, which takes
@@ -2162,6 +2543,11 @@ def check_kernels_3d():
                 raise AssertionError("cc3d: %d zones in the %s cubes" % (n,
                                                                          kind))
         log("  %s: empty and uniform 16^3 cubes agree (0 and 4 zones)" % prec)
+        n7 = [zone_stats_paths_agree(agree, *inp)
+              for inp in zone_stats_case("3D uniform 2x64³")]
+        log("  %s: K7 on the uniform 2 x 64³ cubes' 26- and 6-connected "
+            "zones agrees by its plan and on %d forced plans" % (prec,
+                                                                 sum(n7)))
         # K15's 32-bit parents (a cube of 65536 voxels) on the special
         # kinds, then K15's device-memory and K16's voxel paths, forced
         for kind in ("empty", "uniform", "blob"):
@@ -2760,12 +3146,13 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 # ---------------------------------------------------------------------------
 
 
-def kernel_times_only(root):
-    """--kernel-times [ROOT]: build the kernels of the package under ROOT
-    (by default this script's tree), print k1_k5_times, k3_k9_times,
-    k10_k12_times, k11_k13_times, k15_k16_times and the card; no result
-    line.  Two trees timed in one call, in turns, compare the two versions
-    of K1, K3, K5, K9, K10, K11, K12, K13, K15 and K16 on one card."""
+def kernel_times_only(root, only=None):
+    """--kernel-times [ROOT [GROUP,...]]: build the kernels of the package
+    under ROOT (by default this script's tree), print k1_k5_times,
+    k3_k9_times, k7_k8_times, k10_k12_times, k11_k13_times, k15_k16_times
+    (or only the named groups, e.g. "k7_k8") and the card; no result line.
+    Two trees timed in one call, in turns, compare the two versions of K1,
+    K3, K5, K7, K8, K9, K10, K11, K12, K13, K15 and K16 on one card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -2775,11 +3162,11 @@ def kernel_times_only(root):
     _build.lib()
     log("kernels of %s built in %.1f s" % (os.path.abspath(root),
                                            time.perf_counter() - t0))
-    k1_k5_times()
-    k3_k9_times()
-    k10_k12_times()
-    k11_k13_times()
-    k15_k16_times()
+    groups = {"k1_k5": k1_k5_times, "k3_k9": k3_k9_times,
+              "k7_k8": k7_k8_times, "k10_k12": k10_k12_times,
+              "k11_k13": k11_k13_times, "k15_k16": k15_k16_times}
+    for name in (only.split(",") if only else groups):
+        groups[name]()
     log(card_line())
 
 
@@ -2789,7 +3176,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
     if sys.argv[1:2] == ["--kernel-times"]:
-        return kernel_times_only(sys.argv[2] if len(sys.argv) > 2 else HERE)
+        return kernel_times_only(sys.argv[2] if len(sys.argv) > 2 else HERE,
+                                 sys.argv[3] if len(sys.argv) > 3 else None)
     sys.path.insert(0, HERE)
     try:
         import nyxus_tpu_torch  # noqa: F401

@@ -46,17 +46,6 @@
 // and the load latency.
 #include "common.cuh"
 
-// 4 bytes of 0/1 -> 4 bits (byte j to bit j): the products of the bytes'
-// low bits with 0x01020408 meet, without carries, in bits 24..27
-__device__ __forceinline__ unsigned int nyx_pack4(unsigned int v) {
-  return ((v & 0x01010101u) * 0x01020408u) >> 24;
-}
-
-__device__ __forceinline__ unsigned int nyx_pack16(uint4 v) {
-  return nyx_pack4(v.x) | (nyx_pack4(v.y) << 4) | (nyx_pack4(v.z) << 8) |
-         (nyx_pack4(v.w) << 12);
-}
-
 // bits 0, 2, ..., 30 of x moved to bits 0..15
 __device__ __forceinline__ unsigned int nyx_even_bits(unsigned int x) {
   x &= 0x55555555u;

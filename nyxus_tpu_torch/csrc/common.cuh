@@ -51,7 +51,7 @@ static cudaError_t nyx_allow_cluster(K kernel, size_t bytes, int cluster,
 
 // the shared::cluster address of ``p`` (this block's shared memory) in the
 // shared memory of the cluster's block ``rank``, and a fire-and-forget add
-// there (thread-block clusters, sm_90)
+// or signed min there (thread-block clusters, sm_90)
 __device__ __forceinline__ unsigned int nyx_mapa(const void* p,
                                                  unsigned int rank) {
   const unsigned int l =
@@ -66,6 +66,12 @@ __device__ __forceinline__ unsigned int nyx_mapa(const void* p,
 __device__ __forceinline__ void nyx_red_add(unsigned int addr,
                                             unsigned int v) {
   asm volatile("red.relaxed.cluster.shared::cluster.add.u32 [%0], %1;"
+               ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void nyx_red_min(unsigned int addr, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.min.s32 [%0], %1;"
                ::"r"(addr), "r"(v)
                : "memory");
 }
@@ -224,4 +230,16 @@ __device__ __forceinline__ void nyx_block_sums(double* v, double* red,
       s += red[w * N + threadIdx.x];
     out[threadIdx.x] = s;
   }
+}
+
+// 0/1 bytes to bits (K8's and K9's bit rows): 4 bytes -> 4 bits (byte j
+// to bit j), the products of the bytes' low bits with 0x01020408 meeting,
+// without carries, in bits 24..27; 16 bytes -> 16 bits
+__device__ __forceinline__ unsigned int nyx_pack4(unsigned int v) {
+  return ((v & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ unsigned int nyx_pack16(uint4 v) {
+  return nyx_pack4(v.x) | (nyx_pack4(v.y) << 4) | (nyx_pack4(v.z) << 8) |
+         (nyx_pack4(v.w) << 12);
 }

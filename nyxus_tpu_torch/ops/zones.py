@@ -15,8 +15,9 @@ CUDA tensor launches the kernel or raises):
   a ROI with its rows in registers (``zone_dag_plan``)
 * K6 ``zone_cc4`` (csrc/zone_cc4.cu): union-find, plus the GLDZM border
   distance in the same launch
-* K7 zone_stats, ``zone_list`` (csrc/zone_stats.cu): per-zone atomics, no
-  sort
+* K7 zone_stats, ``zone_list`` (csrc/zone_stats.cu): a zone's size and
+  minimum distance counted in shared memory, one atomic a run of one
+  label, no sort (``zone_stats_plan``)
 
 The plain versions keep the JAX package's fixpoint formulation (vertical
 pulls plus segmented prefix-mins along x, repeated until nothing changes), a
@@ -346,6 +347,48 @@ def zone_cc4(lev, valid, heights, widths):
 zone_cc4.launches = 0
 
 
+# K7's launch plan: threads a block at most; the cluster path's blocks a
+# ROI at most, and the pixels a block aims at (a pass of 1024 threads of 4
+# pixels)
+ZS_THREADS_MAX = 1024
+ZS_CLUSTER_MAX = 16
+ZS_SLAB = 4096
+
+
+def zone_stats_slab(A: int, C: int) -> int:
+    """Pixels (and labels) each of C blocks of a ROI of A pixels reads and
+    owns: ceil(A / C) rounded up to a multiple of 4."""
+    return (-(-A // C) + 3) // 4 * 4
+
+
+def zone_stats_smem(S: int, has_dist: bool) -> int:
+    """Shared memory of one ROI's (or cluster block's) S labels: the sizes
+    (32-bit), the distance minima (32-bit) with ``has_dist``, a seed byte a
+    label; each part 16-byte aligned."""
+    return 4 * S + (4 * S if has_dist else 0) + (S + 15) // 16 * 16
+
+
+def zone_stats_plan(B: int, A: int, has_dist: bool):
+    """(path, C, threads, smem) of K7's launch for B ROIs of A pixels.  C
+    is the fewest blocks a ROI whose slabs' counters fit a block's
+    SMEM_MAX, raised to ceil(A / ZS_SLAB) (at most ZS_CLUSTER_MAX) so that
+    a large ROI spreads over SMs; a block has a thread (4 pixels) a slab
+    pixel, at most ZS_THREADS_MAX.  "smem": C = 1, one block a ROI.
+    "cluster": a cluster of C blocks a ROI.  "device": no cluster of
+    ZS_CLUSTER_MAX blocks holds the counters (C 0, 256 threads, smem 0).
+    B does not change the plan: at 300 x 32² two or three ROIs a block ran
+    no faster than one (PERF.md)."""
+    fit = next((c for c in range(1, ZS_CLUSTER_MAX + 1)
+                if zone_stats_smem(zone_stats_slab(A, c), has_dist)
+                <= SMEM_MAX), None)
+    if fit is None:
+        return "device", 0, 256, 0
+    C = max(fit, min(ZS_CLUSTER_MAX, -(-A // ZS_SLAB)))
+    S = zone_stats_slab(A, C)
+    T = min(ZS_THREADS_MAX, 32 * max(1, -(-S // 128)))
+    return ("cluster" if C > 1 else "smem"), C, T, zone_stats_smem(S, has_dist)
+
+
 def zone_list(anc, lev, valid, dist=None):
     """Per-zone (level, size[, min dist]) lists: K7 zone_stats
     (csrc/zone_stats.cu), replacing nyxus_tpu/ops/zones.py:140 zone_list.
@@ -357,9 +400,11 @@ def zone_list(anc, lev, valid, dist=None):
     Returns (zlev, zsize, zdist | None, ok): [B, A] int32 arrays (ok bool)
     in raster order of the zone seeds: position p holds zone p where ok[p]
     (p is valid and its own seed), zeros elsewhere.  The JAX package returns
-    the same zones in sorted-label order.  On the card one block per ROI
-    counts with atomics in the output buffers; no sort.  Bound on the card:
-    bytes and atomics on popular zones."""
+    the same zones in sorted-label order.  On the card one launch
+    (``zone_stats_plan``): the counters of a ROI in a block's shared memory,
+    or in a cluster's, a warp's runs of one label each adding once; beyond
+    a cluster, atomics in the output buffers.  No sort.  Bound on the card:
+    bytes."""
     if not _kernel_device(anc, "zone_stats"):
         return zone_list_plain(anc, lev, valid, dist)
     B = anc.shape[0]
@@ -382,12 +427,19 @@ def zone_list(anc, lev, valid, dist=None):
         zdist = torch.empty_like(anc)
     if anc.numel() == 0:
         return zlev, zsize, zdist, ok
+    path, C, T, smem = zone_stats_plan(B, A, dist is not None)
+    ints = [anc, lev, zlev, zsize] + ([dist, zdist] if dist is not None
+                                      else [])
+    vec = A % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ints) \
+        and valid.data_ptr() % 4 == 0 and ok.data_ptr() % 4 == 0
     with torch.cuda.device(anc.device):
         code = _build.lib().nyx_zone_stats(
             anc.data_ptr(), lev.data_ptr(), valid.data_ptr(),
             0 if dist is None else dist.data_ptr(), zlev.data_ptr(),
             zsize.data_ptr(), 0 if zdist is None else zdist.data_ptr(),
-            ok.data_ptr(), B, A, _build.stream_of(anc))
+            ok.data_ptr(), B, A, ("smem", "cluster", "device").index(path),
+            C, T, smem, int(vec),
+            _build.stream_of(anc))
     _build.check("zone_stats", code)
     zone_list.launches += 1
     return zlev, zsize, zdist, ok

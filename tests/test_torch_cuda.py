@@ -29,9 +29,10 @@ the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
 sum(w); they are exact on dyadic weights.  K1 on its own cases
 (chip_smoke.hist_cases: channels, cluster-merged rows, split bins, uniform
 ROIs) is equal on 0/1 weights and within that bound on float weights.
-K3 and K9 are equal on their own cases (chip_smoke.runs_cases,
-quads_cases) by their plans and on every path their plans can take,
-forced.
+K3, K7, K8 and K9 are equal on their own cases (chip_smoke.runs_cases,
+zone_stats_case, erosion_case, quads_cases) by their plans and on every
+path their plans can take, forced; K7 and K8 also on every bucket and
+special crop.
 K17's bin indices and counts are
 equal, its values within 1e-5 (f32) / 1e-12 (f64) of their value plus
 their row's scale (both versions form the same terms and sum them in
@@ -305,6 +306,38 @@ def test_binary_quads_paths(crop, prec, monkeypatch):
         assert torch.equal(
             binary.fract_dim_boxcount(mask, hts, wds, dtype, boxes),
             binary.fract_dim_boxcount(mask, hts, wds, dtype, pb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.ZONE_STATS_CASES)
+def test_zone_stats_paths(case):
+    """K7 equal to its plain version on GLSZM's labels and on GLDZM's labels
+    and distances of uniform (one zone) and per-pixel (a zone a pixel) 64 x
+    32² crops, A = 65535 and 65536, 7 x 13, valid pixels labelled A or at
+    a pixel that is no seed, and the 3D 8 x 32³, 2 x 64³ and uniform 2 x
+    64³ cubes: by its plan and on every plan of
+    chip_smoke.zone_stats_plans (one block a ROI, clusters of 2 and 16,
+    the device path), forced."""
+    for anc, lev, valid, dist in chip_smoke.zone_stats_case(case):
+        assert chip_smoke.zone_stats_paths_agree(_Agree(), anc, lev, valid,
+                                                 dist) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop", chip_smoke.EROSION_CASES)
+def test_erosion_paths(crop):
+    """K8 equal to its plain version on two full 32² AABBs (the cap),
+    ellipses of widths 31, 32, 33, 63, 64 and 65, 7 x 13 masks, an ellipse
+    filling 128 x 64 and one 129 x 64, the 256² disk beside disks of 9 and
+    4 steps, the long ROI's 1024 x 64 bucket, an ellipse filling 1024 x 64:
+    by its plan and on every
+    plan of chip_smoke.erosion_plans (the warp path in 32- and 64-bit
+    words, the block path at its plan's threads and at 64, the device
+    path), forced."""
+    mask, hts, wds = chip_smoke.erosion_case(crop)
+    assert chip_smoke.erosion_paths_agree(_Agree(), mask, hts, wds) >= 2
+    if crop == "full 32²":
+        assert binary.erosion_counts(mask, hts, wds).tolist() == [1000, 1000]
 
 
 @pytest.mark.cuda

@@ -1,12 +1,13 @@
 """The launch plans of K1 ``batched_hist``, K3 ``glrlm_runs``, K5
-``zone_dag``, K9 ``binary_quads``, K10 ``power_sums``, K11 ``gabor``, K12
-``zernike``, K13 ``glcm3d_cooc``, K15 ``cc3d`` and K16 ``stencil3d``
-(nyxus_tpu_torch/ops/common.py batched_hist_plan, ops/glrlm.py
-glrlm_runs_plan, ops/zones.py zone_dag_plan, ops/binary.py
+``zone_dag``, K7 ``zone_stats``, K8 ``erosion``, K9 ``binary_quads``, K10
+``power_sums``, K11 ``gabor``, K12 ``zernike``, K13 ``glcm3d_cooc``, K15
+``cc3d`` and K16 ``stencil3d`` (nyxus_tpu_torch/ops/common.py
+batched_hist_plan, ops/glrlm.py glrlm_runs_plan, ops/zones.py
+zone_dag_plan, zone_stats_plan, ops/binary.py erosion_plan,
 binary_quads_plan, ops/moments.py power_sums_plan, ops/gabor.py gabor_plan,
 ops/zernike.py zernike_plan, ops/texture3d.py glcm3d_plan, cc3d_plan,
-stencil3d_plan; K1, K3, K5, K9, K10 and K12 at the shapes their own tests
-below name), checked in plain Python at every
+stencil3d_plan; K1, K3, K5, K7, K8, K9, K10 and K12 at the shapes their own
+tests below name), checked in plain Python at every
 bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
 3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
 and 1 to 4096 grey levels: the shared memory a block asks for is within a
@@ -716,3 +717,178 @@ def test_zernike_plan_main_path():
     assert plan(2, 256, 256) == (8, 8192)
     assert plan(1, 1024, 64) == (8, 8192)
     assert plan(225, 32, 32) == (1, 1024)
+
+
+# K7's (B, A, label shape): the main path's three 2D buckets, 5 x 32², 3 x
+# 7 x 13, the long ROI's 1024 x 64 and 2 x 256², a large batch of 32²
+# ROIs, the 3D cubes 8³ to 64³ and the 64 x 256 x 256 crop, A = 65535
+# against 65536 and 65537 (16 slabs), the largest ROI of 4096-pixel slabs, and the largest ROI a 16-block cluster holds with and
+# without the distances (413184 and 743808 pixels) against the next
+ZS_SHAPES = [(64, 1024), (47, 4096), (28, 256), (5, 1024), (3, 91),
+             (2, 65536), (500, 1024), (64, 512), (32, 4096), (8, 32768),
+             (2, 262144), (1, 64 * 256 * 256), (1, 65535), (1, 65536),
+             (1, 65537), (1, 16 * 4096), (1, 16 * 4096 + 1), (1, 413184),
+             (1, 413185), (1, 743808), (1, 743809), (2, 4097), (1, 1),
+             (1, 3)]
+
+
+@pytest.mark.parametrize("has_dist", [False, True])
+@pytest.mark.parametrize("shape", ZS_SHAPES, ids=str)
+def test_zone_stats_plan(shape, has_dist):
+    """K7: 32-bit sizes and minima; the fewest blocks a ROI whose slabs'
+    counters fit a Hopper block's shared memory (slabs of a multiple of 4
+    pixels, every pixel owned by one block), raised to a block a ZS_SLAB
+    pixels up to 16; one block a ROI on the smem path whatever the batch,
+    a cluster beyond one block, the device path where no 16-block cluster
+    holds the counters; a thread a 4 pixels of a slab, at most 1024."""
+    B, A = shape
+    plan = tzones.zone_stats_plan(B, A, has_dist)
+    assert all(tzones.zone_stats_plan(b, A, has_dist) == plan
+               for b in (1, 1000))
+    path, C, T, smem = plan
+    fits = [c for c in range(1, 17) if tzones.zone_stats_smem(
+        tzones.zone_stats_slab(A, c), has_dist) <= SMEM_MAX]
+    if not fits:
+        assert plan == ("device", 0, 256, 0)
+        return
+    assert C == max(fits[0], min(16, -(-A // tzones.ZS_SLAB)))
+    S = tzones.zone_stats_slab(A, C)
+    assert S % 4 == 0 and C * S >= A and (C - 1) * S < A + 4 * C
+    assert smem == tzones.zone_stats_smem(S, has_dist) \
+        == 4 * S + (4 * S if has_dist else 0) + (S + 15) // 16 * 16
+    assert T == min(1024, 32 * -(-S // 128)) and smem <= SMEM_MAX
+    assert path == ("cluster" if C > 1 else "smem")
+
+
+def test_zone_stats_plan_main_path():
+    """The main buckets one block a ROI with 32-bit sizes (and GLDZM's
+    minima): 64 x 32² of 256 threads in 9 KB with the distances, 5 KB
+    without; 47 x 64² 1024 threads; a slide's 300 x 32² as 64 x 32²; the
+    long ROI's 1024 x 64 and 2 x 256² (65536 pixels) clusters of 16; the
+    3D cubes: 8³ and 16³ one block, 8 x 32³ a cluster of 8, 2 x 64³ of 16
+    (147 KB a block with the distances), the 64 x 256 x 256 crop the
+    device path."""
+    plan = tzones.zone_stats_plan
+    assert plan(64, 1024, True) == ("smem", 1, 256, 9216)
+    assert plan(64, 1024, False) == ("smem", 1, 256, 5120)
+    assert plan(47, 4096, True) == ("smem", 1, 1024, 36864)
+    assert plan(28, 256, False) == ("smem", 1, 64, 1280)
+    assert plan(300, 1024, True) == ("smem", 1, 256, 9216)
+    assert plan(500, 1024, True) == ("smem", 1, 256, 9216)
+    assert plan(2, 65536, True) == ("cluster", 16, 1024, 36864)
+    assert plan(1, 65535, True)[:2] == ("cluster", 16)
+    assert plan(64, 512, False) == ("smem", 1, 128, 2560)
+    assert plan(8, 32768, True) == ("cluster", 8, 1024, 36864)
+    assert plan(2, 262144, True) == ("cluster", 16, 1024, 147456)
+    assert plan(2, 262144, False) == ("cluster", 16, 1024, 81920)
+    assert plan(1, 64 * 256 * 256, False)[0] == "device"
+    assert plan(1, 413184, True)[:2] == ("cluster", 16)
+    assert plan(1, 413185, True)[0] == "device"
+    assert plan(1, 743808, False)[:2] == ("cluster", 16)
+    assert plan(1, 743809, False)[0] == "device"
+
+
+# K8's (B, H, W): the main path's three buckets, 5 x 32², 3 x 7 x 13, the
+# long ROI's 1 x 1024 x 64, 2 x 256², a large batch of 32² masks, widths
+# 31/32/33/63/64/65, heights 128/129 and 1024/1025, and the block path's
+# largest square (968 x 968, 15 words a row) against the first past it, a
+# wide row
+ERO_SHAPES = [(64, 32, 32), (47, 64, 64), (28, 16, 16), (5, 32, 32),
+              (3, 7, 13), (1, 1024, 64), (2, 256, 256), (5000, 32, 32),
+              (1, 32, 31), (1, 32, 33), (1, 32, 63), (1, 32, 65),
+              (1, 128, 64), (1, 129, 64), (1, 128, 32), (1, 1024, 65),
+              (1, 1025, 64), (1, 968, 960), (1, 969, 960), (1, 968, 961),
+              (1, 4, 4096), (1, 0, 0)]
+
+
+@pytest.mark.parametrize("shape", ERO_SHAPES, ids=str)
+def test_erosion_plan(shape):
+    """K8: the warp path exactly where W <= 64 and H <= 128 (32-bit rows
+    up to 32 columns, else 64-bit), a block of one warp a ROI whatever the
+    batch; else a block a ROI with two planes of H x ceil(W / 64) 64-bit
+    words where they fit a Hopper block's shared memory, a thread a column
+    of words; else the device path's byte planes."""
+    B, H, W = shape
+    plan = tbinary.erosion_plan(B, H, W)
+    assert all(tbinary.erosion_plan(b, H, W) == plan for b in (1, 5000))
+    path, bits, T, smem = plan
+    if W <= 64 and H <= 128:
+        assert plan == ("warp", 32 if W <= 32 else 64, 32, 0)
+        return
+    NW = -(-W // 64)
+    if NW <= 1024 and 16 * H * NW <= SMEM_MAX:
+        assert (path, bits, smem) == ("block", 64, 16 * H * NW)
+        # whole warps, a thread a column of words, every word held: RP
+        # rows a pass of NW threads each, all H rows in one pass where 1024
+        # threads take them
+        assert T % 32 == 0 and NW <= T <= 1024
+        RP = T // NW
+        assert RP >= H or (RP >= 1024 // NW and RP * NW > T - 32)
+    else:
+        assert plan == ("device", 8, 256, 0)
+
+
+def test_erosion_plan_main_path():
+    """The main buckets a warp a ROI (32-bit rows to 32 columns, 64-bit
+    to 64), a slide's 300 x 32² and 5000 x 32² as 64 x 32²; the long ROI's
+    1024 x 64 and 2 x 256² a block a ROI with 16 KB of bit planes, a
+    thread a row's word; 968 x 960 the largest square block path (227 KB),
+    969 x 960 the device path."""
+    plan = tbinary.erosion_plan
+    assert plan(64, 32, 32) == ("warp", 32, 32, 0)
+    assert plan(28, 16, 16) == ("warp", 32, 32, 0)
+    assert plan(47, 64, 64) == ("warp", 64, 32, 0)
+    assert plan(1, 128, 64) == ("warp", 64, 32, 0)
+    assert plan(1, 1024, 64) == ("block", 64, 1024, 16384)
+    assert plan(300, 32, 32) == ("warp", 32, 32, 0)
+    assert plan(5000, 32, 32) == ("warp", 32, 32, 0)
+    assert plan(2, 256, 256) == ("block", 64, 1024, 16384)
+    assert plan(1, 968, 960) == ("block", 64, 1024, 16 * 968 * 15)
+    assert plan(1, 969, 960)[0] == "device"
+
+
+# ---------------------------------------------------------------------------
+# the C entry points against the argument types the wrappers bind
+
+
+def _c_entry_points():
+    """{name: [ctypes type]} of every ``extern "C" int nyx_*`` in the
+    kernels' sources: a pointer c_void_p, a double c_double, a long long
+    c_longlong, any other int c_int."""
+    import ctypes
+    import glob
+    import re
+    from nyxus_tpu_torch import _build
+    out = {}
+    for path in sorted(glob.glob(os.path.join(_build.SRC_DIR, "*.cu"))):
+        with open(path) as f:
+            text = f.read()
+        for name, params in re.findall(
+                r'extern "C" int (nyx_\w+)\(([^)]*)\)', text):
+            types = []
+            for p in params.split(","):
+                p = " ".join(p.split())
+                types.append(ctypes.c_void_p if "*" in p
+                             else ctypes.c_double if p.startswith("double")
+                             else ctypes.c_longlong if "long long" in p
+                             else ctypes.c_int)
+            out[name] = types
+    return out
+
+
+def test_c_entry_points_all_bound():
+    """Every C entry point of the kernels' sources has argument types in
+    _build._SIGNATURES, and every bound name has an entry point."""
+    from nyxus_tpu_torch import _build
+    assert set(_c_entry_points()) == set(_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(
+    __import__("nyxus_tpu_torch._build", fromlist=["_SIGNATURES"])
+    ._SIGNATURES))
+def test_c_entry_point_signature(name):
+    """The argument types _build binds for a C entry point are its
+    declaration's, in number and kind, so that a changed C interface fails
+    here on the CPU and not first at a launch on the card."""
+    from nyxus_tpu_torch import _build
+    assert _build._SIGNATURES[name] == _c_entry_points()[name]

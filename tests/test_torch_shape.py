@@ -163,7 +163,49 @@ def _empty_interior():
     return m
 
 
+def _solid(h, w, n=32):
+    """An h x w rectangle filling its AABB: its frozen border feeds the
+    interior, which never empties (the count stops at the cap)."""
+    m = np.zeros((n, n), bool)
+    m[:h, :w] = True
+    return m
+
+
+def _ring_zeros():
+    """A full 20 x 20 AABB whose only zeros lie on the frozen ring (rows 0,
+    1 and 19, columns 0, 1 and 19): they erode the interior from outside."""
+    m = _solid(20, 20)
+    m[1, 5:15] = False
+    m[9, 1] = m[19, 8] = m[6, 19] = False
+    return m
+
+
+def _tiny(n, hole):
+    """A full n x n AABB (n = 4, 5: the smallest interiors) with one zero
+    at ``hole``."""
+    m = _solid(n, n, 8)
+    m[hole] = False
+    return m
+
+
+def _ellipse(h, w):
+    """A solid ellipse filling an h x w AABB inside a bucket of 64 rows and
+    the next multiple of 64 columns."""
+    m = np.zeros((64, -(-w // 64) * 64), bool)
+    yy, xx = np.mgrid[0:h, 0:w]
+    m[:h, :w] = (((yy - (h - 1) / 2) / (h / 2)) ** 2
+                 + ((xx - (w - 1) / 2) / (w / 2)) ** 2 <= 1.0)
+    return m
+
+
 CROPS = {
+    "solid": _solid(20, 24),
+    "ring_zeros": _ring_zeros(),
+    "tiny4": _tiny(4, (1, 2)),
+    "tiny5": _tiny(5, (2, 1)),
+    "tiny5_full": _tiny(5, (0, 0)),
+    "w33": _ellipse(40, 33),
+    "w65": _ellipse(50, 65),
     "thick_disk": _disk(64, 30),
     "ring": _disk(64, 25) & ~_disk(64, 24),
     "empty_interior": _empty_interior(),
@@ -192,9 +234,14 @@ def _mask_inputs(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", list(SIZES) + ["thick_disk", "ring",
-                                                "empty_interior"])
+@pytest.mark.parametrize("case", list(SIZES) + [
+    "thick_disk", "ring", "empty_interior", "solid", "ring_zeros", "tiny4",
+    "tiny5", "tiny5_full", "w33", "w65"])
 def test_erosions_to_vanish(case):
+    """EROSIONS_2_VANISH equal to JAX on the buckets and on hand-made crops:
+    a solid rectangle and full 5 x 5 AABB (the cap of 1000), a full AABB
+    whose zeros lie only on the frozen ring, 4 x 4 and 5 x 5 AABBs (one
+    and four interior pixels) with one zero, ellipses 33 and 65 wide."""
     m, h, w = _mask_inputs(case)
     want = np.asarray(jbinary.erosions_to_vanish(
         jnp.asarray(m), jnp.asarray(h), jnp.asarray(w), jnp.float64))
@@ -203,8 +250,14 @@ def test_erosions_to_vanish(case):
     np.testing.assert_array_equal(got.numpy(), want)
     if case == "thick_disk":
         assert want[0] > 20
-    if case == "empty_interior":
+    if case in ("empty_interior", "tiny4"):
         assert want[0] == 0
+    if case in ("solid", "tiny5_full"):
+        assert want[0] == 1000
+    if case in ("ring_zeros", "tiny5", "w33", "w65"):
+        assert 0 < want[0] < 1000
+    if case in ("w33", "w65"):
+        assert w[0] == int(case[1:])
 
 
 @pytest.mark.parametrize("case", list(SIZES) + ["holes0", "holes1", "holes3",

@@ -192,6 +192,55 @@ def test_zone_list(family, size, depth):
         assert (zdist[~ok] == 0).all() and (zdist[ok] >= 1).all()
 
 
+def _zone_list_crop(kind):
+    """(levels, valid, heights, widths) of two 24 x 20 crops: "uniform" one
+    level on every valid pixel (one zone), "per_pixel" a distinct level on
+    every pixel (a zone a pixel under both scans); the second crop's AABB is
+    17 x 13, with zero-level holes."""
+    B, H, W = 2, 24, 20
+    if kind == "uniform":
+        lev = np.full((B, H, W), 5, np.int32)
+    else:
+        lev = np.broadcast_to(1 + np.arange(H * W, dtype=np.int32).reshape(
+            H, W), (B, H, W)).copy()
+    valid = np.ones((B, H, W), bool)
+    valid[1, 17:] = valid[1, :, 13:] = False
+    valid[1] &= np.random.default_rng(5).random((H, W)) < 0.9
+    lev = np.where(valid, lev, 0).astype(np.int32)
+    return lev, valid, np.array([H, 17], np.int32), np.array([W, 13],
+                                                              np.int32)
+
+
+@pytest.mark.parametrize("family", ["glszm", "gldzm"])
+@pytest.mark.parametrize("kind", ["uniform", "per_pixel"])
+def test_zone_list_uniform_and_per_pixel(kind, family):
+    """K7's extremes against JAX's zone_list, as multisets: one zone holding
+    every valid pixel (its size the crop's valid count, its distance the
+    least), and a zone a pixel (size 1 everywhere)."""
+    lev, valid, hts, wds = _zone_list_crop(kind)
+    t = [torch.from_numpy(a) for a in (lev, valid, hts, wds)]
+    j = [jnp.asarray(a) for a in (lev, valid, hts, wds)]
+    if family == "glszm":
+        got = tzones.zone_list(tzones.zone_labels(t[0], t[1]), t[0], t[1])
+        want = jax.jit(lambda lv, vd: jzones.zone_list(
+            jzones.zone_labels(lv, vd), lv, vd))(j[0], j[1])
+    else:
+        anc, dist = tzones.zone_cc4(*t)
+        got = tzones.zone_list(anc, t[0], t[1], dist=dist)
+        want = jax.jit(lambda lv, vd, h, w: jzones.zone_list(
+            jzones.zone_labels_cc4(lv, vd), lv, vd,
+            dist=jgldzm.border_distance(lv, h, w)))(*j)
+    assert _zone_multisets(*got) == _zone_multisets(*want)
+    zsize, ok = got[1], got[3]
+    n_valid = valid.reshape(2, -1).sum(axis=1)
+    if kind == "uniform":
+        # the second crop's holes may split its valid pixels into zones
+        assert int(ok[0].sum()) == 1 and int(zsize[0].max()) == n_valid[0]
+    else:
+        assert (ok.sum(dim=1).numpy() == n_valid).all()
+        assert (zsize[ok] == 1).all()
+
+
 @pytest.mark.parametrize("kind", ["float", "int"])
 def test_grouped_weight_sums(kind):
     r = np.random.default_rng(3)
