@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT [GROUP,...]]
-                                 (K1, K3, K5, K7, K8, K9, K10, K11, K12,
-                                 K13, K15 and K16 alone, the package under
-                                 ROOT; GROUP one of k1_k5, k3_k9, k7_k8,
-                                 k10_k12, k11_k13, k15_k16)
+                                 (K1, K3, K4, K5, K7, K8, K9, K10, K11,
+                                 K12, K13, K15, K16 and K17 alone, the
+                                 package under ROOT; GROUP one of k1_k5,
+                                 k3_k9, k4_k17, k7_k8, k10_k12, k11_k13,
+                                 k15_k16)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -37,7 +38,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    uniform and per-pixel crops, A = 65535 and 65536, 7 x 13 and labels
    off every zone or at pixels that are no seeds, and K8 on every bucket
    and shape crop and on the cap, widths 31 to 65, the 256² disk, 1024 x
-   64 and 1025 x 64, each by its plan and on every plan forced; K10, every moment sum and centre of a bucket in
+   64 and 1025 x 64, each by its plan and on every plan forced; K4, each
+   8-neighbour family's matrix (GLDM, NGTDM over the AABB and the ROI,
+   NGLDM) in one launch and no K1 launch, on every bucket and on uniform,
+   one-pixel and border ROIs, levels outside the matrix and past 16-bit
+   codes and IBSI's 256 and 4096 levels, by its plan and on every plan of
+   neigh_plans forced (one block, clusters of 2, 4 and 16 blocks, device
+   memory; P, N and present equal, S within 2 n u S); K10, every moment
+   sum and centre of a bucket in
    one launch, with and without logw, and K12, the Zernike sums and
    magnitudes, on blank, flat-baseline, checkerboard, 256² disk, 64 x 32²
    and 1024 x 64 crops by their plans and on every path forced).  3D
@@ -48,8 +56,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    configuration (64 levels), its launch plan (cluster size, levels a
    block, count width, passes) printed.  IBSI (K17): B = 64 histograms of
    6, 64, 100, 256 and 32768 bins (the last beyond a block's shared memory
-   in f64), with empty, single-level and one-bin rows, bin indices equal
-   and values within 1e-5 / 1e-12 of their row's scale; and torch.sort
+   in f64), with empty, single-level and one-bin rows, by its plan and on
+   every plan of ih_plans forced (a warp a ROI up to 128 bins, the block
+   path staged and from device memory), bin indices equal and values
+   within 1e-5 / 1e-12 of their row's scale; and torch.sort
    (sort_masked_values) timed.  K1 and K5 are timed once more alone
    (k1_k5_times): K5 at 64 x 32², 47 x 64², 28 x 16² and 1 x 1024 x 64, by
    its plan, with its block path forced and its dependent chain alone; K1
@@ -317,7 +327,7 @@ def timed(fn, iters=20):
     time by the events a call rounded (at least one), which is the sum a
     call when no event is missed; where the trace holds no device event of
     the calls, the second is the first again and the third None, said so
-    in the log."""
+    in the log (after three traced windows that held none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -331,11 +341,14 @@ def timed(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    seen = device_events(prof)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = device_events(prof)
+        if seen:
+            break
     if not seen:
         log("  (the profiler's trace holds no device event of these calls: "
             "the CUDA events' time stands for the device time)")
@@ -376,7 +389,7 @@ CASES = ((64, 32, 32, (29, 31)), (64, 64, 64, (60, 47)), (28, 16, 16, (13, 9)),
          (5, 32, 32, (13, 21)), (3, 7, 13, (7, 13)), (4, 128, 128, (101, 77)),
          (2, 256, 256, (250, 199)), (2, 1024, 64, (600, 40)),
          (1, 16, 16, (0, 0)))
-TEXTURE_KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "stencil8",
+TEXTURE_KERNELS = ("batched_hist", "glcm_cooc", "glrlm_runs", "neigh_matrix",
                    "zone_dag", "zone_cc4", "zone_stats")
 SHAPE_KERNELS = ("erosion", "binary_quads", "power_sums")
 GZ_KERNELS = ("gabor", "zernike")
@@ -391,7 +404,7 @@ def counters():
     from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm, ih,
                                      moments, texture3d, zernike, zones)
     return dict(zip(KERNELS, (common.batched_hist, glcm.cooc_matrices,
-                              glrlm.run_matrices, common.stencil8,
+                              glrlm.run_matrices, common.neigh_matrix,
                               zones.zone_labels, zones.zone_cc4,
                               zones.zone_list, binary.erosion_counts,
                               binary.binary_quads, moments.moment_power_sums,
@@ -731,6 +744,142 @@ def hist_agree(agree, idx, w, nbins):
         else:
             tot = common.batched_hist_plain(idx, wc.abs().double(), nbins)
             agree("batched_hist", g, x, 1.0, 2 * n * unit * tot)
+
+
+# ---------------------------------------------------------------------------
+# K4 neigh_matrix: the 8-neighbour families' matrices
+
+
+def neigh_family_args(orig, lev, aabb, roi, nbins=64):
+    """K4's calls on one synth bucket as the families make them, (mode,
+    levels, participation, matrix levels): GLDM the MATLAB levels with the
+    original intensities (> 0 takes part), NGTDM the levels over the AABB
+    and over the ROI, NGLDM the to_grayscale levels (0..nbins) over the
+    ROI."""
+    from nyxus_tpu_torch.ops import ngldm
+    B = orig.shape[0]
+    vmax = orig.reshape(B, -1).amax(dim=1).clamp(min=1)
+    glev = ngldm.to_grayscale_levels(orig, vmax[:, None, None], nbins, False)
+    return [("gldm", lev, orig, nbins), ("ngtdm", lev, aabb, nbins + 1),
+            ("ngtdm", lev, roi, nbins + 1), ("ngldm", glev, roi, nbins + 1)]
+
+
+# K4's cases beyond the synth buckets
+NEIGH_CASES = ("uniform 64x32²", "one pixel 16 x 7x13", "border 8 x 16²",
+               "levels -3..70 at 64", "levels past 65533", "IBSI 256 levels",
+               "IBSI 4096 levels")
+
+
+def neigh_case(name, dtype, device="cuda", seed=0):
+    """K4's calls (mode, levels, participation, matrix levels) on one of
+    NEIGH_CASES: a uniform 64 x 32² bucket (one cell takes every pixel);
+    16 one-pixel ROIs of 7 x 13 at the corners, edges and middle; 8 crops of
+    16² whose ROIs cover the crop to its border, at 4 levels (many equal
+    neighbours); levels -3..70 against a 64-level matrix; levels up to
+    70000 against 64 (NGTDM's codes past 16 bits, read again from the
+    levels); IBSI's raw 256 and 4096 levels at 64 x 32² and 8 x 32².  Each
+    case runs GLDM (the original intensities), NGTDM (over the ROI and over
+    the AABB) and NGLDM (over the ROI)."""
+    import torch
+    r = np.random.default_rng(seed)
+    if name.startswith("uniform"):
+        B, H, W, nb = 64, 32, 32, 64
+        lev = np.full((B, H, W), 5)
+        roi = np.ones((B, H, W), bool)
+    elif name.startswith("one pixel"):
+        B, H, W, nb = 16, 7, 13, 64
+        lev = r.integers(1, 65, (B, H, W))
+        roi = np.zeros((B, H, W), bool)
+        spots = [(0, 0), (0, 12), (6, 0), (6, 12), (3, 6), (0, 5), (6, 7),
+                 (2, 0), (4, 12), (1, 1), (5, 11), (3, 0), (0, 3), (6, 3),
+                 (2, 12), (4, 4)]
+        for b, (y, x) in enumerate(spots):
+            roi[b, y, x] = True
+    elif name.startswith("border"):
+        B, H, W, nb = 8, 16, 16, 64
+        lev = r.integers(1, 5, (B, H, W))
+        roi = r.random((B, H, W)) < 0.85
+        roi[:, 0, :] = roi[:, -1, :] = roi[:, :, 0] = roi[:, :, -1] = True
+    elif name.startswith("levels -3"):
+        B, H, W, nb = 8, 32, 32, 64
+        lev = r.integers(-3, 71, (B, H, W))
+        roi = r.random((B, H, W)) < 0.8
+    elif name.startswith("levels past"):
+        B, H, W, nb = 4, 32, 32, 64
+        lev = np.where(r.random((B, H, W)) < 0.5,
+                       r.integers(0, 70001, (B, H, W)),
+                       r.integers(0, 64, (B, H, W)))
+        lev[:, 8:12, 8:12] = 65535
+        roi = r.random((B, H, W)) < 0.9
+    else:
+        nb = int(name.split()[1])
+        B, H, W = (64, 32, 32) if nb == 256 else (8, 32, 32)
+        lev = r.integers(0, nb, (B, H, W))
+        roi = r.random((B, H, W)) < 0.9
+    aabb = np.ones((B, H, W), bool)
+    orig = np.where(roi, np.abs(lev) + 0.5, 0.0)
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(
+        device)
+    lev_t = t(lev, torch.int32)
+    roi_t = t(roi, torch.bool)
+    return [("gldm", lev_t, t(orig, dtype), nb),
+            ("ngtdm", lev_t, roi_t, nb + 1),
+            ("ngtdm", lev_t, t(aabb, torch.bool), nb + 1),
+            ("ngldm", lev_t, roi_t, nb + 1)]
+
+
+def neigh_plans(mode, B, H, W, nbins, esz):
+    """Every launch plan K4 can take on a call: its own, then one block a
+    ROI and clusters of 2, 4 and 16 blocks where their shared memory holds
+    the call, and the device path."""
+    from nyxus_tpu_torch.ops import common
+    out = [common.neigh_matrix_plan(mode, B, H, W, nbins, esz)]
+    for C in (1, 2, 4, 16, 0):
+        alt = common.neigh_matrix_blocks(mode, H, W, nbins, esz, C)
+        if alt is not None and alt not in out:
+            out.append(alt)
+    return out
+
+
+def neigh_agree(agree, mode, lev, part, nbins, dtype, forced=True):
+    """K4 against its plain version on one family call, by its plan and
+    (``forced``) on every other plan of neigh_plans, forced: GLDM's and
+    NGLDM's P and NGTDM's N and present equal, NGTDM's S within 2 n u S of
+    a cell of n terms (the sum of n positive terms in two orders, u the
+    unit roundoff); each call one K4 launch and no K1 launch.  Returns the
+    number of plans held."""
+    import torch
+    from nyxus_tpu_torch.ops import common
+    want = common.neigh_matrix_plain(mode, lev, part, nbins, dtype)
+    B, H, W = lev.shape
+    esz = torch.empty((), dtype=dtype).element_size()
+    u = 2.0 ** -53 if esz == 8 else 2.0 ** -24
+    plans = [None] + (neigh_plans(mode, B, H, W, nbins, esz)[1:]
+                      if forced else [])
+    saved = common.neigh_matrix_plan
+    for plan in plans:
+        if plan:
+            common.neigh_matrix_plan = lambda *a, p=plan: p
+        k4, k1 = common.neigh_matrix.launches, common.batched_hist.launches
+        try:
+            got = common.neigh_matrix(mode, lev, part, nbins, dtype)
+        finally:
+            common.neigh_matrix_plan = saved
+        if (common.neigh_matrix.launches - k4,
+                common.batched_hist.launches - k1) != (1, 0):
+            raise AssertionError("neigh_matrix %s: %d K4 and %d K1 launches "
+                                 "a call" % (mode,
+                                             common.neigh_matrix.launches - k4,
+                                             common.batched_hist.launches
+                                             - k1))
+        if mode == "ngtdm":
+            agree("neigh_matrix", got[0], want[0])
+            agree("neigh_matrix", got[2], want[2])
+            agree("neigh_matrix", got[1], want[1], 2 * u,
+                  want[0].double() * want[1].double().abs())
+        else:
+            agree("neigh_matrix", got, want)
+    return len(plans)
 
 
 def runs_cases(seed=0, device="cuda"):
@@ -1338,17 +1487,30 @@ def gz_bounds(img, hts, wds, cfg):
     }
 
 
+def neigh_bound(mode, B, H, W, nbins, part_bytes, esz=4):
+    """(bytes, operations) K4 must move and do for one family's matrix:
+    the int32 levels and the participation (part_bytes a pixel: 4 for
+    GLDM's float32 intensities, 1 for a mask) read once, the matrix written
+    once in the compute type (GLDM / NGLDM [B, nbins, 9]; NGTDM N and S and
+    the 1-byte present [B, nbins]); 8 comparisons and a count a pixel, and
+    NGTDM's 8 sums, a quotient, a difference and its add."""
+    A = B * H * W
+    if mode == "ngtdm":
+        return A * (4 + part_bytes) + B * nbins * (2 * esz + 1), 20 * A
+    return A * (4 + part_bytes) + B * nbins * 9 * esz, 9 * A
+
+
 def bounds(B, H, W, ng=64, nbins=100, angles=4):
     """(bytes, operations) each kernel must move and do at a bucket of B
     crops of H x W at the timed arguments: each input read once, each output
     written once (int32 levels, labels and counts, 1-byte masks, float32
-    values)."""
+    values; K4 as NGTDM's matrices, neigh_bound)."""
     A = B * H * W
     return {
         "batched_hist": (A * 8 + B * nbins * 4, A),
         "glcm_cooc": (A * 8 + B * angles * ng * ng * 4, angles * A),
         "glrlm_runs": (A * 5 + B * 4 * ng * max(H, W) * 4, 4 * A),
-        "stencil8": (A * 5 + A * 12, 24 * A),
+        "neigh_matrix": neigh_bound("ngtdm", B, H, W, ng + 1, 1),
         "zone_dag": (A * 5 + A * 4, 4 * A),
         "zone_cc4": (A * 5 + B * 8 + A * 8, 6 * A),
         "zone_stats": (A * 13 + A * 13, 2 * A),
@@ -1444,7 +1606,7 @@ def check_kernels():
     import torch
     from nyxus_tpu_torch.config import EngineConfig
     from nyxus_tpu_torch.ops import (binary, common, gabor, glcm, glrlm,
-                                     moments, zernike, zones)
+                                     moments, ngtdm, zernike, zones)
     res = {k: {"max_abs_err": 0.0} for k in KERNELS_2D}
 
     def agree(name, got, want, rtol=0.0, scale=None):
@@ -1495,9 +1657,9 @@ def check_kernels():
             nr = max(H, W)
             agree("glrlm_runs", glrlm.run_matrices(lev, aabb, 64, nr, dtype),
                   glrlm.run_matrices_plain(lev, aabb, 64, nr, dtype))
-            for got, want in zip(common.stencil8(lev, roi),
-                                 common.stencil8_plain(lev, roi)):
-                agree("stencil8", got, want)
+            for mode, nlev, part, nb in neigh_family_args(orig, lev, aabb,
+                                                          roi):
+                neigh_agree(agree, mode, nlev, part, nb, dtype)
             for _, zl, zv, hts, wds in zone_cases((B, H, W, hw), dtype, ci):
                 zone_kernels_agree(agree, zl, zv, hts, wds)
             for _, sm, hts, wds in shape_cases((B, H, W, hw), dtype, ci):
@@ -1541,6 +1703,13 @@ def check_kernels():
             zones.zone_dag_plan = saved
         for name, idx, w, nb in hist_cases(dtype):
             hist_agree(agree, idx, w, nb)
+        n4 = [neigh_agree(agree, *call, dtype) for name in NEIGH_CASES
+              for call in neigh_case(name, dtype)]
+        log("  %s: K4 on %d family calls of %d cases (uniform, one-pixel "
+            "and border ROIs, levels out of range and past 16-bit codes, "
+            "IBSI's 256 and 4096 levels) by its plan and on %d forced "
+            "plans agree, one K4 launch and no K1 launch a call"
+            % (prec, len(n4), len(NEIGH_CASES), sum(n4) - len(n4)))
         log("  %s: K5 on %d more crops (widths 1 to 1024, spiral, comb, "
             "checkerboard, uniform, empty) by its plan and with the block "
             "path forced, and K1 on %d cases of its plans agree"
@@ -1620,8 +1789,11 @@ def check_kernels():
                 lambda: glrlm.run_matrices(lev, aabb, 64, nr, torch.float32),
                 lambda: glrlm.run_matrices_plain(lev, aabb, 64, nr,
                                                  torch.float32)),
-            "stencil8": (lambda: common.stencil8(lev, roi),
-                         lambda: common.stencil8_plain(lev, roi)),
+            # K4 as NGTDM's matrices, its slowest family
+            "neigh_matrix": (
+                lambda: ngtdm.ngtdm_matrices(lev, aabb, 64, torch.float32),
+                lambda: ngtdm.ngtdm_matrices_plain(lev, aabb, 64,
+                                                   torch.float32)),
             "zone_dag": (lambda: zones.zone_labels(zl, zv),
                          lambda: zones.zone_labels_plain(zl, zv)),
             "zone_cc4": (lambda: zones.zone_cc4(zl, zv, hts, wds),
@@ -2643,6 +2815,160 @@ def check_kernels_3d():
     return res
 
 
+# K4's timed buckets: the main path's three (seed 7's 47 x 64²), a slide's
+# 300 x 32² and the long ROI's 1 x 1024 x 64 at 64 levels; then IBSI's raw
+# 256 and 4096 levels at 64 x 32²
+K4_TIMED = (CASES[0], (47, 64, 64, (60, 47)), CASES[2],
+            (300, 32, 32, (29, 31)), (1, 1024, 64, (600, 40)))
+K4_IBSI_LEVELS = (256, 4096)
+
+
+def k4_parent_ngldm(common, lev, mask, nmax, dtype):
+    """NGLDM's matrix as a tree without ngldm_matrix forms it inside
+    ngldm_features: K4's stencil counts, then K1's pair histogram, with
+    their torch glue."""
+    import torch
+    B = lev.shape[0]
+    matches, _, _ = common.stencil8(lev, mask)
+    return common.pair_hist(torch.where(mask, lev, 0).reshape(B, -1),
+                            matches.reshape(B, -1),
+                            mask.reshape(B, -1).to(dtype), nmax + 1, 9)
+
+
+def k4_family_calls(orig, lev, aabb, roi, glev, nb):
+    """The three families' matrix calls on one bucket, (name, call, mode,
+    levels, participation, matrix levels, participation bytes): GLDM's
+    gldm_matrix (the levels, the original intensities), NGTDM's
+    ngtdm_matrices (the levels over the AABB) and NGLDM's matrix (the
+    to_grayscale levels ``glev`` over the ROI): ngldm_matrix, or on a tree
+    without it k4_parent_ngldm."""
+    import torch
+    from nyxus_tpu_torch.ops import common, gldm, ngldm, ngtdm
+    f32 = torch.float32
+    if hasattr(ngldm, "ngldm_matrix"):
+        ngl = lambda: ngldm.ngldm_matrix(glev, roi, nb, f32)
+    else:
+        ngl = lambda: k4_parent_ngldm(common, glev, roi, nb, f32)
+    return [("GLDM", lambda: gldm.gldm_matrix(orig, lev, nb, f32), "gldm",
+             lev, orig, nb, 4),
+            ("NGTDM", lambda: ngtdm.ngtdm_matrices(lev, aabb, nb, f32),
+             "ngtdm", lev, aabb, nb + 1, 1),
+            ("NGLDM", ngl, "ngldm", glev, roi, nb + 1, 1)]
+
+
+def k4_k17_times(iters=20):
+    """K4 and K17 in f32: device and events ms a call, device launches a
+    call (from the profiler) and the bound.  K4 as each family calls it
+    (k4_family_calls: on a tree with neigh_matrix one launch; else the
+    tree's K4 + K1 sequence with its torch glue) at K4_TIMED and at IBSI's
+    K4_IBSI_LEVELS, with its plan, the K4 and K1 launches of one call (and
+    the family function's calls, common.counted), every other plan of
+    neigh_plans forced at 64 levels and, at 64 x 32², its plain version;
+    K17 at B = 64 rows of IH_BINS bins and at IH_TIMED_B rows of 64
+    (ih_inputs: the degenerate rows included) with its plan, every plan of
+    ih_plans forced, and its plain version at 64 x 64.  Runs on any
+    tree's package (a tree without the plans prints none), so that two
+    trees can be timed in turn (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.ops import common, ih, ngldm
+    fused = hasattr(common, "neigh_matrix")
+    k4_wrapper = common.neigh_matrix if fused else common.stencil8
+    plan_fn = getattr(common, "neigh_matrix_plan", None)
+    f32 = torch.float32
+    cases = [(c, None) for c in K4_TIMED] + [(CASES[0], nb)
+                                             for nb in K4_IBSI_LEVELS]
+    for (B, H, W, hw), raw in cases:
+        orig, lev, aabb, roi = synth_bucket(B, H, W, hw, 0, f32)
+        nb = 64
+        if raw:
+            g = torch.Generator(device="cuda").manual_seed(raw)
+            lev = torch.randint(1, raw + 1, lev.shape, generator=g,
+                                device="cuda", dtype=torch.int32)
+            orig = torch.where(roi, lev.to(f32), 0.0)
+            nb = raw
+        vmax = orig.reshape(B, -1).amax(dim=1).clamp(min=1)
+        glev = lev if raw else ngldm.to_grayscale_levels(
+            orig, vmax[:, None, None], nb, False)
+        tag = "B=%d %dx%d%s" % (B, H, W, " at %d raw levels" % raw
+                                if raw else "")
+        main = (B, H, W) == (64, 32, 32) and not raw
+        for name, call, mode, nlev, part, nbins, pb in k4_family_calls(
+                orig, lev, aabb, roi, glev, nb):
+            nbytes, ops = neigh_bound(mode, B, H, W, nbins, pb)
+            bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
+            before = k4_wrapper.launches, common.batched_hist.launches
+            call()
+            after = k4_wrapper.launches, common.batched_hist.launches
+            plan = plan_fn(mode, B, H, W, nbins, 4) if fused \
+                else "none in this tree"
+            plans = [None]
+            if fused and not raw:
+                plans += neigh_plans(mode, B, H, W, nbins, 4)[1:]
+            if fused and main:
+                plans.append("plain")
+            for force in plans:
+                fn = call
+                if force == "plain":
+                    fn = (lambda m=mode, a=nlev, p=part, n=nbins:
+                          common.neigh_matrix_plain(m, a, p, n, f32))
+                elif force:
+                    common.neigh_matrix_plan = lambda *a, p=force: p
+                try:
+                    ev, ms, nl = timed(fn, iters)
+                finally:
+                    if force and force != "plain":
+                        common.neigh_matrix_plan = plan_fn
+                log("  K4 %s matrix %s f32 %s: device %.4f ms (events %.4f "
+                    "ms), %s device launches a call; K4 / K1 launches a "
+                    "call %d / %d; bound %.5f ms (%s); plan (path, blocks "
+                    "a ROI, threads, smem) %s%s"
+                    % (name, "plain version" if force == "plain" else
+                       "as the family calls it", tag, ms, ev, nl,
+                       after[0] - before[0], after[1] - before[1], bound,
+                       "bytes" if nbytes / HBM_BYTES_S >= ops / OPS_S
+                       else "operations",
+                       "none" if force == "plain" else force or plan,
+                       " forced" if force and force != "plain" else ""))
+    if fused:
+        from nyxus_tpu_torch.ops import gldm, ngtdm
+        log("  K4 family functions' calls (common.counted) over these "
+            "timings: gldm_matrix %d, ngtdm_matrices %d, ngldm_matrix %d; "
+            "K4 launches %d" % (gldm.gldm_matrix.calls,
+                                ngtdm.ngtdm_matrices.calls,
+                                ngldm.ngldm_matrix.calls,
+                                common.neigh_matrix.launches))
+    iplan = getattr(ih, "ih_stats_plan", None)
+    for B, N in [(64, N) for N in IH_BINS] + [(B, 64) for B in IH_TIMED_B]:
+        inputs = ih_inputs(B, N, f32, seed=N)
+        nbytes, ops = ih_bound(B, N)
+        bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
+        plans = [None] + (ih_plans(N, 4)[1:] if iplan else [])
+        if (B, N) == (64, 64):
+            plans.append("plain")
+        for force in plans:
+            if force == "plain":
+                fn = lambda: ih.ih_features_from_freq_plain(
+                    *inputs[:4], -0.0, *inputs[4:])
+            else:
+                fn = lambda: ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
+                if force:
+                    ih.ih_stats_plan = lambda *a, p=force: p
+            try:
+                ev, ms, nl = timed(fn, iters)
+            finally:
+                if force and force != "plain":
+                    ih.ih_stats_plan = iplan
+            log("  K17 ih_stats %s f32 B=%d N=%d: device %.4f ms (events "
+                "%.4f ms), %s device launches a call; bound %.5f ms (%s); "
+                "plan (path, bins a lane) %s%s"
+                % ("plain version" if force == "plain" else "kernel", B, N,
+                   ms, ev, nl, bound, "bytes" if nbytes / HBM_BYTES_S
+                   >= ops / OPS_S else "operations",
+                   "none" if force == "plain" else force
+                   or (iplan(N, 4) if iplan else "none in this tree"),
+                   " forced" if force and force != "plain" else ""))
+
+
 # ---------------------------------------------------------------------------
 # phase 2, IBSI: K17 ih_stats
 
@@ -2650,6 +2976,9 @@ def check_kernels_3d():
 # bin counts K17 is held at: the IBSI goldens' 6, the default |grey depth|
 # 64, 100, 256, and 32768 (beyond a block's shared memory in float64)
 IH_BINS = (6, 64, 100, 256, 32768)
+# wider buckets K17 is timed at (N = 64): a slide's 300 ROIs, and 1056
+# (eight warps for each of the card's 132 SMs)
+IH_TIMED_B = (300, 1056)
 # members that are bin indices or counts formed by the same operations in
 # both versions from the same counts: equal exactly
 IH_EXACT = ("IH_MEDIAN_IDX", "IH_MINIMUM_IDX", "IH_P10_IDX", "IH_P90_IDX",
@@ -2727,11 +3056,56 @@ def ih_bound(B, N, esz=4):
     return (B * N * esz + 5 * B * esz + 46 * B * esz, 60.0 * B * N)
 
 
+def ih_plans(N, esz):
+    """Every launch plan K17 can take on rows of N bins: its own; up to
+    IH_WARP_BINS the warp path (and, below 4 bins a lane, at twice the bins
+    a lane); the block path where the row fits its shared memory and the
+    device path."""
+    from nyxus_tpu_torch.ops import ih
+    out = [ih.ih_stats_plan(N, esz)]
+    alts = []
+    if N <= ih.IH_WARP_BINS:
+        K = ih.ih_bins_a_lane(N)
+        alts.append(("warp", K))
+        if K < 4:
+            alts.append(("warp", 2 * K))
+    nb = -(-N // ih.IH_BLOCK)
+    if N * esz <= ih._STAGE_MAX:
+        alts.append(("block", nb))
+    alts.append(("device", nb))
+    return out + [p for p in alts if p != out[0]]
+
+
+def ih_paths_agree(inputs, rtol):
+    """K17 against its plain version on one input by its plan and on every
+    other plan of ih_plans, forced, one launch a call (ih_agree); returns
+    (the largest absolute difference, the plans held)."""
+    from nyxus_tpu_torch.ops import ih
+    want = ih.ih_features_from_freq_plain(*inputs[:4], -0.0, *inputs[4:])
+    B, N = inputs[0].shape
+    saved = ih.ih_stats_plan
+    plans = ih_plans(N, inputs[0].element_size())
+    err = 0.0
+    for plan in plans:
+        ih.ih_stats_plan = lambda *a, p=plan: p
+        before = ih.ih_stats.launches
+        try:
+            got = ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
+        finally:
+            ih.ih_stats_plan = saved
+        if ih.ih_stats.launches != before + 1:
+            raise AssertionError("ih_stats: %d launches a call"
+                                 % (ih.ih_stats.launches - before))
+        err = max(err, ih_agree(got, want, inputs, rtol))
+    return err, plans
+
+
 def check_ih():
     """K17 against its plain version at B = 64, each bin count of IH_BINS,
-    f32 and f64 (the degenerate rows included), then timed at the default
-    N = 64 in f32; and the one torch.sort the IBSI path reads
-    (common.sort_masked_values, IH's binning) timed at the main bucket."""
+    f32 and f64 (the degenerate rows included), by its plan and on every
+    plan of ih_plans forced, then timed at the default N = 64 in f32; and
+    the one torch.sort the IBSI path reads (common.sort_masked_values, IH's
+    binning) timed at the main bucket."""
     import torch
     from nyxus_tpu_torch.ops import common, ih
     res = {"ih_stats": {"max_abs_err": 0.0}}
@@ -2739,16 +3113,12 @@ def check_ih():
                               ("f64", torch.float64, 1e-12)):
         for N in IH_BINS:
             inputs = ih_inputs(64, N, dtype, seed=N)
-            got = ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
-            want = ih.ih_features_from_freq_plain(*inputs[:4], -0.0,
-                                                  *inputs[4:])
-            err = ih_agree(got, want, inputs, rtol)
+            err, plans = ih_paths_agree(inputs, rtol)
             res["ih_stats"]["max_abs_err"] = max(
                 res["ih_stats"]["max_abs_err"], err)
-            staged = N * got.element_size() <= ih._STAGE_MAX
-            log("  %s B=64 N=%d (%s): ih_stats agrees, max abs diff %g"
-                % (prec, N, "row in shared memory" if staged
-                   else "row in device memory", err))
+            log("  %s B=64 N=%d: ih_stats agrees by its plan %s and on %s "
+                "forced, max abs diff %g" % (prec, N, plans[0], plans[1:],
+                                              err))
     for N in (64, 6, 100, 256, 32768):
         inputs = ih_inputs(64, N, torch.float32, seed=N)
         kern = lambda: ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
@@ -3149,10 +3519,11 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 def kernel_times_only(root, only=None):
     """--kernel-times [ROOT [GROUP,...]]: build the kernels of the package
     under ROOT (by default this script's tree), print k1_k5_times,
-    k3_k9_times, k7_k8_times, k10_k12_times, k11_k13_times, k15_k16_times
-    (or only the named groups, e.g. "k7_k8") and the card; no result line.
-    Two trees timed in one call, in turns, compare the two versions of K1,
-    K3, K5, K7, K8, K9, K10, K11, K12, K13, K15 and K16 on one card."""
+    k3_k9_times, k7_k8_times, k10_k12_times, k11_k13_times, k15_k16_times,
+    k4_k17_times (or only the named groups, e.g. "k4_k17") and the card; no
+    result line.  Two trees timed in one call, in turns, compare the two
+    versions of K1, K3, K4, K5, K7, K8, K9, K10, K11, K12, K13, K15, K16
+    and K17 on one card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -3164,7 +3535,8 @@ def kernel_times_only(root, only=None):
                                            time.perf_counter() - t0))
     groups = {"k1_k5": k1_k5_times, "k3_k9": k3_k9_times,
               "k7_k8": k7_k8_times, "k10_k12": k10_k12_times,
-              "k11_k13": k11_k13_times, "k15_k16": k15_k16_times}
+              "k11_k13": k11_k13_times, "k15_k16": k15_k16_times,
+              "k4_k17": k4_k17_times}
     for name in (only.split(",") if only else groups):
         groups[name]()
     log(card_line())
@@ -3418,8 +3790,8 @@ def main():
                          "nyxus_tpu/ops/glcm.py:61"),
            "glrlm_runs": ("nyxus_tpu_torch/csrc/glrlm_runs.cu",
                           "nyxus_tpu/ops/glrlm.py:85"),
-           "stencil8": ("nyxus_tpu_torch/csrc/stencil8.cu",
-                        "nyxus_tpu/ops/gldm.py:28"),
+           "neigh_matrix": ("nyxus_tpu_torch/csrc/neigh_matrix.cu",
+                            "nyxus_tpu/ops/gldm.py:27"),
            "zone_dag": ("nyxus_tpu_torch/csrc/zone_dag.cu",
                         "nyxus_tpu/ops/zones.py:32"),
            "zone_cc4": ("nyxus_tpu_torch/csrc/zone_cc4.cu",

@@ -28,11 +28,11 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 LIB_PATH = os.path.join(_DIR, "_build", "libnyxcuda.so")
-SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu", "stencil8.cu",
-           "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu", "erosion.cu",
-           "binary_quads.cu", "power_sums.cu", "gabor.cu", "zernike.cu",
-           "glcm3d_cooc.cu", "glrlm3d_runs.cu", "cc3d.cu", "stencil3d.cu",
-           "ih_stats.cu")
+SOURCES = ("batched_hist.cu", "glcm_cooc.cu", "glrlm_runs.cu",
+           "neigh_matrix.cu", "zone_dag.cu", "zone_cc4.cu", "zone_stats.cu",
+           "erosion.cu", "binary_quads.cu", "power_sums.cu", "gabor.cu",
+           "zernike.cu", "glcm3d_cooc.cu", "glrlm3d_runs.cu", "cc3d.cu",
+           "stencil3d.cu", "ih_stats.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -47,7 +47,7 @@ _SIGNATURES = {
     "nyx_glcm_cooc": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8
     + [_I, _I, _P],
     "nyx_glrlm_runs": [_P] * 4 + [_I] * 14 + [_P],
-    "nyx_stencil8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nyx_neigh_matrix": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
     "nyx_zone_dag": [_P, _P, _P] + [_I] * 7 + [_P],
     "nyx_zone_dag_chain": [_P, _I, _I, _I, _P],
     "nyx_zone_cc4": [_P] * 6 + [_I] * 5 + [_P],
@@ -64,7 +64,7 @@ _SIGNATURES = {
     "nyx_glrlm3d_runs": [_P] * 4 + [_I] * 11 + [_P],
     "nyx_cc3d": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 10 + [_P],
     "nyx_stencil3d": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] * 8 + [_P],
-    "nyx_ih_stats": [_P] * 7 + [_I] * 4 + [_D, _P],
+    "nyx_ih_stats": [_P] * 7 + [_I] * 5 + [_D, _P],
 }
 
 _lock = threading.Lock()

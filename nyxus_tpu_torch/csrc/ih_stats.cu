@@ -11,20 +11,40 @@
 // accumulates in double, as the plain version's does, and only the order of
 // those sums differs.
 //
-// Design: one block a ROI.  The row is staged in dynamic shared memory when
-// it fits (`staged`), else read from device memory.  Pass A walks the row in
-// tiles of the block's width: a block scan gives each bin its running count
-// (exact in double for integer counts), and the one bin where a condition
-// first holds records itself -- the median bin (first cum > floor(n/2)),
-// the lower-tail quantiles p10/p25 (first cum >= p n) and the upper-tail
-// p75/p90 (last bin whose preceding cum <= p n) -- while each thread keeps
-// the first maximal bin (the mode) and the first strict maximum and minimum
-// of the histogram gradient.  One thread then forms the medians, the
-// interpolated quantiles and the bin indices.  Pass B sums the means and the
-// robust window's [p10Index, p90Index] means; pass C the central moments,
-// the absolute deviations, the entropy (exact log2, guarded at p > 1e-7)
-// and the uniformity.  Bound on the card: the ~60 operations of a bin; at
-// the main path's N = 100 the launch.
+// Design (ops/ih.py ih_stats_plan picks the path):
+// - "warp", N <= 128 (past which the block path measured faster): a block
+//   of one warp a ROI, no shared memory and no block barrier.  Lane l holds
+//   the K = 1, 2 or 4 >= N / 32 contiguous bins [l K, l K + K) in
+//   registers.  The running counts are a
+//   lane-serial sum plus one 5-shuffle exclusive scan of the lane totals, in
+//   double (exact for integer counts).  The landing bins -- the median bin
+//   (first cum > floor(n/2)), p10/p25 (first cum >= p n) and p75/p90 (last
+//   bin whose preceding cum <= p n) -- are each lane's first (last) hit, the
+//   warp's by __ballot_sync and __ffs / __clz, its values broadcast by one
+//   shuffle from that lane; then lanes 0-3 interpolate the four quantiles
+//   and lanes 0-6 find the bin indices of those and of the median, minimum
+//   and maximum at once.  The mode (first maximal bin) and the first strict
+//   maximum and minimum of the histogram gradient keep the first index: in
+//   float32 one integer reduction (__reduce_max_sync) of keys that order as
+//   the values and a ballot of the lanes that reach it, in float64 (value,
+//   index) butterflies; a lane's edge bins reach its neighbours by one
+//   shuffle each way.  Passes B (5 sums) and C
+//   (14 sums) run over the registers and reduce through nyx_reduce_scatter,
+//   the lane holding a total shuffling it to all.  Every lane then forms the
+//   row and keeps its member by selects: lane l writes member l and, below
+//   14, member 32 + l, one coalesced store of the row.
+// - "block" / "device": one block a ROI, the row staged in
+//   dynamic shared memory ("block") or read from device memory ("device").
+//   Pass A walks the row in tiles of the block's width: a block scan gives
+//   each bin its running count, and the one bin where a condition first
+//   holds records itself, while each thread keeps the first maximal bin and
+//   the first strict gradient extrema; one thread then forms the medians,
+//   the interpolated quantiles and the bin indices; passes B and C are block
+//   sums.
+// Pass C forms the central moments, the absolute deviations, the entropy
+// (exact log2, guarded at p > 1e-7) and the uniformity.  Bound on the card:
+// the ~60 operations of a bin; at the main path's N = 64 a launch and the
+// warp's chain of dependent steps.
 #include <float.h>
 
 #include "common.cuh"
@@ -121,7 +141,7 @@ __device__ void block_sums(double (&acc)[IH_SUMS], IhShared<T>& sh) {
 
 template <typename T>
 __global__ void __launch_bounds__(IH_BLOCK)
-    ih_stats_kernel(const T* __restrict__ freq, const T* __restrict__ counts,
+    ih_stats_block_kernel(const T* __restrict__ freq, const T* __restrict__ counts,
                     const T* __restrict__ vmin, const T* __restrict__ vmax,
                     const T* __restrict__ pscale, const T* __restrict__ poffset,
                     T* __restrict__ out, int N, int staged, T noval) {
@@ -402,34 +422,392 @@ __global__ void __launch_bounds__(IH_BLOCK)
   }
 }
 
+
+// ---- the warp path: one warp a ROI, K bins a lane
+
+// an int that orders as the float v does (finite v, -0 read as +0)
+__device__ __forceinline__ int ih_key(float v) {
+  const int b = __float_as_int(v + 0.0f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// the warp's first maximal (value, index) over lanes that hold increasing
+// bins, each lane's pair its own first maximum: float32 by one integer
+// reduction of ordered keys and a ballot of the lanes that reach it
+__device__ __forceinline__ void ih_first_max(float& v, int& i, bool min) {
+  const int k = min ? ~ih_key(v) : ih_key(v);
+  const int top = __reduce_max_sync(NYX_FULL, k);
+  const int src = __ffs(__ballot_sync(NYX_FULL, k == top)) - 1;
+  v = __shfl_sync(NYX_FULL, v, src);
+  i = __shfl_sync(NYX_FULL, i, src);
+}
+
+// float64 by butterflies of (value, index) that keep the first index
+__device__ __forceinline__ void ih_first_max(double& v, int& i, bool min) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const double v2 = __shfl_xor_sync(NYX_FULL, v, off);
+    const int i2 = __shfl_xor_sync(NYX_FULL, i, off);
+    if (min)
+      keep_min(v, i, v2, i2);
+    else
+      keep_max(v, i, v2, i2);
+  }
+}
+
+// the mode (first maximal bin) and the first strict maximum and minimum of
+// the gradient, in every lane
 template <typename T>
-static int launch(const void* freq, const void* counts, const void* vmin,
-                  const void* vmax, const void* pscale, const void* poffset,
-                  void* out, int B, int N, int staged, double noval,
-                  cudaStream_t st) {
+__device__ __forceinline__ void ih_warp_extrema(T& mode_v, int& mode_i,
+                                                T& gmax_v, int& gmax_i,
+                                                T& gmin_v, int& gmin_i) {
+  ih_first_max(mode_v, mode_i, false);
+  ih_first_max(gmax_v, gmax_i, false);
+  ih_first_max(gmin_v, gmin_i, true);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(32)
+    ih_stats_warp_kernel(const T* __restrict__ freq,
+                         const T* __restrict__ counts,
+                         const T* __restrict__ vmin, const T* __restrict__ vmax,
+                         const T* __restrict__ pscale,
+                         const T* __restrict__ poffset, T* __restrict__ out,
+                         int N, T noval) {
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const T* f = freq + static_cast<size_t>(b) * N;
+  const int i0 = lane * K;
+  T v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = i0 + k < N ? f[i0 + k] : T(0);
+
+  const T total = counts[b];
+  const bool bad = (vmax[b] <= vmin[b]) || (total == T(0));
+  const T safe_total = fmax(total, T(1));
+  const T min_val = rn_add(poffset[b], rn_mul(pscale[b], vmin[b]));
+  const T max_val = rn_add(poffset[b], rn_mul(pscale[b], vmax[b]));
+  const T binw = rn_sub(max_val, min_val) / static_cast<T>(N);
+  const T half = floor(total / T(2));
+  const T tgt_low[2] = {rn_mul(safe_total, T(0.10)), rn_mul(safe_total, T(0.25))};
+  const T tgt_high[2] = {rn_mul(safe_total, T(0.75)), rn_mul(safe_total, T(0.90))};
+
+  // ---- pass A: running counts, landing bins, mode, gradient extrema
+  double run = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) run += static_cast<double>(v[k]);
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(NYX_FULL, incl, off);
+    if (lane >= off) incl += y;
+  }
+  incl -= run;  // the lane's exclusive start (exact for integer counts)
+  const T left = __shfl_up_sync(NYX_FULL, v[K - 1], 1);  // bin i0 - 1
+  const T right = __shfl_down_sync(NYX_FULL, v[0], 1);   // bin i0 + K
+  int med_s = -1, low_s[2] = {-1, -1}, high_s[2] = {-1, -1};
+  T low_cprev[2] = {T(0), T(0)}, low_f[2] = {T(0), T(0)};
+  T high_c[2] = {T(0), T(0)}, high_f[2] = {T(0), T(0)};
+  T last_cprev = T(0), last_c = T(0), last_f = T(0);  // bin N - 1
+  T mode_v = -INFINITY, gmax_v = -INFINITY, gmin_v = INFINITY;
+  int mode_i = N, gmax_i = N, gmin_i = N;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = i0 + k;
+    incl += static_cast<double>(v[k]);
+    if (i < N) {
+      const T cum = static_cast<T>(incl);
+      const T prev = static_cast<T>(incl - static_cast<double>(v[k]));
+      if (med_s < 0 && cum > half) med_s = i;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (low_s[q] < 0 && cum >= tgt_low[q]) {
+          low_s[q] = i;
+          low_cprev[q] = prev;
+          low_f[q] = v[k];
+        }
+        if (prev <= tgt_high[q]) {
+          high_s[q] = i;
+          high_c[q] = cum;
+          high_f[q] = v[k];
+        }
+      }
+      if (i == N - 1) {
+        last_cprev = prev;
+        last_c = cum;
+        last_f = v[k];
+      }
+      if (v[k] > mode_v) { mode_v = v[k]; mode_i = i; }
+      const T fm = k > 0 ? v[k > 0 ? k - 1 : 0] : left;
+      const T fp = k < K - 1 ? v[k < K - 1 ? k + 1 : k] : right;
+      T g;
+      if (i == 0)
+        g = rn_sub(fp, v[k]);
+      else if (i == N - 1)
+        g = rn_sub(v[k], fm);
+      else
+        g = rn_sub(fp, fm) / T(2);
+      if (g > gmax_v) { gmax_v = g; gmax_i = i; }
+      if (g < gmin_v) { gmin_v = g; gmin_i = i; }
+    }
+  }
+  ih_warp_extrema(mode_v, mode_i, gmax_v, gmax_i, gmin_v, gmin_i);
+  // the warp's first (last) hit: the lowest (highest) lane with one; the
+  // inputs of quantile j (p10, p25, p75, p90): its bin, the running count
+  // before it (lower tail) or at it (upper tail), its count
+  const int last_lane = (N - 1) / K;
+  unsigned int hits = __ballot_sync(NYX_FULL, med_s >= 0);
+  const int med_bin = hits ? __shfl_sync(NYX_FULL, med_s, __ffs(hits) - 1) : 0;
+  const T median_v = centre(min_val, med_bin, binw);
+  int qs[4];
+  T qc[4], qf[4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    // lower tail: at bin N - 1 where no bin reaches p n
+    hits = __ballot_sync(NYX_FULL, low_s[q] >= 0);
+    int src = hits ? __ffs(hits) - 1 : last_lane;
+    qs[q] = hits ? __shfl_sync(NYX_FULL, low_s[q], src) : N - 1;
+    qc[q] = __shfl_sync(NYX_FULL, hits ? low_cprev[q] : last_cprev, src);
+    qf[q] = __shfl_sync(NYX_FULL, hits ? low_f[q] : last_f, src);
+    hits = __ballot_sync(NYX_FULL, high_s[q] >= 0);
+    src = hits ? 31 - __clz(hits) : last_lane;
+    qs[2 + q] = hits ? __shfl_sync(NYX_FULL, high_s[q], src) : N - 1;
+    qc[2 + q] = __shfl_sync(NYX_FULL, hits ? high_c[q] : last_c, src);
+    qf[2 + q] = __shfl_sync(NYX_FULL, hits ? high_f[q] : last_f, src);
+  }
+  // lane j < 4 interpolates quantile j, lanes 4, 5 and 6 take the median,
+  // the minimum and the maximum; each lane then its value's bin index, and
+  // one shuffle a value hands them to the warp
+  const int j = lane & 7;
+  T val;
+  if (j < 4) {
+    const int s = j == 0 ? qs[0] : j == 1 ? qs[1] : j == 2 ? qs[2] : qs[3];
+    const T c = j == 0 ? qc[0] : j == 1 ? qc[1] : j == 2 ? qc[2] : qc[3];
+    const T f = j == 0 ? qf[0] : j == 1 ? qf[1] : j == 2 ? qf[2] : qf[3];
+    if (j < 2) {
+      // lower tail: mn + (p - c_prev / n) / (f_s / n) * binw
+      const T p = j == 0 ? T(0.10) : T(0.25);
+      const T mn = rn_add(min_val, rn_mul(static_cast<T>(s), binw));
+      val = rn_add(mn, rn_mul(safe_div(rn_sub(p, c / safe_total),
+                                        f / safe_total), binw));
+    } else {
+      // upper tail: mx - (c_s / n - p) / (f_s / n) * binw
+      const T ph = j == 2 ? T(0.75) : T(0.90);
+      const T mx = rn_add(min_val, rn_mul(rn_add(static_cast<T>(s), T(1)),
+                                          binw));
+      val = rn_sub(mx, rn_mul(safe_div(rn_sub(c / safe_total, ph),
+                                       f / safe_total), binw));
+    }
+  } else {
+    val = j == 4 ? median_v : j == 5 ? min_val : max_val;
+  }
+  const T vidx = index_of(val, min_val, binw, N);
+  const T p10_v = __shfl_sync(NYX_FULL, val, 0);
+  const T p25_v = __shfl_sync(NYX_FULL, val, 1);
+  const T p75_v = __shfl_sync(NYX_FULL, val, 2);
+  const T p90_v = __shfl_sync(NYX_FULL, val, 3);
+  const T p10_i = __shfl_sync(NYX_FULL, vidx, 0);
+  const T p25_i = __shfl_sync(NYX_FULL, vidx, 1);
+  const T p75_i = __shfl_sync(NYX_FULL, vidx, 2);
+  const T p90_i = __shfl_sync(NYX_FULL, vidx, 3);
+  const T median_i = __shfl_sync(NYX_FULL, vidx, 4);
+  const T min_i = __shfl_sync(NYX_FULL, vidx, 5);
+  const T max_i = __shfl_sync(NYX_FULL, vidx, 6);
+
+  // ---- pass B: means and the robust window's means (5 sums; the total of
+  // sum j lands on lane 4 j)
+  double acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = i0 + k;
+    if (i < N) {
+      const T ii = static_cast<T>(i);
+      const T prob = v[k] / safe_total;
+      const T c = centre(min_val, i, binw);
+      const T robw = (ii >= p10_i && ii <= p90_i) ? v[k] : T(0);
+      acc[0] += static_cast<double>(rn_mul(prob, c));
+      acc[1] += static_cast<double>(rn_mul(prob, ii));
+      acc[2] += static_cast<double>(robw);
+      acc[3] += static_cast<double>(rn_mul(robw, c));
+      acc[4] += static_cast<double>(rn_mul(robw, ii));
+    }
+  }
+  nyx_reduce_scatter<8>(acc, lane);
+  const T mean_v = static_cast<T>(__shfl_sync(NYX_FULL, acc[0], 0));
+  const T mean_i = static_cast<T>(__shfl_sync(NYX_FULL, acc[0], 4));
+  const T rob_cnt = static_cast<T>(__shfl_sync(NYX_FULL, acc[0], 8));
+  const T rmean_v =
+      safe_div(static_cast<T>(__shfl_sync(NYX_FULL, acc[0], 12)), rob_cnt);
+  const T rmean_i =
+      safe_div(static_cast<T>(__shfl_sync(NYX_FULL, acc[0], 16)), rob_cnt);
+
+  // ---- pass C: central moments, deviations, entropy, uniformity (14 sums;
+  // the total of sum j lands on lane 2 j)
+  double acc2[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc2[j] = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = i0 + k;
+    if (i < N) {
+      const T ii = static_cast<T>(i);
+      const T prob = v[k] / safe_total;
+      const T c = centre(min_val, i, binw);
+      const T robw = (ii >= p10_i && ii <= p90_i) ? v[k] : T(0);
+      const T dv = rn_sub(c, mean_v);
+      const T di = rn_sub(ii, mean_i);
+      const T dv2 = rn_mul(dv, dv), di2 = rn_mul(di, di);
+      acc2[0] += static_cast<double>(rn_mul(rn_mul(prob, dv), dv));
+      acc2[1] += static_cast<double>(rn_mul(rn_mul(prob, di), di));
+      acc2[2] += static_cast<double>(rn_mul(prob, rn_mul(dv, dv2)));
+      acc2[3] += static_cast<double>(rn_mul(prob, rn_mul(di, di2)));
+      acc2[4] += static_cast<double>(rn_mul(prob, rn_mul(dv2, dv2)));
+      acc2[5] += static_cast<double>(rn_mul(prob, rn_mul(di2, di2)));
+      acc2[6] += static_cast<double>(rn_mul(prob, fabs(dv)));
+      acc2[7] += static_cast<double>(rn_mul(prob, fabs(di)));
+      acc2[8] += static_cast<double>(rn_mul(robw, fabs(rn_sub(c, rmean_v))));
+      acc2[9] += static_cast<double>(rn_mul(robw, fabs(rn_sub(ii, rmean_i))));
+      acc2[10] += static_cast<double>(rn_mul(prob, fabs(rn_sub(c, median_v))));
+      acc2[11] += static_cast<double>(rn_mul(prob, fabs(rn_sub(ii, median_i))));
+      if (prob > static_cast<T>(1e-7))
+        acc2[12] += static_cast<double>(rn_mul(prob, log2(prob)));
+      acc2[13] += static_cast<double>(rn_mul(prob, prob));
+    }
+  }
+  nyx_reduce_scatter<16>(acc2, lane);
+  double s[IH_SUMS];
+#pragma unroll
+  for (int j = 0; j < IH_SUMS; ++j) s[j] = __shfl_sync(NYX_FULL, acc2[0], 2 * j);
+
+  // ---- the row: every lane forms it, lane l keeps members l and 32 + l
+  const T var_v = static_cast<T>(s[0]);
+  const T var_i = static_cast<T>(s[1]);
+  const T entropy = -static_cast<T>(s[12]);
+  const T uniformity = static_cast<T>(s[13]);
+  const T seed_min = IhLimits<T>::seed_min();
+  const T seed_max = IhLimits<T>::seed_max();
+  const bool up = gmax_v > seed_min;
+  const bool down = gmin_v < seed_max;
+  const T mode_bin = static_cast<T>(mode_i);
+  T r[IH_MEMBERS];
+  r[0] = mean_v;
+  r[1] = var_v;
+  r[2] = safe_div(static_cast<T>(s[2]), rn_mul(var_v, sqrt(var_v)));
+  r[3] = rn_sub(safe_div(static_cast<T>(s[4]), rn_mul(var_v, var_v)), T(3));
+  r[4] = median_v;
+  r[5] = min_val;
+  r[6] = p10_v;
+  r[7] = p90_v;
+  r[8] = max_val;
+  r[9] = centre(min_val, mode_i, binw);
+  r[10] = rn_sub(p75_v, p25_v);
+  r[11] = rn_sub(max_val, min_val);
+  r[12] = static_cast<T>(s[6]);
+  r[13] = safe_div(static_cast<T>(s[8]), rob_cnt);
+  r[14] = static_cast<T>(s[10]);
+  r[15] = safe_div(sqrt(var_v), mean_v);
+  r[16] = safe_div(rn_sub(p75_v, p25_v), rn_add(p75_v, p25_v));
+  r[17] = entropy;
+  r[18] = uniformity;
+  r[19] = rmean_v;
+  r[20] = rn_add(mean_i, T(1));
+  r[21] = var_i;
+  r[22] = safe_div(static_cast<T>(s[3]), rn_mul(var_i, sqrt(var_i)));
+  r[23] = rn_sub(safe_div(static_cast<T>(s[5]), rn_mul(var_i, var_i)), T(3));
+  r[24] = rn_add(median_i, T(1));
+  r[25] = rn_add(min_i, T(1));
+  r[26] = rn_add(p10_i, T(1));
+  r[27] = rn_add(p90_i, T(1));
+  r[28] = rn_add(max_i, T(1));
+  r[29] = rn_add(mode_bin, T(1));
+  r[30] = rn_sub(p75_i, p25_i);
+  r[31] = rn_sub(max_i, min_i);
+  r[32] = static_cast<T>(s[7]);
+  r[33] = safe_div(static_cast<T>(s[9]), rob_cnt);
+  r[34] = static_cast<T>(s[11]);
+  r[35] = safe_div(sqrt(var_i), rn_add(mean_i, T(1)));
+  r[36] = safe_div(rn_sub(p75_i, p25_i), rn_add(rn_add(p75_i, p25_i), T(2)));
+  r[37] = entropy;
+  r[38] = uniformity;
+  r[39] = up ? gmax_v : seed_min;
+  r[40] = up ? static_cast<T>(gmax_i + 1) : T(0);
+  r[41] = down ? gmin_v : seed_max;
+  r[42] = down ? static_cast<T>(gmin_i + 1) : T(0);
+  r[43] = rmean_i;
+  r[44] = static_cast<T>(N);
+  r[45] = binw;
+  T lo = r[0], hi = r[32];
+#pragma unroll
+  for (int m = 1; m < 32; ++m)
+    if (lane == m) lo = r[m];
+#pragma unroll
+  for (int m = 33; m < IH_MEMBERS; ++m)
+    if (lane == m - 32) hi = r[m];
+  T* o = out + static_cast<size_t>(b) * IH_MEMBERS;
+  o[lane] = bad ? noval : lo;
+  if (lane < IH_MEMBERS - 32) o[32 + lane] = bad ? noval : hi;
+}
+
+#define IH_PATH_WARP 0
+#define IH_PATH_BLOCK 1   // the row staged in shared memory
+#define IH_PATH_DEVICE 2  // the row read from device memory
+
+template <typename T, int K>
+static int launch_warp(const T* freq, const T* counts, const T* vmin,
+                       const T* vmax, const T* pscale, const T* poffset,
+                       T* out, int B, int N, T noval, cudaStream_t st) {
+  ih_stats_warp_kernel<T, K><<<B, 32, 0, st>>>(
+      freq, counts, vmin, vmax, pscale, poffset, out, N, noval);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch(const void* freq_, const void* counts_, const void* vmin_,
+                  const void* vmax_, const void* pscale_, const void* poffset_,
+                  void* out_, int B, int N, int path, int bins_lane,
+                  double noval_, cudaStream_t st) {
+  const T* freq = static_cast<const T*>(freq_);
+  const T* counts = static_cast<const T*>(counts_);
+  const T* vmin = static_cast<const T*>(vmin_);
+  const T* vmax = static_cast<const T*>(vmax_);
+  const T* pscale = static_cast<const T*>(pscale_);
+  const T* poffset = static_cast<const T*>(poffset_);
+  T* out = static_cast<T*>(out_);
+  const T noval = static_cast<T>(noval_);
+  if (path == IH_PATH_WARP) {
+    switch (bins_lane) {
+      case 1: return launch_warp<T, 1>(freq, counts, vmin, vmax, pscale, poffset, out, B, N, noval, st);
+      case 2: return launch_warp<T, 2>(freq, counts, vmin, vmax, pscale, poffset, out, B, N, noval, st);
+      case 4: return launch_warp<T, 4>(freq, counts, vmin, vmax, pscale, poffset, out, B, N, noval, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int staged = path == IH_PATH_BLOCK;
   const size_t smem = staged ? static_cast<size_t>(N) * sizeof(T) : 0;
-  cudaError_t e = nyx_allow_smem(ih_stats_kernel<T>, smem);
+  cudaError_t e = nyx_allow_smem(ih_stats_block_kernel<T>, smem,
+                                 sizeof(IhShared<T>));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ih_stats_kernel<T><<<B, IH_BLOCK, smem, st>>>(
-      static_cast<const T*>(freq), static_cast<const T*>(counts),
-      static_cast<const T*>(vmin), static_cast<const T*>(vmax),
-      static_cast<const T*>(pscale), static_cast<const T*>(poffset),
-      static_cast<T*>(out), N, staged, static_cast<T>(noval));
+  ih_stats_block_kernel<T><<<B, IH_BLOCK, smem, st>>>(
+      freq, counts, vmin, vmax, pscale, poffset, out, N, staged, noval);
   return static_cast<int>(cudaGetLastError());
 }
 
 // freq: [B, N]; counts, vmin, vmax, pscale, poffset: [B], all of the input
-// type; out: [B, 46] of the input type.  staged: the row fits a block's
-// shared memory.
+// type; out: [B, 46] of the input type.  path: IH_PATH_WARP (a warp a ROI,
+// bins_lane 1, 2 or 4, N <= 32 bins_lane),
+// IH_PATH_BLOCK (a block a ROI, the row in shared memory) or IH_PATH_DEVICE
+// (a block a ROI, the row read from device memory).
 extern "C" int nyx_ih_stats(const void* freq, const void* counts,
                             const void* vmin, const void* vmax,
                             const void* pscale, const void* poffset, void* out,
-                            int B, int N, int staged, int is_f64, double noval,
-                            void* stream) {
+                            int B, int N, int path, int bins_lane,
+                            int is_f64, double noval, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f64)
     return launch<double>(freq, counts, vmin, vmax, pscale, poffset, out, B, N,
-                          staged, noval, st);
+                          path, bins_lane, noval, st);
   return launch<float>(freq, counts, vmin, vmax, pscale, poffset, out, B, N,
-                       staged, noval, st);
+                       path, bins_lane, noval, st);
 }

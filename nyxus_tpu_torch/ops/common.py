@@ -3,9 +3,9 @@ nyxus_tpu/ops/common.py).
 
 Everything is batched over a leading ROI axis ``B`` and works on padded,
 masked tensors.  Two of the functions here are kernels written by hand for
-the card (``batched_hist`` = K1, ``stencil8`` = K4): each has a plain PyTorch
-version beside it, which is the only path for a tensor on the CPU.  A CUDA
-tensor launches the kernel or raises.
+the card (``batched_hist`` = K1, ``neigh_matrix`` = K4): each has a plain
+PyTorch version beside it, which is the only path for a tensor on the CPU.
+A CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ HIST_COPY_BYTES = 32768
 
 def counted(fn):
     """``fn`` with a count of its calls (``fn.calls``), for the device
-    routines that stay torch: chip_smoke.py reports them beside the
-    kernels' launches."""
+    routines that stay torch and the family calls that launch K4:
+    chip_smoke.py reports them beside the kernels' launches."""
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         wrapper.calls += 1
@@ -286,14 +286,15 @@ def fast_log2(x):
 
 
 # ---------------------------------------------------------------------------
-# K4: 8-neighbour stencil shared by GLDM and NGTDM
+# K4: the matrices of the 8-neighbour families (GLDM, NGLDM, NGTDM)
 
 
 def stencil8_plain(lev, part):
-    """Plain version of K4.  lev: [B, H, W] int levels; part: [B, H, W] bool
-    participation.  Returns int32 (same, nsum, ncnt), each [B, H, W]:
-    same = participating neighbours with the centre's level; nsum / ncnt =
-    sum / count of participating neighbours with level > 0."""
+    """The per-pixel 8-neighbour counts the plain version of K4 reads.  lev:
+    [B, H, W] int levels; part: [B, H, W] bool participation.  Returns int32
+    (same, nsum, ncnt), each [B, H, W]: same = participating neighbours with
+    the centre's level; nsum / ncnt = sum / count of participating
+    neighbours with level > 0."""
     lev = lev.to(torch.int32)
     same = torch.zeros_like(lev)
     nsum = torch.zeros_like(lev)
@@ -308,31 +309,186 @@ def stencil8_plain(lev, part):
     return same, nsum, ncnt
 
 
-def stencil8(lev, part):
-    """K4 stencil8 (csrc/stencil8.cu), replacing the 8-neighbour shifted2d
-    loops of nyxus_tpu/ops/gldm.py:28-37 and nyxus_tpu/ops/ngtdm.py:37-46.
-    See stencil8_plain for the outputs.  One thread a pixel; bound on the
-    card: memory traffic (5 bytes read, 12 written a pixel)."""
-    if not _kernel_device(lev, "stencil8"):
-        return stencil8_plain(lev, part)
-    if lev.dim() != 3 or part.shape != lev.shape or part.device != lev.device:
-        raise ValueError("stencil8: lev %s and part %s must be [B, H, W] on "
-                         "one device" % (tuple(lev.shape), tuple(part.shape)))
+# the families K4 forms a matrix of (csrc/neigh_matrix.cu NM_GLDM, NM_NGLDM,
+# NM_NGTDM); dependence columns of GLDM and NGLDM (0..8 neighbours)
+NM_MODES = ("gldm", "ngldm", "ngtdm")
+NM_ND = 9
+# K4's launch plan (neigh_matrix_plan): threads a block at most; blocks (a
+# cluster) a ROI at most; crop pixels a block takes before the rows are
+# split over a cluster (at 47 x 64² a cluster of 2 ran faster than one
+# block, at 300 x 32² slower: PERF.md)
+NM_THREADS_MAX = 1024
+NM_CLUSTER_MAX = 16
+NM_BLOCK_PIXELS = 2048
+NM_PATHS = ("smem", "cluster", "device")
+# participation kinds by dtype (csrc/neigh_matrix.cu NM_PART_*)
+_NM_PART = {torch.bool: 0, torch.uint8: 0, torch.float32: 1,
+            torch.float64: 2}
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def neigh_matrix_plain(mode: str, lev, part, nbins: int, dtype):
+    """Plain version of K4: each family's former call sequence, bit for bit
+    (stencil8_plain, then K1's plain version).  lev: [B, H, W] int levels;
+    part: [B, H, W] participation (bool, or a crop read as part > 0).
+    "gldm": P [B, nbins, 9], P[b, lev - 1, same] += 1 for participating
+    pixels; "ngldm": P[b, lev, matches] += 1 likewise (levels 0-based);
+    "ngtdm": (N, S, present), each [B, nbins], over the levels zeroed
+    outside ``part``: per-level zone counts, sums of |level - neighbourhood
+    mean| and the non-zero levels that occur.  Entries outside the matrix
+    add nothing."""
+    B = lev.shape[0]
+    lev = lev.to(torch.int32)
+    if part.dtype != torch.bool:
+        part = part > 0
+    w = part.reshape(B, -1).to(dtype)
+    if mode == "gldm":
+        same, _, _ = stencil8_plain(lev, part)
+        return pair_hist_plain((lev - 1).reshape(B, -1), same.reshape(B, -1),
+                               w, nbins, NM_ND)
+    if mode == "ngldm":
+        matches, _, _ = stencil8_plain(lev, part)
+        return pair_hist_plain(torch.where(part, lev, 0).reshape(B, -1),
+                               matches.reshape(B, -1), w, nbins, NM_ND)
+    if mode != "ngtdm":
+        raise ValueError("neigh_matrix: mode %r not in %s" % (mode, NM_MODES))
+    lev = torch.where(part, lev, 0)
+    _, nsum, ncnt = stencil8_plain(lev, part)
+    is_zone = (lev > 0) & (ncnt > 0)
+    ave = torch.where(is_zone,
+                      nsum.to(dtype) / torch.clamp(ncnt, min=1).to(dtype), 0)
+    wzone = is_zone.reshape(B, -1).to(dtype)
+    diff = torch.abs(lev.to(dtype) - ave).reshape(B, -1)
+    # N, S and the valid count per level: three channels over one index
+    N, S, cnt = batched_hist_plain(lev.reshape(B, -1),
+                                   torch.stack((wzone, wzone * diff, w)),
+                                   nbins)
+    present = cnt > 0
+    present[:, 0] = False
+    return N, S, present
+
+
+def neigh_matrix_blocks(mode: str, H: int, W: int, nbins: int, esz: int,
+                        C: int):
+    """(path, C, threads, smem) of K4 with a crop's rows split over C
+    blocks, or None where a block's shared memory cannot hold them.  C =
+    1: "smem", one block a ROI; C > 1: "cluster", C blocks of R = ceil(H /
+    C) rows each (C lowered to ceil(H / R), so that no block is empty); C
+    = 0: "device", the crop read from device memory and the counts in a
+    device scratch.  A block has a thread a pixel of its rows, whole warps,
+    at most NM_THREADS_MAX; its shared memory holds the counts (32-bit;
+    NGTDM's cnt and N and S of esz bytes a level), 16 bytes aligned each, NGTDM's 32 terms a warp and, staged, the (R + 2) x
+    (W + 2) 16-bit codes of its rows with their halo."""
+    terms = 0
+    if C == 0:
+        threads = min(NM_THREADS_MAX, 32 * max(1, -(-H * W // 32)))
+        if mode == "ngtdm":
+            terms = _align16(threads * esz)
+        return "device", 0, threads, terms
+    R = -(-H // C) if H else 0
+    C = -(-H // R) if R else 1
+    threads = min(NM_THREADS_MAX, 32 * max(1, -(-R * W // 32)))
+    if mode == "ngtdm":
+        terms = _align16(threads * esz)
+        counts = _align16(8 * nbins) + _align16(esz * nbins)
+    else:
+        counts = _align16(4 * NM_ND * nbins)
+    smem = counts + terms + 2 * (R + 2) * (W + 2)
+    if smem > SMEM_MAX:
+        return None
+    return ("smem" if C == 1 else "cluster"), C, threads, smem
+
+
+def neigh_matrix_plan(mode: str, B: int, H: int, W: int, nbins: int,
+                      esz: int):
+    """(path, C, threads, smem) of K4's launch for family ``mode`` over B
+    crops of H x W into ``nbins`` levels, the compute type of esz bytes
+    (neigh_matrix_blocks): the fewest blocks a ROI, from one a
+    NM_BLOCK_PIXELS pixels (at most NM_CLUSTER_MAX, at most a row each),
+    whose shared memory holds the counts and the staged rows; else the
+    device path.  A matrix of 65535 levels or more never fits, so the
+    staged codes fit 16 bits.  B does not change the plan."""
+    C0 = max(1, min(NM_CLUSTER_MAX, H, -(-H * W // NM_BLOCK_PIXELS)))
+    for C in range(C0, NM_CLUSTER_MAX + 1):
+        plan = neigh_matrix_blocks(mode, H, W, nbins, esz, C)
+        if plan is not None:
+            return plan
+    return neigh_matrix_blocks(mode, H, W, nbins, esz, 0)
+
+
+def neigh_matrix(mode: str, lev, part, nbins: int, dtype):
+    """K4 neigh_matrix (csrc/neigh_matrix.cu): the whole matrix of one
+    8-neighbour family in one launch, replacing the neighbour loops and
+    histograms of nyxus_tpu/ops/gldm.py:27 gldm_matrix,
+    nyxus_tpu/ops/ngldm.py:41-46 and nyxus_tpu/ops/ngtdm.py:37-46.
+    Arguments and results as neigh_matrix_plain; ``part`` bool or uint8
+    (non-zero takes part), or a float crop (> 0 takes part: GLDM passes
+    the original intensities).  On the card one launch a call, no K1 and no
+    fill: a block a ROI stages the crop in shared memory as 16-bit codes
+    (the level and the participation in one value) and counts the family's
+    cells in shared memory, one atomic a warp's group of equal cells, each
+    cell written once (``neigh_matrix_plan``: past 2048 pixels a cluster
+    of up to 16 blocks a ROI, each counting its rows and summing its share
+    of the cells over the cluster through distributed shared memory; past
+    a block's shared memory the crop is read from device memory and the
+    counts sit in a device scratch).  GLDM's and NGLDM's P and NGTDM's N and present equal the
+    plain version's; NGTDM's S sums the same terms in another order, within
+    2 n u sum(w) of a cell of n terms (u the compute type's unit
+    roundoff).  Bound on the card: bytes (levels and participation read
+    once, the matrix written once)."""
+    if not _kernel_device(lev, "neigh_matrix"):
+        return neigh_matrix_plain(mode, lev, part, nbins, dtype)
+    if mode not in NM_MODES:
+        raise ValueError("neigh_matrix: mode %r not in %s" % (mode, NM_MODES))
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError("neigh_matrix: float32 or float64 expected, got %s"
+                        % (dtype,))
+    if lev.dim() != 3 or part.shape != lev.shape or part.device != lev.device \
+            or part.dtype not in _NM_PART:
+        raise ValueError("neigh_matrix: lev %s and part %s (%s) must be "
+                         "[B, H, W] on one device, part bool, uint8 or float"
+                         % (tuple(lev.shape), tuple(part.shape), part.dtype))
     lev = lev.to(torch.int32).contiguous()
-    part = part.to(torch.bool).contiguous()
+    part = part.contiguous()
     B, H, W = lev.shape
-    same = torch.empty_like(lev)
-    nsum = torch.empty_like(lev)
-    ncnt = torch.empty_like(lev)
-    if lev.numel() == 0:
-        return same, nsum, ncnt
-    with torch.cuda.device(lev.device):
-        code = _build.lib().nyx_stencil8(
-            lev.data_ptr(), part.data_ptr(), same.data_ptr(), nsum.data_ptr(),
-            ncnt.data_ptr(), B, H, W, _build.stream_of(lev))
-    _build.check("stencil8", code)
-    stencil8.launches += 1
-    return same, nsum, ncnt
+    dev = lev.device
+    esz = 8 if dtype == torch.float64 else 4
+    ngtdm = mode == "ngtdm"
+    if ngtdm:
+        out = torch.empty((2, B, nbins), dtype=dtype, device=dev)
+        present = torch.empty((B, nbins), dtype=torch.bool, device=dev)
+        result = (out[0], out[1], present)
+    else:
+        out = torch.empty((B, nbins, NM_ND), dtype=dtype, device=dev)
+        present = None
+        result = out
+    if B == 0 or nbins == 0:
+        return result
+    path, C, threads, smem = neigh_matrix_plan(mode, B, H, W, nbins, esz)
+    dcount = dsum = None
+    if path == "device":
+        # NGTDM: a (cnt, N) pair a level
+        dcount = torch.empty((B, (2 if ngtdm else NM_ND) * nbins),
+                             dtype=torch.int32, device=dev)
+        if ngtdm:
+            dsum = torch.empty((B, nbins), dtype=dtype, device=dev)
+    vec = W % 4 == 0 and lev.data_ptr() % 16 == 0 \
+        and part.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        code = _build.lib().nyx_neigh_matrix(
+            lev.data_ptr(), part.data_ptr(), _NM_PART[part.dtype],
+            out.data_ptr(), 0 if present is None else present.data_ptr(),
+            0 if dcount is None else dcount.data_ptr(),
+            0 if dsum is None else dsum.data_ptr(), B, H, W, nbins,
+            NM_MODES.index(mode), NM_PATHS.index(path), C, threads, smem,
+            int(vec), int(esz == 8),
+            _build.stream_of(lev))
+    _build.check("neigh_matrix", code)
+    neigh_matrix.launches += 1
+    return result
 
 
-stencil8.launches = 0
+neigh_matrix.launches = 0

@@ -8,18 +8,16 @@ statistics over P[level, nd].
 
 Background is excluded by ORIGINAL intensity for both center and neighbors
 (gldm.cpp:116-124), unlike GLRLM/NGTDM.  Blank ROI (min == max) -> soft-NAN.
-The neighbour counts are K4 (common.stencil8), the matrix K1
-(common.pair_hist).
+The matrix is one K4 launch (common.neigh_matrix, mode "gldm").
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import fast_log2, pair_hist, stencil8
+from .common import counted, fast_log2, neigh_matrix, neigh_matrix_plain
 
 EPS = 2.2e-16  # reference: glrlm.h:169 / glszm.h:138 / gldm.h:105
-ND = 9  # dependencies 1..9
 
 MEMBERS = [
     "GLDM_SDE", "GLDM_LDE", "GLDM_GLN", "GLDM_DN", "GLDM_DNN", "GLDM_GLV",
@@ -28,19 +26,22 @@ MEMBERS = [
 ]
 
 
+@counted
 def gldm_matrix(orig, levels, ng: int, dtype):
-    """P: [B, ng, ND] dependence counts.  orig: masked original intensities
-    (0 = background); levels: binned levels (1-based)."""
-    B = orig.shape[0]
-    roi = orig > 0
-    same, _, _ = stencil8(levels, roi)
-    lev_idx = (levels.to(torch.int32) - 1).reshape(B, -1)
-    nd_idx = same.reshape(B, -1)          # nd - 1
-    return pair_hist(lev_idx, nd_idx, roi.reshape(B, -1).to(dtype), ng, ND)
+    """P: [B, ng, 9] dependence counts (dependencies 1..9).  orig: masked original intensities
+    (0 = background); levels: binned levels (1-based).  One K4 launch on
+    the card, gldm_matrix_plain on the CPU."""
+    return neigh_matrix("gldm", levels, orig, ng, dtype)
+
+
+def gldm_matrix_plain(orig, levels, ng: int, dtype):
+    """Plain version of gldm_matrix (K4's stencil counts, then K1's pair
+    histogram, in plain PyTorch)."""
+    return neigh_matrix_plain("gldm", levels, orig, ng, dtype)
 
 
 def gldm_features(P, vmin, vmax, noval: float):
-    """14 members from P: [B, ng, ND]."""
+    """14 members from P: [B, ng, 9]."""
     dtype = P.dtype
     B, ng, nd = P.shape
     dev = P.device

@@ -24,8 +24,9 @@ Semantics reproduced exactly:
   invariant under that map, so the frequency table is built from raw values
 
 The frequency table is K1 (common.masked_bincount); the statistics are K17
-``ih_stats`` (csrc/ih_stats.cu), with ``ih_features_from_freq_plain``
-beside it, the only path for a tensor on the CPU.  Both form every term in
+``ih_stats`` (csrc/ih_stats.cu, a warp a ROI up to 128 bins), with
+``ih_features_from_freq_plain`` beside it, the only path for a tensor on the
+CPU.  Both form every term in
 the compute dtype as the JAX package does and accumulate the sums in
 float64, so they differ only in the order of those sums.
 """
@@ -35,8 +36,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .common import (SMEM_MAX, _check_float, _kernel_device, masked_bincount,
-                     safe_div, take_per_row)
+from .common import (SMEM_MAX, _check_float, _kernel_device,
+                     masked_bincount, safe_div, take_per_row)
 
 _DBL_MIN = 2.2250738585072014e-308
 _DBL_MAX = 1.7976931348623157e+308
@@ -68,9 +69,16 @@ MEMBERS = (
 )
 N_MEMBERS = len(MEMBERS)
 
-# bytes of the row K17 stages in shared memory at most (the rest of a
-# block's 227 KB holds its scan and reduction buffers)
+# bytes of the row K17's block path stages in shared memory at most (the
+# rest of a block's 227 KB holds its scan and reduction buffers)
 _STAGE_MAX = SMEM_MAX - 8192
+# K17's launch plan (ih_stats_plan): bins a row has at most on the warp
+# path (32 lanes of up to 4 bins; at 8 bins a lane it ran slower than the
+# block path: PERF.md); threads of the block path (csrc/ih_stats.cu
+# IH_BLOCK)
+IH_WARP_BINS = 128
+IH_BLOCK = 256
+_IH_PATHS = ("warp", "block", "device")
 
 
 def _sum64(x):
@@ -233,15 +241,42 @@ def ih_features_from_freq_plain(freq, counts, vmin, vmax, noval: float,
     return torch.where(bad[:, None], noval, out)
 
 
+def ih_bins_a_lane(N: int) -> int:
+    """Bins a lane of K17's warp path for rows of N <= IH_WARP_BINS bins:
+    the least power of two that covers the row in 32 lanes (1, 2 or 4)."""
+    K = 1
+    while 32 * K < N:
+        K *= 2
+    return K
+
+
+def ih_stats_plan(N: int, esz: int):
+    """(path, bins a lane or thread) of K17's launch for rows of N bins of
+    esz bytes.  "warp" (N <= IH_WARP_BINS): a block of one warp a ROI, each
+    lane holding ih_bins_a_lane(N) contiguous bins (more warps a block
+    measured no faster at 300 and 1056 rows: PERF.md).  Past IH_WARP_BINS a
+    block a ROI of IH_BLOCK threads, ceil(N / IH_BLOCK) bins a thread:
+    "block" with the row staged in shared memory (N esz <= _STAGE_MAX),
+    else "device"."""
+    if N <= IH_WARP_BINS:
+        return "warp", ih_bins_a_lane(N)
+    return ("block" if N * esz <= _STAGE_MAX else "device"), -(-N // IH_BLOCK)
+
+
 def ih_stats(freq, counts, vmin, vmax, noval: float, pscale, poffset):
     """K17 ih_stats (csrc/ih_stats.cu), replacing
     nyxus_tpu/ops/ih.py:132 ih_features_from_freq (with its quantile scans
     :62,80).  Arguments and result as ih_features_from_freq_plain.  One
-    block a ROI: the row is staged in shared memory when it fits (else read
-    from device memory), a block scan finds the landing bins of the median
-    and the four quantiles while the mode and the gradient extrema reduce,
-    then two passes form the moments; sums in float64.  Bound on the card:
-    the ~60 operations of a bin, and the launch at small N."""
+    launch (``ih_stats_plan``): up to 128 bins a warp a ROI with the row
+    in registers and no block barrier -- a warp scan
+    of the lanes' counts, the landing bins of the median and the four
+    quantiles by ballots, the mode and the gradient extrema by shuffle
+    reductions, then two register passes of float64 sums reduced by a
+    reduce-scatter and the 46 members stored as one row; beyond 128 bins
+    a block a ROI, the row in shared or device memory.  Bin indices equal
+    the plain version's; the values differ by the order of the float64
+    sums only.  Bound on the card: the ~60 operations of a bin, and the
+    launch and the warp's chain of steps at small N."""
     if not _kernel_device(freq, "ih_stats"):
         return ih_features_from_freq_plain(freq, counts, vmin, vmax, noval,
                                            pscale, poffset)
@@ -262,12 +297,12 @@ def ih_stats(freq, counts, vmin, vmax, noval: float, pscale, poffset):
     out = torch.empty((B, N_MEMBERS), dtype=dt, device=freq.device)
     if B == 0:
         return out
-    staged = N * freq.element_size() <= _STAGE_MAX
+    path, bins_lane = ih_stats_plan(N, freq.element_size())
     with torch.cuda.device(freq.device):
         code = _build.lib().nyx_ih_stats(
             freq.data_ptr(), *(r.data_ptr() for r in rows), out.data_ptr(),
-            B, N, int(staged), int(dt == torch.float64), float(noval),
-            _build.stream_of(freq))
+            B, N, _IH_PATHS.index(path), bins_lane,
+            int(dt == torch.float64), float(noval), _build.stream_of(freq))
     _build.check("ih_stats", code)
     ih_stats.launches += 1
     return out

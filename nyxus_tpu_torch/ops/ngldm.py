@@ -9,16 +9,15 @@ ROI 8-neighbors with the same binned level (column j = matches, dependence
 count = j + 1).  19 scalar statistics; DCP == 1 by IBSI definition; DCENT
 uses the exact log2.
 
-No kernel of its own: the matches are K4's ``same`` count with the ROI mask
-as participation (common.stencil8), and the [B, n_levels + 1, 9] matrix is
-K1 (common.pair_hist).
+The [B, nmax + 1, 9] matrix is one K4 launch (common.neigh_matrix, mode
+"ngldm", the ROI mask as participation).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import pair_hist, stencil8
+from .common import counted, neigh_matrix, neigh_matrix_plain
 
 NR = 9  # dependencies 0..8 matches
 
@@ -44,16 +43,25 @@ def ngldm_features(intens, mask, vmin, vmax, n_levels: int, nmax: int,
     """intens: [B, H, W] raw crop; mask: ROI membership; n_levels: the
     to_grayscale level count; nmax: static level cap (levels <= nmax).
     Returns dict member -> [B]."""
-    B = intens.shape[0]
     lev = to_grayscale_levels(intens.to(dtype), vmax[:, None, None],
                               n_levels, ibsi)
-    # matches of in-ROI pixels: in-ROI neighbours of the same level (JAX:
-    # levels -1 outside the ROI, matches counted where n_lev >= 0)
-    matches, _, _ = stencil8(lev, mask)
-    lev_idx = torch.where(mask, lev, 0).reshape(B, -1)
-    w = mask.reshape(B, -1).to(dtype)
-    P = pair_hist(lev_idx, matches.reshape(B, -1), w, nmax + 1, NR)
+    P = ngldm_matrix(lev, mask, nmax, dtype)
     return ngldm_features_from_matrix(P, vmin, vmax, noval, dtype)
+
+
+@counted
+def ngldm_matrix(lev, mask, nmax: int, dtype):
+    """P: [B, nmax + 1, 9]: each ROI pixel at (level, matches), matches the
+    in-ROI neighbours of the same level (JAX: levels -1 outside the ROI,
+    matches counted where n_lev >= 0).  One K4 launch on the card,
+    ngldm_matrix_plain on the CPU."""
+    return neigh_matrix("ngldm", lev, mask, nmax + 1, dtype)
+
+
+def ngldm_matrix_plain(lev, mask, nmax: int, dtype):
+    """Plain version of ngldm_matrix (K4's stencil counts, then K1's pair
+    histogram, in plain PyTorch)."""
+    return neigh_matrix_plain("ngldm", lev, mask, nmax + 1, dtype)
 
 
 def ngldm_features_from_matrix(P, vmin, vmax, noval: float, dtype):

@@ -13,41 +13,33 @@ Faithful notes:
   (ngtdm.cpp:76-84)
 * Ngp = number of distinct non-zero levels over the whole (binned) AABB
 
-The neighbourhood sums are K4 (common.stencil8); N, S and the present-level
-set are one K1 launch over the levels (common.masked_bincount with three
-channels of weights).
+N, S and the present-level set are one K4 launch (common.neigh_matrix,
+mode "ngtdm"): the neighbourhood sums and the three per-level histograms.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import masked_bincount, stencil8
+from .common import counted, neigh_matrix, neigh_matrix_plain
 
 MEMBERS = ["NGTDM_COARSENESS", "NGTDM_CONTRAST", "NGTDM_BUSYNESS",
            "NGTDM_COMPLEXITY", "NGTDM_STRENGTH"]
 
 
+@counted
 def ngtdm_matrices(levels, valid, nmax: int, dtype):
     """(N, S, present), each [B, nmax + 1]: per-level zone counts, sums of
     |level - neighbourhood mean|, and which non-zero levels occur in the
-    valid area."""
-    B = levels.shape[0]
-    lev = torch.where(valid, levels.to(torch.int32), 0)
-    _, nsum, ncnt = stencil8(lev, valid)
-    is_zone = (lev > 0) & (ncnt > 0)
-    ave = torch.where(is_zone,
-                      nsum.to(dtype) / torch.clamp(ncnt, min=1).to(dtype), 0)
+    valid area.  One K4 launch on the card, ngtdm_matrices_plain on the
+    CPU."""
+    return neigh_matrix("ngtdm", levels, valid, nmax + 1, dtype)
 
-    nb = nmax + 1
-    wzone = is_zone.reshape(B, -1).to(dtype)
-    diff = torch.abs(lev.to(dtype) - ave).reshape(B, -1)
-    # N, S and the valid count per level: three channels over one index
-    N, S, cnt = masked_bincount(lev.reshape(B, -1), torch.stack(
-        (wzone, wzone * diff, valid.reshape(B, -1).to(dtype))), nb)
-    present = cnt > 0
-    present[:, 0] = False
-    return N, S, present
+
+def ngtdm_matrices_plain(levels, valid, nmax: int, dtype):
+    """Plain version of ngtdm_matrices (K4's stencil sums, then one K1
+    histogram of three channels, in plain PyTorch)."""
+    return neigh_matrix_plain("ngtdm", levels, valid, nmax + 1, dtype)
 
 
 def ngtdm_features(levels, valid, nmax: int, vmin, vmax, noval: float, dtype,

@@ -33,10 +33,13 @@ K3, K7, K8 and K9 are equal on their own cases (chip_smoke.runs_cases,
 zone_stats_case, erosion_case, quads_cases) by their plans and on every
 path their plans can take, forced; K7 and K8 also on every bucket and
 special crop.
+K4's GLDM and NGLDM matrices and NGTDM's N and present levels are equal,
+NGTDM's S within 2 n u S of a cell of n terms (the same positive terms
+summed in another order), by its plan and with the device path forced.
 K17's bin indices and counts are
 equal, its values within 1e-5 (f32) / 1e-12 (f64) of their value plus
 their row's scale (both versions form the same terms and sum them in
-float64, in another order)."""
+float64, in another order), on every plan forced."""
 
 import os
 import sys
@@ -146,13 +149,54 @@ def test_glrlm_runs_single_diagonal(anti):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
 @pytest.mark.parametrize("case", CASES, ids=str)
-def test_stencil8(case):
-    _, lev, aabb, roi = _bucket(case, torch.float32)
-    for part in (roi, aabb):
-        for got, want in zip(common.stencil8(lev, part),
-                             common.stencil8_plain(lev, part)):
-            assert torch.equal(got, want)
+def test_neigh_matrix(prec, case):
+    """K4 on each family's call (GLDM, NGTDM over the AABB and over the
+    ROI, NGLDM) by its plan and with the device path forced: P, N and
+    present equal, S within 2 n u S; one K4 and no K1 launch a call."""
+    dtype = DTYPES[prec]
+    orig, lev, aabb, roi = _bucket(case, dtype)
+    for call in chip_smoke.neigh_family_args(orig, lev, aabb, roi):
+        chip_smoke.neigh_agree(_Agree(), *call, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("name", chip_smoke.NEIGH_CASES)
+def test_neigh_matrix_special_cases(prec, name):
+    """K4 on uniform, one-pixel and border ROIs, levels outside the matrix
+    and past 16-bit codes, and IBSI's 256 and 4096 levels, on every
+    path."""
+    dtype = DTYPES[prec]
+    for call in chip_smoke.neigh_case(name, dtype):
+        chip_smoke.neigh_agree(_Agree(), *call, dtype)
+
+
+@pytest.mark.cuda
+def test_family_calls_launch_k4_once():
+    """gldm_matrix, ngtdm_matrices and ngldm_features each make one K4
+    launch and no K1 launch, and equal their plain versions."""
+    from nyxus_tpu_torch.ops import gldm, ngldm, ngtdm
+    orig, lev, aabb, roi = _bucket(CASES[0], torch.float32)
+    B = orig.shape[0]
+    vmin = torch.where(roi, orig, float("inf")).reshape(B, -1).amin(dim=1)
+    vmax = orig.reshape(B, -1).amax(dim=1)
+    for call, plain in (
+            (lambda: gldm.gldm_matrix(orig, lev, 64, torch.float32),
+             lambda: gldm.gldm_matrix_plain(orig, lev, 64, torch.float32)),
+            (lambda: ngtdm.ngtdm_matrices(lev, aabb, 64, torch.float32)[0],
+             lambda: ngtdm.ngtdm_matrices_plain(lev, aabb, 64,
+                                                torch.float32)[0]),
+            (lambda: ngldm.ngldm_features(orig, roi, vmin, vmax, 64, 64,
+                                          False, -0.0, torch.float32),
+             None)):
+        k4, k1 = common.neigh_matrix.launches, common.batched_hist.launches
+        got = call()
+        assert common.neigh_matrix.launches == k4 + 1
+        assert common.batched_hist.launches == k1
+        if plain is not None:
+            assert torch.equal(got, plain())
 
 
 class _Agree:
@@ -892,17 +936,15 @@ def test_3d_f32_on_card_against_f64_cpu():
 @pytest.mark.parametrize("prec", list(DTYPES))
 @pytest.mark.parametrize("N", chip_smoke.IH_BINS)
 def test_ih_stats(prec, N):
-    """K17 against its plain version: bin indices equal, values within
-    1e-5 (f32) / 1e-12 (f64) of their row's scale, the empty, single-level
-    and one-bin rows included; 32768 bins in f64 read the row from device
-    memory."""
+    """K17 against its plain version by its plan and on every plan of
+    chip_smoke.ih_plans forced (a warp a ROI, also at twice the bins a
+    lane up to 4, the block path staged and from device memory),
+    one launch a call: bin indices equal, values within 1e-5 (f32) / 1e-12
+    (f64) of their row's scale, the empty, single-level and one-bin rows
+    included."""
     dtype = DTYPES[prec]
     inputs = chip_smoke.ih_inputs(64, N, dtype, seed=N)
-    before = ih.ih_stats.launches
-    got = ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
-    assert ih.ih_stats.launches == before + 1
-    want = ih.ih_features_from_freq_plain(*inputs[:4], -0.0, *inputs[4:])
-    chip_smoke.ih_agree(got, want, inputs, 1e-5 if prec == "f32" else 1e-12)
+    chip_smoke.ih_paths_agree(inputs, 1e-5 if prec == "f32" else 1e-12)
 
 
 @pytest.mark.cuda

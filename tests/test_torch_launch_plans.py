@@ -1,13 +1,14 @@
-"""The launch plans of K1 ``batched_hist``, K3 ``glrlm_runs``, K5
-``zone_dag``, K7 ``zone_stats``, K8 ``erosion``, K9 ``binary_quads``, K10
-``power_sums``, K11 ``gabor``, K12 ``zernike``, K13 ``glcm3d_cooc``, K15
-``cc3d`` and K16 ``stencil3d`` (nyxus_tpu_torch/ops/common.py
-batched_hist_plan, ops/glrlm.py glrlm_runs_plan, ops/zones.py
-zone_dag_plan, zone_stats_plan, ops/binary.py erosion_plan,
-binary_quads_plan, ops/moments.py power_sums_plan, ops/gabor.py gabor_plan,
-ops/zernike.py zernike_plan, ops/texture3d.py glcm3d_plan, cc3d_plan,
-stencil3d_plan; K1, K3, K5, K7, K8, K9, K10 and K12 at the shapes their own
-tests below name), checked in plain Python at every
+"""The launch plans of K1 ``batched_hist``, K3 ``glrlm_runs``, K4
+``neigh_matrix``, K5 ``zone_dag``, K7 ``zone_stats``, K8 ``erosion``, K9
+``binary_quads``, K10 ``power_sums``, K11 ``gabor``, K12 ``zernike``, K13
+``glcm3d_cooc``, K15 ``cc3d``, K16 ``stencil3d`` and K17 ``ih_stats``
+(nyxus_tpu_torch/ops/common.py batched_hist_plan, neigh_matrix_plan,
+ops/glrlm.py glrlm_runs_plan, ops/zones.py zone_dag_plan, zone_stats_plan,
+ops/binary.py erosion_plan, binary_quads_plan, ops/moments.py
+power_sums_plan, ops/gabor.py gabor_plan, ops/zernike.py zernike_plan,
+ops/texture3d.py glcm3d_plan, cc3d_plan, stencil3d_plan, ops/ih.py
+ih_stats_plan; K1, K3, K4, K5, K7, K8, K9, K10, K12 and K17 at the shapes
+their own tests below name), checked in plain Python at every
 bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
 3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
 and 1 to 4096 grey levels: the shared memory a block asks for is within a
@@ -32,6 +33,7 @@ from nyxus_tpu_torch.ops import binary as tbinary  # noqa: E402
 from nyxus_tpu_torch.ops import common as tcommon  # noqa: E402
 from nyxus_tpu_torch.ops import gabor as tgabor  # noqa: E402
 from nyxus_tpu_torch.ops import glrlm as tglrlm  # noqa: E402
+from nyxus_tpu_torch.ops import ih as tih  # noqa: E402
 from nyxus_tpu_torch.ops import moments as tmoments  # noqa: E402
 from nyxus_tpu_torch.ops import texture3d as tt3  # noqa: E402
 from nyxus_tpu_torch.ops import zernike as tzernike  # noqa: E402
@@ -845,6 +847,139 @@ def test_erosion_plan_main_path():
     assert plan(2, 256, 256) == ("block", 64, 1024, 16384)
     assert plan(1, 968, 960) == ("block", 64, 1024, 16 * 968 * 15)
     assert plan(1, 969, 960)[0] == "device"
+
+
+# K4's (B, H, W): the main path's three buckets, a slide's 300 x 32², 5 x
+# 32², 3 x 7 x 13, the long ROI's 1 x 1024 x 64, 2 x 256², one pixel and an
+# empty crop; at 9 to 70000 levels (16-bit codes to 65534 levels, 32-bit
+# past)
+NM_SHAPES = [(64, 32, 32), (47, 64, 64), (28, 16, 16), (300, 32, 32),
+             (5, 32, 32), (3, 7, 13), (1, 1024, 64), (2, 256, 256),
+             (1, 1, 1), (1, 0, 0)]
+NM_LEVELS = [9, 65, 4096, 65534, 65535, 70000]
+
+
+@pytest.mark.parametrize("esz", [4, 8])
+@pytest.mark.parametrize("nbins", NM_LEVELS)
+@pytest.mark.parametrize("mode", tcommon.NM_MODES)
+@pytest.mark.parametrize("shape", NM_SHAPES, ids=str)
+def test_neigh_matrix_plan(shape, mode, nbins, esz):
+    """K4: whatever the batch, the fewest blocks a ROI from one a 2048
+    pixels (at most 16, at most a row each) whose shared memory holds the
+    counts (32-bit; NGTDM's cnt and N and S in the compute type, each
+    region 16-byte aligned), NGTDM's 32 terms a warp and
+    the 16-bit codes of a block's R rows with a row and a column of halo
+    each side: one block ("smem") or a cluster, every row owned by exactly
+    one block; no matrix of 65535 levels or more fits (so every staged
+    code fits 16 bits); else the device path with only NGTDM's terms in
+    shared memory.  A thread a pixel of a block's rows, whole warps, at
+    most 1024."""
+    B, H, W = shape
+    plan = tcommon.neigh_matrix_plan(mode, B, H, W, nbins, esz)
+    assert all(tcommon.neigh_matrix_plan(mode, b, H, W, nbins, esz) == plan
+               for b in (1, 5000))
+    path, C, T, smem = plan
+    a16 = lambda n: -(-n // 16) * 16
+    counts = a16(8 * nbins) + a16(esz * nbins) if mode == "ngtdm" \
+        else a16(36 * nbins)
+    C0 = max(1, min(16, H, -(-H * W // 2048)))
+
+    def fits(c):
+        R = -(-H // c) if H else 0
+        t = min(1024, 32 * max(1, -(-R * W // 32)))
+        terms = a16(t * esz) if mode == "ngtdm" else 0
+        return counts + terms + 2 * (R + 2) * (W + 2) <= SMEM_MAX
+    first = next((c for c in range(C0, 17) if fits(c)), None)
+    if first is None:
+        px = H * W
+        assert (path, C) == ("device", 0)
+        assert T == min(1024, 32 * max(1, -(-px // 32)))
+        assert smem == (a16(T * esz) if mode == "ngtdm" else 0)
+        return
+    assert nbins < 65535
+    R = -(-H // first) if H else 0
+    assert C == (-(-H // R) if R else 1) <= first
+    assert path == ("smem" if C == 1 else "cluster")
+    assert C * R >= H and (C == 1 or (C - 1) * R < H)
+    assert T % 32 == 0 and 32 <= T <= 1024
+    assert T == 1024 or T >= R * W > T - 32 or (R * W == 0 and T == 32)
+    terms = a16(T * esz) if mode == "ngtdm" else 0
+    assert smem == counts + terms + 2 * (R + 2) * (W + 2) <= SMEM_MAX
+
+
+def test_neigh_matrix_plan_main_path():
+    """The main buckets one block a ROI with the counts in shared memory:
+    GLDM at 64 x 32² and 64 levels 4.6 KB of 1024 threads, NGTDM's 65
+    levels 7.2 KB, NGLDM's 4.7 KB; 28 x 16² 256 threads; 47 x 64² a
+    cluster of 2 blocks of 32 rows; the long ROI's 1024 x 64 crop and 2 x
+    256² clusters
+    of 16 blocks of 64 and 16 rows, also at IBSI's 4096 levels (144 KB of
+    GLDM counts a block); NGTDM's 70000 and 65535 levels the device
+    path."""
+    plan = tcommon.neigh_matrix_plan
+    assert plan("gldm", 64, 32, 32, 64, 4) == ("smem", 1, 1024, 4616)
+    assert plan("ngtdm", 64, 32, 32, 65, 4) == ("smem", 1, 1024, 7208)
+    assert plan("ngldm", 64, 32, 32, 65, 4) == ("smem", 1, 1024, 4664)
+    assert plan("gldm", 28, 16, 16, 64, 4) == ("smem", 1, 256, 2952)
+    assert plan("gldm", 47, 64, 64, 64, 8) == ("cluster", 2, 1024,
+                                                2304 + 2 * 34 * 66)
+    assert plan("ngtdm", 47, 64, 64, 65, 4) == ("cluster", 2, 1024, 9384)
+    assert plan("gldm", 300, 32, 32, 64, 4) == ("smem", 1, 1024, 4616)
+    assert plan("gldm", 1, 1024, 64, 64, 4) == ("cluster", 16, 1024,
+                                                 2304 + 2 * 66 * 66)
+    assert plan("gldm", 64, 32, 32, 4096, 4) == ("smem", 1, 1024,
+                                                  147456 + 2 * 34 * 34)
+    assert plan("gldm", 1, 1024, 64, 4096, 4) == ("cluster", 16, 1024,
+                                                   147456 + 2 * 66 * 66)
+    assert plan("gldm", 2, 256, 256, 64, 4) == ("cluster", 16, 1024,
+                                                 2304 + 2 * 18 * 258)
+    assert plan("ngtdm", 2, 256, 256, 70000, 8) == ("device", 0, 1024, 8192)
+    assert plan("ngtdm", 64, 32, 32, 65535, 4) == ("device", 0, 1024, 4096)
+
+
+# K17's N: a row of 2, the IBSI goldens' 6, each bins-a-lane step of the
+# warp path (32 | 33, 64 | 65), the default 64, 100, the warp plan's last
+# 128 against 129, 256, 1024, 1025, 32768 (IH_BINS' largest), 65536, and
+# the rows about the float32 staging limit
+IH_BINS_PLAN = [2, 6, 32, 33, 64, 65, 100, 127, 128, 129, 256, 1024, 1025,
+                32768, 56064, 56065, 65536]
+
+
+@pytest.mark.parametrize("esz", [4, 8])
+@pytest.mark.parametrize("N", IH_BINS_PLAN)
+def test_ih_stats_plan(N, esz):
+    """K17: a block of one warp a ROI up to 128 bins, each lane the least
+    power of two of bins that covers the row in 32 lanes (1, 2 or 4); past
+    128 bins a block of 256 threads a ROI, ceil(N / 256) bins a thread,
+    the row staged where it fits the block's shared memory beside its 8 KB
+    of scan and reduction buffers."""
+    path, K = tih.ih_stats_plan(N, esz)
+    if N <= 128:
+        k = tih.ih_bins_a_lane(N)
+        assert k in (1, 2, 4)
+        assert 32 * k >= N and (k == 1 or 16 * k < N)
+        assert (path, K) == ("warp", k)
+    else:
+        assert (path, K) == (
+            "block" if N * esz <= SMEM_MAX - 8192 else "device",
+            -(-N // 256))
+
+
+def test_ih_stats_plan_main_path():
+    """The default 64 bins two a lane and 100 four; 256 and 1024 bins a
+    block a ROI (the warp path's 8 bins a lane ran slower there); 32768
+    bins staged in float32, read from device memory in float64."""
+    plan = tih.ih_stats_plan
+    assert plan(64, 4) == ("warp", 2)
+    assert plan(100, 8) == ("warp", 4)
+    assert plan(128, 4) == ("warp", 4)
+    assert plan(6, 4) == ("warp", 1)
+    assert plan(129, 4) == ("block", 1)
+    assert plan(256, 4) == ("block", 1)
+    assert plan(1024, 8) == ("block", 4)
+    assert plan(1025, 4) == ("block", 5)
+    assert plan(32768, 4) == ("block", 128)
+    assert plan(32768, 8) == ("device", 128)
 
 
 # ---------------------------------------------------------------------------

@@ -197,10 +197,11 @@ def _jax_stencil(lev, part):
 
 @pytest.mark.parametrize("shape", [(4, 16, 16), (2, 7, 13)])
 def test_stencil8(shape):
+    """The per-pixel neighbour counts K4's plain version reads."""
     r = np.random.default_rng(shape[1])
     lev = r.integers(0, 4, size=shape).astype(np.int32)
     part = r.random(shape) < 0.7
-    got = tc.stencil8(torch.from_numpy(lev), torch.from_numpy(part))
+    got = tc.stencil8_plain(torch.from_numpy(lev), torch.from_numpy(part))
     want = _jax_stencil(jnp.asarray(lev), jnp.asarray(part))
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
@@ -214,4 +215,5 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tc.batched_hist(idx, w, 4)
     with pytest.raises(ValueError):
-        tc.stencil8(idx.reshape(1, 2, 3), w.reshape(1, 2, 3) > 0)
+        tc.neigh_matrix("gldm", idx.reshape(1, 2, 3), w.reshape(1, 2, 3), 4,
+                        torch.float32)

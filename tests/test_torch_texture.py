@@ -36,6 +36,7 @@ from nyxus_tpu.ops import glrlm as jglrlm
 
 import nyxus_tpu_torch.registry as treg
 from nyxus_tpu_torch.config import EngineConfig as TConfig
+from nyxus_tpu_torch.ops import common as tcommon
 from nyxus_tpu_torch.ops import glcm as tglcm
 from nyxus_tpu_torch.ops import gldm as tgldm
 from nyxus_tpu_torch.ops import glrlm as tglrlm
@@ -266,19 +267,23 @@ def test_ngtdm_matrices(size, depth):
 
 @pytest.mark.parametrize("depth", DEPTHS)
 def test_ngtdm_matrices_one_histogram_call(depth, monkeypatch):
-    """N, S and the present levels come from one K1 call of three channels
-    over the levels (JAX: three masked_bincount calls), equal to JAX's."""
+    """On the CPU N, S and the present levels come from one histogram of
+    three channels over the levels (the plain version of K4, which forms
+    all three in one launch on the card; JAX: three masked_bincount calls),
+    equal to JAX's."""
     calls = []
-    orig = tngtdm.masked_bincount
-    monkeypatch.setattr(tngtdm, "masked_bincount", lambda *a: (
-        calls.append(tuple(a[1].shape)), orig(*a))[1])
+    orig = tcommon.batched_hist_plain
 
     def tfn(ctx, cfg):
         lev = ctx.texture_levels(depth)
-        return tngtdm.ngtdm_matrices(lev, _valid(ctx, lev, depth), abs(depth),
-                                     torch.float64)
+        valid = _valid(ctx, lev, depth)
+        monkeypatch.setattr(tcommon, "batched_hist_plain", lambda *a: (
+            calls.append(tuple(a[1].shape)), orig(*a))[1])
+        return tngtdm.ngtdm_matrices(lev, valid, abs(depth), torch.float64)
     tN, _, tp = _torch(32, depth, tfn)
-    assert len(calls) == 1 and calls[0][0] == 3
+    # the channel call, then its own call over the C * B rows
+    assert len(calls) == 2 and calls[0][0] == 3
+    assert calls[1] == (calls[0][0] * calls[0][1], calls[0][2])
     assert tuple(tN.shape) == calls[0][1:2] + (abs(depth) + 1,)
     assert tp.dtype == torch.bool and not bool(tp[:, 0].any())
 
