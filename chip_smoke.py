@@ -3,11 +3,10 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT [GROUP,...]]
-                                 (K1, K3, K4, K5, K7, K8, K9, K10, K11,
-                                 K12, K13, K15, K16 and K17 alone, the
+                                 (K1-K5, K7-K13 and K15-K17 alone, the
                                  package under ROOT; GROUP one of k1_k5,
-                                 k3_k9, k4_k17, k7_k8, k10_k12, k11_k13,
-                                 k15_k16)
+                                 k2, k3_k9, k4_k17, k7_k8, k10_k12,
+                                 k11_k13, k15_k16)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -21,8 +20,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    f64 (counts, labels and distances exact, weighted sums within rtol 1e-6
    / 1e-12), and time both from a torch.profiler trace beside CUDA events.
    2D (K1-K12): the main path's bucket shapes and beyond (128², 256², a
-   1024 x 64 bucket; K2 at 256 levels and K3 at 1024-long runs, whose
-   matrices exceed a block's shared memory; checkerboard, uniform and empty
+   1024 x 64 bucket; K2 on every plan of glcm_plans forced (one block or
+   a cluster of 2, 4 or 16 at each angle group size, the device path into
+   the output or an int32 scratch, staged or not), both symmetries, and on
+   GLCM_CASES: uniform, checkerboard and empty crops, NaN and levels out
+   of range, 16-bit counts at 65535 and 32-bit at 65536, 256, 512 and
+   4096 levels; K3 at 1024-long runs, whose matrices exceed a block's
+   shared memory; checkerboard, uniform and empty
    crops for the zone and shape kernels; a 256² solid disk whose long
    erosion runs beside short ones; blank and flat-baseline ROIs and Gabor
    kernels of 9 to 160 taps a side for K11 and K12; K5 on crops of widths 1
@@ -82,7 +86,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the host families that read no device result are bit-equal between the
    two runs, and that every kernel was launched: a 320 x 320 slide, and a
    slide with one 600 x 40 px ROI (bucket 1024 x 64) at 64 and at 256 grey
-   levels, which takes K3's and K2's device-memory paths.  Then *3D_ALL*
+   levels, which takes K3's device-memory path and K2's cluster path (K2's
+   plan a bucket printed).  Then *3D_ALL*
    (213 columns) through VolumeRunner the same way, a 3D column taking its
    2D twin's tier (the name without the leading 3): the reference
    fixture's volume and a subset of throughput volume 1, at the default
@@ -92,7 +97,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    (793 columns, the 46 IH_* added) on the 320 x 320 slide with
    intensities % 59 + 1 (64 raw levels) and on the long-ROI slide at 12
    bits (intensities >> 4: 4096 raw levels, GLCM's matrices a ROI at a
-   time), the IH members read off the histogram (bin count, mode and
+   time, K2's device path), the IH members read off the histogram (bin count, mode and
    gradient bins) equal; and *3D_ALL* (ibsi) on the fixture volume
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
@@ -107,8 +112,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 5. torch.profiler traces of one warm slide of the 747-column request, of
    one warm volume of *3D_ALL* and of one warm 8-bit slide of the IBSI
    request: device time by kernel, host time of each runner stage (nyx:D3_*
-   for the 3D families), and for the volume K13-K16's device time and
-   launches over the run
+   for the 3D families), and K2's device time and launches over each slide,
+   K13-K16's over the volume
 
 The last three lines are the card's name and power limit, the kernels'
 JSON line (K1-K17; the 2D kernels' launches from the timed 747-column
@@ -882,6 +887,128 @@ def neigh_agree(agree, mode, lev, part, nbins, dtype, forced=True):
     return len(plans)
 
 
+def glcm_plans(B, H, W, ng, na, symmetric, esz, offset=1):
+    """Every launch plan K2 can take on a call: its own, then one block a
+    ROI and clusters of 2, 4 and 16 blocks, at each angle group size, where
+    their shared memory holds the call, and the device path adding into the
+    output (bits 24 / 53) and into an int32 scratch (bits 32), with the
+    crop staged where it fits and read from device memory."""
+    from nyxus_tpu_torch.ops import glcm
+    out = [glcm.glcm_cooc_plan(B, H, W, ng, na, symmetric, esz, offset)]
+    for C in (1, 2, 4, 16):
+        if C > max(H, 1):
+            continue
+        for AG in sorted({-(-na // g) for g in range(1, na + 1)}):
+            alt = glcm.glcm_cooc_blocks(H, W, ng, na, offset, C, AG)
+            if alt is not None and alt not in out:
+                out.append(alt)
+    for bits in (53 if esz == 8 else 24, 32):
+        alt = glcm.glcm_cooc_device(B, H, W, ng, na, bits, offset)
+        for p in (alt, alt[:5] + (0,)):
+            if p not in out:
+                out.append(p)
+    return out
+
+
+def glcm_agree(agree, orig, lev, angles, offset, ng, symmetric, forced=True):
+    """K2 against its plain version (counts equal) by its plan and
+    (``forced``) on every other plan of glcm_plans, forced; one K2 launch a
+    call.  Returns the number of plans held."""
+    from nyxus_tpu_torch.ops import glcm
+    want = glcm.cooc_matrices_plain(orig, lev, angles, offset, ng, symmetric)
+    B, H, W = orig.shape
+    plans = [None]
+    if forced:
+        plans += glcm_plans(B, H, W, ng, len(angles), symmetric,
+                            orig.element_size(), offset)[1:]
+    saved = glcm.glcm_cooc_plan
+    for plan in plans:
+        if plan:
+            glcm.glcm_cooc_plan = lambda *a, p=plan: p
+        k2 = glcm.cooc_matrices.launches
+        try:
+            got = glcm.cooc_matrices(orig, lev, angles, offset, ng, symmetric)
+        finally:
+            glcm.glcm_cooc_plan = saved
+        if glcm.cooc_matrices.launches - k2 != 1:
+            raise AssertionError("glcm_cooc: %d launches a call"
+                                 % (glcm.cooc_matrices.launches - k2))
+        agree("glcm_cooc", got, want)
+    return len(plans)
+
+
+GLCM_CASES = ("uniform 64x32²", "checkerboard 64x32²", "empty 4 x 32²",
+              "NaN, negatives and levels -3..70", "65535 in a 16-bit cell",
+              "65522 symmetric 181²", "65536 uniform 256²",
+              "IBSI 256 levels", "512 levels 8 x 32²",
+              "IBSI 4096 levels 1024 x 64")
+
+
+def glcm_case(name, dtype, device="cuda", seed=0):
+    """K2's calls (orig, levels, angles, offset, ng, symmetric) on one of
+    GLCM_CASES: a uniform and a checkerboard (levels 1 and 64) 64 x 32²
+    bucket, every angle, both symmetries; empty crops; intensities NaN or
+    negative beside levels outside 1..64; a uniform 255 x 257 crop paired
+    with itself (offset 0), whose one cell counts 65535 (the most a 16-bit
+    count holds; its own plan a cluster, one block of 16-bit counts among
+    the forced plans), its symmetric twin 181² (65522 after the transpose
+    is added), and 256² (65536: 32-bit counts in one block); IBSI's 256 raw levels (symmetric) at 64 x
+    32², 512 levels at 8 x 32² (the device path, several ROIs and bands)
+    and IBSI's 4096 raw levels on the long ROI (1 x 1024 x 64 with a 600 x
+    40 ROI)."""
+    import torch
+    r = np.random.default_rng(seed)
+    all4 = (0, 45, 90, 135)
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(
+        device)
+    if name.startswith("uniform"):
+        lev = np.full((64, 32, 32), 5)
+        orig = np.full(lev.shape, 3.0)
+        calls = [(all4, 1, 64, s) for s in (False, True)]
+    elif name.startswith("checkerboard"):
+        yy, xx = np.mgrid[0:32, 0:32]
+        lev = np.broadcast_to(np.where((yy + xx) % 2, 64, 1), (64, 32, 32))
+        orig = lev * 7.0
+        calls = [(all4, 1, 64, s) for s in (False, True)] \
+            + [((45, 135), 2, 64, True)]
+    elif name.startswith("empty"):
+        lev = r.integers(1, 65, (4, 32, 32))
+        orig = np.zeros(lev.shape)
+        calls = [(all4, 1, 64, True)]
+    elif name.startswith("NaN"):
+        lev = r.integers(-3, 71, (8, 32, 32))
+        orig = r.normal(5, 5, lev.shape)
+        orig[r.random(lev.shape) < 0.1] = np.nan
+        calls = [(all4, 1, 64, s) for s in (False, True)]
+    elif name.startswith("65535"):
+        lev = np.full((1, 255, 257), 3)
+        orig = np.ones(lev.shape)
+        calls = [((0,), 0, 8, False)]
+    elif name.startswith("65522"):
+        lev = np.full((1, 181, 181), 3)
+        orig = np.ones(lev.shape)
+        calls = [((0,), 0, 8, True)]
+    elif name.startswith("65536"):
+        lev = np.full((1, 256, 256), 3)
+        orig = np.ones(lev.shape)
+        calls = [((0,), 0, 8, False)]
+    elif name.startswith("IBSI 256"):
+        lev = r.integers(0, 257, (64, 32, 32))
+        orig = np.where(r.random(lev.shape) < 0.9, lev + 0.5, 0.0)
+        calls = [(all4, 1, 256, True), (all4, 1, 256, False)]
+    elif name.startswith("512"):
+        lev = r.integers(1, 513, (8, 32, 32))
+        orig = np.where(r.random(lev.shape) < 0.9, lev + 0.5, 0.0)
+        calls = [(all4, 1, 512, True), ((90,), 2, 512, False)]
+    else:
+        lev = np.zeros((1, 1024, 64), np.int64)
+        lev[0, :600, :40] = r.integers(1, 4097, (600, 40))
+        orig = np.where(lev > 0, lev + 0.5, 0.0)
+        calls = [(all4, 1, 4096, True)]
+    o, lv = t(orig, dtype), t(lev, torch.int32)
+    return [(o, lv, a, off, ng, s) for a, off, ng, s in calls]
+
+
 def runs_cases(seed=0, device="cuda"):
     """(name, levels, valid, ng, nr) inputs of K3 beyond the synth buckets:
     a uniform ROI (one run the length of each line; and with nr 8, every
@@ -1508,7 +1635,7 @@ def bounds(B, H, W, ng=64, nbins=100, angles=4):
     A = B * H * W
     return {
         "batched_hist": (A * 8 + B * nbins * 4, A),
-        "glcm_cooc": (A * 8 + B * angles * ng * ng * 4, angles * A),
+        "glcm_cooc": k2_bound(B, H, W, ng, False, angles),
         "glrlm_runs": (A * 5 + B * 4 * ng * max(H, W) * 4, 4 * A),
         "neigh_matrix": neigh_bound("ngtdm", B, H, W, ng + 1, 1),
         "zone_dag": (A * 5 + A * 4, 4 * A),
@@ -1649,11 +1776,7 @@ def check_kernels():
                 agree("batched_hist", common.batched_hist(idx, w, nb),
                       common.batched_hist_plain(idx, w, nb), tol)
             for sym in (False, True):
-                agree("glcm_cooc",
-                      glcm.cooc_matrices(orig, lev, (0, 45, 90, 135), 1, 64,
-                                         sym),
-                      glcm.cooc_matrices_plain(orig, lev, (0, 45, 90, 135), 1,
-                                               64, sym))
+                glcm_agree(agree, orig, lev, (0, 45, 90, 135), 1, 64, sym)
             nr = max(H, W)
             agree("glrlm_runs", glrlm.run_matrices(lev, aabb, 64, nr, dtype),
                   glrlm.run_matrices_plain(lev, aabb, 64, nr, dtype))
@@ -1670,8 +1793,8 @@ def check_kernels():
                              banks)
             log("  %s B=%d %dx%d roi %s: all twelve kernels agree (Gabor "
                 "banks %s)" % (prec, B, H, W, hw, banks))
-        # matrices beyond a block's shared memory: K2 at 256 levels, K3 at
-        # 1024-long runs (and 256 levels x 512)
+        # K2 at 256 levels (one angle a block, 16-bit counts; the long ROI
+        # a cluster of 16), K3 at 1024-long runs (and 256 levels x 512)
         for B, H, W, hw in ((64, 32, 32, (29, 31)), (2, 1024, 64, (600, 40))):
             orig, lev, aabb, roi = synth_bucket(B, H, W, hw, 5, dtype)
             lev256 = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
@@ -1703,6 +1826,14 @@ def check_kernels():
             zones.zone_dag_plan = saved
         for name, idx, w, nb in hist_cases(dtype):
             hist_agree(agree, idx, w, nb)
+        n2 = [glcm_agree(agree, *call) for name in GLCM_CASES
+              for call in glcm_case(name, dtype)]
+        log("  %s: K2 on %d calls of %d cases (uniform, checkerboard and "
+            "empty crops, NaN and levels out of range, 16-bit counts at "
+            "65535 and 65522 and 32-bit at 65536, IBSI's 256 levels, 512 and "
+            "IBSI's 4096 levels on the long ROI) by its plan and on every "
+            "plan forced: %d calls agree, one launch each"
+            % (prec, len(n2), len(GLCM_CASES), sum(n2)))
         n4 = [neigh_agree(agree, *call, dtype) for name in NEIGH_CASES
               for call in neigh_case(name, dtype)]
         log("  %s: K4 on %d family calls of %d cases (uniform, one-pixel "
@@ -1754,7 +1885,7 @@ def check_kernels():
             raise AssertionError("gabor: the flat ROI's baseline is not flat "
                                  "(max %s, min %s)" % (mx.tolist(),
                                                        mn.tolist()))
-        log("  %s: device-memory paths of K2 (256 levels) and K3 (1024 and "
+        log("  %s: K2 at 256 levels and K3's device-memory paths (1024 and "
             "512-long runs), the checkerboard, uniform and empty zone crops "
             "and the empty, full, checkerboard and 256² disk shape crops, "
             "K11 and K12 on blank, flat-baseline and 256² disk ROIs agree; "
@@ -1890,8 +2021,10 @@ def check_kernels():
             ms = timed(lambda: glcm.cooc_matrices(orig, lev256,
                                                   (0, 45, 90, 135), 1, 256,
                                                   False))
-            log("  time glcm_cooc device-memory path 256 levels, B=64 32x32: "
-                "device %.4f ms (events %.4f ms)" % (ms[1], ms[0]))
+            log("  time glcm_cooc 256 levels, B=64 32x32, plan %s: device "
+                "%.4f ms (events %.4f ms)"
+                % (glcm.glcm_cooc_plan(B, H, W, 256, 4, False, 4), ms[1],
+                   ms[0]))
     k1_k5_times()
     return res
 
@@ -2815,6 +2948,85 @@ def check_kernels_3d():
     return res
 
 
+# K2's timed calls (f32; bucket, levels, symmetric): the main path's three
+# buckets (seed 7's 47 x 64²), a slide's 300 x 32², the long ROI (2 x 1024
+# x 64) at 64 levels, 64 x 32² symmetric, IBSI's 256 levels at 64 x 32²
+# (asymmetric and, as IBSI runs it, symmetric) and its 4096 raw levels on
+# the long ROI (symmetric, one ROI a call, as the family's chunks call it)
+K2_TIMED = ((CASES[0], 64, False), ((47, 64, 64, (60, 47)), 64, False),
+            (CASES[2], 64, False), ((300, 32, 32, (29, 31)), 64, False),
+            ((2, 1024, 64, (600, 40)), 64, False), (CASES[0], 64, True),
+            (CASES[0], 256, False), (CASES[0], 256, True),
+            ((1, 1024, 64, (600, 40)), 4096, True))
+
+
+def k2_bound(B, H, W, ng, symmetric, angles=4, esz=4):
+    """(bytes, operations) K2 must move and do: the intensities (esz bytes)
+    and int32 levels read once, the [B, angles, ng, ng] matrices written
+    once; a count a pixel and angle (two symmetric)."""
+    A = B * H * W
+    return (A * (esz + 4) + B * angles * ng * ng * esz,
+            angles * A * (1 + bool(symmetric)))
+
+
+def k2_times(iters=20):
+    """K2 in f32: device and events ms a call, device launches a call (from
+    the profiler) and the bound (k2_bound), at K2_TIMED by the wrapper and,
+    at 4096 levels, on the device path's other plans (the int32 scratch,
+    the crop read from device memory); at 64 x 32² (64 levels) on every
+    plan of glcm_plans forced, and its plain version.  Runs on any tree's
+    package: on a tree without glcm_cooc_plan the wrapper alone, its plan
+    "none in this tree", so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.ops import glcm
+    plan_fn = getattr(glcm, "glcm_cooc_plan", None)
+    f32 = torch.float32
+    all4 = (0, 45, 90, 135)
+    for (B, H, W, hw), ng, sym in K2_TIMED:
+        orig, lev, _, roi = synth_bucket(B, H, W, hw, 0, f32)
+        if ng == 256:
+            lev = (lev - 1) * 4 + 1 + (orig.long() % 4).to(torch.int32)
+        elif ng != 64:
+            g = torch.Generator(device="cuda").manual_seed(ng)
+            lev = torch.randint(1, ng + 1, lev.shape, generator=g,
+                                device="cuda", dtype=torch.int32)
+            orig = torch.where(roi, lev.to(f32) + 0.5, 0.0)
+        nbytes, ops = k2_bound(B, H, W, ng, sym)
+        bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
+        main = (B, H, W, ng) == (64, 32, 32, 64) and not sym
+        plans = [None]
+        if plan_fn and (main or ng == 4096):
+            plans += glcm_plans(B, H, W, ng, 4, sym, 4)[1:]
+        if main:
+            plans.append("plain")
+        for force in plans:
+            if force == "plain":
+                fn = lambda: glcm.cooc_matrices_plain(orig, lev, all4, 1, ng,
+                                                      sym)
+            else:
+                fn = lambda: glcm.cooc_matrices(orig, lev, all4, 1, ng, sym)
+                if force:
+                    glcm.glcm_cooc_plan = lambda *a, p=force: p
+            try:
+                ev, ms, nl = timed(fn, iters)
+            finally:
+                if plan_fn:
+                    glcm.glcm_cooc_plan = plan_fn
+            plan = "none" if force == "plain" else force or (
+                plan_fn(B, H, W, ng, 4, sym, 4) if plan_fn
+                else "none in this tree")
+            log("  K2 glcm_cooc %s f32 B=%d %dx%d at %d levels%s: device "
+                "%.4f ms (events %.4f ms), %s device launches a call; bound "
+                "%.5f ms (%s); plan (path, count bits, angles a block, "
+                "blocks a ROI, threads, smem) %s%s"
+                % ("plain version" if force == "plain" else "kernel", B, H, W,
+                   ng, " symmetric" if sym else "", ms, ev, nl, bound,
+                   "bytes" if nbytes / HBM_BYTES_S >= ops / OPS_S
+                   else "operations", plan, " forced" if force
+                   and force != "plain" else ""))
+
+
 # K4's timed buckets: the main path's three (seed 7's 47 x 64²), a slide's
 # 300 x 32² and the long ROI's 1 x 1024 x 64 at 64 levels; then IBSI's raw
 # 256 and 4096 levels at 64 x 32²
@@ -2823,57 +3035,36 @@ K4_TIMED = (CASES[0], (47, 64, 64, (60, 47)), CASES[2],
 K4_IBSI_LEVELS = (256, 4096)
 
 
-def k4_parent_ngldm(common, lev, mask, nmax, dtype):
-    """NGLDM's matrix as a tree without ngldm_matrix forms it inside
-    ngldm_features: K4's stencil counts, then K1's pair histogram, with
-    their torch glue."""
-    import torch
-    B = lev.shape[0]
-    matches, _, _ = common.stencil8(lev, mask)
-    return common.pair_hist(torch.where(mask, lev, 0).reshape(B, -1),
-                            matches.reshape(B, -1),
-                            mask.reshape(B, -1).to(dtype), nmax + 1, 9)
-
-
 def k4_family_calls(orig, lev, aabb, roi, glev, nb):
     """The three families' matrix calls on one bucket, (name, call, mode,
     levels, participation, matrix levels, participation bytes): GLDM's
     gldm_matrix (the levels, the original intensities), NGTDM's
-    ngtdm_matrices (the levels over the AABB) and NGLDM's matrix (the
-    to_grayscale levels ``glev`` over the ROI): ngldm_matrix, or on a tree
-    without it k4_parent_ngldm."""
+    ngtdm_matrices (the levels over the AABB) and NGLDM's ngldm_matrix (the
+    to_grayscale levels ``glev`` over the ROI)."""
     import torch
-    from nyxus_tpu_torch.ops import common, gldm, ngldm, ngtdm
+    from nyxus_tpu_torch.ops import gldm, ngldm, ngtdm
     f32 = torch.float32
-    if hasattr(ngldm, "ngldm_matrix"):
-        ngl = lambda: ngldm.ngldm_matrix(glev, roi, nb, f32)
-    else:
-        ngl = lambda: k4_parent_ngldm(common, glev, roi, nb, f32)
     return [("GLDM", lambda: gldm.gldm_matrix(orig, lev, nb, f32), "gldm",
              lev, orig, nb, 4),
             ("NGTDM", lambda: ngtdm.ngtdm_matrices(lev, aabb, nb, f32),
              "ngtdm", lev, aabb, nb + 1, 1),
-            ("NGLDM", ngl, "ngldm", glev, roi, nb + 1, 1)]
+            ("NGLDM", lambda: ngldm.ngldm_matrix(glev, roi, nb, f32),
+             "ngldm", glev, roi, nb + 1, 1)]
 
 
 def k4_k17_times(iters=20):
     """K4 and K17 in f32: device and events ms a call, device launches a
     call (from the profiler) and the bound.  K4 as each family calls it
-    (k4_family_calls: on a tree with neigh_matrix one launch; else the
-    tree's K4 + K1 sequence with its torch glue) at K4_TIMED and at IBSI's
+    (k4_family_calls: one launch) at K4_TIMED and at IBSI's
     K4_IBSI_LEVELS, with its plan, the K4 and K1 launches of one call (and
     the family function's calls, common.counted), every other plan of
     neigh_plans forced at 64 levels and, at 64 x 32², its plain version;
     K17 at B = 64 rows of IH_BINS bins and at IH_TIMED_B rows of 64
     (ih_inputs: the degenerate rows included) with its plan, every plan of
-    ih_plans forced, and its plain version at 64 x 64.  Runs on any
-    tree's package (a tree without the plans prints none), so that two
-    trees can be timed in turn (--kernel-times)."""
+    ih_plans forced, and its plain version at 64 x 64."""
     import torch
-    from nyxus_tpu_torch.ops import common, ih, ngldm
-    fused = hasattr(common, "neigh_matrix")
-    k4_wrapper = common.neigh_matrix if fused else common.stencil8
-    plan_fn = getattr(common, "neigh_matrix_plan", None)
+    from nyxus_tpu_torch.ops import common, gldm, ih, ngldm, ngtdm
+    plan_fn = common.neigh_matrix_plan
     f32 = torch.float32
     cases = [(c, None) for c in K4_TIMED] + [(CASES[0], nb)
                                              for nb in K4_IBSI_LEVELS]
@@ -2896,15 +3087,15 @@ def k4_k17_times(iters=20):
                 orig, lev, aabb, roi, glev, nb):
             nbytes, ops = neigh_bound(mode, B, H, W, nbins, pb)
             bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
-            before = k4_wrapper.launches, common.batched_hist.launches
+            before = common.neigh_matrix.launches, \
+                common.batched_hist.launches
             call()
-            after = k4_wrapper.launches, common.batched_hist.launches
-            plan = plan_fn(mode, B, H, W, nbins, 4) if fused \
-                else "none in this tree"
+            after = common.neigh_matrix.launches, common.batched_hist.launches
+            plan = plan_fn(mode, B, H, W, nbins, 4)
             plans = [None]
-            if fused and not raw:
+            if not raw:
                 plans += neigh_plans(mode, B, H, W, nbins, 4)[1:]
-            if fused and main:
+            if main:
                 plans.append("plain")
             for force in plans:
                 fn = call
@@ -2916,8 +3107,7 @@ def k4_k17_times(iters=20):
                 try:
                     ev, ms, nl = timed(fn, iters)
                 finally:
-                    if force and force != "plain":
-                        common.neigh_matrix_plan = plan_fn
+                    common.neigh_matrix_plan = plan_fn
                 log("  K4 %s matrix %s f32 %s: device %.4f ms (events %.4f "
                     "ms), %s device launches a call; K4 / K1 launches a "
                     "call %d / %d; bound %.5f ms (%s); plan (path, blocks "
@@ -2929,20 +3119,18 @@ def k4_k17_times(iters=20):
                        else "operations",
                        "none" if force == "plain" else force or plan,
                        " forced" if force and force != "plain" else ""))
-    if fused:
-        from nyxus_tpu_torch.ops import gldm, ngtdm
-        log("  K4 family functions' calls (common.counted) over these "
-            "timings: gldm_matrix %d, ngtdm_matrices %d, ngldm_matrix %d; "
-            "K4 launches %d" % (gldm.gldm_matrix.calls,
-                                ngtdm.ngtdm_matrices.calls,
-                                ngldm.ngldm_matrix.calls,
-                                common.neigh_matrix.launches))
-    iplan = getattr(ih, "ih_stats_plan", None)
+    log("  K4 family functions' calls (common.counted) over these "
+        "timings: gldm_matrix %d, ngtdm_matrices %d, ngldm_matrix %d; "
+        "K4 launches %d" % (gldm.gldm_matrix.calls,
+                            ngtdm.ngtdm_matrices.calls,
+                            ngldm.ngldm_matrix.calls,
+                            common.neigh_matrix.launches))
+    iplan = ih.ih_stats_plan
     for B, N in [(64, N) for N in IH_BINS] + [(B, 64) for B in IH_TIMED_B]:
         inputs = ih_inputs(B, N, f32, seed=N)
         nbytes, ops = ih_bound(B, N)
         bound = max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3
-        plans = [None] + (ih_plans(N, 4)[1:] if iplan else [])
+        plans = [None] + ih_plans(N, 4)[1:]
         if (B, N) == (64, 64):
             plans.append("plain")
         for force in plans:
@@ -2956,16 +3144,14 @@ def k4_k17_times(iters=20):
             try:
                 ev, ms, nl = timed(fn, iters)
             finally:
-                if force and force != "plain":
-                    ih.ih_stats_plan = iplan
+                ih.ih_stats_plan = iplan
             log("  K17 ih_stats %s f32 B=%d N=%d: device %.4f ms (events "
                 "%.4f ms), %s device launches a call; bound %.5f ms (%s); "
                 "plan (path, bins a lane) %s%s"
                 % ("plain version" if force == "plain" else "kernel", B, N,
                    ms, ev, nl, bound, "bytes" if nbytes / HBM_BYTES_S
                    >= ops / OPS_S else "operations",
-                   "none" if force == "plain" else force
-                   or (iplan(N, 4) if iplan else "none in this tree"),
+                   "none" if force == "plain" else force or iplan(N, 4),
                    " forced" if force and force != "plain" else ""))
 
 
@@ -3464,6 +3650,8 @@ def check_ibsi(kern):
     return card, cpu, cols
 
 
+# K2's device kernels by name, for their total over a profiled slide
+KERNEL_NAMES_K2 = {"K2 glcm_cooc": "glcm_cooc"}
 # K13-K16's device kernels by name, for their totals over a profiled volume
 KERNEL_NAMES_3D = {"K13 glcm3d_cooc": "glcm3d_", "K14 glrlm3d_runs": "glrlm3d_",
                    "K15 cc3d": "cc3d_", "K16 stencil3d": "stencil3d_"}
@@ -3519,11 +3707,11 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 def kernel_times_only(root, only=None):
     """--kernel-times [ROOT [GROUP,...]]: build the kernels of the package
     under ROOT (by default this script's tree), print k1_k5_times,
-    k3_k9_times, k7_k8_times, k10_k12_times, k11_k13_times, k15_k16_times,
-    k4_k17_times (or only the named groups, e.g. "k4_k17") and the card; no
-    result line.  Two trees timed in one call, in turns, compare the two
-    versions of K1, K3, K4, K5, K7, K8, K9, K10, K11, K12, K13, K15, K16
-    and K17 on one card."""
+    k2_times, k3_k9_times, k7_k8_times, k10_k12_times, k11_k13_times,
+    k15_k16_times, k4_k17_times (or only the named groups, e.g. "k2") and
+    the card; no result line.  Two trees timed in one call, in turns,
+    compare the two versions of each of K1-K5, K7-K13 and K15-K17 on one
+    card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from nyxus_tpu_torch import _build
@@ -3533,7 +3721,7 @@ def kernel_times_only(root, only=None):
     _build.lib()
     log("kernels of %s built in %.1f s" % (os.path.abspath(root),
                                            time.perf_counter() - t0))
-    groups = {"k1_k5": k1_k5_times, "k3_k9": k3_k9_times,
+    groups = {"k1_k5": k1_k5_times, "k2": k2_times, "k3_k9": k3_k9_times,
               "k7_k8": k7_k8_times, "k10_k12": k10_k12_times,
               "k11_k13": k11_k13_times, "k15_k16": k15_k16_times,
               "k4_k17": k4_k17_times}
@@ -3558,6 +3746,7 @@ def main():
                          "repository (%s)" % e)
     from nyxus_tpu_torch import _build, columns, native, taxonomy
     from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.ops import glcm
     from nyxus_tpu_torch.ops.common import SMEM_MAX
     from nyxus_tpu_torch.pipeline import batching
     from nyxus_tpu_torch.pipeline import labels as plabels
@@ -3628,8 +3817,11 @@ def main():
         shapes = sorted({s for s, _ in batching.group_rois(recs)})
         big = [("K3 %dx%d" % (depth, max(s)))
                for s in shapes if 4 * depth * max(s) > SMEM_MAX]
-        if 4 * depth * depth > SMEM_MAX:
-            big.append("K2 %dx%d" % (depth, depth))
+        # K2's plan a bucket (the slide's GLCM is asymmetric)
+        k2_plans = {s: glcm.glcm_cooc_plan(1, *s, depth, 4, False, 4)[:4]
+                    for s in shapes}
+        big += ["K2 %dx%d at %d levels" % (*s, depth)
+                for s, p in k2_plans.items() if p[0] == "device"]
         dev_runner, ref_runner = card_runner, cpu_runner
         dcols, dslots = cols, slots
         if depth != 64:
@@ -3658,10 +3850,11 @@ def main():
                                     ref[:, gz])
         log("  %s: %d ROIs x %d columns agree, the %d pre-collect host "
             "columns bit for bit; buckets %s; matrices in device memory: "
-            "%s; closest to its tier: %s (of GABOR and ZERNIKE2D: %s); "
+            "%s; K2's plans (path, count bits, angles a block, blocks a "
+            "ROI) %s; closest to its tier: %s (of GABOR and ZERNIKE2D: %s); "
             "launches %s"
             % (what, len(labs), len(dcols), len(host_cols), shapes,
-               big or "none", worst, gz_worst, small_launches))
+               big or "none", k2_plans, worst, gz_worst, small_launches))
         if not all(small_launches.values()):
             raise AssertionError("%s: a kernel was not launched: %r"
                                  % (what, small_launches))
@@ -3770,7 +3963,7 @@ def main():
     # phase 5
     log_phase("phase 5: profile of one warm slide of the 747-column request")
     profile_report("slide 8 of the 747-column request",
-                   lambda: card_runner.run(*slides[1]))
+                   lambda: card_runner.run(*slides[1]), totals=KERNEL_NAMES_K2)
     t0 = time.perf_counter()
     for intens, labels in slides:
         plabels._discover_rois_np(intens, labels)
@@ -3782,7 +3975,7 @@ def main():
     log_phase("phase 5, IBSI: profile of one warm 8-bit slide of the IBSI "
               "request")
     profile_report("slide 8 of the IBSI request",
-                   lambda: ibsi_card.run(*slides8[1]))
+                   lambda: ibsi_card.run(*slides8[1]), totals=KERNEL_NAMES_K2)
 
     src = {"batched_hist": ("nyxus_tpu_torch/csrc/batched_hist.cu",
                             "nyxus_tpu/ops/common.py:19"),

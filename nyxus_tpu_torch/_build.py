@@ -44,8 +44,7 @@ _D = ctypes.c_double
 # c_void_p, ints as c_int, doubles as c_double)
 _SIGNATURES = {
     "nyx_batched_hist": [_P, _P, _P] + [_I] * 11 + [_P],
-    "nyx_glcm_cooc": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8
-    + [_I, _I, _P],
+    "nyx_glcm_cooc": [_P] * 4 + [_I] * 24 + [_P],
     "nyx_glrlm_runs": [_P] * 4 + [_I] * 14 + [_P],
     "nyx_neigh_matrix": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
     "nyx_zone_dag": [_P, _P, _P] + [_I] * 7 + [_P],

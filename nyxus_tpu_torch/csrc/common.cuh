@@ -135,6 +135,19 @@ __device__ __forceinline__ unsigned short nyx_atom_cas16_cluster(
   return old;
 }
 
+// The XOR mask of a count matrix's word swizzle (K2, K13).  A matrix row of
+// ng cells is rw words (narrow: two cells a word, when ng is even), and a
+// cell's word is XOR-ed within its row with the row's index masked to the
+// largest power of two (up to 32) dividing rw, so that one centre level's
+// cells in different rows fall in different banks (unswizzled, a cell's
+// bank would follow its centre level alone, and a warp's atomics would
+// conflict); mask 0 (no swizzle) where the rows do not divide into words.
+__device__ __forceinline__ int nyx_swizzle_mask(int ng, bool narrow) {
+  if (narrow && (ng & 1)) return 0;
+  const int rw = narrow ? ng / 2 : ng;
+  return min(rw & -rw, 32) - 1;
+}
+
 // warp scans: the inclusive max over lanes 0..lane, and the min over lanes
 // lane..31
 #define NYX_FULL 0xffffffffu

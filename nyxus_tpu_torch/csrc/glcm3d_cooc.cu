@@ -143,19 +143,6 @@ __global__ void glcm3d_write_kernel(const unsigned int* __restrict__ gcnt,
 // ---------------------------------------------------------------------------
 // The cluster path
 
-// The count words.  A matrix row of ng cells is rw words (NARROW: two cells
-// a word, when ng is even), and a cell's word is XOR-ed within its row with
-// the row's index masked to the largest power of two (up to 32) dividing
-// rw, so that one centre level's cells in different rows fall in different
-// banks (unswizzled, a cell's bank would follow its centre level alone, and
-// a warp's atomics would conflict); mask 0 (no swizzle) where the rows do
-// not divide into words.
-__device__ __forceinline__ int glcm3_mask(int ng, bool narrow) {
-  if (narrow && (ng & 1)) return 0;
-  const int rw = narrow ? ng / 2 : ng;
-  return min(rw & -rw, 32) - 1;
-}
-
 // out: [B, 13, ng, ng] of T, every cell written once.  Cluster (ROI b,
 // direction group g) counts the DG directions [g DG, g DG + DG) cut at 13;
 // shifts: the 13 (dz, dy, dx) steps scaled by the offset o (the halo).
@@ -184,7 +171,7 @@ __global__ void __launch_bounds__(NYX_GLCM3_THREADS_MAX)
   // the counts as uint4 vectors of 8 (NARROW) or 4 cells
   const int nvec = NARROW ? (cells + 7) / 8 : (cells + 3) / 4;
   unsigned char* stage = reinterpret_cast<unsigned char*>(cnt + 4 * nvec);
-  const int mask = glcm3_mask(ng, NARROW);
+  const int mask = nyx_swizzle_mask(ng, NARROW);
   const int rw = NARROW ? ng / 2 : ng;
   uint4* c4 = reinterpret_cast<uint4*>(cnt);
   for (int k = threadIdx.x; k < nvec; k += blockDim.x)

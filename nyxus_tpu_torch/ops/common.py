@@ -66,15 +66,6 @@ def _kernel_device(t: torch.Tensor, name: str) -> bool:
     return True
 
 
-def device_counts(shape, device):
-    """None when a block's [..., n, m] count matrix (the last two axes of
-    ``shape``) fits in its shared memory as 32-bit integers; else the zeroed
-    int32 buffer in device memory that K2 counts into instead."""
-    if 4 * shape[-1] * shape[-2] <= SMEM_MAX:
-        return None
-    return torch.zeros(shape, dtype=torch.int32, device=device)
-
-
 def _check_float(t: torch.Tensor, name: str):
     if t.dtype not in (torch.float32, torch.float64):
         raise TypeError("%s: float32 or float64 expected, got %s"

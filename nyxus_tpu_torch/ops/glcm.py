@@ -25,7 +25,7 @@ import torch
 
 from . import quant
 from .. import _build
-from .common import (_check_float, _kernel_device, device_counts, fast_log2,
+from .common import (SMEM_MAX, SMS, _check_float, _kernel_device, fast_log2,
                      masked_bincount, pair_hist_plain, shifted2d)
 
 EPS = 1e-9  # reference: glcm.h:262
@@ -68,19 +68,135 @@ def cooc_matrices_plain(orig, levels, angles, offset: int, ng: int,
     return M
 
 
+# K2's launch plan (glcm_cooc_plan): pixels a block counts before a crop's
+# rows are split over a cluster, blocks a cluster at most, angles a block
+# at most, pixels a thread where a block would pass GLCM_THREADS_MIN
+# threads, threads a block at most, the kernels' static shared memory (four
+# angles' steps), and the largest count each count width holds exactly:
+# 16- and 32-bit integers in shared memory (or the device path's int32
+# scratch), and 1.0 added into float32 (24) or float64 (53) on the device
+# path
+GLCM_BLOCK_PIXELS = 4096
+GLCM_CLUSTER_MAX = 16
+GLCM_ANGLES_A_BLOCK = 2
+GLCM_PIXELS_A_THREAD = 8
+GLCM_THREADS_MIN = 256
+GLCM_THREADS_MAX = 1024
+GLCM_STATIC_SMEM = 16
+GLCM_COUNT_MAX = {16: 65535, 32: 2 ** 32 - 1, 24: 2 ** 24, 53: 2 ** 53}
+GLCM_PATHS = {"smem": 0, "cluster": 1, "device": 2}
+
+
+def glcm_halo(H: int, W: int, offset: int):
+    """(hx, hy): the columns and rows of 0 K2 stages around a crop, the
+    offset cut at the crop (an angle that steps past it has no pair)."""
+    return min(abs(offset), W), min(abs(offset), H)
+
+
+def glcm_stage_bytes(R: int, H: int, W: int, offset: int):
+    """Shared memory of R staged crop rows with the halo: 16-bit codes."""
+    hx, hy = glcm_halo(H, W, offset)
+    return 2 * (R + 2 * hy) * (W + 2 * hx)
+
+
+def glcm_cooc_blocks(H: int, W: int, ng: int, n_angles: int, offset: int,
+                     C: int, AG: int):
+    """(path, bits, AG, C, threads, smem) of K2 with a crop's rows split
+    over C blocks and AG angles a block, or None where a block's shared
+    memory cannot hold them.  C = 1: "smem", C > 1: "cluster" of C blocks
+    of R = ceil(H / C) rows (C lowered to ceil(H / R), so that no block is
+    empty).  A block holds its AG matrices as 16-bit counts where no cell
+    can pass 65535 (R W: each pixel is the centre of one pair an angle;
+    symmetric adds the transpose on write-out, in 32 bits), else 32-bit,
+    in a multiple of 16 bytes, then its R rows staged with the halo; a
+    thread a pixel of its rows up to GLCM_THREADS_MIN, then
+    GLCM_PIXELS_A_THREAD pixels a thread, whole warps, at most
+    GLCM_THREADS_MAX."""
+    R = -(-H // C) if H else 0
+    C = -(-H // R) if R else 1
+    px = R * W
+    bits = 16 if px <= GLCM_COUNT_MAX[16] else 32
+    words = -(-AG * ng * ng // 2) if bits == 16 else AG * ng * ng
+    smem = 16 * -(-words // 4) + glcm_stage_bytes(R, H, W, offset)
+    if smem + GLCM_STATIC_SMEM > SMEM_MAX:
+        return None
+    warps = lambda n: 32 * max(1, -(-n // 32))
+    threads = min(GLCM_THREADS_MAX, warps(px),
+                  max(GLCM_THREADS_MIN, warps(-(-px // GLCM_PIXELS_A_THREAD))))
+    return ("smem" if C == 1 else "cluster"), bits, AG, C, threads, smem
+
+
+def glcm_cooc_plan(B: int, H: int, W: int, ng: int, n_angles: int,
+                   symmetric: bool, esz: int, offset: int = 1):
+    """(path, bits, AG, C, threads, smem) of K2's launch over B crops of H x
+    W into ng levels, n_angles angles at ``offset``, the compute type of
+    esz bytes: the fewest blocks a ROI from one a GLCM_BLOCK_PIXELS pixels
+    (at most GLCM_CLUSTER_MAX, at most a row each) whose shared memory
+    holds an angle group (glcm_cooc_blocks), the most angles a block up to
+    GLCM_ANGLES_A_BLOCK (one where a block's rows take no more than
+    GLCM_THREADS_MIN pixels, a pixel a thread; the angles cut into equal
+    groups); else "device" (glcm_cooc_device), adding 1.0 into the output
+    where the compute type holds every count exactly (bits 24 / 53;
+    symmetric counts a pair twice), else counting into an int32 scratch
+    (bits 32).  Raises where a count could pass its width's
+    GLCM_COUNT_MAX."""
+    C0 = max(1, min(GLCM_CLUSTER_MAX, H, -(-H * W // GLCM_BLOCK_PIXELS)))
+    for C in range(C0, GLCM_CLUSTER_MAX + 1):
+        R = -(-H // C) if H else 0
+        most = GLCM_ANGLES_A_BLOCK if R * W > GLCM_THREADS_MIN else 1
+        sizes = sorted({-(-n_angles // g) for g in range(1, n_angles + 1)
+                        if -(-n_angles // g) <= most}, reverse=True)
+        for AG in sizes:
+            plan = glcm_cooc_blocks(H, W, ng, n_angles, offset, C, AG)
+            if plan is not None:
+                return plan
+    counts = (1 + bool(symmetric)) * H * W
+    bits = 53 if esz == 8 else 24
+    if counts > GLCM_COUNT_MAX[bits]:
+        bits = 32
+    if counts > GLCM_COUNT_MAX[bits]:
+        raise ValueError("glcm_cooc: a %d x %d crop's counts pass %d bits"
+                         % (H, W, bits))
+    return glcm_cooc_device(B, H, W, ng, n_angles, bits, offset)
+
+
+def glcm_cooc_device(B: int, H: int, W: int, ng: int, n_angles: int,
+                     bits: int, offset: int = 1):
+    """K2's device-path plan with count width ``bits``: C blocks a ROI of
+    GLCM_THREADS_MAX threads, each a band of ceil(ng / C) matrix rows (C
+    lowered so that no band is empty), the crop staged in shared memory
+    where it fits a block and its levels fit 16-bit codes (one block an
+    SM, C B about the SMs), else read from device memory (two blocks an
+    SM)."""
+    smem = glcm_stage_bytes(H, H, W, offset)
+    if smem + GLCM_STATIC_SMEM > SMEM_MAX or ng > 0xFFFF:
+        smem = 0
+    C = min(ng, max(1, -(-(SMS if smem else 2 * SMS) // max(B, 1))))
+    C = -(-ng // -(-ng // C))
+    return "device", bits, n_angles, C, GLCM_THREADS_MAX, smem
+
+
 def cooc_matrices(orig, levels, angles, offset: int, ng: int,
                   symmetric: bool):
-    """Co-occurrence count matrices for all angles: K2 glcm_cooc, replacing
-    nyxus_tpu/ops/glcm.py:61 cooc_matrices.
+    """Co-occurrence count matrices for all angles: K2 glcm_cooc
+    (csrc/glcm_cooc.cu), replacing nyxus_tpu/ops/glcm.py:61 cooc_matrices.
 
     orig:   [B, H, W] masked original intensities (0 = background/off-ROI)
     levels: [B, H, W] int binned levels (1-based)
     -> [B, n_angles, ng, ng] counts in orig.dtype; axis 2 indexes the
-    NEIGHBOR level - 1, axis 3 the CENTER level - 1.  On the card one block
-    per (ROI, angle) counts the matrix in 32-bit integers: in shared memory
-    (16 KB at 64 levels) when 4 * ng^2 fits a block's 227 KB, else (256
-    levels) in a zeroed int32 buffer in device memory.  Bound on the card:
-    the crop reads and the atomics on that matrix."""
+    NEIGHBOR level - 1, axis 3 the CENTER level - 1.  On the card one launch
+    a call, no fill (``glcm_cooc_plan``): a block a ROI and group of angles
+    (two angles at 64 levels, one at 256 or on 16² crops) stages
+    the crop once as 16-bit codes with a ring of 0 and counts its angles'
+    matrices in shared memory, one atomic a pair (16-bit counts where no
+    cell can pass 65535), each cell written once, the transpose added there
+    when symmetric; past GLCM_BLOCK_PIXELS a cluster of up to 16 blocks a
+    ROI, each counting its rows and summing its share of the cells over the
+    cluster through distributed shared memory; matrices no cluster holds
+    (4096 levels) by bands of rows, each zeroed and counted by its own
+    block straight into the output.  Counts are exact: equal to
+    ``cooc_matrices_plain``.  Bound on the card: bytes (the crop read once,
+    the matrices written once)."""
     if not _kernel_device(orig, "glcm_cooc"):
         return cooc_matrices_plain(orig, levels, angles, offset, ng,
                                    symmetric)
@@ -100,7 +216,15 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
     out = torch.empty((B, na, ng, ng), dtype=orig.dtype, device=orig.device)
     if B == 0:
         return out
-    gcnt = device_counts((B, na, ng, ng), orig.device)
+    esz = orig.element_size()
+    path, bits, AG, C, threads, smem = glcm_cooc_plan(
+        B, H, W, ng, na, symmetric, esz, offset)
+    hx, hy = glcm_halo(H, W, offset)
+    dcount = torch.empty((B, na, ng, ng), dtype=torch.int32,
+                         device=orig.device) \
+        if path == "device" and bits == 32 else None
+    vec = W % 4 == 0 and orig.data_ptr() % 16 == 0 \
+        and levels.data_ptr() % 16 == 0
     d = []
     for k in range(4):
         dx, dy = ANGLE_OFFSETS[angles[k]] if k < na else (0, 0)
@@ -108,8 +232,9 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
     with torch.cuda.device(orig.device):
         code = _build.lib().nyx_glcm_cooc(
             orig.data_ptr(), levels.data_ptr(), out.data_ptr(),
-            0 if gcnt is None else gcnt.data_ptr(), B, H, W, ng,
-            na, *d, int(symmetric), int(orig.dtype == torch.float64),
+            0 if dcount is None else dcount.data_ptr(), B, H, W, ng,
+            na, *d, int(symmetric), GLCM_PATHS[path], bits, AG, C, threads,
+            smem, hx, hy, int(vec), int(esz == 8),
             _build.stream_of(orig))
     _build.check("glcm_cooc", code)
     cooc_matrices.launches += 1

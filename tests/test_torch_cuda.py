@@ -29,10 +29,10 @@ the 4096 x 27 cells, or where a cell sums many terms (a uniform cube, the
 sum(w); they are exact on dyadic weights.  K1 on its own cases
 (chip_smoke.hist_cases: channels, cluster-merged rows, split bins, uniform
 ROIs) is equal on 0/1 weights and within that bound on float weights.
-K3, K7, K8 and K9 are equal on their own cases (chip_smoke.runs_cases,
-zone_stats_case, erosion_case, quads_cases) by their plans and on every
-path their plans can take, forced; K7 and K8 also on every bucket and
-special crop.
+K2, K3, K7, K8 and K9 are equal on their own cases (chip_smoke.GLCM_CASES,
+runs_cases, zone_stats_case, erosion_case, quads_cases) by their plans
+and on every path their plans can take, forced; K2, K7 and K8 also on
+every bucket and special crop.
 K4's GLDM and NGLDM matrices and NGTDM's N and present levels are equal,
 NGTDM's S within 2 n u S of a cell of n terms (the same positive terms
 summed in another order), by its plan and with the device path forced.
@@ -108,13 +108,30 @@ def test_batched_hist(prec, case):
 @pytest.mark.parametrize("prec", list(DTYPES))
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_glcm_cooc(prec, case):
+    """K2 by its plan and on every plan of chip_smoke.glcm_plans, forced
+    (one block or a cluster of 2, 4 or 16 blocks at each angle group size,
+    the device path into the output and into an int32 scratch, the crop
+    staged or read from device memory), symmetric or not, for angle
+    subsets at offsets 1-3: counts equal, one launch a call."""
     orig, lev, _, _ = _bucket(case, DTYPES[prec])
     for angles, offset in (((0, 45, 90, 135), 1), ((90,), 1),
-                           ((45, 135), 3)):
+                           ((45, 135), 3), ((0, 90, 135), 2)):
         for sym in (False, True):
-            assert torch.equal(
-                glcm.cooc_matrices(orig, lev, angles, offset, 64, sym),
-                glcm.cooc_matrices_plain(orig, lev, angles, offset, 64, sym))
+            chip_smoke.glcm_agree(_Agree(), orig, lev, angles, offset, 64,
+                                  sym)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(DTYPES))
+@pytest.mark.parametrize("name", chip_smoke.GLCM_CASES)
+def test_glcm_cooc_special_cases(prec, name):
+    """K2 on uniform, checkerboard and empty crops, NaN and negative
+    intensities beside levels outside the matrix, the 16-bit count at its
+    most (65535, and 65522 symmetric) and one past it (65536, 32-bit),
+    IBSI's 256 levels, 512 levels and IBSI's 4096 levels on the long ROI,
+    by its plan and on every plan forced."""
+    for call in chip_smoke.glcm_case(name, DTYPES[prec]):
+        chip_smoke.glcm_agree(_Agree(), *call)
 
 
 @pytest.mark.cuda
@@ -591,9 +608,11 @@ def test_shared_memory_limits_raise():
 @pytest.mark.parametrize("prec", list(DTYPES))
 def test_device_memory_counts(prec):
     """K2 at 256 levels and K3 at 256 x 512 and 64 x 1024 matrices (more
-    than a block's shared memory as 32-bit counts: K3 counts the 64 x 1024
-    ones of a 32² crop in 16-bit shared memory, the rest in device memory)
-    equal their plain versions."""
+    than a block's shared memory as 32-bit counts: K2 counts one angle's
+    256 x 256 matrix in 16-bit shared memory, on the 1024 x 64 crop in a
+    cluster of 16 blocks; K3 counts the 64 x 1024 ones of a 32² crop in
+    16-bit shared memory, the rest in device memory) equal their plain
+    versions."""
     dtype = DTYPES[prec]
     for case in ((64, 32, 32, (29, 31)), (2, 1024, 64, (600, 40))):
         orig, lev, aabb, roi = _bucket(case, dtype)

@@ -1,13 +1,14 @@
-"""The launch plans of K1 ``batched_hist``, K3 ``glrlm_runs``, K4
+"""The launch plans of K1 ``batched_hist``, K2 ``glcm_cooc``, K3
+``glrlm_runs``, K4
 ``neigh_matrix``, K5 ``zone_dag``, K7 ``zone_stats``, K8 ``erosion``, K9
 ``binary_quads``, K10 ``power_sums``, K11 ``gabor``, K12 ``zernike``, K13
 ``glcm3d_cooc``, K15 ``cc3d``, K16 ``stencil3d`` and K17 ``ih_stats``
 (nyxus_tpu_torch/ops/common.py batched_hist_plan, neigh_matrix_plan,
-ops/glrlm.py glrlm_runs_plan, ops/zones.py zone_dag_plan, zone_stats_plan,
+ops/glcm.py glcm_cooc_plan, ops/glrlm.py glrlm_runs_plan, ops/zones.py zone_dag_plan, zone_stats_plan,
 ops/binary.py erosion_plan, binary_quads_plan, ops/moments.py
 power_sums_plan, ops/gabor.py gabor_plan, ops/zernike.py zernike_plan,
 ops/texture3d.py glcm3d_plan, cc3d_plan, stencil3d_plan, ops/ih.py
-ih_stats_plan; K1, K3, K4, K5, K7, K8, K9, K10, K12 and K17 at the shapes
+ih_stats_plan; K1, K2, K3, K4, K5, K7, K8, K9, K10, K12 and K17 at the shapes
 their own tests below name), checked in plain Python at every
 bucket shape chip_smoke.py holds the kernels at (its CASES and CUBES), the
 3D main path's 30 bucket shapes, the Gabor banks of chip_smoke.GABOR_BANKS
@@ -32,6 +33,7 @@ from nyxus_tpu_torch.config import EngineConfig  # noqa: E402
 from nyxus_tpu_torch.ops import binary as tbinary  # noqa: E402
 from nyxus_tpu_torch.ops import common as tcommon  # noqa: E402
 from nyxus_tpu_torch.ops import gabor as tgabor  # noqa: E402
+from nyxus_tpu_torch.ops import glcm as tglcm  # noqa: E402
 from nyxus_tpu_torch.ops import glrlm as tglrlm  # noqa: E402
 from nyxus_tpu_torch.ops import ih as tih  # noqa: E402
 from nyxus_tpu_torch.ops import moments as tmoments  # noqa: E402
@@ -980,6 +982,104 @@ def test_ih_stats_plan_main_path():
     assert plan(1025, 4) == ("block", 5)
     assert plan(32768, 4) == ("block", 128)
     assert plan(32768, 8) == ("device", 128)
+
+
+# K2's (B, H, W): the main path's three buckets, a slide's 300 x 32², 3 x
+# 7 x 13, the long ROI's 1 and 2 x 1024 x 64, 2 x 256², one pixel, and the
+# 16-bit counts' edge: a block of 255 x 257 = 65535 pixels, 181² and 256² =
+# 65536
+GLCM_SHAPES = [(64, 32, 32), (47, 64, 64), (28, 16, 16), (300, 32, 32),
+               (3, 7, 13), (1, 1024, 64), (2, 1024, 64), (2, 256, 256),
+               (1, 1, 1), (1, 255, 257), (1, 181, 181), (1, 256, 256)]
+
+
+def _k2_fits(H, W, ng, na, C):
+    """Whether any angle group of K2 fits a block with the rows split over
+    C blocks (shared memory falls as C grows)."""
+    return tglcm.glcm_cooc_blocks(H, W, ng, na, 1, C, 1) is not None
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("n_angles", [1, 2, 4])
+@pytest.mark.parametrize("ng", [8, 64, 256, 4096])
+@pytest.mark.parametrize("shape", GLCM_SHAPES, ids=str)
+def test_glcm_cooc_plan(shape, ng, n_angles, symmetric):
+    """K2 in both compute types: the shared memory within a block's (the
+    static 16 bytes beside it); whole warps, at most 1024; every (ROI,
+    angle) owned by exactly one block or cluster (the angles cut into
+    groups of AG, the kernel's index math), every crop row by exactly one
+    block of a cluster of at most 16, and, on the device path, every
+    matrix row by exactly one band; 16-bit counts exactly where a block's
+    pixels (the most a cell can count) stay within 65535; the device path
+    exactly where no cluster's blocks hold an angle, its count width
+    holding (1 + symmetric) H W."""
+    B, H, W = shape
+    for esz in (4, 8):
+        path, bits, AG, C, T, smem = tglcm.glcm_cooc_plan(
+            B, H, W, ng, n_angles, symmetric, esz)
+        assert smem + tglcm.GLCM_STATIC_SMEM <= SMEM_MAX
+        assert T % 32 == 0 and 32 <= T <= 1024
+        assert 1 <= AG <= n_angles
+        groups = -(-n_angles // AG)
+        owners = [g for g in range(groups)
+                  for a in range(g * AG, min(n_angles, g * AG + AG))]
+        assert owners == sorted(owners) and len(owners) == n_angles
+        fits = [_k2_fits(H, W, ng, n_angles, c) for c in range(1, 17)]
+        if path == "device":
+            assert not any(fits)
+            assert AG == n_angles and T == 1024
+            BR = -(-ng // C)
+            assert 1 <= C <= ng and C * BR >= ng and (C - 1) * BR < ng
+            assert bits in ((53 if esz == 8 else 24), 32)
+            assert (1 + symmetric) * H * W <= tglcm.GLCM_COUNT_MAX[bits]
+            assert smem in (0, 2 * (H + 2) * (W + 2))
+            continue
+        assert any(fits)
+        assert (path == "smem") == (C == 1)
+        assert C <= 16 and (C == 1 or C <= H)
+        R = -(-H // C) if H else 0
+        rows = [r for r in range(C) for y in range(r * R, min(H, r * R + R))]
+        assert rows == sorted(rows) and len(rows) == H
+        assert C == 1 or (C - 1) * R < H
+        assert bits == (16 if R * W <= 65535 else 32)
+        words = -(-AG * ng * ng // 2) if bits == 16 else AG * ng * ng
+        assert smem == 16 * -(-words // 4) + 2 * (R + 2 * min(1, H)) \
+            * (W + 2 * min(1, W))
+
+
+def test_glcm_cooc_plan_main_path():
+    """The main buckets one block a ROI and two angles at 64 levels (64 x
+    32²: 256 threads of four pixels each; 47 x 64² 512 threads of eight),
+    one angle on 16² crops (a pixel a thread); IBSI's 256 levels one angle
+    a block in 16-bit counts (128 KB); the long ROI and 2 x 256² clusters
+    of 16 blocks of 4096 pixels, also at 256 levels; IBSI's 4096 raw
+    levels the device path, the long ROI's crop staged and 128 bands of 32
+    rows, float adds (int32 where float32 cannot hold a count)."""
+    plan = tglcm.glcm_cooc_plan
+    assert plan(64, 32, 32, 64, 4, False, 4) == ("smem", 16, 2, 1, 256,
+                                                  16384 + 2 * 34 * 34)
+    assert plan(28, 16, 16, 64, 4, False, 4) == ("smem", 16, 1, 1, 256,
+                                                  8192 + 2 * 18 * 18)
+    assert plan(300, 32, 32, 64, 4, True, 8)[:5] == ("smem", 16, 2, 1, 256)
+    assert plan(47, 64, 64, 64, 4, False, 8)[:5] == ("smem", 16, 2, 1, 512)
+    assert plan(64, 32, 32, 256, 4, True, 4) == ("smem", 16, 1, 1, 256,
+                                                  131072 + 2 * 34 * 34)
+    assert plan(2, 1024, 64, 64, 4, False, 4)[:5] == ("cluster", 16, 2, 16,
+                                                      512)
+    assert plan(2, 256, 256, 64, 4, False, 4)[:5] == ("cluster", 16, 2, 16,
+                                                      512)
+    assert plan(2, 1024, 64, 256, 4, True, 4)[:5] == ("cluster", 16, 1, 16,
+                                                      512)
+    assert plan(1, 1024, 64, 4096, 4, True, 4) == ("device", 24, 4, 128,
+                                                    1024, 2 * 1026 * 66)
+    assert plan(1, 1024, 64, 4096, 4, True, 8)[:2] == ("device", 53)
+    # levels past 16-bit codes: the crop read from device memory
+    assert plan(1, 32, 32, 65536, 1, False, 4)[::5] == ("device", 0)
+    assert plan(1, 32, 32, 65535, 1, False, 4)[5] > 0
+    assert plan(1, 4096, 4096, 4096, 4, False, 4)[:2] == ("device", 24)
+    assert plan(1, 4096, 4096, 4096, 4, True, 4)[:2] == ("device", 32)
+    with pytest.raises(ValueError):
+        plan(1, 65536, 65536, 64, 1, True, 4)   # 2 H W past 2^32 - 1
 
 
 # ---------------------------------------------------------------------------
