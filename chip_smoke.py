@@ -99,6 +99,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    bits (intensities >> 4: 4096 raw levels, GLCM's matrices a ROI at a
    time, K2's device path), the IH members read off the histogram (bin count, mode and
    gradient bins) equal; and *3D_ALL* (ibsi) on the fixture volume
+3b. the 2D file protocol: print which of PIL, pandas and pyarrow import
+   (none is used); write three TIFF pairs with the port's libtiff-free
+   writer (the 320 x 320 slide tiled LZW in 128-px tiles, the long-ROI
+   slide stripped Deflate, make_dsb_like(seed=7) tiled LZW in 512-px tiles,
+   bench.py's corpus format), read each back exactly with read_gray (the
+   1024² pair's decode timed), then run *ALL* over the directory through
+   Nyxus._iter_directory_raw in memory and with ram_limit=1 (every pair
+   tile-streamed through run_streamed): labels equal to PairRunner.run's
+   on the decoded arrays on the card, values within the f32 tiers of that
+   run, K1-K12 launched by each; and the 1024² pair's warm wall through
+   the file path (in memory, streamed) beside PairRunner.run's
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
@@ -119,7 +130,7 @@ The last three lines are the card's name and power limit, the kernels'
 JSON line (K1-K17; the 2D kernels' launches from the timed 747-column
 pass, K13-K16's from the timed 3D pass, K17's from the timed IBSI pass)
 and the result JSON line.  Imports torch, numpy, scipy and nyxus_tpu_torch
-only.
+only (phase 3b tries PIL, pandas and pyarrow to report them).
 """
 
 import json
@@ -3702,6 +3713,157 @@ def profile_report(what, run, stage_prefix="nyx:", totals=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the 2D file protocol
+
+
+def check_files(kern, card_runner):
+    """Phase 3b: TIFF pairs written by the port's writer (the 320 x 320
+    slide tiled LZW in 128-px tiles, the long-ROI slide stripped Deflate,
+    make_dsb_like(seed=7) tiled LZW in 512-px tiles as bench.py's corpus
+    has it), read back exactly, then *ALL* through
+    Nyxus._iter_directory_raw in memory and tile-streamed (ram_limit=1),
+    each pair's labels equal to PairRunner.run's on the decoded arrays on
+    the card and its values within the f32 tiers of that run, K1-K12
+    launched by each; the 1024² pair's wall through the file path beside
+    PairRunner.run's."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    from nyxus_tpu_torch import Nyxus
+    from nyxus_tpu_torch.api import _force_finite
+    from nyxus_tpu_torch.io.readers import read_gray
+    from nyxus_tpu_torch.io.tiff import write_tiff
+
+    have = {}
+    for mod in ("PIL", "pandas", "pyarrow"):
+        try:
+            importlib.import_module(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    log("  importable on this machine (none relied on): %s"
+        % ", ".join("%s %s" % (m, "yes" if ok else "no")
+                    for m, ok in have.items()))
+    pairs = {"fixture320.tif": (make_dsb_like(320, 320, 40, seed=11), 128,
+                                "lzw"),
+             "long_roi.tif": (make_long_roi_slide(), 0, "deflate"),
+             "slide1.ome.tif": (make_dsb_like(seed=7), 512, "lzw")}
+    with tempfile.TemporaryDirectory(prefix="nyx_files_") as root:
+        int_dir = os.path.join(root, "int")
+        seg_dir = os.path.join(root, "seg")
+        os.makedirs(int_dir)
+        os.makedirs(seg_dir)
+        t0 = time.perf_counter()
+        for name, ((intens, labels), tile, comp) in pairs.items():
+            write_tiff(os.path.join(int_dir, name), intens.astype(np.uint16),
+                       tile_size=tile, compression=comp)
+            write_tiff(os.path.join(seg_dir, name), labels.astype(np.uint16),
+                       tile_size=tile, compression=comp)
+        log("  3 pairs written in %.3f s: %s" % (
+            time.perf_counter() - t0, ", ".join(
+                "%s %s %s %s" % (name, "x".join(map(str, a[0].shape)),
+                                 "tiles %d" % tile if tile else "strips", comp)
+                for name, (a, tile, comp) in pairs.items())))
+        for name, ((intens, labels), _, _) in pairs.items():
+            t0 = time.perf_counter()
+            ri = read_gray(os.path.join(int_dir, name))
+            rl = read_gray(os.path.join(seg_dir, name))
+            dt = time.perf_counter() - t0
+            if not (ri.dtype == np.uint16 and np.array_equal(ri, intens)
+                    and np.array_equal(rl, labels)):
+                raise AssertionError("%s: read_gray differs from what was "
+                                     "written" % name)
+            if name == "slide1.ome.tif":
+                log("  the 1024² pair decoded in %.4f s (tiled LZW, four "
+                    "512² tiles a file)" % dt)
+        want = {}
+        for name, ((intens, labels), _, _) in pairs.items():
+            labs, vals = card_runner.run(intens, labels)
+            want[name] = (labs, _force_finite(vals, card_runner.cfg.noval))
+        fset_cols = columns_of(card_runner)
+        for what, kw in (("in memory", {}), ("streamed", {"ram_limit": 1})):
+            nyx = Nyxus(FEATURES_ALL, **kw)
+            calls = {"run": 0, "run_streamed": 0}
+            for meth in calls:
+                count_calls(nyx._runner, meth, calls)
+            for f in kern.values():
+                f.launches = 0
+            got = list(nyx._iter_directory_raw(int_dir, seg_dir, ".*"))
+            launches = {k: kern[k].launches for k in KERNELS_2D}
+            if [os.path.basename(g[0]) for g in got] != sorted(pairs):
+                raise AssertionError("files path %s: pairs %s" % (
+                    what, [g[0] for g in got]))
+            want_calls = {"run": 0, "run_streamed": 3} if kw else \
+                {"run": 3, "run_streamed": 0}
+            if calls != want_calls:
+                raise AssertionError("files path %s: runner calls %s"
+                                     % (what, calls))
+            worst = []
+            for ipath, _, labs, vals in got:
+                wl, wv = want[os.path.basename(ipath)]
+                if list(labs) != list(wl) or vals.shape != wv.shape \
+                        or not np.isfinite(vals).all():
+                    raise AssertionError("files path %s, %s: labels/shape "
+                                         "%s vs %s" % (what, ipath,
+                                                       vals.shape, wv.shape))
+                bad, w = compare_tiers(fset_cols, vals, wv)
+                if bad:
+                    raise AssertionError("files path %s, %s: beyond the f32 "
+                                         "tiers of PairRunner.run: %r"
+                                         % (what, ipath, bad[:20]))
+                worst.append((os.path.basename(ipath), w,
+                              int((vals.view(np.uint64)
+                                   == wv.view(np.uint64)).all(axis=0).sum())))
+            if not all(launches.values()):
+                raise AssertionError("files path %s: a kernel was not "
+                                     "launched: %r" % (what, launches))
+            log("  %s: %d pairs through %s, labels equal to PairRunner.run's "
+                "on the card; (pair, closest to its tier, columns bit-equal "
+                "of %d) %s; launches %s"
+                % (what, len(got), "run_streamed" if kw else "run",
+                   len(fset_cols), worst, launches))
+        intens, labels = pairs["slide1.ome.tif"][0]
+        times = {}
+        for what, kw in (("file path in memory", {}),
+                         ("file path streamed", {"ram_limit": 1})):
+            nyx = Nyxus(FEATURES_ALL, **kw)
+            t0 = time.perf_counter()
+            out = list(nyx._iter_directory_raw(int_dir, seg_dir,
+                                               r"slide1\.ome\.tif"))
+            torch.cuda.synchronize()
+            times[what] = time.perf_counter() - t0
+            if len(out) != 1:
+                raise AssertionError("timed file path: %d pairs" % len(out))
+        t0 = time.perf_counter()
+        card_runner.run(intens, labels)
+        torch.cuda.synchronize()
+        times["PairRunner.run on the decoded arrays"] = \
+            time.perf_counter() - t0
+        log("  the 1024² pair (%d ROIs, warm): %s; card %s"
+            % (len(want["slide1.ome.tif"][0]),
+               ", ".join("%s %.4f s" % kv for kv in times.items()),
+               card_line()))
+
+
+def count_calls(obj, meth, calls):
+    """Wrap obj.meth so that each call adds one to calls[meth]."""
+    fn = getattr(obj, meth)
+
+    def counted(*args, **kw):
+        calls[meth] += 1
+        return fn(*args, **kw)
+    setattr(obj, meth, counted)
+
+
+def columns_of(runner):
+    """The value columns' names of a PairRunner's request."""
+    from nyxus_tpu_torch import columns
+    return columns.build_header(runner.fset, runner.cfg)[0][4:]
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_times_only(root, only=None):
@@ -3866,6 +4028,12 @@ def main():
               "against the CPU (f64)" % (" ".join(FEATURES_ALL),
                                          " ".join(FEATURES_3D)))
     ibsi_card, ibsi_cpu, ibsi_cols = check_ibsi(kern)
+
+    # phase 3b
+    log_phase("phase 3b: the 2D file protocol, %s through "
+              "Nyxus._iter_directory_raw in memory and tile-streamed"
+              % " ".join(FEATURES_ALL))
+    check_files(kern, card_runner)
 
     # phase 4
     log_phase("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, "

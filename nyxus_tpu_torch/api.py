@@ -1,7 +1,9 @@
-"""Public Python API: ``Nyxus`` for in-memory 2D pairs and ``Nyxus3D`` for
-in-memory 3D volume pairs (PyTorch port of nyxus_tpu/api.py: the
-``featurize`` paths, their CSV / Arrow IPC / Parquet outputs, the ROI
-blacklist and the parameter surface).
+"""Public Python API: ``Nyxus`` for 2D pairs, in memory or as TIFF files,
+and ``Nyxus3D`` for in-memory 3D volume pairs (PyTorch port of
+nyxus_tpu/api.py: ``featurize``, the 2D file protocol
+``featurize_directory`` / ``featurize_files`` with its tile-streamed run
+for slides over the RAM gate, their pandas / Arrow IPC / Parquet outputs,
+the ROI blacklist and the parameter surface).
 
 Mirrors the reference's Python surface (reference:
 src/nyx/python/nyxus/nyxus.py:29-909).  ``pandas`` and ``pyarrow`` are
@@ -10,6 +12,8 @@ nyxus_tpu_torch`` works without them.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -59,13 +63,15 @@ class Nyxus:
     ``device``: where the features are computed, "cuda" (the default, the
     current CUDA device) or e.g. "cuda:1"; "cpu" runs the plain PyTorch
     versions of the kernels and is meant for tests.  ``n_devices`` other
-    than None, 0 or 1 raises ``NotImplementedError``: the port does not
-    shard over cards yet (ROADMAP queue 1 item 10)."""
+    than None, 0 or 1 and ``shard_slides`` raise ``NotImplementedError``:
+    the port does not shard over cards or processes yet (ROADMAP queue 1
+    item 10)."""
 
     _valid_output_types = list(_VALID_OUTPUT_TYPES)
 
     def __init__(self, features, device="cuda", **kwargs):
-        if kwargs.get("n_devices", 1) not in (None, 0, 1):
+        if kwargs.get("n_devices", 1) not in (None, 0, 1) \
+                or kwargs.get("shard_slides"):
             raise NotImplementedError(
                 "nyxus_tpu_torch does not support multi-device 2D yet: "
                 "ROADMAP.md queue 1 item 10 [S 15] (multi-GPU)")
@@ -142,19 +148,9 @@ class Nyxus:
         if len(intensity_names) != n_img or len(label_names) != n_img:
             raise ValueError("Number of image names must equal the number of images")
 
-        # Hounsfield-style shift + uint cast (reference: nyxus.py:469-477);
-        # under preserve_hu the slope-1 offset u = round(x - floor(min)) is
-        # recorded so IH_* can report in the original HU domain
-        I = intensity_images
-        min_raw = I.min() if I.size else 0
-        hu_off = 0.0
-        if self.cfg.preserve_hu:
-            hu_off = float(np.floor(min_raw))
-            I = np.maximum(np.round(I - hu_off), 0)
-        elif min_raw < 0:
-            I = I - min_raw
-        if I.dtype.kind != "u":     # narrow unsigned dtypes ship as-is
-            I = I.astype(np.uint32)
+        # the same intensity map as the file protocol's, over the whole
+        # stack (reference: nyxus.py:469-477)
+        I, hu_off = self._prep_intensity(intensity_images)
         M = label_images.astype(np.uint32)
 
         import pandas as pd
@@ -181,6 +177,183 @@ class Nyxus:
         self._arrow_path = writers.write_dataframe(df, output_type,
                                                    output_path)
         return self._arrow_path
+
+    def _prep_intensity(self, intens: np.ndarray):
+        """(offset uint image, hu_offset): the load-time float->uint map
+        (nyxus_tpu/api.py _prep_intensity).  Under preserve_hu: u =
+        round(x - floor(slide_min)) clamped at 0 (reference:
+        slideprops.h:48-66 uint_friendly_inten), with the offset returned
+        so IH_* can undo it; otherwise a slide with negative values is
+        shifted to start at 0, unsigned dtypes keep their width (uint16
+        stays uint16) and the rest become uint32."""
+        if self.cfg.preserve_hu and intens.size:
+            off = float(np.floor(intens.min()))
+            return np.maximum(np.round(intens - off), 0).astype(np.uint32), \
+                off
+        if intens.size and intens.min() < 0:
+            intens = intens - intens.min()
+        if intens.dtype.kind == "u":
+            return intens, 0.0
+        return intens.astype(np.uint32), 0.0
+
+    # -- file-based featurization (nyxus_tpu/api.py:229-486) --------------
+
+    def featurize_directory(self, intensity_dir: str, label_dir: str = None,
+                            file_pattern: str = ".*",
+                            output_type: str = "pandas",
+                            output_path: str = ""):
+        """Features of every image pair of a directory (reference:
+        nyxus.py:291-370): the files matching ``file_pattern`` in both
+        directories, paired by name.  Whole-slide mode (``label_dir`` None
+        or equal to ``intensity_dir``) is not ported and raises.  Returns
+        a DataFrame, or the path of the Arrow IPC or Parquet file, written
+        one slide at a time."""
+        if not os.path.exists(intensity_dir):
+            raise IOError("Provided intensity image directory '%s' does not "
+                          "exist." % intensity_dir)
+        if label_dir is not None and not os.path.exists(label_dir):
+            raise IOError("Provided label image directory '%s' does not "
+                          "exist." % label_dir)
+        if label_dir is None:
+            label_dir = intensity_dir
+        return self._emit(self._iter_directory_frames(
+            intensity_dir, label_dir, file_pattern), output_type, output_path)
+
+    def featurize_files(self, intensity_files, mask_files, single_roi=False,
+                        output_type: str = "pandas", output_path: str = ""):
+        """Features of explicit file pairs (reference: nyxus.py:512-558);
+        ``single_roi`` (whole-slide mode) is not ported and raises."""
+        def frames():
+            for k, ipath in enumerate(intensity_files):
+                lpath = ipath if single_roi else mask_files[k]
+                labs, values = self._run_pair_file(ipath, lpath, single_roi,
+                                                   os.path.basename(lpath))
+                values = _force_finite(values, self.cfg.noval)
+                yield ipath, lpath, self._to_frame(ipath, lpath, labs, values)
+        return self._emit(frames(), output_type, output_path)
+
+    def _emit(self, frames, output_type, output_path):
+        """A DataFrame of every (int_path, seg_path, frame) of ``frames``,
+        or their rows streamed slide by slide into an Arrow IPC or Parquet
+        file (reference: workflow_2d_segmented.cpp:322-352,
+        arrow_output_stream.h:22-57), whose path it returns."""
+        if output_type not in self._valid_output_types:
+            raise ValueError("Invalid output type %s. Valid output types "
+                             "are %s." % (output_type,
+                                          self._valid_output_types))
+        empty = lambda: self._to_frame("", "", np.zeros(0, np.int64),
+                                       np.zeros((0, len(self.header) - 4)))
+        if output_type == "pandas":
+            import pandas as pd
+            dfs = [f for _, _, f in frames]
+            return pd.concat(dfs, ignore_index=True) if dfs else empty()
+        from .io import writers
+        w = writers.StreamingArrowWriter(output_type, output_path)
+        try:
+            wrote = False
+            for _, _, frame in frames:
+                w.write(frame)
+                wrote = True
+            if not wrote:
+                w.write(empty())
+        finally:
+            w.close()
+        self._arrow_path = w.path
+        return self._arrow_path
+
+    def _iter_directory_frames(self, intensity_dir, label_dir, file_pattern):
+        """(int_path, seg_path, per-slide DataFrame) one pair at a time."""
+        for ipath, lpath, labs, values in self._iter_directory_raw(
+                intensity_dir, label_dir, file_pattern):
+            yield ipath, lpath, self._to_frame(ipath, lpath, labs, values)
+
+    def _iter_directory_raw(self, intensity_dir, label_dir, file_pattern):
+        """(int_path, seg_path, labels, values [N, n_out]) per pair of the
+        directory, the frame-free backbone: it needs neither pandas nor
+        pyarrow.  One reader thread decodes pair k+1 while pair k computes
+        (the reference overlaps IO with compute through threaded tile
+        loaders, abs_tile_loader.h:19); a read that fails raises here."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .io import dataset as ds
+        int_files, lab_files, wholeslide = ds.read_2d_dataset(
+            intensity_dir, label_dir, file_pattern)
+        pairs = list(zip(int_files, lab_files))
+        if not pairs:
+            return
+        ex = ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="nyx-prefetch")
+        try:
+            fut = ex.submit(self._load_pair_arrays, *pairs[0], wholeslide)
+            for k, (ipath, lpath) in enumerate(pairs):
+                pre = fut.result()
+                if k + 1 < len(pairs):
+                    fut = ex.submit(self._load_pair_arrays, *pairs[k + 1],
+                                    wholeslide)
+                labs, values = self._run_pair_file(
+                    ipath, lpath, wholeslide, os.path.basename(lpath or ipath),
+                    preloaded=pre)
+                yield ipath, lpath, labs, _force_finite(values,
+                                                        self.cfg.noval)
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
+
+    def _open_stream_source(self, ipath, lpath, wholeslide):
+        """A region-read pair source for a TIFF pair, or None where the
+        pair must be decoded whole: other formats, and whole-slide mode,
+        whose streamed source is not ported (reference: grayscale_tiff.h:25
+        tile loaders)."""
+        tiff = (".tif", ".tiff")
+        if wholeslide or os.path.splitext(ipath)[1].lower() not in tiff \
+                or os.path.splitext(lpath)[1].lower() not in tiff:
+            return None
+        from .pipeline.sources import TiffPairSource
+        return TiffPairSource(ipath, lpath)
+
+    def _stream_gate(self, shape) -> bool:
+        """True when a slide of ``shape`` must take the streamed path (16
+        B/px in memory: f64 intensities and i64 labels; reference RAM gate,
+        workflow_2d_segmented.cpp:124-139)."""
+        H, W = shape
+        return H * W * 16 > (self.cfg.ram_limit_mb << 20) // 2
+
+    def _load_pair_arrays(self, ipath, lpath, wholeslide):
+        """(intensities as ``_prep_intensity`` maps them, uint32 labels,
+        hu_offset) of one pair decoded whole, or None when the pair is over
+        the RAM gate and must stream (the prefetch thread's work)."""
+        from .io import readers
+        src = self._open_stream_source(ipath, lpath, wholeslide)
+        if src is not None:
+            with src:
+                if self._stream_gate(src.shape):
+                    return None
+        intens = readers.read_gray(ipath)
+        labmat = (np.ones(intens.shape, np.uint32) if wholeslide
+                  else readers.read_gray(lpath).astype(np.uint32))
+        if labmat.shape != intens.shape:
+            raise ValueError("intensity/mask dimension mismatch: %s vs %s "
+                             "(%s, %s)" % (intens.shape, labmat.shape, ipath,
+                                           lpath))
+        I, hu_off = self._prep_intensity(intens)
+        return I, labmat, hu_off
+
+    def _run_pair_file(self, ipath, lpath, wholeslide, fname,
+                       preloaded=None):
+        """Featurize one on-disk pair: decoded whole (``preloaded``, else
+        read here), or, over the RAM gate, tile-streamed through its
+        source (reference: phase1.cpp:104-118).  ``fname`` is the name the
+        blacklist checks."""
+        if preloaded is None:
+            preloaded = self._load_pair_arrays(ipath, lpath, wholeslide)
+        if preloaded is None:
+            with self._open_stream_source(ipath, lpath, wholeslide) as src:
+                return self._runner.run_streamed(
+                    src, blacklist=self._blacklist, fname=fname,
+                    wholeslide=wholeslide)
+        I, labmat, hu_off = preloaded
+        return self._runner.run(I, labmat, blacklist=self._blacklist,
+                                wholeslide=wholeslide, fname=fname,
+                                hu_offset=hu_off)
 
     # -- ROI blacklist (reference: nyxus.py:771-830) -----------------------
 

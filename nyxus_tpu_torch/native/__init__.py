@@ -1,11 +1,11 @@
-"""Native (C++) host-geometry library of the port, bound with ctypes
-(reduced from nyxus_tpu/native/__init__.py: the contour, geometry and CSV
-writer entry points only).
+"""Native (C++) host library of the port, bound with ctypes (reduced from
+nyxus_tpu/native/__init__.py: the contour, geometry and CSV writer entry
+points, and the TIFF codec of ``io/tiff.py``).
 
 ``src/`` holds verbatim copies of the JAX package's ``contour.cpp``,
-``geomfeats.cpp``, ``geomfeats_batch.cpp`` and ``csv_writer.cpp``, which link
-only against each other and the C++ standard library (no libtiff, no file
-readers).  They are
+``geomfeats.cpp``, ``geomfeats_batch.cpp`` and ``csv_writer.cpp``, and the
+port's own ``tiff_codec.cpp`` (TIFF LZW and Predictor 2).  They link only
+against each other and the C++ standard library (no libtiff).  They are
 compiled with ``g++`` (or ``$CXX``), one process a source, at first use into
 ``nyxus_tpu_torch/_build/libnyxgeom.so``; a stamp holding a hash of the
 sources, the compiler and the flags sits next to it, and a change to any of
@@ -31,7 +31,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 LIB_PATH = os.path.join(os.path.dirname(_DIR), "_build", "libnyxgeom.so")
 SOURCES = ("contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp",
-           "csv_writer.cpp")
+           "csv_writer.cpp", "tiff_codec.cpp")
 # -march=native is safe: the library is built on first use on the machine
 # that runs it and never committed.  -ffp-contract=off: FMA contraction
 # would change the doubles and break parity with the JAX package's host
@@ -47,8 +47,10 @@ build_seconds = None   # wall time of the last build in this process
 _P = ctypes.c_void_p
 _L = ctypes.c_long
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 # entry point -> (restype, argtypes)
 _SIGNATURES = {
+    "nyx_contour": (_I, [_P, _P, _I, _I, _P, _I]),
     "nyx_caliper_feret": (None, [_P, _P, _P, _L, _P, _I]),
     "nyx_caliper_martin": (None, [_P, _P, _P, _L, _P, _I]),
     "nyx_caliper_nassenstein": (None, [_P, _P, _P, _L, _P, _I]),
@@ -66,6 +68,10 @@ _SIGNATURES = {
                           ctypes.POINTER(ctypes.c_char_p), _P,
                           ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
                           _I, _I, _I, _I]),
+    "nyx_lzw_decode": (_I64, [_P, _I64, _P, _I64]),
+    "nyx_lzw_encode": (_I64, [_P, _I64, _P, _I64]),
+    "nyx_hdiff_decode": (_I, [_P, _I64, _I64, _I, _I, _I]),
+    "nyx_hdiff_encode": (_I, [_P, _I64, _I64, _I, _I, _I]),
 }
 
 
@@ -156,6 +162,23 @@ def _load():
 def available() -> bool:
     """True once the library is built and loaded; raises if it cannot be."""
     return _load() is not None
+
+
+def contour(mask, inten):
+    """Merged multicontour of one ROI crop as [K, 3] (x, y, inten) int64 in
+    +1-shifted local coordinates (nyxus_tpu/native/__init__.py contour)."""
+    lib = _load()
+    mask = np.ascontiguousarray(mask, np.uint8)
+    inten = np.ascontiguousarray(inten, np.int64)
+    h, w = mask.shape
+    cap = int(mask.sum()) + 16
+    out = np.empty((cap, 3), np.int64)
+    k = lib.nyx_contour(mask.ctypes.data_as(ctypes.c_void_p),
+                        inten.ctypes.data_as(ctypes.c_void_p), h, w,
+                        out.ctypes.data_as(ctypes.c_void_p), cap)
+    if k < 0:
+        raise RuntimeError("contour buffer overflow")
+    return out[:k].copy()
 
 
 def contour_sqdist_approx(px, py, cx, cy, want_min=True, want_max=False):

@@ -1,10 +1,12 @@
-# Copied from nyxus_tpu/pipeline/labels.py (RoiRecord, _native_labels_ok and the numpy discovery path only); pinned by tests/test_torch_tables.py.
+# Copied from nyxus_tpu/pipeline/labels.py (RoiRecord, _native_labels_ok and the numpy discovery paths only, in memory and tile-streamed); pinned by tests/test_torch_tables.py and tests/test_torch_files.py.
 """Label discovery: per-ROI metrics from a labeled mask (phase-1 equivalent).
 
 The reference streams tiles and updates per-label records pixel-by-pixel
 (reference: src/nyx/phase1.cpp:24-124, pixel_feed.cpp).  Here a whole
-in-memory pair is reduced at once with vectorized numpy segment reductions.
-The native one-pass scan of the JAX package is not part of this port yet.
+in-memory pair is reduced at once with vectorized numpy segment reductions;
+the tiled/streamed variant reuses the same per-tile reduction and merges
+partial records across tiles.  The native one-pass scan of the JAX package
+is not part of this port yet.
 """
 
 from __future__ import annotations
@@ -95,3 +97,75 @@ def _discover_rois_np(intens: np.ndarray, labels: np.ndarray):
     # slide min/max over MASKED pixels only: the reference's prescan skips
     # non-mask pixels (slideprops.cpp:146-162 'if (!msk) continue')
     return recs, float(vals.min()), float(vals.max())
+
+
+def discover_rois_streamed(source, tile: int = 2048):
+    """Tile-streamed phase 1 over a pair source: per-tile segment reductions
+    merged across tiles, so RAM stays O(tile^2) regardless of slide size.
+    ROIs spanning tile boundaries accumulate into one record (the reference's
+    cross-tile LR merge, phase1.cpp:64-88).
+
+    Returns (records sorted by label, slide_min, slide_max)."""
+    H, W = source.shape
+    parts = []                 # per-tile (uniq, area, y0, y1, x0, x1, mn, mx)
+    smin, smax = np.inf, -np.inf
+    for ty in range(0, H, tile):
+        th = min(tile, H - ty)
+        for tx in range(0, W, tile):
+            tw = min(tile, W - tx)
+            ii, ll = source.read_pair(ty, tx, th, tw)
+            flat_lab = ll.ravel()
+            nz = flat_lab != 0
+            if not nz.any():
+                continue
+            labs = flat_lab[nz]
+            vals = ii.ravel()[nz]
+            # masked-pixels-only slide extrema (slideprops.cpp:146-162)
+            smin = min(smin, float(vals.min()))
+            smax = max(smax, float(vals.max()))
+            uniq, inv = np.unique(labs, return_inverse=True)
+            k = uniq.size
+            area = np.bincount(inv, minlength=k)
+            vmin = np.full(k, np.inf)
+            vmax = np.full(k, -np.inf)
+            np.minimum.at(vmin, inv, vals)
+            np.maximum.at(vmax, inv, vals)
+            yy, xx = np.divmod(np.nonzero(nz)[0], tw)
+            y0 = np.full(k, th, np.int64)
+            y1 = np.full(k, -1, np.int64)
+            x0 = np.full(k, tw, np.int64)
+            x1 = np.full(k, -1, np.int64)
+            np.minimum.at(y0, inv, yy)
+            np.maximum.at(y1, inv, yy)
+            np.minimum.at(x0, inv, xx)
+            np.maximum.at(x1, inv, xx)
+            parts.append((uniq, area, y0 + ty, y1 + ty, x0 + tx, x1 + tx,
+                          vmin, vmax))
+    if not parts:
+        return ([], 0.0 if np.isinf(smin) else smin,
+                0.0 if np.isinf(smax) else smax)
+
+    # merge per-tile partials by label (second segment reduction)
+    cat = [np.concatenate([p[j] for p in parts]) for j in range(8)]
+    uniq, inv = np.unique(cat[0], return_inverse=True)
+    k = uniq.size
+    area = np.zeros(k, np.int64)
+    np.add.at(area, inv, cat[1])
+    y0 = np.full(k, H, np.int64)
+    y1 = np.full(k, -1, np.int64)
+    x0 = np.full(k, W, np.int64)
+    x1 = np.full(k, -1, np.int64)
+    vmin = np.full(k, np.inf)
+    vmax = np.full(k, -np.inf)
+    np.minimum.at(y0, inv, cat[2])
+    np.maximum.at(y1, inv, cat[3])
+    np.minimum.at(x0, inv, cat[4])
+    np.maximum.at(x1, inv, cat[5])
+    np.minimum.at(vmin, inv, cat[6])
+    np.maximum.at(vmax, inv, cat[7])
+    recs = [
+        RoiRecord(int(uniq[i]), int(area[i]), int(y0[i]), int(y1[i]),
+                  int(x0[i]), int(x1[i]), float(vmin[i]), float(vmax[i]))
+        for i in range(k)
+    ]
+    return recs, smin, smax

@@ -1,5 +1,5 @@
 """Batched feature-extraction runner for image pairs (PyTorch port of the
-dense padded-bucket path of nyxus_tpu/pipeline/runner.py, in-memory pairs).
+dense padded-bucket path of nyxus_tpu/pipeline/runner.py).
 
 Orchestrates: label discovery -> contours and the native host-geometry pass
 -> bucketed batching -> every device family over each padded ROI batch on
@@ -8,6 +8,15 @@ moment families, the per-pixel log contour distances) are assembled on the
 host, one padded [B, H, W] plane per bucket, and shipped to the device once
 per bucket; the packed outputs of all buckets come back in one
 device-to-host copy per slide.
+
+Two crop paths share one core (``_run_core``):
+* in-memory pairs (``run``): crops are windows of the resident slide, the
+  contours of every ROI come from one native call and the pixel clouds
+  from one whole-slide label sort
+* file-backed pairs (``run_streamed``): discovery streams tiles, and each
+  ROI's padded crop is read from the source once, into a crop cache that
+  the contour trace, the pixel clouds and its batch share, so the slide is
+  never held whole (the reference's tile re-scan, phase2_2d.cpp:89)
 
 Host stages run inline on the calling thread.  The device launches are
 asynchronous, so the host families that read no device result (and the
@@ -29,6 +38,8 @@ from .. import taxonomy as tx
 from ..config import EngineConfig
 from ..ops.moments import WEIGHTING_EPSILON
 from . import batching, hostfeats, labels
+from .contour import merged_contour
+from .sources import ArrayPairSource
 
 
 def compute_dtype(cfg: EngineConfig):
@@ -45,27 +56,6 @@ def is_oversized(rec, budget_bytes: int, bytes_per_px: int = 16) -> bool:
     return hb * wb * bytes_per_px > budget_bytes
 
 
-class _ArrayPairSource:
-    """The in-memory pair as a region source (nyxus_tpu/pipeline/sources.py
-    ArrayPairSource)."""
-
-    def __init__(self, intens: np.ndarray, label_img: np.ndarray):
-        self.intens = intens
-        self.labels = label_img
-        self.shape = label_img.shape
-
-    def read_pair(self, y0: int, x0: int, h: int, w: int):
-        """(intens [h, w] float64, labels [h, w] int64); out-of-image
-        margins are zero."""
-        H, W = self.shape
-        ii = np.zeros((h, w), np.float64)
-        ll = np.zeros((h, w), np.int64)
-        y1, x1 = min(y0 + h, H), min(x0 + w, W)
-        ii[:y1 - y0, :x1 - x0] = self.intens[y0:y1, x0:x1]
-        ll[:y1 - y0, :x1 - x0] = self.labels[y0:y1, x0:x1]
-        return ii, ll
-
-
 class HostContext:
     """Inputs for host-side (sequential/contour) families
     (nyxus_tpu/pipeline/runner.py:318 HostContext).
@@ -77,7 +67,7 @@ class HostContext:
     def __init__(self, recs, contours, source, get_feature):
         self.recs = recs            # all RoiRecords of the pair
         self.contours = contours    # merged contour per ROI, local +1 coords
-        self.source = source        # _ArrayPairSource
+        self.source = source        # ArrayPairSource | TiffPairSource
         self.get_feature = get_feature   # display/member name -> np [N]
         self.hulls = [None] * len(recs)  # filled by the convex-hull family
         self._points = {}
@@ -102,6 +92,10 @@ class HostContext:
             _, m = self.pair_crop(i)
             self._points[i] = np.nonzero(m)
         return self._points[i]
+
+
+def _cat(parts, dt):
+    return np.concatenate(parts).astype(dt) if parts else np.zeros(0, dt)
 
 
 def _build_clouds(recs, intens, label_img):
@@ -130,10 +124,56 @@ def _build_clouds(recs, intens, label_img):
         gx_p.append(xs[a:b])
         gy_p.append(ys[a:b])
         it_p.append(vals[a:b])
-    cat = lambda parts, dt: (np.concatenate(parts).astype(dt) if parts
-                             else np.zeros(0, dt))
-    return (cat(gx_p, np.int64), cat(gy_p, np.int64),
-            cat(it_p, np.float64), off)
+    return (_cat(gx_p, np.int64), _cat(gy_p, np.int64),
+            _cat(it_p, np.float64), off)
+
+
+def _crop_clouds(recs, crops):
+    """The pixel clouds of ``_build_clouds`` read off each ROI's padded
+    crop (the streamed branch of nyxus_tpu/pipeline/runner.py:361
+    _build_clouds): the same pixels in the same order."""
+    off = np.zeros(len(recs) + 1, np.int64)
+    gx_p, gy_p, it_p = [], [], []
+    for j, r in enumerate(recs):
+        ii, ll = crops(j, *batching.bucket_shape(r.height, r.width))
+        cys, cxs = np.nonzero(ll[:r.height, :r.width] == r.label)
+        off[j + 1] = off[j] + len(cys)
+        gx_p.append(cxs + r.x0)
+        gy_p.append(cys + r.y0)
+        it_p.append(ii[cys, cxs].astype(np.float64))
+    return (_cat(gx_p, np.int64), _cat(gy_p, np.int64),
+            _cat(it_p, np.float64), off)
+
+
+class _CropWindows:
+    """Each ROI's crop window (intens, labels) at its bucket shape (hb, wb)
+    from its AABB's corner: a view of the resident slide (clipped at the
+    slide's edge), or, for a file-backed source, a zero-padded region read
+    once and cached until its batch is built (nyxus_tpu/pipeline/runner.py
+    padded_crop), so the contour trace, the clouds and the batch share one
+    read."""
+
+    def __init__(self, recs, source, resident=None):
+        self.recs = recs
+        self.source = source
+        self.resident = resident
+        self._cache = {}
+
+    def __call__(self, i, hb, wb):
+        r = self.recs[i]
+        if self.resident is not None:
+            intens, label_img = self.resident
+            return (intens[r.y0:r.y0 + hb, r.x0:r.x0 + wb],
+                    label_img[r.y0:r.y0 + hb, r.x0:r.x0 + wb])
+        key = (i, hb, wb)
+        if key not in self._cache:
+            self._cache[key] = self.source.read_pair(r.y0, r.x0, hb, wb)
+        return self._cache[key]
+
+    def release(self, idxs, shape):
+        """Drop the cached crops of a batch once it is built."""
+        for i in idxs:
+            self._cache.pop((i,) + tuple(shape), None)
 
 
 class PairRunner:
@@ -198,6 +238,29 @@ class PairRunner:
                 "nyxus_tpu_torch does not support whole-slide mode yet")
         with record_function("nyx:discover"):
             all_recs, smin, smax = labels._discover_rois_np(intens, label_img)
+        return self._run_core(all_recs, smin, smax,
+                              ArrayPairSource(intens, label_img), blacklist,
+                              fname, hu_offset, resident=(intens, label_img))
+
+    def run_streamed(self, source, blacklist=None, fname: str = "",
+                     tile: int = 2048, wholeslide: bool = False,
+                     hu_offset: float = 0.0):
+        """File-backed pair (a region source such as
+        ``sources.TiffPairSource``): tile-streamed discovery, then each
+        ROI's padded crop read once; the slide is never held whole in host
+        or device memory.  Returns what ``run`` returns."""
+        if wholeslide:
+            raise NotImplementedError(
+                "nyxus_tpu_torch does not support whole-slide mode yet")
+        with record_function("nyx:discover"):
+            all_recs, smin, smax = labels.discover_rois_streamed(source, tile)
+        return self._run_core(all_recs, smin, smax, source, blacklist, fname,
+                              hu_offset)
+
+    def _run_core(self, all_recs, smin, smax, source, blacklist, fname,
+                  hu_offset, resident=None):
+        """Both paths from discovery on: ``resident`` (intens, labels) for
+        an in-memory pair, None when crops are read from ``source``."""
         if blacklist is not None and blacklist.defined:
             recs = [r for r in all_recs if not blacklist.check(fname, r.label)]
         else:
@@ -213,11 +276,12 @@ class PairRunner:
                 "(labels %s exceed the %d MB batch budget)"
                 % (over[:10], self.cfg.ram_limit_mb))
 
+        crops = _CropWindows(recs, source, resident)
         # every ported host family reads contours, so the host stage runs
         # exactly when contours are needed
         hc = None
         if recs and self._needs_contour:
-            hc = self._host_context(intens, label_img, recs, values)
+            hc = self._host_context(recs, values, crops)
 
         static_meta = ()
         if self.cfg.ibsi:
@@ -230,9 +294,11 @@ class PairRunner:
         for shape, idxs in batching.group_rois(recs, hbm_budget_bytes=budget):
             lw = self._logw_planes(hc, recs, idxs, shape) \
                 if hc is not None and self._needs_logw else None
+            windows = [crops(i, *shape) for i in idxs]
             outs.append((idxs, self._run_batch(
-                intens, label_img, [recs[i] for i in idxs], shape, smin,
-                smax, lw, static_meta, hu_offset)))
+                windows, [recs[i] for i in idxs], shape, smin, smax, lw,
+                static_meta, hu_offset)))
+            crops.release(idxs, shape)
 
         if hc is not None:
             # the heavy half of the geometry pass and the host families
@@ -273,18 +339,27 @@ class PairRunner:
             return labs_all, out
         return labs_all, values[:, self._out_cols]
 
-    def _host_context(self, intens, label_img, recs, values):
+    def _host_context(self, recs, values, crops):
         """Contours of every ROI, then the HostContext with its pixel
         clouds and phase "logw" of the native geometry pass: the per-pixel
         log contour distances the moment families consume, and the ROI
-        radius / radial families that share that distance search."""
-        if not labels._native_labels_ok(label_img):
-            raise NotImplementedError(
-                "nyxus_tpu_torch traces contours natively only for labels "
-                "below 2**31; the numpy contour fallback for larger labels "
-                "is not ported yet")
+        radius / radial families that share that distance search.  A
+        resident slide whose labels fit int32 is traced in one native
+        call; otherwise each ROI's crop is traced alone
+        (``contour.merged_contour``: the same contour)."""
+        resident = crops.resident
         with record_function("nyx:contours"):
-            contours = native.contours_batch(label_img, intens, recs)
+            if resident is not None and labels._native_labels_ok(resident[1]):
+                contours = native.contours_batch(resident[1], resident[0],
+                                                 recs)
+            else:
+                contours = []
+                for i, r in enumerate(recs):
+                    ii, ll = crops(i, *batching.bucket_shape(r.height,
+                                                             r.width))
+                    contours.append(merged_contour(
+                        ll[:r.height, :r.width] == r.label,
+                        ii[:r.height, :r.width]))
         rows = np.arange(len(recs))
 
         def get_feature(member):
@@ -294,10 +369,10 @@ class PairRunner:
             off, _ = self.member_slots[code]
             return values[rows, off]
 
-        hc = HostContext(recs, contours, _ArrayPairSource(intens, label_img),
-                         get_feature)
+        hc = HostContext(recs, contours, crops.source, get_feature)
         with record_function("nyx:geom"):
-            hc.clouds = _build_clouds(recs, intens, label_img)
+            hc.clouds = _build_clouds(recs, *resident) \
+                if resident is not None else _crop_clouds(recs, crops)
             hostfeats.compute_geom(
                 hc, self.cfg,
                 tuple(f for f in hostfeats.DIST_FAMILIES
@@ -345,14 +420,14 @@ class PairRunner:
                 w = min(width, arr.shape[1])
                 values[rows, off:off + w] = arr[:, :w]
 
-    def _run_batch(self, intens, label_img, batch_recs, shape, smin, smax,
-                   lw=None, static_meta=(), hu_offset=0.0):
+    def _run_batch(self, windows, batch_recs, shape, smin, smax, lw=None,
+                   static_meta=(), hu_offset=0.0):
         """All device families over one padded bucket; returns the packed
         [B, total_width] output on the device.  Each stage is a
         ``nyx:<stage>`` profiler range (near free when no profiler runs)."""
         with record_function("nyx:crops"):
-            ctx = self._batch_context(intens, label_img, batch_recs, shape,
-                                      smin, smax, lw, static_meta, hu_offset)
+            ctx = self._batch_context(windows, batch_recs, shape, smin, smax,
+                                      lw, static_meta, hu_offset)
         out = {}
         for name in self.device_families:
             with record_function("nyx:" + name):
@@ -370,22 +445,20 @@ class PairRunner:
                 self._colmap = self._build_colmap(layout)
             return torch.cat(parts, dim=1)
 
-    def _batch_context(self, intens, label_img, batch_recs, shape, smin,
-                       smax, lw=None, static_meta=(), hu_offset=0.0):
-        """Host crop assembly of one padded bucket, shipped to the device
-        once (with the bucket's log-distance planes when given)."""
+    def _batch_context(self, windows, batch_recs, shape, smin, smax, lw=None,
+                       static_meta=(), hu_offset=0.0):
+        """Host crop assembly of one padded bucket from each ROI's crop
+        window (``_CropWindows``), shipped to the device once (with the
+        bucket's log-distance planes when given)."""
         hb, wb = shape
         B = len(batch_recs)
         np_dt = np.float64 if self.dtype == torch.float64 else np.float32
         ci = np.zeros((B, hb, wb), np_dt)
         cm = np.zeros((B, hb, wb), bool)
-        H, W = label_img.shape
-        for bi, r in enumerate(batch_recs):
-            h_av = max(0, min(hb, H - r.y0))
-            w_av = max(0, min(wb, W - r.x0))
-            sl = (slice(r.y0, r.y0 + h_av), slice(r.x0, r.x0 + w_av))
-            ci[bi, :h_av, :w_av] = intens[sl]
-            cm[bi, :h_av, :w_av] = label_img[sl] == r.label
+        for bi, (r, (iw, lab_w)) in enumerate(zip(batch_recs, windows)):
+            h, w = lab_w.shape
+            ci[bi, :h, :w] = iw
+            cm[bi, :h, :w] = lab_w == r.label
         meta_i = np.asarray([[r.area, r.height, r.width, r.y0, r.x0]
                              for r in batch_recs], np.int32)
         meta_f = np.asarray([[r.vmin, r.vmax, smin, smax, hu_offset]

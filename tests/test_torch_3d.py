@@ -44,6 +44,7 @@ import nyxus_tpu_torch  # noqa: E402
 from nyxus_tpu_torch import taxonomy as ttx  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig as TConfig  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 FEATURES = ["*3D_ALL*"]

@@ -14,6 +14,7 @@ from nyxus_tpu_torch.config import EngineConfig as TConfig
 from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
 
 from test_torch_3d import BINNED, FEATURES, _agree, _jax_run
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 
 def test_volume_runner_binned_config_equals_jax():

@@ -12,6 +12,7 @@ from nyxus_tpu.config import EngineConfig as JConfig
 
 from test_torch_3d import (_agree, _fixture_volume, _jax_run,  # noqa: F401
                            fixture_frame)
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 
 def test_nyxus3d_default_config_equals_jax(fixture_frame):

@@ -10,6 +10,7 @@ import nyxus_tpu
 import nyxus_tpu_torch
 
 from conftest import make_blobs
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 
 def _nyx(features, **kw):

@@ -32,6 +32,7 @@ from nyxus_tpu_torch.ops import gabor as tgabor
 from nyxus_tpu_torch.ops import moments as tmoments
 from nyxus_tpu_torch.ops import zernike as tzernike
 from nyxus_tpu_torch.pipeline import batching, labels
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 # (kersize, thetas, freqs): the default bank, an odd kersize, and an even
 # one with five filters

@@ -43,6 +43,7 @@ from nyxus_tpu_torch import taxonomy as ttx  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig as TConfig  # noqa: E402
 from nyxus_tpu_torch.ops import ih as tih  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner as TRunner  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 _ENTROPY = ("ENTRO", "_JE", "_RE", "_DE", "INFOMEAS", "GLSZM_ZE")

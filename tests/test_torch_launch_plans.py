@@ -41,6 +41,7 @@ from nyxus_tpu_torch.ops import texture3d as tt3  # noqa: E402
 from nyxus_tpu_torch.ops import zernike as tzernike  # noqa: E402
 from nyxus_tpu_torch.ops import zones as tzones  # noqa: E402
 from nyxus_tpu_torch.ops.common import SMEM_MAX  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 BUCKETS_2D = sorted({(B, H, W) for B, H, W, _ in chip_smoke.CASES}
                     | {(3, 64, 128)})

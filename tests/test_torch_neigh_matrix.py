@@ -34,6 +34,7 @@ from nyxus_tpu_torch.ops import common as tc
 from nyxus_tpu_torch.ops import gldm as tgldm
 from nyxus_tpu_torch.ops import ngldm as tngldm
 from nyxus_tpu_torch.ops import ngtdm as tngtdm
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 CASES = ("one pixel", "uniform", "border", "levels out of range", "ibsi 256")
 DTYPES = {"f32": torch.float32, "f64": torch.float64}

@@ -20,6 +20,7 @@ from nyxus_tpu_torch.ops import common as tc
 from nyxus_tpu_torch.ops import quant as tq
 
 import oracle_fastlog
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
 

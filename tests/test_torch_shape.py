@@ -45,6 +45,7 @@ from nyxus_tpu_torch.ops import binary as tbinary
 from nyxus_tpu_torch.ops import moments as tmoments
 from nyxus_tpu_torch.ops.common import safe_div
 from nyxus_tpu_torch.pipeline import batching, labels
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 SIZES = (16, 32, 64)
 DEVICE_FAMILIES = ("BasicMorphologyFeatures", "EllipseFittingFeature",

@@ -46,6 +46,7 @@ from nyxus_tpu_torch import registry  # noqa: E402
 from nyxus_tpu_torch import taxonomy as ttx  # noqa: E402
 from nyxus_tpu_torch.config import EngineConfig as TConfig  # noqa: E402
 from nyxus_tpu_torch.pipeline.runner import PairRunner as TRunner  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
             "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
@@ -231,18 +232,23 @@ def test_all_but_gabor_zernike_against_reference_binary(reference_frames,
 
 
 def test_labels_beyond_int32_raise():
-    """Contours are traced natively, which reads labels as int32; a label
-    image with labels >= 2**31 raises (the numpy fallback is not ported)."""
+    """Labels of 2**31 and above, which the native batch trace cannot read
+    as int32, no longer raise: each ROI's contour is traced alone
+    (contour.merged_contour), as the JAX package's numpy fallback does, and
+    the contour, geometry and weighted-moment columns equal JAX's."""
     intens, labels = make_blobs(64, 64, 3, seed=1)
     big = labels.astype(np.uint32)
     big[labels > 0] += np.uint32(2 ** 31)
-    runner = TRunner(ttx.parse_feature_request(["PERIMETER"]),
-                     TConfig(precision="f64"), device="cpu")
-    with pytest.raises(NotImplementedError, match="2\\*\\*31"):
-        runner.run(intens, big)
-    labs, _ = TRunner(ttx.parse_feature_request(["*ALL_INTENSITY*"]),
-                      TConfig(precision="f64"), device="cpu").run(intens, big)
-    assert len(labs) == labels.max()
+    feats = ["PERIMETER", "EDGE_MEAN_INTENSITY", "ROI_RADIUS_MEAN",
+             "CONVEX_HULL_AREA", "WEIGHTED_HU_M1", "*ALL_INTENSITY*"]
+    jl, jv = JRunner(jtx.parse_feature_request(feats),
+                     JConfig(precision="f64")).run(intens, big)
+    tl, tv = TRunner(ttx.parse_feature_request(feats),
+                     TConfig(precision="f64"), device="cpu").run(intens, big)
+    np.testing.assert_array_equal(tl, jl)
+    assert len(tl) == labels.max() and tl.min() >= 2 ** 31
+    hdr, _ = tcol.build_header(ttx.parse_feature_request(feats), TConfig())
+    _compare(hdr[4:], jv, tv)
 
 
 @pytest.mark.parametrize("kw", [{"aniso_y": 2.0}, {"mergerois": True},

@@ -18,6 +18,7 @@ from nyxus_tpu.config import EngineConfig as JConfig  # noqa: E402
 from nyxus_tpu.pipeline.runner import PairRunner as JRunner  # noqa: E402
 
 from test_torch_slice import FEATURES, _compare, _port_runner  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 
 def test_long_roi_slide_vs_jax():

@@ -41,6 +41,7 @@ from nyxus_tpu_torch.pipeline import hostfeats as thostfeats  # noqa: E402
 from nyxus_tpu_torch.pipeline import labels as tlabels  # noqa: E402
 from nyxus_tpu_torch.pipeline import runner as trunner  # noqa: E402
 from nyxus_tpu_torch.pipeline import runner3d as trunner3d  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
@@ -53,7 +54,9 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
                                  "taxonomy/__init__.py",
                                  "pipeline/batching.py",
                                  "pipeline/hostfeats.py",
-                                 "io/writers.py", "blacklist.py"])
+                                 "io/writers.py", "blacklist.py",
+                                 "io/strpat.py", "io/dataset.py",
+                                 "pipeline/contour.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -124,9 +127,9 @@ def _port_copy(tmp_path):
 
 
 def test_native_build_links_no_libtiff(tmp_path):
-    """A fresh copy of the port builds its host library (geometry and the
-    CSV writer) with neither -ltiff nor the JAX package's file readers, and
-    links no libtiff."""
+    """A fresh copy of the port builds its host library (geometry, the CSV
+    writer and the TIFF codec) with neither -ltiff nor the JAX package's
+    file readers, and links no libtiff."""
     root = _port_copy(tmp_path)
     log = tmp_path / "cxx.log"
     cxx = tmp_path / "cxx"
@@ -318,7 +321,11 @@ def test_import_pulls_no_jax():
             "import nyxus_tpu_torch.native, nyxus_tpu_torch.pipeline.hostfeats\n"
             "import nyxus_tpu_torch.pipeline.runner3d\n"
             "import nyxus_tpu_torch.ops.texture3d, nyxus_tpu_torch.ops.ih\n"
-            "import nyxus_tpu_torch.blacklist\n"
+            "import nyxus_tpu_torch.blacklist, nyxus_tpu_torch.api\n"
+            "import nyxus_tpu_torch.io.tiff, nyxus_tpu_torch.io.readers\n"
+            "import nyxus_tpu_torch.io.dataset, nyxus_tpu_torch.io.strpat\n"
+            "import nyxus_tpu_torch.pipeline.sources\n"
+            "import nyxus_tpu_torch.pipeline.contour\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"

@@ -42,6 +42,7 @@ from nyxus_tpu_torch.ops import gldm as tgldm
 from nyxus_tpu_torch.ops import glrlm as tglrlm
 from nyxus_tpu_torch.ops import ngtdm as tngtdm
 from nyxus_tpu_torch.pipeline import batching, labels
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 SIZES = (16, 32)
 DEPTHS = (64, -64)

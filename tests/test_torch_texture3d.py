@@ -30,6 +30,7 @@ from nyxus_tpu_torch.ops import common as tcommon
 from nyxus_tpu_torch.ops import ngtdm as tngtdm
 from nyxus_tpu_torch.ops import texture3d as tt3
 from nyxus_tpu_torch.ops import zones as tzones
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 SHAPES = [(8, 16, 16), (16, 16, 16)]
 # per-ROI AABB sizes (depth, height, width) inside a cube of each shape

@@ -32,6 +32,7 @@ from nyxus_tpu.ops import zones as jzones
 
 from nyxus_tpu_torch.ops import common as tcommon
 from nyxus_tpu_torch.ops import zones as tzones
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 
 def _zone_inputs(ctx, depth):
