@@ -1902,6 +1902,8 @@ def check_kernels():
             "K11 and K12 on blank, flat-baseline and 256² disk ROIs agree; "
             "erosion steps %s" % (prec, steps))
 
+    wholeslide_kernels_agree(agree)
+
     # times at the main path's commonest bucket (f32, 64 ROIs of 32 x 32),
     # then at two more buckets and on the device-memory paths
     for B, H, W, hw in CASES[:3] + ((2, 1024, 64, (600, 40)),):
@@ -2038,6 +2040,129 @@ def check_kernels():
                    ms[0]))
     k1_k5_times()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2, whole slide: the kernels at the whole-slide ROI's crop
+
+WS_SLIDE = 1024     # the whole-slide slides' side (phase 3c)
+WS_BUCKET = 2048    # their ROI's inclusive 1025² box pads to this bucket
+
+
+def wholeslide_crop(dtype, device="cuda"):
+    """The whole-slide ROI of make_dsb_like(1024, 1024) as the runner hands
+    it to the kernels: one 2048² bucket holding the slide's intensities in
+    its top-left 1024², masked by the ROI (the slide: 1024² ones), the AABB
+    mask (the inclusive 1025 x 1025 box, all ones), the box's height and
+    width 1025, and the levels at 64 as the texture families bin them
+    (bin_levels over the ROI's range): (orig, lev, aabb, roi, hts, wds)."""
+    import torch
+    from nyxus_tpu_torch.ops import quant
+    intens, _ = make_dsb_like(WS_SLIDE, WS_SLIDE)
+    n, S = WS_SLIDE, WS_BUCKET
+    orig = np.zeros((1, S, S))
+    orig[0, :n, :n] = intens
+    roi = np.zeros((1, S, S), bool)
+    roi[0, :n, :n] = True
+    aabb = np.zeros((1, S, S), bool)
+    aabb[0, :n + 1, :n + 1] = True
+    t = lambda a, dt: torch.from_numpy(a).to(dt).to(device)
+    orig_t = t(orig, dtype)
+    lo = torch.full((1, 1, 1), float(intens.min()), dtype=dtype,
+                    device=device)
+    hi = torch.full((1, 1, 1), float(intens.max()), dtype=dtype,
+                    device=device)
+    lev = quant.bin_levels(orig_t, lo, hi, 64)
+    hw = torch.full((1,), n + 1, dtype=torch.int32, device=device)
+    return orig_t, lev, t(aabb, torch.bool), t(roi, torch.bool), hw, hw
+
+
+def wholeslide_ibsi(orig, roi):
+    """IBSI's raw levels of the whole-slide crop at 12 bits: the
+    intensities >> 4 (up to 4095 here, so max_int 4096), as intensities and
+    as int32 levels, 0 off the ROI."""
+    import torch
+    o12 = torch.where(roi, torch.floor(orig / 16), 0)
+    return o12, o12.to(torch.int32)
+
+
+def wholeslide_kernels_agree(agree):
+    """Phase 2, whole slide: K1-K12 against their plain versions at the
+    whole-slide ROI's crop (wholeslide_crop, f32, the card's precision),
+    each by its plan and held as on the synth buckets: counts, labels and
+    distances equal, K1's float weights (the intensities) within 2 n u
+    sum|w| a bin, K4's NGTDM sums within 2 n u S, K10's sums within rtol
+    1e-6 of their scale, K11 bit for bit, K12 within its tier; then K2 at
+    IBSI's 4096 raw levels on the same crop.  Logs the seconds each group
+    took, plain version and checks included."""
+    import torch
+    from nyxus_tpu_torch.ops import glrlm
+    dtype = torch.float32
+    t0 = time.perf_counter()
+    orig, lev, aabb, roi, hts, wds = wholeslide_crop(dtype)
+    secs = {"inputs": time.perf_counter() - t0}
+    all4 = (0, 45, 90, 135)
+    flat = (lev - 1).reshape(1, -1)
+
+    def k1():
+        for w, nb in ((roi.reshape(1, -1).to(dtype), 64),
+                      (orig.reshape(1, -1), 65)):
+            hist_agree(agree, flat, w, nb)
+
+    def k3():
+        for valid in (aabb, roi):
+            agree("glrlm_runs",
+                  glrlm.run_matrices(lev, valid, 64, WS_BUCKET, dtype),
+                  glrlm.run_matrices_plain(lev, valid, 64, WS_BUCKET, dtype))
+
+    def k2_4096():
+        o12, l12 = wholeslide_ibsi(orig, roi)
+        glcm_agree(agree, o12, l12, all4, 1, 4096, True, forced=False)
+
+    groups = (
+        ("K1", k1),
+        ("K2", lambda: [glcm_agree(agree, orig, lev, all4, 1, 64, sym,
+                                   forced=False) for sym in (False, True)]),
+        ("K3", k3),
+        ("K4", lambda: [neigh_agree(agree, mode, nl, part, nb, dtype,
+                                    forced=False)
+                        for mode, nl, part, nb in neigh_family_args(
+                            orig, lev, aabb, roi)]),
+        ("K5-K7", lambda: [zone_kernels_agree(
+            agree, torch.where(valid, lev, 0), valid, hts, wds)
+            for valid in (aabb, roi)]),
+        ("K8-K10", lambda: shape_kernels_agree(agree, roi, hts, wds, dtype)),
+        ("K11-K12", lambda: gz_kernels_agree(agree, orig, hts, wds,
+                                             ["n16"])),
+        ("K2 at 4096 levels", k2_4096))
+    for name, fn in groups:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    log("  f32 whole-slide crop (make_dsb_like(1024, 1024) in a 2048² "
+        "bucket, ROI 1024², box 1025²): K1-K12 and K2 at IBSI's 4096 "
+        "levels agree with their plain versions by their plans; seconds "
+        "(with the plain versions) %s"
+        % ", ".join("%s %.2f" % kv for kv in secs.items()))
+
+
+def wholeslide_ih_inputs(dtype, device="cuda"):
+    """K17's inputs at the whole-slide crop under IBSI at 12 bits: the
+    64-bin histogram (the grey depth IH uses) of the ROI's raw levels over
+    their range, as ih.ih_freq forms it with K1, the pixel count, the range
+    and the identity map into the reporting domain."""
+    import torch
+    from nyxus_tpu_torch.ops import ih
+    orig, _, _, roi, _, _ = wholeslide_crop(dtype, device)
+    o12, _ = wholeslide_ibsi(orig, roi)
+    vals = torch.where(roi, o12, float("inf")).reshape(1, -1)
+    vmin = o12[roi].min().reshape(1)
+    vmax = o12[roi].max().reshape(1)
+    freq = ih.ih_freq(vals, vmin, vmax, 64)
+    counts = roi.reshape(1, -1).sum(dim=1).to(dtype)
+    return (freq, counts, vmin, vmax, torch.ones_like(vmin),
+            torch.zeros_like(vmin))
 
 
 # ---------------------------------------------------------------------------
@@ -3316,6 +3441,12 @@ def check_ih():
             log("  %s B=64 N=%d: ih_stats agrees by its plan %s and on %s "
                 "forced, max abs diff %g" % (prec, N, plans[0], plans[1:],
                                               err))
+        err, plans = ih_paths_agree(wholeslide_ih_inputs(dtype), rtol)
+        res["ih_stats"]["max_abs_err"] = max(res["ih_stats"]["max_abs_err"],
+                                             err)
+        log("  %s whole-slide crop at 12 bits (64 bins of its raw levels): "
+            "ih_stats agrees by its plan %s and on %s forced, max abs diff "
+            "%g" % (prec, plans[0], plans[1:], err))
     for N in (64, 6, 100, 256, 32768):
         inputs = ih_inputs(64, N, torch.float32, seed=N)
         kern = lambda: ih.ih_stats(*inputs[:4], -0.0, *inputs[4:])
@@ -3847,6 +3978,251 @@ def check_files(kern, card_runner):
                card_line()))
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the 2D run modes and the CLI
+
+# each mode as (name, EngineConfig keywords, Nyxus keywords); the factors
+# narrowed to C float, as every entry point of the port does
+MODES_3C = (("mergerois", {"mergerois": True}, {"mergerois": True}),
+            ("whole-slide", {}, {}),
+            ("anisotropy 1.4 x 0.75",
+             {"aniso_x": float(np.float32(1.4)),
+              "aniso_y": float(np.float32(0.75))},
+             {"anisotropy_x": 1.4, "anisotropy_y": 0.75}))
+# the 2D kernels' device functions by name, for their totals over a
+# profiled run
+KERNEL_NAMES_2D = {"K1 batched_hist": "batched_hist", "K2 glcm_cooc":
+                   "glcm_cooc", "K3 glrlm_runs": "glrlm_runs",
+                   "K4 neigh_matrix": "neigh_matrix",
+                   "K5 zone_dag": "zone_dag", "K6 zone_cc4": "zone_cc4",
+                   "K7 zone_stats": "zone_stats", "K8 erosion": "erosion_",
+                   "K9 binary_quads": "binary_quads",
+                   "K10 power_sums": "power_sums", "K11 gabor": "gabor_",
+                   "K12 zernike": "zernike"}
+# the JAX package's Stopwatch keys of its runner (nyxus_tpu/pipeline/
+# runner.py), which the port's timing CSV must use
+JAX_STAGE_KEYS = ("Pipeline/Phase1_discovery/#cca33a",
+                  "Pipeline/Contours/#777799",
+                  "Pipeline/Host/geom_batch/#99bb55",
+                  "Pipeline/Phase2_device_batches/#33cc77",
+                  "Pipeline/Phase2_collect/#33aa99")
+
+
+def write_pair_dir(root, pairs, tile=64):
+    """int/ and seg/ under ``root`` holding each (name, (intens, labels))
+    of ``pairs`` as TIFFs written by the port's writer (tiled LZW)."""
+    from nyxus_tpu_torch.io.tiff import write_tiff
+    int_dir, seg_dir = os.path.join(root, "int"), os.path.join(root, "seg")
+    os.makedirs(int_dir)
+    os.makedirs(seg_dir)
+    for name, (intens, labels) in pairs:
+        write_tiff(os.path.join(int_dir, name), intens, tile_size=tile)
+        write_tiff(os.path.join(seg_dir, name), labels.astype(np.uint16),
+                   tile_size=tile)
+    return int_dir, seg_dir
+
+
+def check_modes(kern):
+    """Phase 3c: *ALL* under mergerois, whole-slide mode and anisotropy 1.4
+    x 0.75 in f32 on the card against the f64 CPU run (check_output: the
+    f32 tiers of tests/test_tpu_device.py), in memory through PairRunner.run
+    on the parity slide make_dsb_like(320, 320, 40, seed=11) and
+    tile-streamed (ram_limit=1) through Nyxus._iter_directory_raw over its
+    TIFF pair, K1-K12 launched in each run.  Streamed, mergerois and
+    whole-slide mode run on the slide's top-left 255 x 255 window: the
+    merged ROI or the slide's inclusive box must fit ram_limit=1's 1 MB
+    batch budget (a 256² bucket) or it is an oversized ROI, which the port
+    does not serve yet."""
+    import tempfile
+
+    import torch
+
+    from nyxus_tpu_torch import Nyxus, columns, taxonomy
+    from nyxus_tpu_torch.api import _force_finite
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner import PairRunner
+
+    fset = taxonomy.parse_feature_request(FEATURES_ALL)
+    full = make_dsb_like(320, 320, 40, seed=11)
+    window = tuple(np.ascontiguousarray(a[:255, :255]) for a in full)
+    with tempfile.TemporaryDirectory(prefix="nyx_modes_") as root:
+        dirs = {name: write_pair_dir(os.path.join(root, name),
+                                     [("slide.tif", pair)])
+                for name, pair in (("full", full), ("window", window))}
+        for mode, cfg_kw, nyx_kw in MODES_3C:
+            ws = mode == "whole-slide"
+            card = PairRunner(fset, EngineConfig(precision="f32", **cfg_kw),
+                              "cuda")
+            cpu = PairRunner(fset, EngineConfig(precision="f64", **cfg_kw),
+                             "cpu")
+            cols = columns.build_header(fset, EngineConfig(**cfg_kw))[0][4:]
+            for what in ("in memory", "streamed"):
+                src = "window" if what == "streamed" and mode in (
+                    "mergerois", "whole-slide") else "full"
+                intens, labels = full if src == "full" else window
+                lab = np.ones(intens.shape, np.uint32) if ws \
+                    else labels.astype(np.uint32)
+                labs64, ref = cpu.run(intens, lab, wholeslide=ws)
+                for f in kern.values():
+                    f.launches = 0
+                if what == "in memory":
+                    labs, dev = card.run(intens, lab, wholeslide=ws)
+                else:
+                    nyx = Nyxus(FEATURES_ALL, ram_limit=1, **nyx_kw)
+                    calls = {"run": 0, "run_streamed": 0}
+                    for meth in calls:
+                        count_calls(nyx._runner, meth, calls)
+                    int_dir, seg_dir = dirs[src]
+                    (_, _, labs, dev), = nyx._iter_directory_raw(
+                        int_dir, int_dir if ws else seg_dir, ".*")
+                    if calls != {"run": 0, "run_streamed": 1}:
+                        raise AssertionError("%s streamed: runner calls %s"
+                                             % (mode, calls))
+                    ref = _force_finite(ref, nyx.cfg.noval)
+                torch.cuda.synchronize()
+                launches = {k: kern[k].launches for k in KERNELS_2D}
+                label = "%s, %s (%s slide)" % (mode, what, "320²" if src
+                                               == "full" else "255² window")
+                worst = check_output(label, cols, labs, dev, labs64, ref)
+                if not all(launches.values()):
+                    raise AssertionError("%s: a kernel was not launched: %r"
+                                         % (label, launches))
+                log("  %s: %d ROIs x %d columns agree with the f64 CPU run; "
+                    "closest to its tier: %s; launches %s"
+                    % (label, len(labs), len(cols), worst, launches))
+
+
+def wholeslide_throughput(kern, slides):
+    """Phase 3c at full size: whole-slide mode through
+    Nyxus.featurize_directory (pandas output) over the 8 slides of phase 4
+    written as TIFFs (the port's writer, tiled LZW in 512-px tiles), one
+    ROI a slide whose inclusive 1025² box pads to a 2048² bucket: one
+    untimed slide, then the 8 timed (seconds a slide, peak device memory,
+    launches a slide), the output checked (one finite row of 747 columns a
+    slide, the 1025 x 1025 box, the slide's area), then one slide profiled:
+    device time and launches of each of K1-K12 at that crop."""
+    import tempfile
+
+    import torch
+
+    from nyxus_tpu_torch import Nyxus
+    from nyxus_tpu_torch.io.tiff import write_tiff
+
+    with tempfile.TemporaryDirectory(prefix="nyx_ws_") as root:
+        t0 = time.perf_counter()
+        for k, (intens, _) in enumerate(slides):
+            write_tiff(os.path.join(root, "slide%02d.ome.tif" % (7 + k)),
+                       intens, tile_size=512)
+        log("  %d whole-slide TIFFs written in %.2f s" % (
+            len(slides), time.perf_counter() - t0))
+        nyx = Nyxus(FEATURES_ALL)
+        nyx.featurize_directory(root, file_pattern=r"slide07\.ome\.tif")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in kern.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        df = nyx.featurize_directory(root)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: kern[k].launches for k in KERNELS_2D}
+        vals = df[df.columns[4:]].to_numpy(np.float64)
+        if (len(df) != len(slides) or vals.shape[1] != WIDTH_ALL
+                or list(df.ROI_label) != [1] * len(slides)
+                or set(df.mask_image) != {""}
+                or not np.isfinite(vals).all()
+                or set(df.BBOX_WIDTH) != {WS_SLIDE + 1}
+                or set(df.BBOX_HEIGHT) != {WS_SLIDE + 1}
+                or set(df.AREA_PIXELS_COUNT) != {WS_SLIDE ** 2}):
+            raise AssertionError("whole-slide slides: bad output %s" % (
+                vals.shape,))
+        if not all(launches.values()):
+            raise AssertionError("whole-slide slides: a kernel was not "
+                                 "launched: %r" % launches)
+        log("  whole-slide *ALL* over %d 1024² slides: %.4f s, %.4f s a "
+            "slide; peak device memory %d bytes (%.1f MiB); launches a "
+            "slide %s; card %s"
+            % (len(slides), wall, wall / len(slides), peak, peak / 2 ** 20,
+               {k: v / len(slides) for k, v in launches.items()},
+               card_line()))
+        profile_report("whole-slide slide 8 of *ALL* (2048² bucket)",
+                       lambda: nyx.featurize_directory(
+                           root, file_pattern=r"slide08\.ome\.tif"),
+                       totals=KERNEL_NAMES_2D)
+
+
+def check_cli():
+    """Phase 3c, the CLI: python3 -m nyxus_tpu_torch.cli --features=*ALL*
+    --outputType=singlecsv --exclusivetiming=true as a subprocess on the
+    card (its default device) over a directory of two TIFF pairs (the
+    parity slide and the long-ROI slide), its CSV against the in-process
+    Nyxus.featurize_directory frame on the card: the same header, rows,
+    names and labels, every value within the f32 tiers (two runs on the
+    card may differ in the last bits where float atomics add in another
+    order); and <seg>_nyxustiming.csv, whose stages are the JAX package's
+    runner keys."""
+    import tempfile
+
+    import pandas as pd
+
+    from nyxus_tpu_torch import Nyxus, registry
+
+    with tempfile.TemporaryDirectory(prefix="nyx_cli_") as root:
+        int_dir, seg_dir = write_pair_dir(
+            root, [("fixture320.tif", make_dsb_like(320, 320, 40, seed=11)),
+                   ("long_roi.tif", make_long_roi_slide())])
+        out = os.path.join(root, "out")
+        cmd = [sys.executable, "-m", "nyxus_tpu_torch.cli",
+               "--intDir=" + int_dir, "--segDir=" + seg_dir,
+               "--outDir=" + out, "--features=*ALL*",
+               "--outputType=singlecsv", "--exclusivetiming=true"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                           timeout=900,
+                           env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError("the CLI exited %d:\n%s" % (
+                r.returncode, r.stderr[-3000:]))
+        got = pd.read_csv(os.path.join(out, "NyxusFeatures.csv"), dtype=str,
+                          keep_default_na=False)
+        want = Nyxus(FEATURES_ALL).featurize_directory(int_dir, seg_dir)
+        if list(got.columns) != list(want.columns) or len(got) != len(want):
+            raise AssertionError("the CLI's CSV: columns/rows differ")
+        for c in want.columns[:3]:
+            if list(got[c]) != [str(v) for v in want[c]]:
+                raise AssertionError("the CLI's CSV: column %s differs" % c)
+        cols = list(want.columns[4:])
+        g = np.array(got[cols].to_numpy().tolist(), np.float64)
+        w = want[cols].to_numpy(np.float64)
+        bad, worst = compare_tiers(cols, g, w)
+        if bad or not np.isfinite(g).all():
+            raise AssertionError("the CLI's CSV beyond the f32 tiers of the "
+                                 "in-process frame: %r" % bad[:20])
+        exact = int((g == w).all(axis=0).sum())
+        tpath = os.path.join(out, "seg_nyxustiming.csv")
+        with open(tpath) as f:
+            rows = [ln.split(",") for ln in f.read().splitlines()]
+        hosts = {"Pipeline/Host/%s/#bbbbbb" % name for name in registry.FAMILIES}
+        keys = {"/".join(p for p in row[:4] if p) for row in rows[1:]}
+        if rows[0] != ["h1", "h2", "h3", "color", "seconds", "calls"] \
+                or not set(JAX_STAGE_KEYS) <= keys \
+                or not keys <= set(JAX_STAGE_KEYS) | hosts:
+            raise AssertionError("the timing CSV: header %s, stages %s"
+                                 % (rows[0], sorted(keys)))
+        log("  the CLI (subprocess, %.1f s): %d rows x %d columns equal to "
+            "featurize_directory's in names and labels, within the f32 tiers "
+            "(%d columns bit-equal; closest to its tier %s); %s holds %d "
+            "stages under the JAX package's keys: %s"
+            % (wall, len(got), len(cols), exact, worst,
+               os.path.basename(tpath), len(keys),
+               ", ".join("%s %s s" % ("/".join(p for p in row[:3] if p
+                                               and not p.startswith("#")),
+                                      row[4]) for row in rows[1:]
+                         if not row[1] == "Host" or row[2] == "geom_batch")))
+
+
 def count_calls(obj, meth, calls):
     """Wrap obj.meth so that each call adds one to calls[meth]."""
     fn = getattr(obj, meth)
@@ -4035,12 +4411,24 @@ def main():
               % " ".join(FEATURES_ALL))
     check_files(kern, card_runner)
 
+    # phase 3c
+    t0 = time.perf_counter()
+    slides = [make_dsb_like(1024, 1024, 300, seed=s) for s in range(7, 15)]
+    log("  the 8 slides of phases 3c and 4 generated in %.1f s"
+        % (time.perf_counter() - t0))
+    log_phase("phase 3c: %s under mergerois, whole-slide mode and "
+              "anisotropy on the card (f32) against the CPU (f64), in "
+              "memory and streamed" % " ".join(FEATURES_ALL))
+    check_modes(kern)
+    log_phase("phase 3c: whole-slide mode at full size, the 8 slides "
+              "through featurize_directory")
+    wholeslide_throughput(kern, slides)
+    log_phase("phase 3c: the CLI as a subprocess")
+    check_cli()
+
     # phase 4
     log_phase("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, "
               "300)")
-    t0 = time.perf_counter()
-    slides = [make_dsb_like(1024, 1024, 300, seed=s) for s in range(7, 15)]
-    log("  slides generated in %.1f s" % (time.perf_counter() - t0))
     tex_fset = taxonomy.parse_feature_request(FEATURES)
     tex_runner = PairRunner(tex_fset, EngineConfig(precision="f32"), "cuda")
     runner_713 = PairRunner(taxonomy.parse_feature_request(FEATURES_713),

@@ -54,17 +54,22 @@ def basic_morphology(ctx, cfg):
     y0 = ctx.y0.to(dt)
     sums = mask_intensity_sums(ctx).to(dt)
     lcx, lcy = local_centroid(ctx)
-    cx = x0 + lcx
-    cy = y0 + lcy
+    # the centroid sums the k fed pixels' slide coordinates over n: x0 k / n
+    # plus the local centroid, x0 + lcx exactly where k == n (k != n only
+    # under anisotropy)
+    k = sums[:, 0, 0, 0]
+    cx = x0 * (k / n) + lcx
+    cy = y0 * (k / n) + lcy
 
     # COMPACTNESS = Moments2(dist to centroid).std / n: the Moments2 object
     # counts the FED pixels (k = raw_pixels.size(), moments.h:14-39) while
     # the final division uses aux_area n (basic_morphology.cpp:50-58);
     # k != n only under anisotropy (virtual resampling)
     xs, ys = local_grids(ctx)
-    k = sums[:, 0, 0, 0]
-    dx = torch.where(m, xs - lcx[:, None, None], 0)
-    dy = torch.where(m, ys - lcy[:, None, None], 0)
+    sx = (x0 - cx + lcx)[:, None, None]     # 0 where k == n
+    sy = (y0 - cy + lcy)[:, None, None]
+    dx = torch.where(m, xs - lcx[:, None, None] + sx, 0)
+    dy = torch.where(m, ys - lcy[:, None, None] + sy, 0)
     dist = torch.sqrt(dx * dx + dy * dy)
     dmean = torch.where(m, dist, 0).sum(dim=(1, 2)) / torch.clamp(k, min=1)
     m2 = torch.where(m, (dist - dmean[:, None, None]) ** 2, 0).sum(dim=(1, 2))
@@ -113,11 +118,18 @@ def ellipse_fitting(ctx, cfg):
     n = ctx.area.to(dt)
     # second moments normalize by the FED pixel count k = raw_pixels.size()
     # (ellipse_fitting.cpp:47-50), around the aux_area-based centroid
-    k = torch.clamp(mask_intensity_sums(ctx)[:, 0, 0, 0].to(dt), min=1)
+    k0 = mask_intensity_sums(ctx)[:, 0, 0, 0].to(dt)
+    k = torch.clamp(k0, min=1)
     C = moment_sums(ctx).ellipse.to(dt)
-    uxx = C[:, 2, 0] / k + 1.0 / 12.0
-    uyy = C[:, 0, 2] / k + 1.0 / 12.0
-    uxy = C[:, 1, 1] / k
+    # K10 centres the sums at the local centroid; the reference's centre
+    # sits x0 (1 - k / n) before it in local coordinates, which is 0 where
+    # k == n (k != n only under anisotropy): move the centre by d
+    shift = torch.where(k0 > 0, k / n - 1, 0.0)
+    dx = ctx.x0.to(dt) * shift
+    dy = ctx.y0.to(dt) * shift
+    uxx = (C[:, 2, 0] - 2 * dx * C[:, 1, 0] + k * dx * dx) / k + 1.0 / 12.0
+    uyy = (C[:, 0, 2] - 2 * dy * C[:, 0, 1] + k * dy * dy) / k + 1.0 / 12.0
+    uxy = (C[:, 1, 1] - dx * C[:, 0, 1] - dy * C[:, 1, 0] + k * dx * dy) / k
 
     common = torch.sqrt((uxx - uyy) ** 2 + 4.0 * uxy * uxy)
     major = 2.0 * math.sqrt(2.0) * torch.sqrt(uxx + uyy + common)

@@ -1,4 +1,4 @@
-# Copied from nyxus_tpu/pipeline/labels.py (RoiRecord, _native_labels_ok and the numpy discovery paths only, in memory and tile-streamed); pinned by tests/test_torch_tables.py and tests/test_torch_files.py.
+# Copied from nyxus_tpu/pipeline/labels.py (RoiRecord, aniso_bbox, _native_labels_ok and the numpy discovery paths only, in memory and tile-streamed); pinned by tests/test_torch_tables.py and tests/test_torch_files.py.
 """Label discovery: per-ROI metrics from a labeled mask (phase-1 equivalent).
 
 The reference streams tiles and updates per-label records pixel-by-pixel
@@ -40,6 +40,40 @@ class RoiRecord:
     @property
     def width(self):
         return self.x1 - self.x0 + 1
+
+
+def aniso_bbox(rec: RoiRecord, ax: float, ay: float,
+               natural=None) -> RoiRecord:
+    """Scale a physical AABB onto the virtual (anisotropic) grid using the
+    reference's exact truncation + max-edge fixup arithmetic
+    (AABB::apply_anisotropy, features/aabb.h:115-134).  ``area``/``vmin``/
+    ``vmax`` keep their PHYSICAL phase-1 values: the reference's aux_area /
+    aux_min / aux_max are set during the physical prescan and are never
+    recomputed on the virtual grid (slideprops.cpp:176-193).
+
+    ``natural`` (y0, y1, x0, x1): the virtual-grid bounding box of the
+    ROI's actual member pixels.  The one-step max-edge fixup can still leave
+    the last virtual column/row of members OUTSIDE the scaled AABB (e.g.
+    ax=1.4: physical xmax=5 maps to virtual {7, 8}, scaled xmax fixes up to
+    only 7); the reference nevertheless feeds those pixels into raw_pixels
+    (scanTrivialRois_anisotropic, phase2_2d.cpp:258-282 -- and writes them
+    OUT OF BOUNDS in its image matrix).  The crop box is widened to the
+    union so every fed pixel is present; BBOX_* report the scaled box via
+    ``report_bbox``."""
+    x0, y0 = int(rec.x0 * ax), int(rec.y0 * ay)
+    x1 = int(rec.x1 * ax)
+    if int((x1 + 1) / ax) == rec.x1:
+        x1 += 1
+    y1 = int(rec.y1 * ay)
+    if int((y1 + 1) / ay) == rec.y1:
+        y1 += 1
+    report = (y0, y1, x0, x1)
+    if natural is not None:
+        ny0, ny1, nx0, nx1 = natural
+        y0, x0 = min(y0, ny0), min(x0, nx0)
+        y1, x1 = max(y1, ny1), max(x1, nx1)
+    return RoiRecord(rec.label, rec.area, y0, y1, x0, x1, rec.vmin, rec.vmax,
+                     report_bbox=report)
 
 
 def _native_labels_ok(labels: np.ndarray) -> bool:

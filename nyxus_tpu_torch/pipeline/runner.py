@@ -9,6 +9,19 @@ host, one padded [B, H, W] plane per bucket, and shipped to the device once
 per bucket; the packed outputs of all buckets come back in one
 device-to-host copy per slide.
 
+Three run modes besides the default (nyxus_tpu/pipeline/runner.py
+PairRunner.run / run_streamed): ``mergerois`` makes every nonzero label
+one ROI; whole-slide mode makes the slide one ROI with the inclusive
+0..H, 0..W box and a four-corner contour; anisotropy (``aniso_x`` /
+``aniso_y``) runs on the nearest-neighbour resampled virtual slide with
+each ROI's box scaled by ``labels.aniso_bbox``.
+
+Each stage runs under the JAX package's Stopwatch key (``timing.py``)
+beside its ``nyx:*`` profiler range.  With the Stopwatch enabled, a
+stage synchronises its device at its end, so that the key holds the
+card's time and not only the launches' enqueue; disabled (the default),
+nothing is synchronised.
+
 Two crop paths share one core (``_run_core``):
 * in-memory pairs (``run``): crops are windows of the resident slide, the
   contours of every ROI come from one native call and the pixel clouds
@@ -27,6 +40,8 @@ it, in ``registry.split_host_families`` order.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -37,9 +52,18 @@ from .. import registry
 from .. import taxonomy as tx
 from ..config import EngineConfig
 from ..ops.moments import WEIGHTING_EPSILON
+from ..timing import Stopwatch, stopwatch
 from . import batching, hostfeats, labels
 from .contour import merged_contour
-from .sources import ArrayPairSource
+from .sources import AnisoResampledSource, ArrayPairSource, MergedLabelSource
+
+# the JAX package's Stopwatch keys of the runner's stages
+SW_DISCOVER = "Pipeline/Phase1_discovery/#cca33a"
+SW_CONTOURS = "Pipeline/Contours/#777799"
+SW_GEOM = "Pipeline/Host/geom_batch/#99bb55"
+SW_BATCHES = "Pipeline/Phase2_device_batches/#33cc77"
+SW_COLLECT = "Pipeline/Phase2_collect/#33aa99"
+SW_HOST = "Pipeline/Host/%s/#bbbbbb"
 
 
 def compute_dtype(cfg: EngineConfig):
@@ -54,6 +78,39 @@ def is_oversized(rec, budget_bytes: int, bytes_per_px: int = 16) -> bool:
         return True
     hb, wb = batching.bucket_shape(rec.height, rec.width)
     return hb * wb * bytes_per_px > budget_bytes
+
+
+@contextlib.contextmanager
+def stage(key, device, span=None):
+    """One stage of a run: the Stopwatch ``key`` and, where given, the
+    ``span`` profiler range; with the Stopwatch enabled, ``device`` (a
+    CUDA one) is synchronised before the stage's time is taken."""
+    with stopwatch(key), (record_function(span) if span
+                          else contextlib.nullcontext()):
+        yield
+        if Stopwatch.enabled() and device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _aniso_records(recs, vrecs, ax, ay):
+    """The physical records on the virtual grid (``labels.aniso_bbox``),
+    each box widened to the natural box of its members in the virtual
+    records ``vrecs``."""
+    nat = {r.label: (r.y0, r.y1, r.x0, r.x1) for r in vrecs}
+    return [labels.aniso_bbox(r, ax, ay, nat.get(r.label)) for r in recs]
+
+
+def wholeslide_contours(recs):
+    """The whole-slide ROI's synthesised contour: the four corners of its
+    inclusive box at the slide max, in raw box coordinates with no +1
+    shift (reference: buildWholeSlideContour, contour.cpp:917-933)."""
+    out = []
+    for r in recs:
+        vx = int(r.vmax)
+        xr, yb = r.x1 - r.x0, r.y1 - r.y0
+        out.append(np.array([[0, 0, vx], [xr, 0, vx], [xr, yb, vx],
+                             [0, yb, vx]], np.int64))
+    return out
 
 
 class HostContext:
@@ -182,11 +239,6 @@ class PairRunner:
 
     def __init__(self, fset: tx.FeatureSet, cfg: EngineConfig,
                  device="cuda"):
-        for flag, what in ((cfg.mergerois, "mergerois"),
-                           (cfg.aniso_customized, "anisotropy")):
-            if flag:
-                raise NotImplementedError(
-                    "nyxus_tpu_torch does not support %s yet" % what)
         self.fset = fset
         self.cfg = cfg
         self.device = torch.device(device)
@@ -232,15 +284,34 @@ class PairRunner:
         ``defined`` and ``check(fname, label)``) keep their row with
         unassigned values (reference: workflow_2d_segmented.cpp:116-121).
         ``hu_offset``: the floored original slide minimum that a
-        preserve_hu load shifted away, which IH_* adds back."""
-        if wholeslide:
-            raise NotImplementedError(
-                "nyxus_tpu_torch does not support whole-slide mode yet")
-        with record_function("nyx:discover"):
+        preserve_hu load shifted away, which IH_* adds back.
+        ``wholeslide``: the labels are the slide's ones and its one ROI
+        takes the inclusive 0..H, 0..W box (reference: init_from_wh,
+        aabb.h:53-59).  Under anisotropy the area and the intensity range
+        stay physical, and every later read sees the virtual slide
+        (reference: phase2_2d.cpp:183-285)."""
+        if self.cfg.mergerois:
+            label_img = (label_img != 0).astype(np.int64)
+        with stage(SW_DISCOVER, self.device, "nyx:discover"):
             all_recs, smin, smax = labels._discover_rois_np(intens, label_img)
+            if wholeslide and len(all_recs) == 1:
+                all_recs[0].y1, all_recs[0].x1 = intens.shape
+            if self.cfg.aniso_customized:
+                ax, ay = self.cfg.aniso_x, self.cfg.aniso_y
+                vH, vW = int(intens.shape[0] * ay), int(intens.shape[1] * ax)
+                pr = np.minimum((np.arange(vH) / ay).astype(np.int64),
+                                intens.shape[0] - 1)
+                pc = np.minimum((np.arange(vW) / ax).astype(np.int64),
+                                intens.shape[1] - 1)
+                intens = np.ascontiguousarray(intens[pr][:, pc])
+                label_img = np.ascontiguousarray(label_img[pr][:, pc])
+                all_recs = _aniso_records(
+                    all_recs, labels._discover_rois_np(intens, label_img)[0],
+                    ax, ay)
         return self._run_core(all_recs, smin, smax,
                               ArrayPairSource(intens, label_img), blacklist,
-                              fname, hu_offset, resident=(intens, label_img))
+                              fname, hu_offset, resident=(intens, label_img),
+                              wholeslide=wholeslide)
 
     def run_streamed(self, source, blacklist=None, fname: str = "",
                      tile: int = 2048, wholeslide: bool = False,
@@ -248,17 +319,26 @@ class PairRunner:
         """File-backed pair (a region source such as
         ``sources.TiffPairSource``): tile-streamed discovery, then each
         ROI's padded crop read once; the slide is never held whole in host
-        or device memory.  Returns what ``run`` returns."""
-        if wholeslide:
-            raise NotImplementedError(
-                "nyxus_tpu_torch does not support whole-slide mode yet")
-        with record_function("nyx:discover"):
+        or device memory.  Returns what ``run`` returns; the modes are
+        ``run``'s, through ``MergedLabelSource`` and
+        ``AnisoResampledSource``."""
+        if self.cfg.mergerois:
+            source = MergedLabelSource(source)
+        with stage(SW_DISCOVER, self.device, "nyx:discover"):
             all_recs, smin, smax = labels.discover_rois_streamed(source, tile)
+            if wholeslide and len(all_recs) == 1:
+                all_recs[0].y1, all_recs[0].x1 = source.shape
+            if self.cfg.aniso_customized:
+                ax, ay = self.cfg.aniso_x, self.cfg.aniso_y
+                source = AnisoResampledSource(source, ax, ay)
+                all_recs = _aniso_records(
+                    all_recs, labels.discover_rois_streamed(source, tile)[0],
+                    ax, ay)
         return self._run_core(all_recs, smin, smax, source, blacklist, fname,
-                              hu_offset)
+                              hu_offset, wholeslide=wholeslide)
 
     def _run_core(self, all_recs, smin, smax, source, blacklist, fname,
-                  hu_offset, resident=None):
+                  hu_offset, resident=None, wholeslide=False):
         """Both paths from discovery on: ``resident`` (intens, labels) for
         an in-memory pair, None when crops are read from ``source``."""
         if blacklist is not None and blacklist.defined:
@@ -273,15 +353,15 @@ class PairRunner:
         if over:
             raise NotImplementedError(
                 "nyxus_tpu_torch does not support oversized ROIs yet "
-                "(labels %s exceed the %d MB batch budget)"
-                % (over[:10], self.cfg.ram_limit_mb))
+                "(labels %s exceed the %d MB batch budget): ROADMAP.md "
+                "queue 1 item 4" % (over[:10], self.cfg.ram_limit_mb))
 
         crops = _CropWindows(recs, source, resident)
         # every ported host family reads contours, so the host stage runs
         # exactly when contours are needed
         hc = None
         if recs and self._needs_contour:
-            hc = self._host_context(recs, values, crops)
+            hc = self._host_context(recs, values, crops, wholeslide)
 
         static_meta = ()
         if self.cfg.ibsi:
@@ -292,19 +372,20 @@ class PairRunner:
             static_meta = (("max_int", 1 << (ceil - 1).bit_length()),)
         outs = []
         for shape, idxs in batching.group_rois(recs, hbm_budget_bytes=budget):
-            lw = self._logw_planes(hc, recs, idxs, shape) \
-                if hc is not None and self._needs_logw else None
-            windows = [crops(i, *shape) for i in idxs]
-            outs.append((idxs, self._run_batch(
-                windows, [recs[i] for i in idxs], shape, smin, smax, lw,
-                static_meta, hu_offset)))
-            crops.release(idxs, shape)
+            with stage(SW_BATCHES, self.device):
+                lw = self._logw_planes(hc, recs, idxs, shape) \
+                    if hc is not None and self._needs_logw else None
+                windows = [crops(i, *shape) for i in idxs]
+                outs.append((idxs, self._run_batch(
+                    windows, [recs[i] for i in idxs], shape, smin, smax, lw,
+                    static_meta, hu_offset)))
+                crops.release(idxs, shape)
 
         if hc is not None:
             # the heavy half of the geometry pass and the host families
             # that read no device result: the device batches above run
             # asynchronously meanwhile
-            with record_function("nyx:geom"):
+            with stage(SW_GEOM, self.device, "nyx:geom"):
                 hostfeats.compute_geom(
                     hc, self.cfg, self.families, phase="rest",
                     exclude=hostfeats.DIST_FAMILIES)
@@ -313,7 +394,7 @@ class PairRunner:
         if outs:
             # one device-to-host copy per slide: every bucket packs the same
             # member layout, so the packed outputs concatenate
-            with record_function("nyx:collect"):
+            with stage(SW_COLLECT, self.device, "nyx:collect"):
                 packed_all = torch.cat([o for _, o in outs],
                                        dim=0).cpu().numpy()
             src, dst = self._colmap
@@ -329,6 +410,24 @@ class PairRunner:
             # hexagonality read centroids/areas computed on the device)
             self._run_host(hc, values, self.post_host)
 
+        # anisotropy: BBOX_* and the members read off the box report the
+        # scaled box, though the crop box was widened to cover every
+        # virtual member pixel (reference: basic_morphology.cpp:33-37 reads
+        # r.aabb; nyxus_tpu/pipeline/runner.py finish)
+        for j, r in enumerate(recs):
+            if r.report_bbox is None:
+                continue
+            ry0, ry1, rx0, rx1 = r.report_bbox
+            w, h = float(rx1 - rx0 + 1), float(ry1 - ry0 + 1)
+            for member, v in (("BBOX_XMIN", float(rx0)),
+                              ("BBOX_YMIN", float(ry0)),
+                              ("BBOX_WIDTH", w), ("BBOX_HEIGHT", h),
+                              ("EXTENT", r.area / (w * h)),
+                              ("ASPECT_RATIO", w / h)):
+                code = tx.NAME2CODE_2D.get(member)
+                if code in self.member_slots:
+                    values[j, self.member_slots[code][0]] = v
+
         if len(recs) != len(all_recs):
             # reinsert blacklisted rows with unassigned values
             out = np.full((len(all_recs), len(self._out_cols)), -0.0)
@@ -339,17 +438,21 @@ class PairRunner:
             return labs_all, out
         return labs_all, values[:, self._out_cols]
 
-    def _host_context(self, recs, values, crops):
+    def _host_context(self, recs, values, crops, wholeslide=False):
         """Contours of every ROI, then the HostContext with its pixel
         clouds and phase "logw" of the native geometry pass: the per-pixel
         log contour distances the moment families consume, and the ROI
         radius / radial families that share that distance search.  A
         resident slide whose labels fit int32 is traced in one native
         call; otherwise each ROI's crop is traced alone
-        (``contour.merged_contour``: the same contour)."""
+        (``contour.merged_contour``: the same contour).  Whole-slide mode
+        traces nothing: its contour is ``wholeslide_contours``'s."""
         resident = crops.resident
-        with record_function("nyx:contours"):
-            if resident is not None and labels._native_labels_ok(resident[1]):
+        with stage(SW_CONTOURS, self.device, "nyx:contours"):
+            if wholeslide:
+                contours = wholeslide_contours(recs)
+            elif resident is not None \
+                    and labels._native_labels_ok(resident[1]):
                 contours = native.contours_batch(resident[1], resident[0],
                                                  recs)
             else:
@@ -370,7 +473,7 @@ class PairRunner:
             return values[rows, off]
 
         hc = HostContext(recs, contours, crops.source, get_feature)
-        with record_function("nyx:geom"):
+        with stage(SW_GEOM, self.device, "nyx:geom"):
             hc.clouds = _build_clouds(recs, *resident) \
                 if resident is not None else _crop_clouds(recs, crops)
             hostfeats.compute_geom(
@@ -407,7 +510,7 @@ class PairRunner:
         the next one runs (later families read earlier ones' members)."""
         rows = np.arange(len(hc.recs))
         for name in names:
-            with record_function("nyx:host:" + name):
+            with stage(SW_HOST % name, self.device, "nyx:host:" + name):
                 members = registry.FAMILIES[name].host_fn(hc, self.cfg)
             for member, arr in members.items():
                 code = registry.FAMILIES[name].member_code(member)

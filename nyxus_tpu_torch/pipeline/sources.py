@@ -1,11 +1,13 @@
 """Pair sources: region access over an in-memory pair or an on-disk TIFF
-pair (nyxus_tpu/pipeline/sources.py ArrayPairSource and TiffPairSource).
+(nyxus_tpu/pipeline/sources.py ArrayPairSource, TiffPairSource,
+WholeSlideTiffSource, and the adapters AnisoResampledSource and
+MergedLabelSource, the last two verbatim copies).
 
 The runner asks a source for region [y0:y0+h, x0:x0+w) of the pair, so the
 same core drives numpy arrays and slides too large to hold in memory: a
 file-backed source decodes only the blocks a region touches.  The Zarr,
-DICOM, whole-slide, anisotropic, merged-label and layout-A sources of the
-JAX package are not ported yet (ROADMAP.md queue 1 items 3, 7 and 13).
+DICOM and layout-A sources of the JAX package are not ported yet
+(ROADMAP.md queue 1 items 7 and 13).
 """
 
 from __future__ import annotations
@@ -73,6 +75,112 @@ class TiffPairSource:
     def close(self):
         self._ir.close()
         self._sr.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class WholeSlideTiffSource:
+    """Whole-slide mode over one intensity TIFF, read through the port's
+    ``io/tiff.TiffReader``: the whole image is one ROI, its labels 1
+    inside the slide and 0 in the margins beyond it (reference: nyxus.py
+    wholeslide=True pairing).  Region reads serialise on one lock, as
+    ``TiffPairSource``'s do."""
+
+    def __init__(self, int_path: str):
+        from ..io.tiff import TiffReader
+        self._ir = TiffReader(int_path)
+        self.shape = (self._ir.height, self._ir.width)
+        self._lock = threading.Lock()
+
+    def read_pair(self, y0: int, x0: int, h: int, w: int):
+        """(intens [h, w] float64, labels [h, w] int64 of 1 inside the
+        slide)."""
+        with self._lock:
+            ii = self._ir.read_region(y0, x0, h, w, "f64")
+        H, W = self.shape
+        ll = np.zeros((h, w), np.int64)
+        ll[:max(0, min(y0 + h, H) - y0), :max(0, min(x0 + w, W) - x0)] = 1
+        return ii, ll
+
+    def close(self):
+        self._ir.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class AnisoResampledSource:
+    """Nearest-neighbor anisotropic resampling view (x/y scale factors).
+
+    The reference handles custom anisotropy by re-scanning the slide as a
+    "virtual" slide of size (H*ay, W*ax) whose pixel (vr, vc) reads physical
+    pixel (vr/ay, vc/ax) truncated (scanTrivialRois_anisotropic,
+    phase2_2d.cpp:183-285).  This wrapper serves exactly those virtual
+    regions so every downstream consumer (device crops, contours, host
+    families, the oversized path) sees the virtual slide."""
+
+    def __init__(self, inner, ax: float, ay: float):
+        self._inner = inner
+        self.ax, self.ay = float(ax), float(ay)
+        H, W = inner.shape
+        self.shape = (int(H * self.ay), int(W * self.ax))
+        self.int_is_float = getattr(inner, "int_is_float", False)
+        self.int_transfer_u32_ok = getattr(inner, "int_transfer_u32_ok",
+                                           False)
+
+    def read_pair(self, y0: int, x0: int, h: int, w: int):
+        H, W = self._inner.shape
+        vH, vW = self.shape
+        ii = np.zeros((h, w), np.float64)
+        ll = np.zeros((h, w), np.int64)
+        vy1, vx1 = min(y0 + h, vH), min(x0 + w, vW)
+        if vy1 <= y0 or vx1 <= x0:
+            return ii, ll
+        pr = np.minimum((np.arange(y0, vy1) / self.ay).astype(np.int64), H - 1)
+        pc = np.minimum((np.arange(x0, vx1) / self.ax).astype(np.int64), W - 1)
+        pi, pl = self._inner.read_pair(int(pr[0]), int(pc[0]),
+                                       int(pr[-1] - pr[0] + 1),
+                                       int(pc[-1] - pc[0] + 1))
+        ii[:vy1 - y0, :vx1 - x0] = pi[pr - pr[0]][:, pc - pc[0]]
+        ll[:vy1 - y0, :vx1 - x0] = pl[pr - pr[0]][:, pc - pc[0]]
+        return ii, ll
+
+    def close(self):
+        self._inner.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class MergedLabelSource:
+    """Adapter implementing --mergerois: every nonzero mask label reads as 1
+    (background 0 still excluded), so the whole foreground becomes one ROI
+    (reference: environment.h:56-60 mergeLabels, phase1.cpp:76,392,
+    phase2_2d.cpp:145,268,665)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.shape = inner.shape
+        self.int_is_float = getattr(inner, "int_is_float", False)
+        self.int_transfer_u32_ok = getattr(inner, "int_transfer_u32_ok",
+                                           False)
+
+    def read_pair(self, y0: int, x0: int, h: int, w: int):
+        ii, ll = self._inner.read_pair(y0, x0, h, w)
+        return ii, (ll != 0).astype(ll.dtype)
+
+    def close(self):
+        self._inner.close()
 
     def __enter__(self):
         return self

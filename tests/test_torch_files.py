@@ -288,13 +288,21 @@ def test_run_streamed_tile_seams(tmp_path, tile):
 
 
 def test_whole_slide_and_bad_pairs_raise(tiff_dirs, tmp_path):
+    """Whole-slide mode (no mask directory, or single_roi) gives one row an
+    image, in memory and streamed alike; pairs of mismatched or corrupt
+    files raise."""
     int_dir, seg_dir = tiff_dirs
-    nyx = _nyx(["MEAN"])
-    with pytest.raises(NotImplementedError, match="whole-slide"):
-        nyx.featurize_directory(int_dir)
-    with pytest.raises(NotImplementedError, match="whole-slide"):
-        nyx.featurize_files([os.path.join(int_dir, "img0.tif")], [],
-                            single_roi=True)
+    nyx = _nyx(["MEAN", "AREA_PIXELS_COUNT", "BBOX_WIDTH"])
+    ws = nyx.featurize_directory(int_dir)
+    assert list(ws.ROI_label) == [1, 1, 1] and set(ws.mask_image) == {""}
+    assert list(ws.AREA_PIXELS_COUNT) == [192 * 176] * 3
+    assert list(ws.BBOX_WIDTH) == [177] * 3
+    one = nyx.featurize_files([os.path.join(int_dir, "img0.tif")], [],
+                              single_roi=True)
+    assert len(one) == 1 and one.MEAN[0] == ws.MEAN[0]
+    streamed = _nyx(["MEAN", "AREA_PIXELS_COUNT", "BBOX_WIDTH"],
+                    ram_limit=1).featurize_directory(int_dir)
+    _same_rows(streamed, ws, rtol=1e-12)
     with pytest.raises(IOError, match="does not exist"):
         nyx.featurize_directory(str(tmp_path / "none"), seg_dir)
     # a mask of another size, and a corrupt mask, raise from the pair

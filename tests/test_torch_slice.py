@@ -254,17 +254,22 @@ def test_labels_beyond_int32_raise():
 @pytest.mark.parametrize("kw", [{"aniso_y": 2.0}, {"mergerois": True},
                                 {"aniso_x": 2.0}])
 def test_unsupported_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
-        TRunner(ttx.parse_feature_request(FEATURES), TConfig(**kw),
-                device="cpu")
+    """The run modes build and run; an ROI over the batch budget under them
+    still raises, naming the oversized path's ROADMAP item."""
+    intens, labels = make_blobs(seed=1)
+    labs, values = _port_runner(**kw).run(intens, labels)
+    assert values.shape == (len(labs), WIDTH) and len(labs) >= 1
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        _port_runner(ram_limit_mb=0, **kw).run(intens, labels)
 
 
 def test_oversized_and_wholeslide_raise():
     intens, labels = make_blobs(seed=1)
     with pytest.raises(NotImplementedError, match="oversized"):
         _port_runner(ram_limit_mb=0).run(intens, labels)
-    with pytest.raises(NotImplementedError, match="whole-slide"):
-        _port_runner().run(intens, labels, wholeslide=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        _port_runner(ram_limit_mb=0).run(intens, np.ones_like(labels),
+                                         wholeslide=True)
 
 
 @pytest.mark.parametrize("args", [(320, 320, 40, 11), (256, 256, 25, 5),

@@ -56,7 +56,8 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
                                  "pipeline/hostfeats.py",
                                  "io/writers.py", "blacklist.py",
                                  "io/strpat.py", "io/dataset.py",
-                                 "pipeline/contour.py"])
+                                 "pipeline/contour.py", "timing.py",
+                                 "nested.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -303,6 +304,43 @@ def test_verbatim_3d_host_code(jfn, tfn):
     assert body(jfn) == body(tfn)
 
 
+@pytest.mark.parametrize("jname,tname", [
+    ("nyxus_tpu.pipeline.labels:aniso_bbox",
+     "nyxus_tpu_torch.pipeline.labels:aniso_bbox"),
+    ("nyxus_tpu.pipeline.sources:AnisoResampledSource",
+     "nyxus_tpu_torch.pipeline.sources:AnisoResampledSource"),
+    ("nyxus_tpu.pipeline.sources:MergedLabelSource",
+     "nyxus_tpu_torch.pipeline.sources:MergedLabelSource"),
+    ("nyxus_tpu.cli:_aggregate_per_slide",
+     "nyxus_tpu_torch.cli:_aggregate_per_slide"),
+    ("nyxus_tpu.cli:_nested_post_pass",
+     "nyxus_tpu_torch.cli:_nested_post_pass"),
+], ids=lambda s: s.split(":")[-1])
+def test_verbatim_run_mode_code(jname, tname):
+    """The anisotropic box, the resampling and merged-label sources and the
+    CLI's aggregation and nested post-pass are the JAX package's text,
+    docstrings included."""
+    import importlib
+
+    def src(name):
+        mod, attr = name.split(":")
+        return inspect.getsource(getattr(importlib.import_module(mod), attr))
+    assert src(jname) == src(tname)
+
+
+def test_cli_flags_are_jax_flags():
+    """The port's CLI parses every flag of the JAX package's CLI, with the
+    same defaults and choices."""
+    import nyxus_tpu.cli as jcli
+    import nyxus_tpu_torch.cli as tcli
+
+    def flags(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.choices,
+                         a.type, a.required)
+                for a in parser._actions if a.dest != "help"}
+    assert flags(tcli.build_parser()) == flags(jcli.build_parser())
+
+
 def test_discovery_3d():
     from conftest import make_blobs3d
     intens, labels = make_blobs3d(seed=6)
@@ -326,6 +364,7 @@ def test_import_pulls_no_jax():
             "import nyxus_tpu_torch.io.dataset, nyxus_tpu_torch.io.strpat\n"
             "import nyxus_tpu_torch.pipeline.sources\n"
             "import nyxus_tpu_torch.pipeline.contour\n"
+            "import nyxus_tpu_torch.cli, nyxus_tpu_torch.timing\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"
