@@ -100,7 +100,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    time, K2's device path), the IH members read off the histogram (bin count, mode and
    gradient bins) equal; and *3D_ALL* (ibsi) on the fixture volume
 3b. the 2D file protocol: print which of PIL, pandas and pyarrow import
-   (none is used); write three TIFF pairs with the port's libtiff-free
+   (phase 3c's featurize_directory and phase 3d's ImageQuality.featurize
+   need pandas); write three TIFF pairs with the port's libtiff-free
    writer (the 320 x 320 slide tiled LZW in 128-px tiles, the long-ROI
    slide stripped Deflate, make_dsb_like(seed=7) tiled LZW in 512-px tiles,
    bench.py's corpus format), read each back exactly with read_gray (the
@@ -110,6 +111,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    on the decoded arrays on the card, values within the f32 tiers of that
    run, K1-K12 launched by each; and the 1024² pair's warm wall through
    the file path (in memory, streamed) beside PairRunner.run's
+3c. the 2D run modes (mergerois, whole-slide, anisotropy) in memory and
+   streamed against the f64 CPU run, whole-slide *ALL* on the 8 corpus
+   slides through featurize_directory, and the CLI as a subprocess
+3d. oversized ROIs (phase 3) and ImageQuality, with the f64 CPU references
+   in three worker processes meanwhile (check_oversized): the 700 x 800
+   pair of tests/test_oversized.py at ram_limit=1, *ALL* and IBSI *ALL*,
+   against the f64 CPU run of the same path and the card's trivial run;
+   the four finish stages timed, the intensity, IH and texture stages on
+   the card equal to the same stages on the CPU on every member (rtol
+   1e-9); corpus slide 7 whole-slide at ram_limit=1, tile-streamed,
+   against phase 3c's in-memory row; an 8704 x 1024 whole-slide run at
+   the default budget (oversized by its height) against numpy;
+   ImageQuality.featurize (no label image) on the stack of the 8 corpus
+   slides against the f64 CPU, and at ram_limit=1 (streamed) against in
+   memory.  Prints each run's wall (taken while the references run), its
+   Pipeline/Phase3_oversized seconds, peak device memory and launches, and
+   a "finish_stages" JSON line; the walls and that line again before the
+   card's line
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
@@ -3874,7 +3893,8 @@ def check_files(kern, card_runner):
             have[mod] = True
         except ImportError:
             have[mod] = False
-    log("  importable on this machine (none relied on): %s"
+    log("  importable on this machine (pandas needed by phase 3c's "
+        "featurize_directory and phase 3d's ImageQuality.featurize): %s"
         % ", ".join("%s %s" % (m, "yes" if ok else "no")
                     for m, ok in have.items()))
     pairs = {"fixture320.tif": (make_dsb_like(320, 320, 40, seed=11), 128,
@@ -4030,9 +4050,9 @@ def check_modes(kern):
     tile-streamed (ram_limit=1) through Nyxus._iter_directory_raw over its
     TIFF pair, K1-K12 launched in each run.  Streamed, mergerois and
     whole-slide mode run on the slide's top-left 255 x 255 window: the
-    merged ROI or the slide's inclusive box must fit ram_limit=1's 1 MB
-    batch budget (a 256² bucket) or it is an oversized ROI, which the port
-    does not serve yet."""
+    merged ROI or the slide's inclusive box fits ram_limit=1's 1 MB batch
+    budget (a 256² bucket), so that these runs take the trivial path
+    (phase 3d runs the oversized one)."""
     import tempfile
 
     import torch
@@ -4100,7 +4120,8 @@ def wholeslide_throughput(kern, slides):
     untimed slide, then the 8 timed (seconds a slide, peak device memory,
     launches a slide), the output checked (one finite row of 747 columns a
     slide, the 1025 x 1025 box, the slide's area), then one slide profiled:
-    device time and launches of each of K1-K12 at that crop."""
+    device time and launches of each of K1-K12 at that crop.  Returns slide
+    7's row."""
     import tempfile
 
     import torch
@@ -4150,6 +4171,7 @@ def wholeslide_throughput(kern, slides):
                        lambda: nyx.featurize_directory(
                            root, file_pattern=r"slide08\.ome\.tif"),
                        totals=KERNEL_NAMES_2D)
+    return vals[0]
 
 
 def check_cli():
@@ -4221,6 +4243,592 @@ def check_cli():
                                                and not p.startswith("#")),
                                       row[4]) for row in rows[1:]
                          if not row[1] == "Host" or row[2] == "geom_batch")))
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: oversized ROIs (phase 3) and ImageQuality
+
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34
+# TFLOP/s at 700 W): the rate the bounds of the intensity, IH and texture
+# finish stages charge their operations at, as they run in float64 in
+# either precision; the power spectrum runs in its frame's dtype
+F64_OPS_S = 34e12
+SW_OVERSIZED = "Pipeline/Phase3_oversized/#cc7733"
+# the columns phase 3 defines otherwise than the trivial path in whole-slide
+# mode (tests/test_torch_oversized.py OWN_DEFINITION): the hull and
+# calipers of the box's four-corner contour, two extrema points
+WS_OWN_DEFINITION = ("CONVEX_HULL_AREA", "SOLIDITY", "EXTREMA_P3_Y",
+                     "EXTREMA_P6_X") + tuple(
+    "STAT_%s_DIAM_%s" % (k, s) for k in ("FERET", "MARTIN", "NASSENSTEIN")
+    for s in ("MIN", "MAX", "MEAN", "MEDIAN", "MODE", "STDDEV"))
+# central moments of a whole slide's full box that its symmetry makes 0:
+# float residue on both sides (the JAX package's reference test,
+# tests/test_wholeslide_parity.py, leaves CENTRAL_MOMENT_23/33 out), held
+# by absolute size against the largest central moment instead
+WS_SYMMETRIC_ZERO = ("CENTRAL_MOMENT_23", "CENTRAL_MOMENT_32",
+                     "CENTRAL_MOMENT_33")
+# the finish stages, by what they replace in the JAX package
+FINISH_REPLACES = {
+    "intensity_members": "nyxus_tpu/pipeline/oversized.py:209",
+    "ih_members": "nyxus_tpu/pipeline/oversized.py:231",
+    "texture_members": "nyxus_tpu/pipeline/oversized.py:456",
+    "spectrum_bins": "nyxus_tpu/pipeline/imq_streamed.py:325"}
+IMQ_COLS = ("FOCUS_SCORE", "LOCAL_FOCUS_SCORE", "MIN_SATURATION",
+            "MAX_SATURATION", "SHARPNESS", "POWER_SPECTRUM_SLOPE")
+
+
+def make_oversized_pair():
+    """tests/test_oversized.py's make_pair: 700 x 800 uniform noise in 1..2999
+    (default_rng(11)), an ellipse of ~601 x 661 px (label 5, its AABB in a
+    1024² bucket) and a 20 x 30 box (label 2)."""
+    r = np.random.default_rng(11)
+    intens = r.integers(1, 3000, (700, 800)).astype(np.uint16)
+    labels = np.zeros((700, 800), np.int32)
+    yy, xx = np.mgrid[0:700, 0:800]
+    blob = ((yy - 350) ** 2 / 300.0 ** 2 + (xx - 380) ** 2 / 330.0 ** 2) <= 1
+    labels[blob] = 5
+    labels[10:30, 10:40] = 2
+    return intens, labels
+
+
+def ibsi_pair(pair):
+    """The oversized pair at IBSI's raw levels: (intensity >> 4) + 1 (up to
+    188, matrices of 256 levels)."""
+    return ((pair[0] >> 4) + 1).astype(np.uint16), pair[1]
+
+
+def oversized_ref(ibsi):
+    """Worker process: the f64 CPU run of the oversized pair at ram_limit=1
+    (*ALL*, or *ALL* in IBSI mode on ibsi_pair): (labels, values)."""
+    sys.path.insert(0, HERE)
+    import torch
+    torch.set_num_threads(2)
+    from nyxus_tpu_torch import taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner import PairRunner
+    pair = make_oversized_pair()
+    if ibsi:
+        pair = ibsi_pair(pair)
+    fset = taxonomy.parse_feature_request(FEATURES_ALL, ibsi=ibsi)
+    return PairRunner(fset, EngineConfig(precision="f64", ibsi=ibsi,
+                                         ram_limit_mb=1), "cpu").run(*pair)
+
+
+def imq_ref(seed):
+    """Worker process: the f64 CPU ImageQuality.featurize row of corpus
+    slide make_dsb_like(seed=seed), no label image (the whole image):
+    (labels, values)."""
+    sys.path.insert(0, HERE)
+    import torch
+    torch.set_num_threads(2)
+    from nyxus_tpu_torch import ImageQuality
+    intens, _ = make_dsb_like(1024, 1024, 300, seed=seed)
+    iq = ImageQuality(device="cpu", precision="f64")
+    return frame_rows(iq, iq.featurize(intens))
+
+
+def frame_rows(nyx, df):
+    """(labels, values [N, n_out]) of a featurize frame."""
+    from nyxus_tpu_torch import columns
+    return (df[columns.COL_LABEL].to_numpy(),
+            df[list(nyx.header[4:])].to_numpy(np.float64))
+
+
+def unserved_columns(cols, over, triv):
+    """Columns the phase-3 row ``over`` leaves unassigned (-0.0) where the
+    trivial row ``triv`` holds a value (a computed zero within 1e-7 of the
+    trivial value, a vanishing Hu invariant, counts as served)."""
+    return [c for c, a, b in zip(cols, over, triv)
+            if a == 0.0 and np.signbit(a) and not (b == 0.0 and np.signbit(b))
+            and abs(b) > 1e-7]
+
+
+def timed_run(kern, run):
+    """(result, wall s, launches, peak device bytes, Phase3_oversized s) of
+    run(), the Stopwatch on and every count set to 0 just before."""
+    import torch
+
+    from nyxus_tpu_torch.timing import Stopwatch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kern.values():
+        f.launches = 0
+    Stopwatch.reset()
+    Stopwatch.enable(True)
+    try:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Stopwatch.enable(False)
+    launches = {k: f.launches for k, f in kern.items() if f.launches}
+    return (out, wall, launches, torch.cuda.max_memory_allocated(),
+            Stopwatch.totals().get(SW_OVERSIZED, 0.0))
+
+
+# phase 3d's walls, kept to be printed again near the end of the output
+OVERSIZED_WALLS = []
+
+
+def log_run(what, wall, launches, peak, p3):
+    """Log a phase-3d run; its walls are host-clock times taken while the
+    three f64 CPU reference processes may still run (up to 6 of the host's
+    cores busy)."""
+    log("  %s: wall %.4f s, Pipeline/Phase3_oversized %.4f s, peak device "
+        "memory %d bytes (%.1f MiB), launches %s"
+        % (what, wall, p3, peak, peak / 2 ** 20, launches))
+    OVERSIZED_WALLS.append("%s: wall %.4f s, phase 3 %.4f s, peak %.1f MiB"
+                           % (what.split(" ")[0], wall, p3, peak / 2 ** 20))
+
+
+def device_profile(kern, fn, windows=5):
+    """(device ms, kernel launches, copies and memsets, the kernels'
+    launches) of one call of fn(), from torch.profiler traces: the sum of
+    its kernels and copies, the two counted apart, and the wrappers' counts
+    over the call.  The trace drops a call's device events now and then
+    (all of them, in one window of the whole smoke), never adds any: of
+    ``windows`` traced calls the one with the most events counts.  Where
+    none holds any, the first three are None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    best, kl = [], None
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        for f in kern.values():
+            f.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = device_events(prof)
+        kl = {k: f.launches for k, f in kern.items() if f.launches}
+        if len(seen) > len(best):
+            best = seen
+    if not best:
+        return None, None, None, kl
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n, _ in best)
+    return (sum(us for _, us in best) / 1e3, len(best) - copies, copies,
+            kl)
+
+
+def flat_members(out):
+    """{member: value or array} (or {family: {member: ...}}) -> (names,
+    float64 values), in key order."""
+    names, vals = [], []
+    for k, v in out.items():
+        if isinstance(v, dict):
+            n, x = flat_members(v)
+            names += ["%s/%s" % (k, m) for m in n]
+            vals.append(x)
+            continue
+        x = np.asarray(v, np.float64).ravel()
+        names += [k] * x.size
+        vals.append(x)
+    return names, np.concatenate(vals) if vals else np.zeros(0)
+
+
+def same_members(what, card, cpu, rtol=1e-9, atol=1e-12):
+    """Hold a finish stage's members on the card against the same stage on
+    the CPU over the same accumulators, every member (the DISCRETE ones,
+    MEDIAN, MODE, P01-P99, IQR, included): NaN in the same places, else
+    within rtol / atol.  Returns (members, the largest |a - b| / (atol +
+    rtol |b|) and its member)."""
+    names, a = flat_members(card)
+    names_b, b = flat_members(cpu)
+    if names != names_b:
+        raise AssertionError("%s: the card's members %r differ from the "
+                             "CPU's %r" % (what, names, names_b))
+    nan = np.isnan(a) | np.isnan(b)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError("%s: NaN on one side only: %r" % (what, [
+            n for n, x, y in zip(names, a, b) if np.isnan(x) != np.isnan(y)]))
+    r = np.where(nan, 0.0, np.abs(a - b) / (atol + rtol * np.abs(b)))
+    k = int(np.argmax(r)) if r.size else 0
+    if r.size and r[k] > 1.0:
+        bad = [(n, x, y) for n, x, y, q in zip(names, a, b, r) if q > 1.0]
+        raise AssertionError("%s: card and CPU differ beyond rtol %g: %r"
+                             % (what, rtol, bad[:10]))
+    return len(names), (names[k] if r.size else None,
+                        float(r[k]) if r.size else 0.0)
+
+
+def finish_stage_rows(kern, pair, ipair):
+    """The four finish stages on the card at the oversized pair's big ROI
+    (label 5): each one's call ms (CUDA events, the host's preparation and
+    the device-to-host copy included) and device ms and launches (profiler)
+    a call, its K1 / K17 launches, its bound and, for the power spectrum,
+    the library's torch.fft.fft2 + scatter_add_ on the same frame.  The
+    texture finish is profiled inside texture_members, whose device work
+    is the finish alone (the sweep is numpy); its ms is the whole call's
+    host wall.  The intensity, IH and texture stages are each held against
+    the same stage on the CPU over the same accumulators, every member at
+    rtol 1e-9 (both in float64).  A bound charges float64 operations at
+    F64_OPS_S and the power spectrum's, which runs in its frame's dtype
+    (float32 here), at OPS_S."""
+    import torch
+
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.ops.ih import MEMBERS as IH_MEMBERS
+    from nyxus_tpu_torch.pipeline import imq_streamed as oimq
+    from nyxus_tpu_torch.pipeline import labels as plabels
+    from nyxus_tpu_torch.pipeline import oversized as ovs
+    from nyxus_tpu_torch.pipeline.sources import ArrayPairSource
+
+    rows = []
+
+    def big(p):
+        recs, smin, smax = plabels._discover_rois_np(*p)
+        return next(r for r in recs if r.label == 5), smin, smax
+
+    cfg = EngineConfig(precision="f32")
+    cfg_i = EngineConfig(precision="f32", ibsi=True)
+    rec, smin, smax = big(pair)
+    src = ArrayPairSource(*pair)
+    acc = ovs.accumulate(rec, src)
+    reci, smini, smaxi = big(ipair)
+    acci = ovs.accumulate(reci, ArrayPairSource(*ipair))
+    N = int(cfg_i.coarse_gray_depth)
+
+    def add(name, fn, nbytes, ops, rate=F64_OPS_S, ms=None, library=None,
+            note="", agree=None):
+        if ms is None:
+            ms = timed(fn)[0]
+        dev_ms, n_dev, n_copies, kl = device_profile(kern, fn)
+        bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
+        rows.append({"name": name, "replaces": FINISH_REPLACES[name],
+                     "how": note, "ms": ms, "device_ms": dev_ms,
+                     "device_launches": n_dev, "device_copies": n_copies,
+                     "kernel_launches": kl,
+                     "bound_ms": bound, "bound_by": "bytes" if nbytes /
+                     HBM_BYTES_S >= ops / rate else "operations",
+                     "library_ms": library, "agree": agree})
+
+    # the weighted intensity statistics: the n sorted unique values and
+    # their counts in (float64), ~40 members and the histogram out; ~60
+    # float64 operations a value (the moments to the sixth power, two
+    # binnings, the cumulative sums)
+    n = acc.vals.size
+    nb = abs(cfg.coarse_gray_depth)
+    agree = same_members(
+        "intensity_members",
+        ovs.intensity_members(acc, smin, smax, cfg, "cuda"),
+        ovs.intensity_members(acc, smin, smax, cfg, "cpu"))
+    add("intensity_members",
+        lambda: ovs.intensity_members(acc, smin, smax, cfg, "cuda"),
+        n * 16 + (40 + nb) * 8, n * 60, agree=agree,
+        note="torch over the streamed value histogram; K1 "
+             "(masked_bincount) for its 100-bin and custom histograms")
+    # IH: the N-bin histogram in, 46 members out, ~60 operations a bin
+    agree = same_members(
+        "ih_members", ovs.ih_members(acci, cfg_i, smini, 0.0, "cuda"),
+        ovs.ih_members(acci, cfg_i, smini, 0.0, "cpu"))
+    add("ih_members",
+        lambda: ovs.ih_members(acci, cfg_i, smini, 0.0, "cuda"),
+        N * 8 + len(IH_MEMBERS) * 8, N * 60, agree=agree,
+        note="K17 (ih_stats) over the streamed histogram, IBSI only")
+    # textures: what texture_members uploads (the accumulated matrices as
+    # uploaded and, of its zone lists, the unique (level, size) pairs that
+    # _agg_zones keeps, not their padding) in float64, the members out;
+    # ~50 operations a matrix cell and a zone and NGTDM's ng^2 pair terms
+    # (its five statistics over [ng, ng])
+    fams = list(ovs.TEX_FAMILIES)
+    ng = abs(cfg.coarse_gray_depth)
+    seen = {"elems": 0, "zones": 0, "zone_slots": 0}
+    dev0, agg0 = ovs._dev, ovs._agg_zones
+
+    def dev(x, device, dtype=ovs.FINISH_DTYPE):
+        seen["elems"] += np.asarray(x).size
+        return dev0(x, device, dtype)
+
+    def agg(*a):
+        out = agg0(*a)
+        seen["zones"] += out[0].shape[1]
+        seen["zone_slots"] += 3 * ovs._pow2(out[0].shape[1])
+        return out
+
+    ovs._dev, ovs._agg_zones = dev, agg
+    try:
+        t0 = time.perf_counter()
+        tex_card = ovs.texture_members(rec, src, cfg, fams, smax,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        tex_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ovs._dev, ovs._agg_zones = dev0, agg0
+    cells = seen["elems"] - seen["zone_slots"]
+    zones = seen["zones"]
+    outs = len(flat_members(tex_card)[0])
+    log("  texture_members uploads %d matrix cells and %d aggregated zone "
+        "pairs (%d slots with padding) and returns %d members"
+        % (cells, zones, seen["zone_slots"] // 3, outs))
+    agree = same_members(
+        "texture_members", tex_card,
+        ovs.texture_members(rec, src, cfg, fams, smax, device="cpu"))
+    add("texture_members",
+        lambda: ovs.texture_members(rec, src, cfg, fams, smax, device="cuda"),
+        (cells + 3 * zones + outs) * 8,
+        50 * (cells + zones) + 5 * 5 * ng * ng, ms=tex_wall, agree=agree,
+        note="torch statistics (glcm_finalize, glrlm_features, the zone "
+             "statistics over grouped_weight_sums, ngtdm_stats, "
+             "gldm_features, ngldm_features_from_matrix) over the "
+             "streamed matrices; no K1 or K17")
+    # the power spectrum: the S x S float32 frame of the big ROI in, the
+    # two radial sums out; a real-input FFT's 2.5 S² log2(S²) operations
+    # and ~10 an element for the magnitudes, bins and weights, in float32
+    S = 1
+    while S < max(rec.height, rec.width):
+        S *= 2
+    cap = max(rec.height, rec.width)
+    frame = np.zeros((S, S), np.float32)
+    ii, ll = src.read_pair(rec.y0, rec.x0, rec.height, rec.width)
+    frame[:rec.height, :rec.width] = np.where(ll == rec.label, ii, 0)
+
+    def library():
+        b = torch.from_numpy(frame).to("cuda")
+        v = torch.abs(torch.fft.fft2(b)) / S
+        li = (torch.floor(torch.sqrt(v)) + 1).long().clamp_(max=cap).ravel()
+        out = torch.zeros((2, cap + 1), dtype=v.dtype, device="cuda")
+        out[0].scatter_add_(0, li, v.ravel())
+        out[1].scatter_add_(0, li, (v * v).ravel())
+        return out[:, :cap].double().cpu().numpy()
+
+    lib_ms = timed(library)[0]
+    mag, pw = oimq.spectrum_bins(frame, cap, "cuda")
+    ref = library()
+    if not (np.allclose(mag, ref[0], rtol=1e-4, atol=1e-6)
+            and np.allclose(pw, ref[1], rtol=1e-4, atol=1e-6)):
+        raise AssertionError("spectrum_bins differs from torch.fft.fft2 + "
+                             "scatter_add_")
+    add("spectrum_bins", lambda: oimq.spectrum_bins(frame, cap, "cuda"),
+        S * S * 4 + 2 * cap * 8,
+        2.5 * S * S * np.log2(S * S) + 10 * S * S,
+        rate=OPS_S if frame.dtype == np.float32 else F64_OPS_S,
+        library=lib_ms,
+        note="torch.fft.fft2, then both radial sums in one K1 "
+             "(masked_bincount) launch over 128 rows of the spectrum")
+    return rows
+
+
+def check_oversized(kern, ws_row, slides):
+    """Phase 3d: oversized ROIs on the card at the sizes users run, and
+    ImageQuality; the f64 CPU references run meanwhile in three worker
+    processes.
+    (a) tests/test_oversized.py's 700 x 800 pair (the ~601 x 661 ellipse in
+        a 1024² bucket and one small trivial ROI) with *ALL* at ram_limit=1
+        in f32 on the card against the f64 CPU run of the same path, within
+        the tiers; no column the card's trivial run (default budget) serves
+        left unserved by phase 3; the same in IBSI mode at 256 raw levels
+        (K17 over the streamed histogram); then the four finish stages
+        timed at the big ROI, three of them held against the CPU on every
+        member (finish_stage_rows)
+    (b) corpus slide 7 (1024²) in whole-slide mode at ram_limit=1 through
+        Nyxus._iter_directory_raw, tile-streamed: one 1 M-pixel oversized
+        ROI, against phase 3c's in-memory whole-slide row within the tiers
+        (but for WS_OWN_DEFINITION)
+    (c) whole-slide mode at the default budget on an 8704 x 1024 slide (the
+        8 corpus slides and the first's top half, stacked), oversized by its
+        height alone, in memory through the directory path: timed, its
+        intensity family against numpy over the slide
+    (d) ImageQuality.featurize with no label image (the constant-1 label
+        default) on the stack of the 8 corpus slides on the card against
+        the f64 CPU featurize rows, then on one slide at ram_limit=1 in f64
+        (its 1024² bucket over the budget: the streamed IMQ families, the
+        power spectrum's FFT and K1 on the card) against its in-memory row
+        at tests/test_imq.py's tolerances.
+    Returns the finish stages' rows."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from nyxus_tpu_torch import ImageQuality, Nyxus, columns, taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.io.tiff import write_tiff
+    from nyxus_tpu_torch.pipeline.runner import PairRunner
+
+    fset = taxonomy.parse_feature_request(FEATURES_ALL)
+    cols = columns.build_header(fset, EngineConfig())[0][4:]
+    fset_i = taxonomy.parse_feature_request(FEATURES_ALL, ibsi=True)
+    cols_i = columns.build_header(fset_i, EngineConfig(ibsi=True))[0][4:]
+    pair = make_oversized_pair()
+    ipair = ibsi_pair(pair)
+    rows = None
+    with ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {"all": pool.submit(oversized_ref, False),
+                "ibsi": pool.submit(oversized_ref, True)}
+        imq_refs = [pool.submit(imq_ref, s) for s in range(7, 15)]
+
+        # (a)
+        card = PairRunner(fset, EngineConfig(precision="f32",
+                                             ram_limit_mb=1), "cuda")
+        card.run(*pair)                                   # untimed pass
+        (labs, dev), wall, launches, peak, p3 = timed_run(
+            kern, lambda: card.run(*pair))
+        log_run("(a) *ALL* on the 700 x 800 pair at ram_limit=1 (one "
+                "oversized, one trivial ROI)", wall, launches, peak, p3)
+        if not all(launches.get(k) for k in KERNELS_2D):
+            raise AssertionError("(a): a kernel was not launched: %r"
+                                 % launches)
+        triv = PairRunner(fset, EngineConfig(precision="f32"), "cuda")
+        (tl, tv), twall, tlaunch, tpeak, _ = timed_run(
+            kern, lambda: triv.run(*pair))
+        log_run("(a) the same pair at the default budget (both trivial, a "
+                "1024² bucket)", twall, tlaunch, tpeak, 0.0)
+        big = list(labs).index(5)
+        unserved = unserved_columns(cols, dev[big], tv[list(tl).index(5)])
+        if unserved or list(tl) != list(labs):
+            raise AssertionError("(a): phase 3 leaves unserved %r"
+                                 % unserved)
+        cardi = PairRunner(fset_i, EngineConfig(precision="f32", ibsi=True,
+                                                ram_limit_mb=1), "cuda")
+        cardi.run(*ipair)
+        (labsi, devi), wall, launches_i, peak, p3 = timed_run(
+            kern, lambda: cardi.run(*ipair))
+        log_run("(a) IBSI *ALL* on the pair at 256 raw levels, ram_limit=1",
+                wall, launches_i, peak, p3)
+        if not launches_i.get("ih_stats") or not launches_i.get(
+                "batched_hist"):
+            raise AssertionError("(a) IBSI: K1 or K17 not launched: %r"
+                                 % launches_i)
+        for what, c, (l64, ref), (l, d) in (
+                ("(a) *ALL*", cols, refs["all"].result(), (labs, dev)),
+                ("(a) IBSI *ALL*", cols_i, refs["ibsi"].result(),
+                 (labsi, devi))):
+            worst = check_output(what, c, l, d, l64, ref)
+            log("  %s: %d ROIs x %d columns agree with the f64 CPU run of "
+                "the same path; closest to its tier: %s; no column the "
+                "trivial run serves is unserved"
+                % (what, len(l), len(c), worst))
+        rows = finish_stage_rows(kern, pair, ipair)
+        for r in rows:
+            log("  finish stage %-17s call %s ms, device %s (%s of K1/K17), "
+                "bound %.6f ms by %s, library %s ms%s"
+                % (r["name"], "%.4f" % r["ms"] if r["ms"] else "-",
+                   "%.4f ms in %d launches and %d copies"
+                   % (r["device_ms"], r["device_launches"],
+                      r["device_copies"]) if r["device_ms"] is not None
+                   else "not traced",
+                   r["kernel_launches"], r["bound_ms"], r["bound_by"],
+                   "%.4f" % r["library_ms"] if r["library_ms"] else "-",
+                   "; equal to the CPU's on its %d members at rtol 1e-9 "
+                   "(closest to it: %s)" % r["agree"] if r["agree"]
+                   else ""))
+
+        with tempfile.TemporaryDirectory(prefix="nyx_over_") as root:
+            # (b)
+            d7 = os.path.join(root, "s7")
+            os.makedirs(d7)
+            write_tiff(os.path.join(d7, "slide07.ome.tif"), slides[0][0],
+                       tile_size=512)
+            nyx = Nyxus(FEATURES_ALL, ram_limit=1, device="cuda")
+            calls = {"run": 0, "run_streamed": 0}
+            for meth in calls:
+                count_calls(nyx._runner, meth, calls)
+            ((_, _, lb, vb),), wall, launches, peak, p3 = timed_run(
+                kern, lambda: list(nyx._iter_directory_raw(d7, d7, ".*")))
+            log_run("(b) whole-slide *ALL* on corpus slide 7 at ram_limit=1, "
+                    "tile-streamed (one 1025² box)", wall, launches, peak, p3)
+            keep = [j for j, c in enumerate(cols)
+                    if c not in WS_OWN_DEFINITION + WS_SYMMETRIC_ZERO]
+            cm = [j for j, c in enumerate(cols)
+                  if c.startswith("CENTRAL_MOMENT_")]
+            scale = max(np.abs(ws_row[cm]).max(), np.abs(vb[0, cm]).max())
+            zeros = {c: (float(vb[0, cols.index(c)]),
+                         float(ws_row[cols.index(c)]))
+                     for c in WS_SYMMETRIC_ZERO}
+            if max(abs(v) for p in zeros.values() for v in p) > 1e-6 * scale:
+                raise AssertionError("(b): symmetric-zero central moments "
+                                     "%r beyond 1e-6 of %g" % (zeros, scale))
+            if calls != {"run": 0, "run_streamed": 1} or \
+                    not launches.get("batched_hist"):
+                raise AssertionError("(b): runner calls %s, launches %s"
+                                     % (calls, launches))
+            worst = check_output("(b)", [cols[j] for j in keep], lb,
+                                 vb[:, keep], [1], ws_row[None, keep])
+            log("  (b): the streamed oversized slide agrees with phase 3c's "
+                "in-memory whole-slide row on %d columns within the tiers "
+                "(the %d columns phase 3 defines otherwise left out); "
+                "closest to its tier: %s; the box's symmetric-zero central "
+                "moments (phase 3, trivial) %r, under 1e-6 of the largest "
+                "central moment %g"
+                % (len(keep), len(WS_OWN_DEFINITION), worst, zeros, scale))
+
+            # (c)
+            tall = np.ascontiguousarray(np.concatenate(
+                [s[0] for s in slides] + [slides[0][0][:512]]))
+            dt = os.path.join(root, "tall")
+            os.makedirs(dt)
+            write_tiff(os.path.join(dt, "tall.ome.tif"), tall, tile_size=512)
+            nyx = Nyxus(FEATURES_ALL, device="cuda")
+            ((_, _, lc, vc),), wall, launches, peak, p3 = timed_run(
+                kern, lambda: list(nyx._iter_directory_raw(dt, dt, ".*")))
+            log_run("(c) whole-slide *ALL* on the %d x %d slide at the "
+                    "default budget (oversized by its height)" % tall.shape,
+                    wall, launches, peak, p3)
+            x = tall.astype(np.float64).ravel()
+            want = {"MEAN": x.mean(), "MIN": x.min(), "MAX": x.max(),
+                    "INTEGRATED_INTENSITY": x.sum(),
+                    "ENERGY": (x * x).sum(), "MEDIAN": np.median(x),
+                    "STANDARD_DEVIATION": x.std(ddof=1),
+                    "VARIANCE": x.var(ddof=1), "RANGE": x.max() - x.min(),
+                    "ROOT_MEAN_SQUARED": np.sqrt((x * x).mean())}
+            got = {k: vc[0, cols.index(k)] for k in want}
+            bad = {k: (got[k], v) for k, v in want.items()
+                   if not np.isclose(got[k], v, rtol=1e-9, atol=0)}
+            if list(lc) != [1] or bad or not launches.get("batched_hist"):
+                raise AssertionError("(c): intensity against numpy %r, "
+                                     "launches %s" % (bad, launches))
+            log("  (c): %s equal numpy over the %d pixels within 1e-9"
+                % ("/".join(want), x.size))
+
+        # (d): ImageQuality's entry point, featurize with no label image
+        # (the constant-1 label default), on the stack of the 8 slides
+        iq = ImageQuality(device="cuda")
+        stack = np.stack([s[0] for s in slides])
+        iq.featurize(stack[:1])                           # untimed pass
+        df, wall, launches, peak, _ = timed_run(
+            kern, lambda: iq.featurize(stack))
+        log_run("(d) ImageQuality.featurize (*ALL_IMQ*) on the stack of the "
+                "8 corpus slides, no label image", wall, launches, peak, 0.0)
+        icols = list(iq.header[4:])
+        names = list(df[columns.COL_INTENSITY])
+        if names != ["Intensity%d" % k for k in range(len(slides))]:
+            raise AssertionError("(d): the frame's rows %r" % names)
+        exact = True
+        for k, f in enumerate(imq_refs):
+            rows_k = df[columns.COL_INTENSITY] == "Intensity%d" % k
+            l, v = frame_rows(iq, df[rows_k])
+            l64, ref = f.result()
+            if list(l) != [1]:
+                raise AssertionError("(d) slide %d: labels %r" % (7 + k, l))
+            check_output("(d) slide %d" % (7 + k), icols, l, v, l64, ref)
+            exact &= np.array_equal(v, ref)
+        log("  (d): the frame's 8 rows (label 1, the whole image) of %s "
+            "agree with the f64 CPU featurize rows (%s)"
+            % ("/".join(icols), "bit for bit" if exact else "within tiers"))
+        iq1 = ImageQuality(ram_limit=1, precision="f64", device="cuda")
+        df1, wall, launches, peak, p3 = timed_run(
+            kern, lambda: iq1.featurize(slides[0][0]))
+        l1, v1 = frame_rows(iq1, df1)
+        log_run("(d) ImageQuality.featurize on slide 7 at ram_limit=1, f64 "
+                "(streamed IMQ)", wall, launches, peak, p3)
+        if not launches.get("batched_hist"):
+            raise AssertionError("(d) streamed: K1 not launched %r"
+                                 % launches)
+        tol = {"SHARPNESS": 1e-6, "POWER_SPECTRUM_SLOPE": 1e-6}
+        for j, c in enumerate(icols):
+            if not np.isclose(v1[0, j], imq_refs[0].result()[1][0, j],
+                              rtol=tol.get(c, 1e-9), atol=0):
+                raise AssertionError("(d) streamed %s: %r vs %r" % (
+                    c, v1[0, j], imq_refs[0].result()[1][0, j]))
+        if list(l1) != [1]:
+            raise AssertionError("(d) streamed: labels %r" % l1)
+        log("  (d): the streamed IMQ row of slide 7 agrees with its "
+            "in-memory f64 row (rtol 1e-9, sharpness and slope 1e-6)")
+    log(json.dumps({"finish_stages": rows}))
+    return rows
 
 
 def count_calls(obj, meth, calls):
@@ -4422,9 +5030,14 @@ def main():
     check_modes(kern)
     log_phase("phase 3c: whole-slide mode at full size, the 8 slides "
               "through featurize_directory")
-    wholeslide_throughput(kern, slides)
+    ws_row = wholeslide_throughput(kern, slides)
     log_phase("phase 3c: the CLI as a subprocess")
     check_cli()
+
+    # phase 3d
+    log_phase("phase 3d: oversized ROIs (phase 3) on the card, f32 against "
+              "the f64 CPU, and ImageQuality")
+    oversized_rows = check_oversized(kern, ws_row, slides)
 
     # phase 4
     log_phase("phase 4: throughput on 8 slides make_dsb_like(1024, 1024, "
@@ -4576,6 +5189,11 @@ def main():
     kernels = [dict({"name": k, "route": "cuda", "source": src[k][0],
                      "replaces": src[k][1], "launches": launches[k]},
                     **{key: kres[k][key] for key in keys}) for k in KERNELS]
+    log("phase 3d again: " + "; ".join(OVERSIZED_WALLS))
+    log(json.dumps({"finish_stages": [
+        {k: r[k] for k in ("name", "ms", "device_ms", "device_launches",
+                           "device_copies", "kernel_launches", "bound_ms", "bound_by",
+                           "library_ms", "agree")} for r in oversized_rows]}))
     log_phase("done")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

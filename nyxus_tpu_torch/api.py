@@ -1,4 +1,5 @@
 """Public Python API: ``Nyxus`` for 2D pairs, in memory or as TIFF files,
+``ImageQuality`` for the image-quality families over the same surface,
 and ``Nyxus3D`` for in-memory 3D volume pairs (PyTorch port of
 nyxus_tpu/api.py: ``featurize``, the 2D file protocol
 ``featurize_directory`` / ``featurize_files`` with its tile-streamed run
@@ -488,6 +489,40 @@ class Nyxus:
         for j, cname in enumerate(self.header[4:]):
             data[cname] = values[:, j]
         return pd.DataFrame(data)
+
+
+class ImageQuality(Nyxus):
+    """Image-quality feature extractor (nyxus_tpu/api.py:601 ImageQuality;
+    reference: nyxus.py:1468-2188).
+
+    Runs the IMQ families (focus score, local focus score, power spectrum
+    slope, min/max saturation, sharpness) over whole images (a virtual ROI
+    covering every pixel) or per labeled ROI when a label image is
+    supplied; shares the full file/parameter surface of ``Nyxus``
+    (featurize_directory, featurize_files, blacklist, set/get_params, the
+    ``device`` keyword, ...).  The families are host numpy and scipy; an
+    oversized ROI streams them, its power spectrum's FFT and radial sums
+    on the device."""
+
+    def __init__(self, features=("*ALL_IMQ*",), **kwargs):
+        super().__init__(list(features), **kwargs)
+
+    def _compile(self):
+        self.fset = tx.parse_feature_request(self.features, imq=True)
+        self.header, _ = col.build_header(self.fset, self.cfg)
+        self._runner = PairRunner(self.fset, self.cfg, device=self.device)
+
+    def featurize(self, intensity_images: np.ndarray, label_images=None,
+                  intensity_names: list = (), label_names: list = (),
+                  output_type: str = "pandas", output_path: str = ""):
+        # whole-image quality: a constant-1 label image per slide
+        # (reference: nyxus.py ImageQuality.featurize label default)
+        if label_images is None:
+            label_images = np.ones(np.asarray(intensity_images).shape,
+                                   np.int32)
+        return super().featurize(intensity_images, label_images,
+                                 intensity_names, label_names,
+                                 output_type, output_path)
 
 
 class Nyxus3D:

@@ -4,8 +4,7 @@ The family table below declares every family of the JAX package, in its
 registration order and with its metadata (codes, dependencies, device/host
 halves, contour and logw needs), so that the dependency closure of a
 feature request is the same in both packages.  A family is ported when the
-port has every half the JAX family has; a request that activates any other
-family raises ``NotImplementedError`` naming it, never silent zeros.
+port has every half the JAX family has; every family is.
 
 A device function is ``fn(ctx, cfg) -> {enum_member_name: [B] or [B, K]
 tensor}`` over one padded ROI batch; a host function is ``host_fn(hc, cfg)
@@ -138,12 +137,6 @@ class Family:
         table = {"2d": tx.F2D, "3d": tx.F3D, "imq": tx.FIMQ}[self.domain]
         return table.get(member)
 
-    @property
-    def ported(self) -> bool:
-        """The port has every half (device, host) the JAX family has."""
-        return ((self.fn is not None) == self.device
-                and (self.host_fn is not None) == self.host)
-
 
 FAMILIES: dict = {}
 
@@ -216,18 +209,6 @@ def activated_families(fset: tx.FeatureSet):
                         active.add(n2)
                         changed = True
     return tuple(n for n in FAMILIES if n in active)
-
-
-def families_for(fset: tx.FeatureSet):
-    """Names of the activated families, all of which must be ported; raises
-    NotImplementedError naming the others."""
-    act = activated_families(fset)
-    missing = [n for n in act if not FAMILIES[n].ported]
-    if missing:
-        raise NotImplementedError(
-            "nyxus_tpu_torch does not port these feature families yet: %s"
-            % ", ".join(missing))
-    return act
 
 
 def split_host_families(fset: tx.FeatureSet):
@@ -601,3 +582,59 @@ FAMILIES["GeodeticLengthThicknessFeature"].host_fn = _hf("geodetic_features")
 FAMILIES["NeighborsFeature"].host_fn = _hf("neighbors_features")
 FAMILIES["HexagonalityPolygonalityFeature"].host_fn = \
     _hf("hexagonality_features")
+
+
+# ---------------------------------------------------------------------------
+# IMQ (image quality) families -- whole-slide oriented, host-side numpy and
+# scipy (nyxus_tpu/registry.py:600-660); an oversized row's values come from
+# the streamed phase-3 pass (pipeline/imq_streamed.py)
+
+
+def _imq_crop(hc, i):
+    import numpy as np
+    if not hc.pixels_ok(i):     # oversized: no dense crop; IMQ unassigned
+        return np.zeros((1, 1))
+    ii, m = hc.pair_crop(i)
+    return np.where(m, ii, 0)
+
+
+def _focus_host(hc, cfg):
+    import numpy as np
+    from .ops import imq
+    n = len(hc.recs)
+    fs = np.zeros(n)
+    lfs = np.zeros(n)
+    for i in range(n):
+        fs[i], lfs[i] = imq.focus_score(_imq_crop(hc, i))
+    return {"FOCUS_SCORE": fs, "LOCAL_FOCUS_SCORE": lfs}
+
+
+def _powerspectrum_host(hc, cfg):
+    import numpy as np
+    from .ops import imq
+    return {"POWER_SPECTRUM_SLOPE": np.array(
+        [imq.power_spectrum_slope(_imq_crop(hc, i)) for i in range(len(hc.recs))])}
+
+
+def _saturation_host(hc, cfg):
+    import numpy as np
+    from .ops import imq
+    n = len(hc.recs)
+    mn = np.zeros(n)
+    mx = np.zeros(n)
+    for i in range(n):
+        mn[i], mx[i] = imq.saturation(_imq_crop(hc, i))
+    return {"MIN_SATURATION": mn, "MAX_SATURATION": mx}
+
+
+def _sharpness_host(hc, cfg):
+    import numpy as np
+    from .ops import imq
+    return {"SHARPNESS": np.array(
+        [imq.sharpness(_imq_crop(hc, i)) for i in range(len(hc.recs))])}
+
+
+FAMILIES["FocusScoreFeature"].host_fn = _focus_host
+FAMILIES["PowerSpectrumFeature"].host_fn = _powerspectrum_host
+FAMILIES["SaturationFeature"].host_fn = _saturation_host
+FAMILIES["SharpnessFeature"].host_fn = _sharpness_host

@@ -218,7 +218,7 @@ def test_ibsi_families_vs_jax(ibsi_blob_runs, group):
 
 def test_ibsi_max_int_and_ih_family_ported():
     fset = ttx.parse_feature_request(["*ALL*"], ibsi=True)
-    assert "IntensityHistogramFeatures" in registry.families_for(fset)
+    assert "IntensityHistogramFeatures" in registry.activated_families(fset)
     hdr, _ = tcol.build_header(fset, TConfig(ibsi=True))
     assert len(hdr) - 4 == 793
     intens, labels = _blobs_8bit(64, 64, 3, seed=2)

@@ -9,8 +9,8 @@ run from tests/test_torch_modes_aniso_jax.py, so that ``--dist loadfile``
 gives their JAX references a worker of their own.  rtol 1e-9 (atol
 1e-12), 5e-7 for the fast_log2 entropies, NaN in the same places, the
 first central moments (zero by construction) by absolute size.  A
-whole-slide or merged ROI over the batch budget raises, naming the
-oversized path's ROADMAP item.  The request is narrower than *ALL*
+whole-slide or merged ROI over the batch budget takes the oversized path
+(phase 3), as JAX's does, and equals it.  The request is narrower than *ALL*
 (tests/test_torch_modes_all_jax.py holds *ALL* under anisotropy against
 JAX) but takes the device families, a texture with entropies, the
 contours and host geometry, and the weighted moments' contour distances."""
@@ -28,6 +28,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench  # noqa: E402
 import nyxus_tpu
 from nyxus_tpu import native as jnative
+from nyxus_tpu import taxonomy as jtx
+from nyxus_tpu.config import EngineConfig as JConfig
+from nyxus_tpu.pipeline.runner import PairRunner as JRunner
 
 import nyxus_tpu_torch
 from nyxus_tpu_torch import columns as tcol
@@ -125,18 +128,31 @@ def test_wholeslide_box_and_contour():
 @pytest.mark.parametrize("mode", ["wholeslide", "mergerois"])
 def test_oversized_mode_roi_raises(tmp_path, mode):
     """A 600² whole-slide ROI at ram_limit=1 (bucket 1024², 16 MB) takes
-    the streamed run and raises there; a dense slide's merged ROI raises
-    in memory; both name the oversized path's ROADMAP item."""
+    the streamed run and its phase-3 pass; a dense slide's merged ROI takes
+    phase 3 in memory.  Both, which the port once refused, equal JAX's."""
     intens, labels = make_blobs(600, 600, 40, seed=2)
     if mode == "wholeslide":
         (tmp_path / "int").mkdir()
         jnative.write_tiff(str(tmp_path / "int" / "big.tif"),
                            intens.astype(np.uint16), tile_size=128)
-        nyx = nyxus_tpu_torch.Nyxus(["MEAN"], device="cpu", ram_limit=1)
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            nyx.featurize_directory(str(tmp_path / "int"))
+        kw = dict(precision="f64", ram_limit=1)
+        want = nyxus_tpu.Nyxus(FEATS, **kw).featurize_directory(
+            str(tmp_path / "int"))
+        nyx = nyxus_tpu_torch.Nyxus(FEATS, device="cpu", **kw)
+        assert nyx._stream_gate(intens.shape)
+        got = nyx.featurize_directory(str(tmp_path / "int"))
+        assert list(got.columns) == list(want.columns)
+        assert list(got.ROI_label) == list(want.ROI_label) == [1]
+        cols = list(want.columns[4:])
+        _compare_all(cols, want[cols].to_numpy(float),
+                     got[cols].to_numpy(float))
         return
-    runner = PairRunner(ttx.parse_feature_request(["MEAN"]),
-                        TConfig(mergerois=True, ram_limit_mb=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        runner.run(intens, labels)
+    jl, jv = JRunner(jtx.parse_feature_request(FEATS),
+                     JConfig(precision="f64", mergerois=True,
+                             ram_limit_mb=1)).run(intens, labels)
+    fset = ttx.parse_feature_request(FEATS)
+    runner = PairRunner(fset, TConfig(precision="f64", mergerois=True,
+                                      ram_limit_mb=1), device="cpu")
+    tl, tv = runner.run(intens, labels)
+    assert list(tl) == list(jl) == [1]
+    _compare_all(tcol.build_header(fset, TConfig())[0][4:], jv, tv)

@@ -135,21 +135,29 @@ def test_empty_label_image():
     assert labs.shape == (0,) and values.shape == (0, WIDTH)
 
 
-@pytest.mark.parametrize("features,parse_kw,missing", [
-    (["SHARPNESS"], {"imq": True}, "yet: SharpnessFeature$"),
-    (["*ALL_IMQ*"], {"imq": True}, "yet: FocusScoreFeature, "
-     "PowerSpectrumFeature, SaturationFeature, SharpnessFeature$"),
+@pytest.mark.parametrize("features,parse_kw,families", [
+    (["SHARPNESS"], {"imq": True}, ("SharpnessFeature",)),
+    (["*ALL_IMQ*"], {"imq": True}, ("FocusScoreFeature",
+     "PowerSpectrumFeature", "SaturationFeature", "SharpnessFeature")),
     (["FOCUS_SCORE"], {"imq": True},
-     "yet: FocusScoreFeature, PowerSpectrumFeature$"),
+     ("FocusScoreFeature", "PowerSpectrumFeature")),
 ])
-def test_unported_families_raise(features, parse_kw, missing):
-    """Requests whose families the port does not serve yet (the
-    image-quality families) raise, naming them."""
+def test_unported_families_raise(features, parse_kw, families):
+    """The image-quality families, which the port once refused, are served
+    now: the request activates them (FOCUS_SCORE pulls in the power
+    spectrum, as in the JAX package) and the port's values on a slide of
+    blobs equal JAX's."""
     fset = ttx.parse_feature_request(features, **parse_kw)
-    with pytest.raises(NotImplementedError, match=missing):
-        registry.families_for(fset)
-    with pytest.raises(NotImplementedError, match=missing):
-        TRunner(fset, TConfig(), device="cpu")
+    assert registry.activated_families(fset) == families
+    intens, labels = make_blobs(64, 72, 4, seed=6)
+    jl, jv = JRunner(jtx.parse_feature_request(features, **parse_kw),
+                     JConfig(precision="f64")).run(intens, labels)
+    tl, tv = TRunner(fset, TConfig(precision="f64"), device="cpu").run(
+        intens, labels)
+    np.testing.assert_array_equal(tl, jl)
+    assert tv.shape == jv.shape and tv.shape[0] >= 3
+    hdr, _ = tcol.build_header(fset, TConfig())
+    _compare(hdr[4:], jv, tv)
 
 
 # ---------------------------------------------------------------------------
@@ -251,25 +259,39 @@ def test_labels_beyond_int32_raise():
     _compare(hdr[4:], jv, tv)
 
 
+def _oversized_equals_jax(intens, labels, wholeslide=False, **kw):
+    """The slice's request with every ROI over the batch budget
+    (ram_limit_mb=0, the streamed phase-3 path) against JAX's."""
+    jl, jv = JRunner(jtx.parse_feature_request(FEATURES),
+                     JConfig(precision="f64", ram_limit_mb=0, **kw)).run(
+        intens, labels, wholeslide=wholeslide)
+    tl, tv = _port_runner(ram_limit_mb=0, **kw).run(intens, labels,
+                                                    wholeslide=wholeslide)
+    np.testing.assert_array_equal(tl, jl)
+    assert tv.shape == (len(tl), WIDTH)
+    hdr, _ = tcol.build_header(ttx.parse_feature_request(FEATURES),
+                               TConfig())
+    _compare(hdr[4:], jv, tv)
+
+
 @pytest.mark.parametrize("kw", [{"aniso_y": 2.0}, {"mergerois": True},
                                 {"aniso_x": 2.0}])
 def test_unsupported_modes_raise(kw):
-    """The run modes build and run; an ROI over the batch budget under them
-    still raises, naming the oversized path's ROADMAP item."""
+    """The run modes build and run; an ROI over the batch budget under them,
+    which the port once refused, takes the oversized path and equals
+    JAX's."""
     intens, labels = make_blobs(seed=1)
     labs, values = _port_runner(**kw).run(intens, labels)
     assert values.shape == (len(labs), WIDTH) and len(labs) >= 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _port_runner(ram_limit_mb=0, **kw).run(intens, labels)
+    _oversized_equals_jax(intens, labels, **kw)
 
 
 def test_oversized_and_wholeslide_raise():
+    """Oversized ROIs and an oversized whole-slide ROI, which the port once
+    refused, equal JAX's."""
     intens, labels = make_blobs(seed=1)
-    with pytest.raises(NotImplementedError, match="oversized"):
-        _port_runner(ram_limit_mb=0).run(intens, labels)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _port_runner(ram_limit_mb=0).run(intens, np.ones_like(labels),
-                                         wholeslide=True)
+    _oversized_equals_jax(intens, labels)
+    _oversized_equals_jax(intens, np.ones_like(labels), wholeslide=True)
 
 
 @pytest.mark.parametrize("args", [(320, 320, 40, 11), (256, 256, 25, 5),

@@ -57,7 +57,9 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
                                  "io/writers.py", "blacklist.py",
                                  "io/strpat.py", "io/dataset.py",
                                  "pipeline/contour.py", "timing.py",
-                                 "nested.py"])
+                                 "nested.py", "pipeline/oversized_tex.py",
+                                 "pipeline/oversized_extra.py",
+                                 "ops/imq.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -264,12 +266,12 @@ def test_registry_metadata():
         assert tf.needs_contour == jf.needs_contour, name
         assert tf.host_needs_contour == jf.host_needs_contour, name
         assert tf.needs_logw == jf.needs_logw, name
-    ported = [n for n, f in treg.FAMILIES.items() if f.ported]
-    assert ported == [n for n in jreg.FAMILIES
-                      if n not in ("FocusScoreFeature",
-                                   "PowerSpectrumFeature",
-                                   "SaturationFeature", "SharpnessFeature")]
-    assert len(ported) == 31
+    # every half (device, host) the JAX family has, the port has
+    ported = [n for n, f in treg.FAMILIES.items()
+              if (f.fn is not None) == f.device
+              and (f.host_fn is not None) == f.host]
+    assert ported == list(jreg.FAMILIES)
+    assert len(ported) == 35
 
 
 @pytest.mark.parametrize("features", REQUESTS, ids=lambda f: ",".join(f))
@@ -365,6 +367,11 @@ def test_import_pulls_no_jax():
             "import nyxus_tpu_torch.pipeline.sources\n"
             "import nyxus_tpu_torch.pipeline.contour\n"
             "import nyxus_tpu_torch.cli, nyxus_tpu_torch.timing\n"
+            "import nyxus_tpu_torch.pipeline.oversized\n"
+            "import nyxus_tpu_torch.pipeline.oversized_tex\n"
+            "import nyxus_tpu_torch.pipeline.oversized_extra\n"
+            "import nyxus_tpu_torch.pipeline.imq_streamed\n"
+            "import nyxus_tpu_torch.ops.imq\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"
@@ -405,3 +412,59 @@ def test_ih_members_and_blacklist_copy():
         assert j.summary() == t.summary()
         for f, lab in (("f1.tif", 5), ("f2.tif", 5), ("x", 28), ("f2.tif", 1)):
             assert j.check(f, lab) == t.check(f, lab)
+
+
+@pytest.mark.parametrize("rel", ["pipeline/oversized.py",
+                                 "pipeline/imq_streamed.py"])
+def test_ported_copies_name_their_source(rel):
+    """The phase-3 modules whose finish stages became torch: the first line
+    names the JAX module they were copied from."""
+    with open(os.path.join(ROOT, "nyxus_tpu_torch", rel)) as f:
+        first = f.readline()
+    assert first.startswith("# Ported from nyxus_tpu/%s;" % rel)
+
+
+_PHASE3_NUMPY = {
+    "oversized": ("is_oversized", "OversizedAccums", "_merge_hist",
+                  "_to_binned", "accumulate", "compactness_pass",
+                  "_pad_pow2", "_central_from_raw", "_central_any_sign",
+                  "_signed_pow_np", "moments_members",
+                  "basic_morphology_members", "ellipse_members", "_pow2",
+                  "_agg_zones"),
+    "imq_streamed": ("_frame_reader", "saturation_streamed", "_lap_var_sums",
+                     "focus_score_streamed", "sharpness_streamed",
+                     "_streamed_median_abs_dev"),
+}
+
+
+@pytest.mark.parametrize("mod,name", [(m, n) for m, names in
+                                      _PHASE3_NUMPY.items() for n in names],
+                         ids=lambda v: v)
+def test_verbatim_phase3_code(mod, name):
+    """The numpy halves of the ported phase-3 modules (the RAM gate, the
+    accumulators, the moment, morphology and ellipse members, the streamed
+    focus, saturation and sharpness) are the JAX module's text."""
+    import importlib
+    j = importlib.import_module("nyxus_tpu.pipeline." + mod)
+    t = importlib.import_module("nyxus_tpu_torch.pipeline." + mod)
+    assert inspect.getsource(getattr(j, name)) == \
+        inspect.getsource(getattr(t, name))
+
+
+def test_oversized_tables():
+    """The streamable families, the texture families, the accumulators'
+    caps and the RAM gate's verdicts are the JAX package's."""
+    from nyxus_tpu.pipeline import oversized as jovs
+    from nyxus_tpu_torch.pipeline import oversized as tovs
+    assert tovs.STREAMABLE == jovs.STREAMABLE and len(tovs.STREAMABLE) == 26
+    assert tovs.TEX_FAMILIES == jovs.TEX_FAMILIES
+    for k in ("_MAX_UNIQUES", "_FALLBACK_BINS", "_GLDZM_PLANE_CAP"):
+        assert getattr(tovs, k) == getattr(jovs, k), k
+    assert not hasattr(trunner, "is_oversized") or \
+        trunner.is_oversized is tovs.is_oversized
+    for h in (1, 7, 64, 65, 255, 256, 257, 1000, 8192, 8193, 20000):
+        for w in (1, 33, 256, 512, 4097, 8193):
+            r = tlabels.RoiRecord(1, h * w, 0, h - 1, 0, w - 1, 0, 1)
+            for budget in (0, 1 << 20, 1 << 28, 4096 << 20):
+                assert tovs.is_oversized(r, budget) == \
+                    jovs.is_oversized(r, budget), (h, w, budget)
