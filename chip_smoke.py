@@ -129,6 +129,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    Pipeline/Phase3_oversized seconds, peak device memory and launches, and
    a "finish_stages" JSON line; the walls and that line again before the
    card's line
+3e. *3D_ALL* beyond the default configuration, after phase 4's 3D pass,
+   with f64 CPU references in four worker processes meanwhile
+   (check_3d_beyond): (a) the two throughput volumes written as vol1.nii
+   and vol2.nii.gz through Nyxus3D.featurize_directory, against the
+   in-memory featurize rows; (b) volume 1 as a 96-slice layout-A stack of
+   TIFF slices, in memory and over the RAM gate (read a plane at a time),
+   against (a)'s rows; (c) anisotropy along z and along x, y and z,
+   whole-volume mode and mergerois on volume 1 whole (timed) and on its
+   first MODE_CPU_DEPTH planes against the f64 CPU run; (d) volume 1 at a
+   RAM gate that puts its largest ROI alone over it, *3D_ALL* and IBSI:
+   that ROI through 3D phase 3 against the f64 CPU trivial run at rtol
+   1e-8, none of its columns unserved, then the eight 3D finish stages
+   timed and held against the CPU on every member (a "finish3d_stages"
+   JSON line); (e) K13-K16, K7 on every plan forced and K1 against their
+   plain versions at the whole-volume crop (1 x 128 x 512 x 512), then
+   timed there (a "whole_volume_kernels" JSON line); the walls again, and
+   the smoke's wall, before the card's line
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
@@ -161,6 +178,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 FEATURES = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
             "*ALL_NGTDM*", "*ALL_GLSZM*", "*ALL_GLDZM*", "*ALL_NGLDM*"]
 WIDTH = 337
@@ -4848,6 +4866,538 @@ def columns_of(runner):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: 3D beyond the default configuration
+
+# the device phase 3e runs on (the card; a rehearsal on a machine without
+# one sets "cpu")
+DEVICE_3E = "cuda"
+# the planes of throughput volume 1 that the f64 CPU references of the run
+# modes see, the card running the same cut beside the whole volume: the
+# CPU run of the whole volume's one ROI (whole-volume mode, mergerois)
+# would outlast the smoke
+MODE_CPU_DEPTH = 15
+# run mode -> (EngineConfig keywords, whole-volume)
+MODES_3D = {
+    "anisotropy z 1.5": (dict(aniso_z=1.5), False),
+    "anisotropy 1.4 x 1.2 x 1.5": (dict(aniso_x=float(np.float32(1.4)),
+                                        aniso_y=float(np.float32(1.2)),
+                                        aniso_z=1.5), False),
+    "whole volume": ({}, True),
+    "mergerois": (dict(mergerois=True), False),
+}
+# the RAM gate (MB) that puts volume 1's largest ROI, and it alone, over
+# the batch budget: label 2, 54 x 37 x 59 voxels, a 64³ cube of 4 MB at 16
+# bytes a voxel
+OVERSIZED_3D_MB = 2
+OVERSIZED_3D_LABEL = 2
+# the RAM limit (MB) that puts volume 1's layout-A stack (96 x 320 x 320 at
+# 16 bytes a voxel, 157 MB) over the gate (half the limit) while no ROI
+# passes the batch budget
+STACK_RAM_LIMIT_MB = 256
+# the 3D finish stages, by what they replace in the JAX package
+FINISH3D_REPLACES = {
+    "D3_VoxelIntensityFeatures": "nyxus_tpu/pipeline/oversized3d.py:568",
+    "D3_GLCM_feature": "nyxus_tpu/pipeline/oversized3d.py:588",
+    "D3_GLRLM_feature": "nyxus_tpu/pipeline/oversized3d.py:599",
+    "D3_GLSZM_feature": "nyxus_tpu/pipeline/oversized3d.py:612",
+    "D3_GLDZM_feature": "nyxus_tpu/pipeline/oversized3d.py:623",
+    "D3_GLDM_feature": "nyxus_tpu/pipeline/oversized3d.py:635",
+    "D3_NGLDM_feature": "nyxus_tpu/pipeline/oversized3d.py:643",
+    "D3_NGTDM_feature": "nyxus_tpu/pipeline/oversized3d.py:652"}
+# the kernels phase 2 holds at the whole-volume crop
+KERNELS_WHOLE_VOLUME = KERNELS_3D + ("zone_stats", "batched_hist")
+
+
+# phase 3e's walls, kept to be printed again near the end of the output
+WALLS_3E = []
+
+
+def log_run3(what, wall, launches, peak):
+    """Log a phase-3e run: host-clock wall (the card synchronised at its
+    end, the f64 CPU reference processes running meanwhile in (c)), peak
+    device memory, launches."""
+    log("  %s: wall %.4f s, peak device memory %d bytes (%.1f MiB), "
+        "launches %s" % (what, wall, peak, peak / 2 ** 20, launches))
+    WALLS_3E.append("%s: %.4f s, %.1f MiB" % (what.split(",")[0], wall,
+                                              peak / 2 ** 20))
+
+
+def mode_volume(mode, depth=None):
+    """Throughput volume 1 as a run mode reads it: its first ``depth``
+    planes (all by default); in whole-volume mode every voxel labelled 1."""
+    intens, labels = make_volume_3d(1)
+    if depth:
+        intens, labels = intens[:depth].copy(), labels[:depth].copy()
+    if MODES_3D[mode][1]:
+        labels = np.ones_like(labels)
+    return intens, labels
+
+
+def mode_ref_3d(mode):
+    """Worker process: the f64 CPU run of *3D_ALL* under a run mode on the
+    first MODE_CPU_DEPTH planes of volume 1: (labels, values)."""
+    sys.path.insert(0, HERE)
+    import torch
+    torch.set_num_threads(2)
+    from nyxus_tpu_torch import taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+    kw, whole = MODES_3D[mode]
+    fset = taxonomy.parse_feature_request(FEATURES_3D, dim=3)
+    return VolumeRunner(fset, EngineConfig(precision="f64", **kw), "cpu").run(
+        *mode_volume(mode, MODE_CPU_DEPTH), wholeslide=whole)
+
+
+def trivial_ref_3d(ibsi):
+    """Worker process: the f64 CPU run of volume 1 (at (volume >> 4) + 1 in
+    IBSI mode) with every label but OVERSIZED_3D_LABEL zeroed, which keeps
+    that ROI's values (the slide range and the raw levels' matrix size come
+    from the intensities), at the default budget: (labels, values)."""
+    sys.path.insert(0, HERE)
+    import torch
+    torch.set_num_threads(2)
+    from nyxus_tpu_torch import taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+    intens, labels = make_volume_3d(1)
+    if ibsi:
+        intens = ((intens >> 4) + 1).astype(np.uint16)
+    labels = np.where(labels == OVERSIZED_3D_LABEL, labels, 0)
+    fset = taxonomy.parse_feature_request(FEATURES_3D, dim=3, ibsi=ibsi)
+    return VolumeRunner(fset, EngineConfig(precision="f64", ibsi=ibsi),
+                        "cpu").run(intens, labels)
+
+
+def rows_agree(what, cols, got, want):
+    """Two card runs of the same volume through two entry points: labels
+    equal and every column within its tier; returns (the column closest to
+    its tier, the share of values equal bit for bit)."""
+    (gl, gv), (wl, wv) = got, want
+    if list(gl) != list(wl) or gv.shape != wv.shape:
+        raise AssertionError("%s: labels or shape differ: %s vs %s"
+                             % (what, gv.shape, wv.shape))
+    bad, worst = compare_tiers(cols, gv, wv)
+    if bad or not np.array_equal(np.isnan(gv), np.isnan(wv)):
+        raise AssertionError("%s: beyond the tiers: %r" % (what, bad[:20]))
+    same = np.isnan(gv) & np.isnan(wv) | (gv == wv)
+    return worst, float(same.mean())
+
+
+def check_3d_files(kern, vols, mem):
+    """Phase 3e (a) and (b): the 3D file protocol on the card.
+    (a) the two throughput volumes written as vol1.nii and vol2.nii.gz
+        through Nyxus3D.featurize_directory (pandas): the rows of the
+        in-memory Nyxus3D.featurize of the same volumes (``mem``);
+    (b) volume 1 as a 96-slice layout-A stack of TIFF slices, in memory and
+        over the RAM gate (ram_limit=STACK_RAM_LIMIT_MB: 157 MB of stack
+        against a 128 MB gate; read a plane at a time, VolumeRunner.run
+        handed the stack's lazy channels): (a)'s rows of volume 1."""
+    import tempfile
+
+    from nyxus_tpu_torch import Nyxus3D
+    from nyxus_tpu_torch.io import readers
+    from nyxus_tpu_torch.pipeline import runner3d
+
+    nyx = Nyxus3D(FEATURES_3D, DEVICE_3E, precision="f32")
+    cols = list(nyx.header[4:])
+    with tempfile.TemporaryDirectory() as root:
+        for d in ("int", "seg"):
+            os.makedirs(os.path.join(root, "nifti", d))
+            os.makedirs(os.path.join(root, "stack", d))
+        t0 = time.perf_counter()
+        for k, ((intens, labels), ext) in enumerate(zip(vols, (".nii",
+                                                               ".nii.gz"))):
+            name = "vol%d%s" % (k + 1, ext)
+            readers.write_nifti(os.path.join(root, "nifti", "int", name),
+                                intens)
+            readers.write_nifti(os.path.join(root, "nifti", "seg", name),
+                                labels)
+        intens, labels = vols[0]
+        for z in range(intens.shape[0]):
+            name = "vol1_z%03d.tif" % z
+            readers.write_gray(os.path.join(root, "stack", "int", name),
+                               intens[z])
+            readers.write_gray(os.path.join(root, "stack", "seg", name),
+                               labels[z].astype(np.uint16))
+        log("  wrote the NIfTI pair files and the 2 x %d slice files in %.1f "
+            "s" % (intens.shape[0], time.perf_counter() - t0))
+        df, wall, launches, peak, _ = timed_run(
+            kern, lambda: nyx.featurize_directory(
+                os.path.join(root, "nifti", "int"),
+                os.path.join(root, "nifti", "seg")))
+        log_run3("(a) featurize_directory, vol1.nii and vol2.nii.gz",
+                 wall, launches, peak)
+        if not all(launches.get(k) for k in KERNELS_3D):
+            raise AssertionError("(a): a kernel was not launched: %r"
+                                 % launches)
+        files = frame_rows(nyx, df)
+        names = sorted(set(os.path.basename(p) for p in df.intensity_image))
+        if names != ["vol1.nii", "vol2.nii.gz"]:
+            raise AssertionError("(a): volumes %r" % names)
+        worst, same = rows_agree("(a)", cols, files, mem)
+        log("  (a) %d ROIs x %d columns equal the in-memory featurize rows "
+            "within the tiers (%.4f of the values bit for bit); closest to "
+            "its tier: %s" % (len(files[0]), len(cols), same, worst))
+        n1 = int((df.intensity_image.map(os.path.basename)
+                  == "vol1.nii").sum())
+        vol1 = (files[0][:n1], files[1][:n1])
+        runs = []
+        run = runner3d.VolumeRunner.run
+
+        def recording(self, i, lab, wholeslide=False):
+            runs.append(type(i).__name__)
+            return run(self, i, lab, wholeslide)
+        runner3d.VolumeRunner.run = recording
+        try:
+            for what, kw, kind in (("in memory", {}, "ndarray"),
+                                   ("over the RAM gate",
+                                    {"ram_limit": STACK_RAM_LIMIT_MB},
+                                    "_LazyVol")):
+                runs.clear()
+                stack = Nyxus3D(FEATURES_3D, DEVICE_3E, precision="f32", **kw)
+                df, wall, launches, peak, _ = timed_run(
+                    kern, lambda: stack.featurize_directory(
+                        os.path.join(root, "stack", "int"),
+                        os.path.join(root, "stack", "seg"),
+                        file_pattern="vol1_z{set d+}.tif"))
+                if runs != [kind]:
+                    raise AssertionError("(b) %s: VolumeRunner.run got %r"
+                                         % (what, runs))
+                log_run3("(b) the layout-A stack %s" % what, wall, launches,
+                         peak)
+                worst, same = rows_agree("(b) %s" % what, cols,
+                                         frame_rows(stack, df), vol1)
+                log("  (b) %s: %d ROIs equal (a)'s volume 1 rows within the "
+                    "tiers (%.4f bit for bit); closest to its tier: %s"
+                    % (what, n1, same, worst))
+        finally:
+            runner3d.VolumeRunner.run = run
+
+
+def check_3d_modes(kern, refs):
+    """Phase 3e (c): *3D_ALL* under each run mode of MODES_3D on the card in
+    f32: volume 1 whole (timed; its labels, shape and launches checked)
+    and its first MODE_CPU_DEPTH planes against the f64 CPU run of the same
+    planes (worker processes of ``pool``, started first), within the
+    tiers, the surface columns bit for bit.  Returns the whole-volume
+    mode's full-size row (labels, values)."""
+    import torch
+
+    from nyxus_tpu_torch import columns, taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+
+    fset = taxonomy.parse_feature_request(FEATURES_3D, dim=3)
+    hdr, slots = columns.build_header(fset, EngineConfig())
+    cols = hdr[4:]
+    surf = surface_columns(slots)
+    whole_row = None
+    for mode, (kw, whole) in MODES_3D.items():
+        runner = VolumeRunner(fset, EngineConfig(precision="f32", **kw),
+                              DEVICE_3E)
+        vol = mode_volume(mode)
+        (labs, vals), wall, launches, peak, _ = timed_run(
+            kern, lambda: runner.run(*vol, wholeslide=whole))
+        log_run3("(c) %s, volume 1 (96 x 320 x 320), %d ROIs"
+                 % (mode, len(labs)), wall, launches, peak)
+        if vals.shape != (len(labs), WIDTH_3D) or np.isinf(vals).any() \
+                or not all(launches.get(k) for k in KERNELS_3D):
+            raise AssertionError("(c) %s: shape %s, launches %r"
+                                 % (mode, vals.shape, launches))
+        if whole or kw.get("mergerois"):
+            if list(labs) != [1]:
+                raise AssertionError("(c) %s: labels %r" % (mode, labs))
+        if whole:
+            whole_row = (labs, vals)
+        cut = runner.run(*mode_volume(mode, MODE_CPU_DEPTH), wholeslide=whole)
+        labs64, ref = refs[mode].result()
+        worst = check_output("(c) %s" % mode, cols, cut[0], cut[1], labs64,
+                             ref)
+        if not np.array_equal(cut[1][:, surf].view(np.uint64),
+                              ref[:, surf].view(np.uint64)):
+            raise AssertionError("(c) %s: the surface columns differ "
+                                 "between the card and the CPU" % mode)
+        log("  (c) %s, its first %d planes: %d ROIs x %d columns agree with "
+            "the f64 CPU run, the %d surface columns bit for bit; closest to "
+            "its tier: %s" % (mode, MODE_CPU_DEPTH, len(labs64), len(cols),
+                              len(surf), worst))
+    return whole_row
+
+
+def finish3d_stage_rows(kern, vol):
+    """The eight 3D finish stages on the card over the accumulators of
+    volume 1's largest ROI (label 2) at the default configuration, and
+    NGTDM's at the binned one (radius 1: the default's radius 0 leaves it
+    no work): each one's call ms (CUDA events, the host's preparation and
+    the device-to-host copy included), device ms, kernels and copies
+    (profiler, the fullest of five traced calls), the wrappers' launches,
+    and its bound; each held against the same stage on the CPU over the
+    same accumulators on every member at rtol 1e-9 (both float64).  The
+    bound counts the elements a stage uploads and the members it returns
+    (8 bytes each), and ~50 float64 operations an uploaded element (60 for
+    the intensity statistics' values), at F64_OPS_S."""
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline import oversized as ovs
+    from nyxus_tpu_torch.pipeline import oversized3d as ov3
+    from nyxus_tpu_torch.pipeline.runner3d import discover_rois_3d
+
+    recs, smin, smax = discover_rois_3d(*vol)
+    rec = next(r for r in recs if r.label == OVERSIZED_3D_LABEL)
+    fams = set(ov3.FINISH3D)
+    t0 = time.perf_counter()
+    acc = ov3.accumulate3d(rec, *vol, EngineConfig(precision="f32"), fams,
+                           smin, smax)
+    acc_n = ov3.accumulate3d(rec, *vol, EngineConfig(precision="f32",
+                                                     **BINNED_3D),
+                             {"D3_NGTDM_feature"}, smin, smax)
+    log("  the accumulators of label %d (%d voxels, %d x %d x %d) in %.2f s "
+        "(host numpy)" % (rec.label, rec.area, rec.depth, rec.height,
+                          rec.width, time.perf_counter() - t0))
+    rows = []
+    dev0 = ovs._dev
+    for fam, finish in ov3.FINISH3D.items():
+        a = acc_n if fam == "D3_NGTDM_feature" else acc
+        seen = {"elems": 0}
+
+        def dev(x, device, dtype=ovs.FINISH_DTYPE):
+            seen["elems"] += np.asarray(x).size
+            return dev0(x, device, dtype)
+        ovs._dev = dev
+        try:
+            card = finish(a, DEVICE_3E)
+        finally:
+            ovs._dev = dev0
+        agree = same_members(fam, card, finish(a, "cpu"))
+        outs = len(flat_members(card)[0])
+        ms = timed(lambda: finish(a, DEVICE_3E), iters=5)[0]
+        dev_ms, n_dev, n_copies, kl = device_profile(
+            kern, lambda: finish(a, DEVICE_3E))
+        per = 60 if fam == "D3_VoxelIntensityFeatures" else 50
+        nbytes, ops = (seen["elems"] + outs) * 8, per * seen["elems"]
+        rows.append({"name": fam, "replaces": FINISH3D_REPLACES[fam],
+                     "ms": ms, "device_ms": dev_ms, "device_launches": n_dev,
+                     "device_copies": n_copies, "kernel_launches": kl,
+                     "bound_ms": max(nbytes / HBM_BYTES_S,
+                                     ops / F64_OPS_S) * 1e3,
+                     "bound_by": "bytes" if nbytes / HBM_BYTES_S
+                     >= ops / F64_OPS_S else "operations",
+                     "library_ms": None, "agree": agree,
+                     "uploaded": seen["elems"], "members": outs})
+        log("  finish %s: call %.4f ms, device %s ms in %s kernels + %s "
+            "copies, launches %s, %d elements up, %d members; card = CPU "
+            "(closest %s)" % (fam, ms, dev_ms, n_dev, n_copies, kl,
+                              seen["elems"], outs, agree))
+    return rows
+
+
+def check_oversized_3d(kern, vol, triv, refs):
+    """Phase 3e (d): volume 1 at ram_limit=OVERSIZED_3D_MB, which puts its
+    largest ROI (label 2) alone over the gate: its row through phase 3
+    (the slice-streamed accumulators, the finish stages on the card in
+    float64) against the f64 CPU trivial run of that ROI (``refs[ibsi]``,
+    trivial_ref_3d) at tests/test_oversized.py's tolerance (rtol 1e-8,
+    atol 1e-10 where both are finite, INFOMEAS at atol 1e-6), no column
+    that the card's trivial row ``triv`` serves left unserved, the other
+    ROIs' rows within the tiers of ``triv``'s; the same in IBSI mode on
+    (volume >> 4) + 1 (256 raw levels) against the card's trivial IBSI
+    run; then the finish stages timed (finish3d_stage_rows)."""
+    import torch
+
+    from nyxus_tpu_torch import columns, taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+
+    ivol = (((vol[0] >> 4) + 1).astype(np.uint16), vol[1])
+    for what, ibsi, v in (("*3D_ALL*", False, vol),
+                          ("IBSI *3D_ALL*", True, ivol)):
+        fset = taxonomy.parse_feature_request(FEATURES_3D, dim=3, ibsi=ibsi)
+        cols = columns.build_header(fset, EngineConfig(ibsi=ibsi))[0][4:]
+        over = VolumeRunner(fset, EngineConfig(
+            precision="f32", ibsi=ibsi, ram_limit_mb=OVERSIZED_3D_MB),
+            DEVICE_3E)
+        p3 = []
+        phase3 = over._oversized
+
+        def timed_phase3(*a):
+            t = time.perf_counter()
+            phase3(*a)
+            if DEVICE_3E != "cpu":
+                torch.cuda.synchronize()
+            p3.append(time.perf_counter() - t)
+        over._oversized = timed_phase3
+        (labs, dev), wall, launches, peak, _ = timed_run(
+            kern, lambda: over.run(*v))
+        log("  (d) %s: phase 3 (label %d's accumulators and finish stages) "
+            "%.4f s of the run's %.4f s" % (what, OVERSIZED_3D_LABEL,
+                                             sum(p3), wall))
+        log_run3("(d) %s on volume 1 at ram_limit=%d (label %d oversized)"
+                 % (what, OVERSIZED_3D_MB, OVERSIZED_3D_LABEL), wall,
+                 launches, peak)
+        if ibsi:
+            tl, tv = VolumeRunner(fset, EngineConfig(precision="f32",
+                                                     ibsi=True),
+                                  DEVICE_3E).run(*v)
+        else:
+            tl, tv = triv
+        if list(labs) != list(tl):
+            raise AssertionError("(d) %s: labels differ" % what)
+        k = list(labs).index(OVERSIZED_3D_LABEL)
+        unserved = unserved_columns(cols, dev[k], tv[k])
+        if unserved:
+            raise AssertionError("(d) %s: phase 3 leaves unserved %r"
+                                 % (what, unserved))
+        rl, rv = refs[ibsi].result()
+        if list(rl) != [OVERSIZED_3D_LABEL]:
+            raise AssertionError("(d) %s: the reference's labels %r"
+                                 % (what, rl))
+        worst = (0.0, None)
+        for j, col in enumerate(cols):
+            a, b = dev[k, j], rv[0, j]
+            if not (np.isfinite(a) and np.isfinite(b)):
+                continue
+            atol = 1e-6 if "INFOMEAS" in col else 1e-10
+            r = abs(a - b) / (atol + 1e-8 * abs(b))
+            if r > worst[0]:
+                worst = (r, col)
+            if r > 1.0:
+                raise AssertionError(
+                    "(d) %s: %s through phase 3 on the card %r, the f64 CPU "
+                    "trivial run %r" % (what, col, a, b))
+        others = [j for j in range(len(labs)) if j != k]
+        bad, _ = compare_tiers(cols, dev[others], tv[others])
+        if bad:
+            raise AssertionError("(d) %s: the trivial rows differ: %r"
+                                 % (what, bad[:10]))
+        log("  (d) %s: label %d's %d columns through phase 3 equal the f64 "
+            "CPU trivial run at rtol 1e-8 (closest: %s at %.3g of it), none "
+            "unserved" % (what, OVERSIZED_3D_LABEL, len(cols), worst[1],
+                          worst[0]))
+    return finish3d_stage_rows(kern, vol)
+
+
+def whole_volume_cube(vol):
+    """Volume 1 as whole-volume mode's one ROI: the 97 x 321 x 321 one-past
+    box in a 128 x 512 x 512 bucket, every voxel of the volume in the ROI,
+    in synth_cube's form (masked intensities, levels at 64, raw levels,
+    the AABB mask, depths, heights, widths) on the card in float32."""
+    import torch
+    from nyxus_tpu_torch.ops import quant, texture3d
+    from nyxus_tpu_torch.pipeline import batching
+    D, H, W = vol[0].shape
+    shape = tuple(batching.pad_dim(n + 1) for n in (D, H, W))
+    orig = torch.zeros((1,) + shape, dtype=torch.float32, device=DEVICE_3E)
+    orig[0, :D, :H, :W] = torch.from_numpy(vol[0].astype(np.float32))
+    vmax = orig.reshape(1, -1).amax(dim=1).clamp(min=1)[:, None, None, None]
+    lev = quant.bin_levels(orig, vmax, vmax, 64)
+    dd, hh, ww = (torch.tensor([n + 1], dtype=torch.int32, device=DEVICE_3E)
+                  for n in (D, H, W))
+    aabb = texture3d._in_aabb3d(shape, dd, hh, ww)
+    return orig, lev, orig.to(torch.int32), aabb, dd, hh, ww
+
+
+def kernels_whole_volume(vol):
+    """Phase 3e (e): K13-K16, K7 (on every plan forced) and K1 against their
+    plain versions at the whole-volume crop (kernels_3d_agree, f32), then
+    each timed there as the 3D families call it; returns ({kernel: the
+    largest |kernel - plain|}, {kernel: (device ms, events ms, launches a
+    call)})."""
+    import torch
+    from nyxus_tpu_torch.ops import common, texture3d as t3, zones
+    err = {k: 0.0 for k in KERNELS_WHOLE_VOLUME}
+
+    def agree(name, got, want, scale=None):
+        if got.shape != want.shape:
+            raise AssertionError("(e) %s: shape %s != %s"
+                                 % (name, got.shape, want.shape))
+        diff = (got.double() - want.double()).abs()
+        e = float(diff.max()) if got.numel() else 0.0
+        err[name] = max(err[name], e)
+        if scale is None:
+            if not torch.equal(got, want):
+                raise AssertionError("(e) %s: differs from its plain "
+                                     "version (max abs %g)" % (name, e))
+        elif not bool((diff <= scale).all()):
+            raise AssertionError("(e) %s: beyond its bound (max abs %g)"
+                                 % (name, e))
+
+    cube = whole_volume_cube(vol)
+    t0 = time.perf_counter()
+    kernels_3d_agree(agree, cube, torch.float32, 1e-6)
+    log("  (e) K13-K16, K7 on every plan and K1 agree with their plain "
+        "versions at the whole-volume crop 1 x %d x %d x %d (box %d x %d x "
+        "%d) in %.1f s; max |kernel - plain| %s"
+        % (tuple(cube[0].shape[1:])
+           + tuple(int(x) for x in (cube[4][0], cube[5][0], cube[6][0]))
+           + (time.perf_counter() - t0, err)))
+    orig, lev, raw, aabb, dd, hh, ww = cube
+    nr = max(lev.shape[1:])
+    rvalid = aabb & (raw > 0)
+    sv = aabb & (raw != 0)
+    slev = torch.where(sv, raw, -1)
+    dlev = torch.where(aabb, lev, 0)
+    glev = torch.where(aabb, raw, -9)
+    f32 = torch.float32
+    anc, _ = t3.cc3d(slev, sv, 26)
+    same = t3.stencil3d(glev, aabb, t3.N26)
+    cells = common._composite((raw - 1).reshape(1, -1), same.reshape(1, -1),
+                              RAW_NG, 27)
+    ones = aabb.reshape(1, -1).to(f32)
+    calls = {
+        "glcm3d_cooc": lambda: t3.glcm3d_cooc(lev, dd, hh, ww, 1, 64, False,
+                                              False, f32),
+        "glrlm3d_runs": lambda: t3.glrlm3d_runs(raw, rvalid, RAW_NG, nr,
+                                                f32),
+        "cc3d": lambda: t3.cc3d(slev, sv, 26),
+        "cc3d 6 + distances": lambda: t3.cc3d(dlev, aabb, 6, hh, ww),
+        "stencil3d": lambda: t3.stencil3d(glev, aabb, t3.N26),
+        "zone_stats": lambda: zones.zone_list(anc, raw, sv),
+        "batched_hist": lambda: common.batched_hist(cells, ones,
+                                                    RAW_NG * 27),
+    }
+    times = {}
+    for name, fn in calls.items():
+        ev, ms, n = timed(fn, iters=3)
+        times[name] = (ms, ev, n)
+        log("  (e) time %-18s at the whole-volume crop: device %.4f ms "
+            "(events %.4f ms, %s device launches a call)" % (name, ms, ev, n))
+    return err, times
+
+
+def check_3d_beyond(kern, vols, runner_3d):
+    """Phase 3e: (a) and (b) check_3d_files, (c) check_3d_modes, (d)
+    check_oversized_3d (the f64 CPU references of (c) and (d) in four
+    worker processes meanwhile), (e) kernels_whole_volume.  Returns (the finish
+    stages' rows, phase 2's errors and times at the whole-volume crop)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from nyxus_tpu_torch import Nyxus3D
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {m: pool.submit(mode_ref_3d, m) for m in MODES_3D}
+        trefs = {ibsi: pool.submit(trivial_ref_3d, ibsi)
+                 for ibsi in (False, True)}
+        log_phase("phase 3e (a), (b): the NIfTI and layout-A file protocol")
+        nyx = Nyxus3D(FEATURES_3D, DEVICE_3E, precision="f32")
+        mem = frame_rows(nyx, nyx.featurize([v[0] for v in vols],
+                                            [v[1] for v in vols]))
+        check_3d_files(kern, vols, mem)
+        log_phase("phase 3e (c): the run modes, volume 1 whole on the card "
+                  "and its first %d planes against the f64 CPU"
+                  % MODE_CPU_DEPTH)
+        check_3d_modes(kern, refs)
+        log_phase("phase 3e (d): volume 1's largest ROI through phase 3")
+        triv = runner_3d.run(*vols[0])
+        rows = check_oversized_3d(kern, vols[0], triv, trefs)
+    log_phase("phase 3e (e): K13-K16, K7 and K1 at the whole-volume crop")
+    whole = kernels_whole_volume(vols[0])
+    log("  phase 3e took %.1f s" % (time.perf_counter() - t0))
+    return rows, whole
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_times_only(root, only=None):
@@ -5129,6 +5679,15 @@ def main():
     log_phase("phase 4, 3D: throughput on 2 volumes make_volume_3d(1..2)")
     runner_3d, vols, launches_3d = throughput_3d(kern)
 
+    # phase 3e
+    log_phase("phase 3e: %s beyond the default configuration: the NIfTI and "
+              "2.5D file protocol, the run modes, an oversized ROI, the "
+              "kernels at the whole-volume crop" % " ".join(FEATURES_3D))
+    finish3d_rows, (whole_err, whole_times) = check_3d_beyond(
+        kern, vols, runner_3d)
+    for k, e in whole_err.items():
+        kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], e)
+
     # phase 5
     log_phase("phase 5: profile of one warm slide of the 747-column request")
     profile_report("slide 8 of the 747-column request",
@@ -5194,6 +5753,16 @@ def main():
         {k: r[k] for k in ("name", "ms", "device_ms", "device_launches",
                            "device_copies", "kernel_launches", "bound_ms", "bound_by",
                            "library_ms", "agree")} for r in oversized_rows]}))
+    log("phase 3e again: " + "; ".join(WALLS_3E))
+    log(json.dumps({"finish3d_stages": [
+        {k: r[k] for k in ("name", "ms", "device_ms", "device_launches",
+                           "device_copies", "kernel_launches", "bound_ms",
+                           "bound_by", "agree", "uploaded", "members")}
+        for r in finish3d_rows]}))
+    log(json.dumps({"whole_volume_kernels": {
+        k: {"device_ms": t[0], "events_ms": t[1], "launches_a_call": t[2]}
+        for k, t in whole_times.items()}}))
+    log("smoke wall: %.1f s" % (time.perf_counter() - T_START))
     log_phase("done")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

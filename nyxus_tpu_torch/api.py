@@ -1,14 +1,15 @@
 """Public Python API: ``Nyxus`` for 2D pairs, in memory or as TIFF files,
 ``ImageQuality`` for the image-quality families over the same surface,
-and ``Nyxus3D`` for in-memory 3D volume pairs (PyTorch port of
-nyxus_tpu/api.py: ``featurize``, the 2D file protocol
-``featurize_directory`` / ``featurize_files`` with its tile-streamed run
-for slides over the RAM gate, their pandas / Arrow IPC / Parquet outputs,
-the ROI blacklist, the run modes mergerois, whole-slide and anisotropy,
-and the parameter surface).  ``cli.py`` drives it from the command line.
+and ``Nyxus3D`` for 3D volume pairs, in memory, as NIfTI files or as 2.5D
+stacks of slice files (PyTorch port of nyxus_tpu/api.py: ``featurize``,
+the 2D and 3D file protocols ``featurize_directory`` / ``featurize_files``
+with their streamed runs for slides and stacks over the RAM gate, their
+pandas / Arrow IPC / Parquet outputs, the ROI blacklist, the run modes
+mergerois, whole-slide / whole-volume and anisotropy, and the parameter
+surface).  ``cli.py`` drives it from the command line.
 
 Mirrors the reference's Python surface (reference:
-src/nyx/python/nyxus/nyxus.py:29-909).  ``pandas`` and ``pyarrow`` are
+src/nyx/python/nyxus/nyxus.py:29-1466).  ``pandas`` and ``pyarrow`` are
 imported only where a frame is built or a file written, so ``import
 nyxus_tpu_torch`` works without them.
 """
@@ -57,6 +58,34 @@ def _force_finite(values: np.ndarray, noval: float) -> np.ndarray:
     out = values.copy()
     out[~np.isfinite(out)] = noval
     return out
+
+
+def _prefetched(load, n):
+    """Yield (k, load(k)) with item k+1 loading on a reader thread while
+    item k is consumed (nyxus_tpu/api.py:50; reference: threaded tile
+    loaders, abs_tile_loader.h:19)."""
+    from concurrent.futures import ThreadPoolExecutor
+    if n == 0:
+        return
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="nyx-prefetch")
+    try:
+        fut = ex.submit(load, 0)
+        for k in range(n):
+            item = fut.result()
+            fut = ex.submit(load, k + 1) if k + 1 < n else None
+            yield k, item
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def _prep_slice(a):
+    """A layout-A slice as ``Nyxus3D._prep`` maps a volume, where that needs
+    no other slice: floored; negative values (whose shift needs the whole
+    stack's minimum) raise ValueError."""
+    a = np.asarray(a, np.float64)
+    if a.size and a.min() < 0:
+        raise ValueError("negative intensities")
+    return np.floor(a)
 
 
 class Nyxus:
@@ -282,30 +311,18 @@ class Nyxus:
         pyarrow.  One reader thread decodes pair k+1 while pair k computes
         (the reference overlaps IO with compute through threaded tile
         loaders, abs_tile_loader.h:19); a read that fails raises here."""
-        from concurrent.futures import ThreadPoolExecutor
-
         from .io import dataset as ds
         int_files, lab_files, wholeslide = ds.read_2d_dataset(
             intensity_dir, label_dir, file_pattern)
         pairs = list(zip(int_files, lab_files))
-        if not pairs:
-            return
-        ex = ThreadPoolExecutor(max_workers=1,
-                                thread_name_prefix="nyx-prefetch")
-        try:
-            fut = ex.submit(self._load_pair_arrays, *pairs[0], wholeslide)
-            for k, (ipath, lpath) in enumerate(pairs):
-                pre = fut.result()
-                if k + 1 < len(pairs):
-                    fut = ex.submit(self._load_pair_arrays, *pairs[k + 1],
-                                    wholeslide)
-                labs, values = self._run_pair_file(
-                    ipath, lpath, wholeslide, os.path.basename(lpath or ipath),
-                    preloaded=pre)
-                yield ipath, lpath, labs, _force_finite(values,
-                                                        self.cfg.noval)
-        finally:
-            ex.shutdown(wait=True, cancel_futures=True)
+        for k, pre in _prefetched(
+                lambda k: self._load_pair_arrays(*pairs[k], wholeslide),
+                len(pairs)):
+            ipath, lpath = pairs[k]
+            labs, values = self._run_pair_file(
+                ipath, lpath, wholeslide, os.path.basename(lpath or ipath),
+                preloaded=pre)
+            yield ipath, lpath, labs, _force_finite(values, self.cfg.noval)
 
     def _open_stream_source(self, ipath, lpath, wholeslide):
         """A region-read source for a TIFF pair, or for one TIFF in
@@ -526,17 +543,26 @@ class ImageQuality(Nyxus):
 
 
 class Nyxus3D:
-    """3D feature extractor over in-memory [Z, Y, X] voxel arrays (reference:
+    """3D feature extractor over NIfTI volumes, 2.5D layout-A stacks of
+    slice files or in-memory [Z, Y, X] voxel arrays (reference:
     nyxus.py:911-1466) on a torch device.
 
-    ``device`` as for ``Nyxus``.  Not ported yet, each raising
-    ``NotImplementedError`` naming its ROADMAP item: 3D anisotropy
-    (``anisotropy_*`` other than 1), whole-volume mode, lazy 2.5D stacks,
-    ``mergerois``, oversized ROIs, ``featurize_directory`` /
-    ``featurize_files`` (the NIfTI file protocol) and ``n_devices`` other
-    than 1."""
+    ``device`` as for ``Nyxus``.  The run modes ``mergerois``,
+    ``anisotropy_x`` / ``anisotropy_y`` / ``anisotropy_z`` (the nearest-
+    neighbour resampled volume), whole-volume mode (``featurize_files``
+    with ``single_roi``), ROIs over the RAM gate (phase 3) and stacks over
+    it (read a plane at a time) all work.  ``n_devices`` other than None,
+    0 or 1 raises ``NotImplementedError``: the port does not shard over
+    cards yet (ROADMAP queue 1 item 10)."""
+
+    _valid_output_types = list(_VALID_OUTPUT_TYPES)
 
     def __init__(self, features, device="cuda", **kwargs):
+        if kwargs.get("n_devices", 1) not in (None, 0, 1) \
+                or kwargs.get("shard_slides"):
+            raise NotImplementedError(
+                "nyxus_tpu_torch does not support multi-device 3D yet: "
+                "ROADMAP.md queue 1 item 10 (multi-GPU)")
         self.features = list(features)
         updates = {}
         for k, v in kwargs.items():
@@ -553,9 +579,6 @@ class Nyxus3D:
         for k in ("aniso_x", "aniso_y", "aniso_z"):
             if k in updates:
                 updates[k] = float(np.float32(updates[k]))
-        if kwargs.get("n_devices", 1) not in (None, 0, 1):
-            from .pipeline.runner3d import _unported
-            raise _unported(15, "multi-device 3D")
         self.cfg = EngineConfig().replace(**updates)
         self.device = device
         self._compile()
@@ -591,19 +614,203 @@ class Nyxus3D:
             values = _force_finite(values, self.cfg.noval)
             frames.append(self._to_frame(iname, lname, labs, values))
         if not frames:
-            return self._to_frame("", "", np.zeros(0, np.int64),
-                                  np.zeros((0, len(self.header) - 4)))
+            return self._empty_frame()
         return pd.concat(frames, ignore_index=True)
 
     _to_frame = Nyxus._to_frame
 
-    def featurize_directory(self, *args, **kwargs):
-        from .pipeline.runner3d import _unported
-        raise _unported(6, "featurize_directory (the NIfTI file protocol)")
+    def _empty_frame(self):
+        return self._to_frame("", "", np.zeros(0, np.int64),
+                              np.zeros((0, len(self.header) - 4)))
 
-    def featurize_files(self, *args, **kwargs):
-        from .pipeline.runner3d import _unported
-        raise _unported(6, "featurize_files (the NIfTI file protocol)")
+    # -- the file protocol (nyxus_tpu/api.py:697-860) ----------------------
+
+    def featurize_directory(self, intensity_dir: str, label_dir: str,
+                            file_pattern: str = ".*",
+                            output_type: str = "pandas",
+                            output_path: str = ""):
+        """Features of every volume pair of a directory (reference:
+        nyxus.py:1006-1098): NIfTI files (``.nii``, ``.nii.gz``) paired by
+        name, each time point of a 4D file its own frame rows; or, where
+        ``file_pattern`` is a layout-A pattern (a ``{set d+}`` z field, e.g.
+        ``vol{d+}_z{set d+}.tif``), 2.5D volumes, one a z-stack of 2D slice
+        files.  A stack over the RAM gate is read a plane at a time
+        (``sources.LayoutAStack``); one with negative intensities, or under
+        mergerois or anisotropy, is stacked whole.  Returns a DataFrame,
+        or the path of the Arrow IPC or Parquet file, written one volume at
+        a time."""
+        from .io import dataset as ds
+        from .io.strpat import StringPattern
+
+        if not os.path.exists(intensity_dir):
+            raise IOError("Provided intensity image directory '%s' does not "
+                          "exist." % intensity_dir)
+        if label_dir is not None and not os.path.exists(label_dir):
+            raise IOError("Provided label image directory '%s' does not "
+                          "exist." % label_dir)
+        if label_dir is None:
+            label_dir = intensity_dir
+        if output_type not in self._valid_output_types:
+            raise ValueError("Invalid output type %s. Valid output types "
+                             "are %s." % (output_type,
+                                          self._valid_output_types))
+        if StringPattern.is_layoutA_fpattern(file_pattern):
+            frames = self._iter_layout_a(intensity_dir, label_dir,
+                                         file_pattern)
+        else:
+            int_files, lab_files, _ = ds.read_3d_dataset(
+                intensity_dir, label_dir, file_pattern)
+            frames = self._iter_volume_pairs(list(zip(int_files, lab_files)))
+        return self._emit(frames, output_type, output_path)
+
+    def featurize_files(self, intensity_files, mask_files, single_roi=False,
+                        output_type: str = "pandas", output_path: str = ""):
+        """Features of explicit volume file pairs (reference:
+        nyxus.py:1100-1190); ``single_roi`` is whole-volume mode: each
+        intensity volume is one ROI over its one-past box and
+        ``mask_files`` is not read."""
+        if intensity_files is None:
+            raise IOError("The list of intensity file paths is empty")
+        if mask_files is None and not single_roi:
+            raise IOError("The list of segment file paths is empty")
+        if output_type not in self._valid_output_types:
+            raise ValueError("Invalid output type %s. Valid output types "
+                             "are %s." % (output_type,
+                                          self._valid_output_types))
+        pairs = [(ipath, ipath if single_roi else mask_files[k])
+                 for k, ipath in enumerate(intensity_files)]
+        return self._emit(self._iter_volume_pairs(pairs,
+                                                  single_roi=single_roi),
+                          output_type, output_path)
+
+    def _emit(self, frames, output_type, output_path):
+        """pandas: the frames concatenated; arrow/parquet: streamed into
+        the file a volume at a time, whose path it returns (reference:
+        workflow_3d_whole.cpp:172-186)."""
+        if output_type == "pandas":
+            import pandas as pd
+            dfs = list(frames)
+            return pd.concat(dfs, ignore_index=True) if dfs else \
+                self._empty_frame()
+        from .io import writers
+        w = writers.StreamingArrowWriter(output_type, output_path)
+        try:
+            wrote = False
+            for frame in frames:
+                w.write(frame)
+                wrote = True
+            if not wrote:
+                w.write(self._empty_frame())
+        finally:
+            w.close()
+        self._arrow_path = w.path
+        return self._arrow_path
+
+    def _iter_layout_a(self, intensity_dir, label_dir, file_pattern):
+        """Frames of the 2.5D volumes of a directory: stack k+1 is read on
+        a reader thread while stack k computes (reference: phase2_25d.cpp,
+        Imgfile3D_layoutA; a thread a volume, workflow_3d_whole.cpp:294)."""
+        from .io import dataset as ds
+        from .io import readers
+        from .pipeline.sources import LayoutAStack
+
+        groups = list(ds.read_3d_layoutA(intensity_dir, label_dir,
+                                         file_pattern))
+
+        def stacked(k):
+            _, ipaths, lpaths = groups[k]
+            return (np.stack([readers.read_gray(p) for p in ipaths]),
+                    np.stack([readers.read_gray(p) for p in lpaths]))
+
+        def load_stack(k):
+            # the RAM gate (the reference tile-streams 2.5D like 2D,
+            # phase1.cpp:130 gatherRoisMetrics_25D): a stack over it is
+            # read lazily, a plane at a time
+            _, ipaths, lpaths = groups[k]
+            try:
+                stack = LayoutAStack(ipaths, lpaths, prep=_prep_slice)
+                D, H, W = stack.full_shape
+                if D * H * W * 16 > (self.cfg.ram_limit_mb << 20) // 2:
+                    return stack
+            except ValueError:
+                pass
+            return stacked(k)
+
+        for k, vols in _prefetched(load_stack, len(groups)):
+            key = groups[k][0]
+            labs = None
+            if not isinstance(vols, tuple):
+                try:
+                    labs, values = self._runner.run(vols.intens, vols.labels)
+                except ValueError:
+                    # negative intensities mid-stack, or a mode the lazy
+                    # stack does not serve: stack it whole
+                    vols = stacked(k)
+            if labs is None:
+                ivol, lvol = vols
+                labs, values = self._runner.run(self._prep(ivol),
+                                                lvol.astype(np.int32))
+            values = _force_finite(values, self.cfg.noval)
+            yield self._to_frame(os.path.join(intensity_dir, key),
+                                 os.path.join(label_dir, key), labs, values)
+
+    def _iter_volume_pairs(self, pairs, single_roi=False):
+        """Frames of a list of volume file pairs; volume k+1 is read on a
+        reader thread while volume k computes."""
+        from .io import readers
+
+        def load(k):
+            ipath, lpath = pairs[k]
+            ivol, imeta = readers.read_volume(ipath, with_meta=True)
+            if single_roi:
+                lvol = np.ones(ivol.shape, np.int32)
+            else:
+                lvol, _ = readers.read_volume(lpath, with_meta=True)
+            return ivol, imeta, lvol
+
+        for k, (ivol, imeta, lvol) in _prefetched(load, len(pairs)):
+            ipath, lpath = pairs[k]
+            yield self._featurize_volume_arrays(
+                ipath, "" if single_roi else lpath, ivol, imeta, lvol,
+                wholeslide=single_roi)
+
+    def _featurize_volume_pair(self, ipath, lpath, single_roi=False):
+        """One volume pair, read and featurized serially (the no-prefetch
+        baseline of ``_iter_volume_pairs``)."""
+        from .io import readers
+        ivol, imeta = readers.read_volume(ipath, with_meta=True)
+        if single_roi:
+            lvol = np.ones(ivol.shape, np.int32)
+        else:
+            lvol, _ = readers.read_volume(lpath, with_meta=True)
+        return self._featurize_volume_arrays(
+            ipath, "" if single_roi else lpath, ivol, imeta, lvol,
+            wholeslide=single_roi)
+
+    def _featurize_volume_arrays(self, ipath, lname, ivol, imeta, lvol,
+                                 wholeslide=False):
+        """The frame of one [T, Z, Y, X] volume pair: a time point's rows
+        with its index in the time column; a label volume with fewer time
+        points serves the later ones with its first."""
+        import pandas as pd
+        nt = max(imeta["nt"], 1)
+        frames = []
+        for t in range(nt):
+            lt = lvol[t] if lvol.shape[0] > t else lvol[0]
+            labs, values = self._runner.run(self._prep(ivol[t]),
+                                            lt.astype(np.int32),
+                                            wholeslide=wholeslide)
+            values = _force_finite(values, self.cfg.noval)
+            f = self._to_frame(ipath, lname, labs, values)
+            f[col.COL_T] = float(t)
+            frames.append(f)
+        return pd.concat(frames, ignore_index=True)
+
+    # -- Arrow accessors ----------------------------------------------------
+
+    get_arrow_ipc_file = Nyxus.get_arrow_ipc_file
+    get_parquet_file = Nyxus.get_parquet_file
+    arrow_is_enabled = staticmethod(Nyxus.arrow_is_enabled)
 
     def _prep(self, vol: np.ndarray) -> np.ndarray:
         """Shift a volume with negative values to start at 0, then floor

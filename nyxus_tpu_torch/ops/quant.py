@@ -52,7 +52,9 @@ def bin_radiomics(x, vmin, vmax, n_levels: int):
         y = (_floor_ratio_exact((x - vmin) * n_levels, vmax - vmin)
              + 1.0).to(torch.int32)
     else:
-        binw = (vmax - vmin) / n_levels
+        # one rounded division on every device (see intensity.py's binw)
+        rng = vmax - vmin
+        binw = rng / torch.full_like(rng, float(n_levels))
         y = (torch.floor((x - vmin) / torch.clamp(binw, min=1e-30))
              + 1).to(torch.int32)
     y = torch.clamp(y, max=n_levels)

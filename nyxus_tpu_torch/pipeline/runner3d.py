@@ -1,17 +1,20 @@
-"""3D pipeline (PyTorch port of nyxus_tpu/pipeline/runner3d.py, the dense
-in-memory segmented path): volume ROI discovery, bucketed [B, D, H, W]
-batching, the eight device families ``D3_*`` on one torch device, and the
-host surface family.
+"""3D pipeline (PyTorch port of nyxus_tpu/pipeline/runner3d.py): volume ROI
+discovery, bucketed [B, D, H, W] batching, the eight device families
+``D3_*`` on one torch device, and the host surface family.
+
+The run modes: ``mergerois``, whole-volume mode (one vROI over the
+one-past box), 3D anisotropy (the nearest-neighbour resampled virtual
+volume), lazy 2.5D layout-A stacks (per-plane discovery and host crop
+assembly; the stack never materialises), and oversized ROIs over the RAM
+gate (the slice-streamed phase 3 of pipeline/oversized3d.py, its finish
+stages on this runner's device).
 
 Reference: src/nyx/workflow_3d_segmented.cpp, phase1.cpp:248 (3D metrics
 gather), phase2_3d.cpp (SimpleCube build), reduce_trivial_rois.cpp (3D
-families).  ``Roi3D``, ``discover_rois_3d``, ``is_oversized3d`` (of
-pipeline/oversized3d.py) and ``VolumeRunner._surface`` are verbatim copies
-of the JAX package's code (pinned by tests/test_torch_tables.py).
-
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-3D anisotropy, whole-volume mode, lazy 2.5D stacks, ``mergerois``,
-oversized 3D ROIs.
+families).  ``Roi3D``, ``_aniso_bbox3``, ``discover_rois_3d``,
+``discover_rois_3d_streamed``, ``VolumeRunner._surface`` and
+``VolumeRunner._surface_wholevolume`` are verbatim copies of the JAX
+package's code (pinned by tests/test_torch_tables.py).
 """
 
 from __future__ import annotations
@@ -31,15 +34,7 @@ from ..ops import intensity as ops_intensity
 from ..ops import quant
 from ..ops import texture3d as t3
 from . import batching
-
-# the ROADMAP.md item ("Still to port, in order") each unported mode waits on
-_TODO = "ROADMAP.md 'Still to port' item %d (%s)"
-
-
-def _unported(item: int, what: str):
-    return NotImplementedError("nyxus_tpu_torch does not support %s yet: %s"
-                               % (what, _TODO % (item, what)))
-
+from .oversized3d import is_oversized3d, process3d
 
 @dataclasses.dataclass
 class Roi3D:
@@ -70,6 +65,21 @@ class Roi3D:
     @property
     def width(self):
         return self.x1 - self.x0 + 1
+
+
+def _aniso_bbox3(r: Roi3D, ax: float, ay: float, az: float) -> Roi3D:
+    """3-axis AABB::apply_anisotropy (features/aabb.h:115-134): truncate the
+    mins, truncate the maxes with the one-step round-trip fixup.  area/vmin/
+    vmax keep their physical phase-1 values (aux_* quirk)."""
+    def scale(lo, hi, a):
+        lo2, hi2 = int(lo * a), int(hi * a)
+        if int((hi2 + 1) / a) == hi:
+            hi2 += 1
+        return lo2, hi2
+    x0, x1 = scale(r.x0, r.x1, ax)
+    y0, y1 = scale(r.y0, r.y1, ay)
+    z0, z1 = scale(r.z0, r.z1, az)
+    return Roi3D(r.label, r.area, z0, z1, y0, y1, x0, x1, r.vmin, r.vmax)
 
 
 def discover_rois_3d(intens: np.ndarray, labels: np.ndarray):
@@ -106,16 +116,58 @@ def discover_rois_3d(intens: np.ndarray, labels: np.ndarray):
     return recs, float(intens.min()), float(intens.max())
 
 
-def is_oversized3d(rec, budget_bytes, bytes_per_px=16):
-    """True when the ROI's padded cube cannot fit the batch budget
-    (nyxus_tpu/pipeline/oversized3d.py:281)."""
-    dims = (rec.depth, rec.height, rec.width)
-    if max(dims) > batching._LADDER[-1]:
-        return True
-    pd = batching.pad_dim(rec.depth)
-    ph = batching.pad_dim(rec.height)
-    pw = batching.pad_dim(rec.width)
-    return pd * ph * pw * bytes_per_px > budget_bytes
+def discover_rois_3d_streamed(intens, labels):
+    """Per-z-plane accumulation variant of discover_rois_3d for lazy
+    (layout-A) stacks: one decoded plane in flight, identical results.
+    Mirrors the reference's slice-streamed 2.5D phase 1
+    (phase1.cpp:130 gatherRoisMetrics_25D)."""
+    D, H, W = labels.shape
+    agg = {}    # label -> [area, z0, z1, y0, y1, x0, x1, vmin, vmax]
+    smin, smax = np.inf, -np.inf
+    for z in range(D):
+        lab2 = np.asarray(labels[z])
+        int2 = np.asarray(intens[z])
+        smin = min(smin, float(int2.min()))
+        smax = max(smax, float(int2.max()))
+        ys, xs = np.nonzero(lab2)
+        if ys.size == 0:
+            continue
+        labs = lab2[ys, xs]
+        vals = int2[ys, xs].astype(np.float64)
+        uniq, inv = np.unique(labs, return_inverse=True)
+        k = uniq.size
+        area = np.bincount(inv, minlength=k)
+        vmin = np.full(k, np.inf)
+        vmax = np.full(k, -np.inf)
+        np.minimum.at(vmin, inv, vals)
+        np.maximum.at(vmax, inv, vals)
+        y0 = np.full(k, H, np.int64)
+        y1 = np.full(k, -1, np.int64)
+        x0 = np.full(k, W, np.int64)
+        x1 = np.full(k, -1, np.int64)
+        np.minimum.at(y0, inv, ys)
+        np.maximum.at(y1, inv, ys)
+        np.minimum.at(x0, inv, xs)
+        np.maximum.at(x1, inv, xs)
+        for i in range(k):
+            lb = int(uniq[i])
+            a = agg.get(lb)
+            if a is None:
+                agg[lb] = [int(area[i]), z, z, int(y0[i]), int(y1[i]),
+                           int(x0[i]), int(x1[i]), float(vmin[i]),
+                           float(vmax[i])]
+            else:
+                a[0] += int(area[i])
+                a[2] = z
+                a[3] = min(a[3], int(y0[i]))
+                a[4] = max(a[4], int(y1[i]))
+                a[5] = min(a[5], int(x0[i]))
+                a[6] = max(a[6], int(x1[i]))
+                a[7] = min(a[7], float(vmin[i]))
+                a[8] = max(a[8], float(vmax[i]))
+    recs = [Roi3D(lb, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8])
+            for lb, a in sorted(agg.items())]
+    return recs, float(smin), float(smax)
 
 
 class Ctx3D:
@@ -293,10 +345,6 @@ class VolumeRunner:
 
     def __init__(self, fset: tx.FeatureSet, cfg: EngineConfig,
                  device="cuda"):
-        if cfg.mergerois:
-            raise _unported(14, "mergerois")
-        if cfg.aniso_customized or abs(cfg.aniso_z - 1.0) > 1.1920929e-07:
-            raise _unported(1, "3D anisotropy")
         self.fset = fset
         self.cfg = cfg
         self.device = torch.device(device)
@@ -314,32 +362,63 @@ class VolumeRunner:
             self.member_slots[code] = (off, width)
             off += width
 
-    def run(self, intens: np.ndarray, label_img: np.ndarray,
-            wholeslide: bool = False):
-        """In-memory [Z, Y, X] volume pair.  Returns (labels[int],
-        values[N, n_values]) in ascending label order; unassigned features
-        hold -0.0."""
-        if not isinstance(intens, np.ndarray):
-            raise _unported(3, "lazy 2.5D stacks")
-        if wholeslide:
-            raise _unported(2, "whole-volume mode")
+    def run(self, intens, label_img, wholeslide: bool = False):
+        """One [Z, Y, X] volume pair: numpy arrays, or the lazy channels of
+        a layout-A stack (``sources.LayoutAStack``), which never
+        materialise.  ``wholeslide``: the volume is one vROI.  Returns
+        (labels[int], values[N, n_values]) in ascending label order;
+        unassigned features hold -0.0."""
+        # lazy (layout-A streamed) stacks: per-plane discovery, host-side
+        # crop assembly, per-z oversized pass (reference: phase1.cpp:130,
+        # phase2_25d.cpp)
+        lazy = not isinstance(intens, np.ndarray)
+        if lazy and (self.cfg.mergerois or self.cfg.aniso_customized
+                     or abs(self.cfg.aniso_z - 1.0) > 1.2e-07):
+            raise ValueError("streamed 2.5D stacks do not support "
+                             "mergerois/anisotropy; raise ram_limit to "
+                             "materialize the stack")
+        if self.cfg.mergerois:
+            # --mergerois: the whole nonzero foreground is one ROI
+            label_img = (label_img != 0).astype(label_img.dtype)
         with record_function("nyx:discover"):
-            recs, smin, smax = discover_rois_3d(intens, label_img)
+            recs, smin, smax = (discover_rois_3d_streamed(intens, label_img)
+                                if lazy else
+                                discover_rois_3d(intens, label_img))
+        if wholeslide and len(recs) == 1:
+            # whole-volume vROI: the inclusive one-past AABB 0..D, 0..H,
+            # 0..W (init_from_whd, aabb.h:61-69), whose last plane, row and
+            # column stay empty and take part as grey 0; the textures bin
+            # against the vROI's aux range 0 .. slide_max - slide_min
+            # (workflow_3d_whole.cpp:102-106)
+            D, H, W = intens.shape
+            r0 = recs[0]
+            recs[0] = Roi3D(r0.label, r0.area, 0, D, 0, H, 0, W,
+                            r0.vmin, r0.vmax,
+                            bin_min=0.0, bin_max=float(int(smax - smin)))
+        if self.cfg.aniso_customized or \
+                abs(self.cfg.aniso_z - 1.0) > 1.1920929e-07:
+            with record_function("nyx:aniso"):
+                recs, intens, label_img = self._anisotropic(recs, intens,
+                                                            label_img)
         n = len(recs)
         values = np.full((n, self.n_values), -0.0, np.float64)
         if n == 0:
             return np.zeros(0, np.int64), values
+
+        # trivial/oversized triage (the reference's RAM gate; 3D phase 3
+        # runs every family's osized_calculate, phase3.cpp:94-114)
         budget = self.cfg.ram_limit_mb << 20
-        over = [r.label for r in recs if is_oversized3d(r, budget)]
+        over = {i for i, r in enumerate(recs) if is_oversized3d(r, budget)}
         if over:
-            raise _unported(4, "oversized 3D ROIs (labels %s exceed the %d "
-                            "MB batch budget)" % (over[:10],
-                                                  self.cfg.ram_limit_mb))
+            with record_function("nyx:oversized"):
+                self._oversized(values, recs, over, intens, label_img, smin,
+                                smax)
 
         buckets = collections.defaultdict(list)
         for i, r in enumerate(recs):
-            buckets[(batching.pad_dim(r.depth), batching.pad_dim(r.height),
-                     batching.pad_dim(r.width))].append(i)
+            if i not in over:
+                buckets[(batching.pad_dim(r.depth), batching.pad_dim(r.height),
+                         batching.pad_dim(r.width))].append(i)
         # volume-level power-of-two ceiling of the raw levels' matrices
         ceil = max(int(smax), 2)
         ceil = 1 << (ceil - 1).bit_length()
@@ -399,24 +478,97 @@ class VolumeRunner:
 
         if self.need_surface:
             with record_function("nyx:D3_SurfaceFeature"):
-                self._surface(values, recs, label_img)
+                if wholeslide and len(recs) == 1:
+                    self._surface_wholevolume(values, recs[0])
+                else:
+                    self._surface(values, recs,
+                                  _Windows(label_img) if lazy else label_img,
+                                  skip=over)
         labs = np.asarray([r.label for r in recs], np.int64)
         return labs, values
+
+    def _anisotropic(self, recs, intens, label_img):
+        """3D anisotropy: the physical phase-1 records mapped to the
+        nearest-neighbour resampled virtual volume (reference:
+        phase1.cpp:220-344 make_anisotropic_aabb, phase2_3d.cpp's
+        anisotropic rescan).  Returns (records, virtual intensities,
+        virtual labels)."""
+        ax, ay, az = self.cfg.aniso_x, self.cfg.aniso_y, self.cfg.aniso_z
+        recs = [_aniso_bbox3(r, ax, ay, az) for r in recs]
+        D, H, W = intens.shape
+        # the 3D virtual->physical map rounds (+0.5) and skips positions
+        # beyond the physical bounds, leaving those virtual voxels empty,
+        # unlike the 2D path's truncation and clamp
+        # (scanTrivialRois_3D_anisotropic, phase2_3d.cpp:385-400)
+        ps = (np.arange(int(D * az)) / az + 0.5).astype(np.int64)
+        pr = (np.arange(int(H * ay)) / ay + 0.5).astype(np.int64)
+        pc = (np.arange(int(W * ax)) / ax + 0.5).astype(np.int64)
+        vi = np.zeros((len(ps), len(pr), len(pc)), intens.dtype)
+        vl = np.zeros(vi.shape, label_img.dtype)
+        okz, oky, okx = ps < D, pr < H, pc < W
+        sub = np.ix_(okz, oky, okx)
+        vi[sub] = intens[ps[okz]][:, pr[oky]][:, :, pc[okx]]
+        vl[sub] = label_img[ps[okz]][:, pr[oky]][:, :, pc[okx]]
+        # after the virtual rescan each AABB is the natural box of the fed
+        # virtual voxels (aabb.update_from_voxelcloud, phase2_3d.cpp:
+        # 695-699) and the voxel count the virtual cloud's (the run and
+        # zone denominators); area, vmin and vmax stay physical
+        vrecs, _, _ = discover_rois_3d(vi, vl)
+        nat = {r.label: r for r in vrecs}
+        recs = [Roi3D(r.label, r.area,
+                      nat[r.label].z0, nat[r.label].z1,
+                      nat[r.label].y0, nat[r.label].y1,
+                      nat[r.label].x0, nat[r.label].x1,
+                      r.vmin, r.vmax, cloud_area=nat[r.label].area)
+                for r in recs if r.label in nat]
+        return recs, vi, vl
+
+    def _oversized(self, values, recs, rows, intens, label_img, smin, smax):
+        """Phase 3: each row of ``rows`` through the slice-streamed pass of
+        pipeline/oversized3d.py, its finish stages on this runner's
+        device, scattered into ``values``."""
+        fams = set(self.families)
+        if self.need_surface:
+            fams.add("D3_SurfaceFeature")
+        for i in sorted(rows):
+            res = process3d(recs[i], intens, label_img, self.cfg, fams, smin,
+                            smax, device=self.device)
+            for members in res.values():
+                for member, v in members.items():
+                    code = tx.F3D.get(member)
+                    if code is None or code not in self.member_slots:
+                        continue
+                    off, width = self.member_slots[code]
+                    arr = np.atleast_1d(np.asarray(v, np.float64))
+                    w = min(width, arr.size)
+                    values[i, off:off + w] = arr[:w]
 
     def _batch_context(self, intens, label_img, brecs, shape, srange,
                        static_meta):
         """Host crop assembly of one padded bucket, shipped to the device
-        once."""
+        once.  A lazy stack's crops are cut plane by plane, the ROIs in
+        the order of their first plane, so that its LRU of decoded planes
+        serves each plane once where the ROIs allow."""
         D, H, W = shape
         B = len(brecs)
         np_dt = np.float64 if self.dtype == torch.float64 else np.float32
         ci = np.zeros((B, D, H, W), np_dt)
         cm = np.zeros((B, D, H, W), bool)
         Z_, Y_, X_ = label_img.shape
-        for bi, r in enumerate(brecs):
+        lazy = not isinstance(intens, np.ndarray)
+        for bi in sorted(range(B), key=lambda b: brecs[b].z0):
+            r = brecs[bi]
             z1 = min(r.z0 + D, Z_)
             y1 = min(r.y0 + H, Y_)
             x1 = min(r.x0 + W, X_)
+            if lazy:
+                sl = (slice(r.y0, y1), slice(r.x0, x1))
+                for z in range(r.z0, z1):
+                    ci[bi, z - r.z0, :y1 - r.y0, :x1 - r.x0] = \
+                        np.asarray(intens[z])[sl]
+                    cm[bi, z - r.z0, :y1 - r.y0, :x1 - r.x0] = \
+                        np.asarray(label_img[z])[sl] == r.label
+                continue
             sl = (slice(r.z0, z1), slice(r.y0, y1), slice(r.x0, x1))
             ci[bi, :z1 - r.z0, :y1 - r.y0, :x1 - r.x0] = intens[sl]
             cm[bi, :z1 - r.z0, :y1 - r.y0, :x1 - r.x0] = label_img[sl] == r.label
@@ -434,6 +586,32 @@ class VolumeRunner:
                      mi[:, 0], mf[:, 0], mf[:, 1], mi[:, 1], mi[:, 2],
                      mi[:, 3], self.cfg, static_meta, slide_range=mf[:, 4],
                      cloud_area=mi[:, 4], bvmin=mf[:, 2], bvmax=mf[:, 3])
+
+    def _surface_wholevolume(self, values, r):
+        """singleROI surface members: analytic box quantities from the
+        one-past AABB dims; axis features zeroed
+        (3d_surface.cpp:330-352)."""
+        import math
+        w, h, d = float(r.width), float(r.height), float(r.depth)
+        area = 2.0 * (w * h + h * d + w * d)
+        vol = w * h * d
+        out = {
+            "AREA": area, "VOLUME_CONVEXHULL": vol, "VOXEL_VOLUME": vol,
+            "MESH_VOLUME": vol, "AREA_2_VOLUME": area / vol,
+            "COMPACTNESS1": vol / math.sqrt(math.pi * area ** 3),
+            "COMPACTNESS2": 36.0 * math.pi * vol * vol / area ** 3,
+            "SPHERICAL_DISPROPORTION":
+                area / (36.0 * math.pi * vol * vol) ** (1.0 / 3.0),
+            "SPHERICITY":
+                (36.0 * math.pi * vol * vol) ** (1.0 / 3.0) / area,
+            "MAJOR_AXIS_LEN": 0.0, "MINOR_AXIS_LEN": 0.0,
+            "LEAST_AXIS_LEN": 0.0, "ELONGATION": 0.0, "FLATNESS": 0.0,
+        }
+        for member, v in out.items():
+            code = tx.F3D.get(member)
+            if code is not None and code in self.member_slots:
+                off, _ = self.member_slots[code]
+                values[0, off] = v
 
     def _surface(self, values, recs, label_img, skip=frozenset()):
         """D3_SurfaceFeature host computation (3d_surface.cpp:?)."""
@@ -494,3 +672,18 @@ class VolumeRunner:
                 if code in self.member_slots:
                     off, _ = self.member_slots[code]
                     values[i, off] = v
+
+
+class _Windows:
+    """A lazy stack's label channel as ``_surface`` reads it: an [z0:z1,
+    y0:y1, x0:x1] window as a numpy array, cut plane by plane, so that the
+    stack never materialises."""
+
+    def __init__(self, vol):
+        self._vol = vol
+        self.shape = vol.shape
+
+    def __getitem__(self, key):
+        zk, yk, xk = key
+        return np.stack([np.asarray(self._vol[z])[yk, xk]
+                         for z in range(*zk.indices(self.shape[0]))])

@@ -1,13 +1,15 @@
 """Pair sources: region access over an in-memory pair or an on-disk TIFF
 (nyxus_tpu/pipeline/sources.py ArrayPairSource, TiffPairSource,
-WholeSlideTiffSource, and the adapters AnisoResampledSource and
-MergedLabelSource, the last two verbatim copies).
+WholeSlideTiffSource, the adapters AnisoResampledSource and
+MergedLabelSource, and the lazy 2.5D z-stack LayoutAStack with its
+_LazyVol channels; the last four are verbatim copies).
 
 The runner asks a source for region [y0:y0+h, x0:x0+w) of the pair, so the
 same core drives numpy arrays and slides too large to hold in memory: a
-file-backed source decodes only the blocks a region touches.  The Zarr,
-DICOM and layout-A sources of the JAX package are not ported yet
-(ROADMAP.md queue 1 items 7 and 13).
+file-backed source decodes only the blocks a region touches; a layout-A
+stack decodes one slice file at a time through the port's ``read_gray``.
+The Zarr and DICOM sources of the JAX package are not ported yet
+(ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -187,3 +189,83 @@ class MergedLabelSource:
 
     def __exit__(self, *exc):
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# 2.5D layout-A lazy z-stack
+
+
+class _LazyVol:
+    """z-indexable lazy volume over a LayoutAStack channel.
+
+    Supports exactly the volume access patterns of the 3D pipeline:
+    ``v.shape``, ``v[z] -> 2D plane``, and ``v[z0:z1, y0:y1, x0:x1]``
+    (another _LazyVol restricted to the window -- used by the streamed
+    oversized pass, which then reads it per z)."""
+
+    def __init__(self, stack, channel, zs=None, ysl=None, xsl=None):
+        self._stack = stack
+        self._ch = channel          # 0 = intensity, 1 = labels
+        D, H, W = stack.full_shape
+        self._zs = range(D) if zs is None else zs
+        self._ysl = slice(0, H) if ysl is None else ysl
+        self._xsl = slice(0, W) if xsl is None else xsl
+        ny = len(range(*self._ysl.indices(H)))
+        nx = len(range(*self._xsl.indices(W)))
+        self.shape = (len(self._zs), ny, nx)
+        self.ndim = 3
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple):
+            zk, yk, xk = key
+            D = self.shape[0]
+            zs = [self._zs[i] for i in range(*zk.indices(D))] \
+                if isinstance(zk, slice) else [self._zs[zk]]
+            # compose window slices
+            H = self._stack.full_shape[1]
+            W = self._stack.full_shape[2]
+            ybase = range(*self._ysl.indices(H))
+            xbase = range(*self._xsl.indices(W))
+            yr = ybase[yk] if isinstance(yk, slice) else ybase[yk:yk + 1]
+            xr = xbase[xk] if isinstance(xk, slice) else xbase[xk:xk + 1]
+            return _LazyVol(self._stack, self._ch, zs,
+                            slice(yr.start, yr.stop), slice(xr.start, xr.stop))
+        plane = self._stack.plane(self._zs[key], self._ch)
+        return plane[self._ysl, self._xsl]
+
+
+class LayoutAStack:
+    """A 2.5D layout-A z-stack (one 2D slice FILE per z) decoded lazily,
+    slice-by-slice, with a small decoded-pair LRU -- the whole stack never
+    materializes in host RAM (reference tile-streams 2.5D like 2D:
+    phase1.cpp:130 gatherRoisMetrics_25D, phase2_25d.cpp).
+
+    ``intens``/``labels`` are z-indexable lazy volumes consumable by the
+    3D runner's streamed entry (discovery, host-side crop assembly, and
+    the per-z oversized pass)."""
+
+    def __init__(self, ipaths, lpaths, prep=None, cache_slices=8):
+        from ..io import readers
+        self._readers = readers
+        self._ipaths = list(ipaths)
+        self._lpaths = list(lpaths)
+        self._prep = prep
+        self._cache = {}
+        self._order = []
+        self._cap = max(2, cache_slices)
+        first_i = readers.read_gray(self._ipaths[0])
+        self.full_shape = (len(self._ipaths),) + first_i.shape
+        self.intens = _LazyVol(self, 0)
+        self.labels = _LazyVol(self, 1)
+
+    def plane(self, z, channel):
+        if z not in self._cache:
+            ii = self._readers.read_gray(self._ipaths[z])
+            if self._prep is not None:
+                ii = self._prep(ii)
+            ll = self._readers.read_gray(self._lpaths[z]).astype(np.int32)
+            self._cache[z] = (ii, ll)
+            self._order.append(z)
+            while len(self._order) > self._cap:
+                self._cache.pop(self._order.pop(0), None)
+        return self._cache[z][channel]

@@ -2,8 +2,12 @@
 (the request *3D_ALL*: 213 columns, the eight device families and the host
 surface family), against the JAX package's VolumeRunner on the same volume
 in f64 on the CPU, and against the reference binary's own CSV; the two
-packages' Nyxus3D configurations; and the modes the port does not serve
-yet, which raise NotImplementedError naming their ROADMAP item.  The
+packages' Nyxus3D configurations; and the one mode the port does not
+serve, several cards, which raises NotImplementedError naming its ROADMAP
+item.  The run modes, oversized ROIs and the file protocol are held
+against JAX in tests/test_torch_3d_modes_jax.py,
+tests/test_torch_3d_aniso_jax.py, tests/test_torch_oversized3d_jax.py,
+tests/test_torch_3d_files_jax.py and tests/test_torch_3d_layout_jax.py.  The
 comparisons with JAX's VolumeRunner run in two files of their own,
 tests/test_torch_3d_default_jax.py and tests/test_torch_3d_configs_jax.py,
 which import the helpers below.
@@ -147,34 +151,13 @@ def test_set_params_and_prep():
     np.testing.assert_array_equal(t._prep(vol), j._prep(vol))
 
 
-def _volume():
-    intens, labels = _fixture_volume()
-    return intens[:12, :12, :12].copy(), labels[:12, :12, :12].copy()
-
-
-@pytest.mark.parametrize("mode", ["anisotropy", "wholeslide", "lazy",
-                                  "mergerois", "anisotropy_xy", "oversized",
-                                  "featurize_directory", "featurize_files",
-                                  "n_devices"])
+@pytest.mark.parametrize("mode", ["n_devices"])
 def test_unported_modes_raise(mode):
-    """Each mode the slice does not port raises NotImplementedError naming
-    its ROADMAP item."""
-    intens, labels = _volume()
-    ctor = {"anisotropy": {"anisotropy_z": 1.5}, "mergerois":
-            {"mergerois": True}, "anisotropy_xy": {"anisotropy_x": 1.5},
-            "n_devices": {"n_devices": 4}}.get(mode, {})
+    """The one mode the port does not serve, sharding over several cards,
+    raises NotImplementedError naming its ROADMAP item."""
+    ctor = {"n_devices": {"n_devices": 4}}[mode]
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        nyx = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", **ctor)
-        runner = nyx._runner
-        if mode == "wholeslide":
-            runner.run(intens.astype(float), labels, wholeslide=True)
-        elif mode == "lazy":
-            runner.run(list(intens.astype(float)), labels)
-        elif mode == "oversized":
-            nyx.set_params(ram_limit=0)
-            nyx.featurize(intens, labels)
-        elif mode in ("featurize_directory", "featurize_files"):
-            getattr(nyx, mode)("a", "b")
+        nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", **ctor)
     assert "item" in str(e.value)
 
 

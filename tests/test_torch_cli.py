@@ -214,10 +214,16 @@ def test_cli_default_device_needs_a_card(tiff_dirs, tmp_path):
 
 
 def test_cli_dim3_raises(tiff_dirs, tmp_path):
-    """--dim=3 reaches Nyxus3D, whose file protocol is not ported yet."""
+    """--dim=3 reaches Nyxus3D's file protocol, which reads NIfTI volumes:
+    on a directory of 2D TIFF pairs it raises the JAX package's CLI's
+    error (tests/test_torch_3d_files_jax.py runs it on NIfTI volumes)."""
     argv = _argv(tiff_dirs, "singlecsv", str(tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(argv + ["--dim=3", "--features=*3D_ALL*", "--useGpu=false"])
+    argv += ["--dim=3", "--features=*3D_ALL*"]
+    with pytest.raises(IOError, match="not a NIfTI file") as j:
+        jcli.main(argv)
+    with pytest.raises(IOError, match="not a NIfTI file") as t:
+        tcli.main(argv + ["--useGpu=false"])
+    assert str(t.value) == str(j.value)
 
 
 def test_cli_subprocess(tiff_dirs, tmp_path):

@@ -1000,3 +1000,28 @@ def test_ibsi_f32_on_card_against_f64_cpu():
     chip_smoke.check_output("IBSI 320x320 slide", hdr[4:], labs, dev, labs64,
                             ref)
     chip_smoke.check_ih_columns("IBSI 320x320 slide", hdr[4:], dev, ref)
+
+
+@pytest.mark.cuda
+def test_bin_edges_on_the_card():
+    """Integer intensities on the 100-bin percentile histogram's edges (a
+    range of 140: edges every 1.4) and on radiomics bin edges fall into
+    the same bins on the card as on the CPU: the widths are one rounded
+    division on both (a CUDA tensor over a Python number is not)."""
+    from nyxus_tpu_torch.ops import intensity, quant
+    vals = torch.arange(36.0, 177.0, dtype=torch.float64)[None]
+    w = (torch.arange(vals.shape[1]) % 5 + 1).to(torch.float64)[None]
+    vmin, vmax = torch.tensor([36.0], dtype=torch.float64), \
+        torch.tensor([176.0], dtype=torch.float64)
+    n = w.sum(dim=1).to(torch.int64)
+    want = intensity.histogram_stats(vals, n, vmin, vmax, 100, weights=w)
+    got = intensity.histogram_stats(vals.cuda(), n.cuda(), vmin.cuda(),
+                                    vmax.cuda(), 100, weights=w.cuda())
+    for k in ("p01", "p10", "p25", "p75", "p90", "p99", "median",
+              "robust_mean"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    x = vals.reshape(1, -1, 1)
+    lo, hi = vmin.reshape(1, 1, 1), vmax.reshape(1, 1, 1)
+    assert torch.equal(quant.bin_radiomics(x.cuda(), lo.cuda(), hi.cuda(),
+                                           35).cpu(),
+                       quant.bin_radiomics(x, lo, hi, 35))

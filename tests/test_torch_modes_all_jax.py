@@ -28,6 +28,7 @@ from nyxus_tpu_torch.pipeline.runner import PairRunner as TRunner  # noqa: E402
 from test_torch_slice import (ALL_GROUPS, FEATURES_ALL, WIDTH_ALL,  # noqa: E402
                               _compare_all)
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+from jax_native import jax_native_loaded  # noqa: E402,F401 (autouse)
 
 ANISO = dict(aniso_x=float(np.float32(1.4)), aniso_y=float(np.float32(0.75)))
 

@@ -9,6 +9,7 @@ import pytest
 
 from test_torch_modes_jax import MODES, mode_equals_jax, tiff_dirs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+from jax_native import jax_native_loaded  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize("ram_limit", [None, 1],

@@ -40,6 +40,7 @@ from nyxus_tpu_torch.pipeline.runner import PairRunner
 
 from test_torch_slice import _compare_all
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+from jax_native import jax_native_loaded  # noqa: E402,F401 (autouse)
 
 FEATS = ["*ALL_INTENSITY*", "*ALL_MORPHOLOGY*", "*ALL_GLCM*",
          "WEIGHTED_HU_M1", "EDGE_MEAN_INTENSITY", "ROI_RADIUS_MEAN"]

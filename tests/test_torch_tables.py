@@ -42,6 +42,7 @@ from nyxus_tpu_torch.pipeline import labels as tlabels  # noqa: E402
 from nyxus_tpu_torch.pipeline import runner as trunner  # noqa: E402
 from nyxus_tpu_torch.pipeline import runner3d as trunner3d  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+from jax_native import jax_native_loaded  # noqa: E402,F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_GLRLM*", "*ALL_GLDM*",
@@ -293,6 +294,10 @@ def test_activated_families(features):
     (jrunner3d.discover_rois_3d, trunner3d.discover_rois_3d),
     (jrunner3d.VolumeRunner._surface, trunner3d.VolumeRunner._surface),
     (joversized3d.is_oversized3d, trunner3d.is_oversized3d),
+    (jrunner3d._aniso_bbox3, trunner3d._aniso_bbox3),
+    (jrunner3d.discover_rois_3d_streamed, trunner3d.discover_rois_3d_streamed),
+    (jrunner3d.VolumeRunner._surface_wholevolume,
+     trunner3d.VolumeRunner._surface_wholevolume),
 ], ids=lambda f: f.__qualname__)
 def test_verbatim_3d_host_code(jfn, tfn):
     """The 3D ROI record, discovery, oversized gate and surface pass are
@@ -371,6 +376,7 @@ def test_import_pulls_no_jax():
             "import nyxus_tpu_torch.pipeline.oversized_tex\n"
             "import nyxus_tpu_torch.pipeline.oversized_extra\n"
             "import nyxus_tpu_torch.pipeline.imq_streamed\n"
+            "import nyxus_tpu_torch.pipeline.oversized3d\n"
             "import nyxus_tpu_torch.ops.imq\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
@@ -415,7 +421,8 @@ def test_ih_members_and_blacklist_copy():
 
 
 @pytest.mark.parametrize("rel", ["pipeline/oversized.py",
-                                 "pipeline/imq_streamed.py"])
+                                 "pipeline/imq_streamed.py",
+                                 "pipeline/oversized3d.py"])
 def test_ported_copies_name_their_source(rel):
     """The phase-3 modules whose finish stages became torch: the first line
     names the JAX module they were copied from."""
@@ -449,6 +456,50 @@ def test_verbatim_phase3_code(mod, name):
     t = importlib.import_module("nyxus_tpu_torch.pipeline." + mod)
     assert inspect.getsource(getattr(j, name)) == \
         inspect.getsource(getattr(t, name))
+
+
+_SLICE_3D_VERBATIM = {
+    "io.readers": ("_nifti_blob", "read_nifti", "write_nifti"),
+    "pipeline.sources": ("_LazyVol", "LayoutAStack"),
+    "pipeline.oversized3d": ("_shift2", "_pair_hist_np", "Runs3DAccum",
+                             "Zones3DAccum", "_border_distance_np",
+                             "is_oversized3d", "_surface_members"),
+}
+
+
+@pytest.mark.parametrize("mod,name", [(m, n) for m, names in
+                                      _SLICE_3D_VERBATIM.items()
+                                      for n in names], ids=lambda v: v)
+def test_verbatim_3d_file_and_phase3_code(mod, name):
+    """The NIfTI reader and writer, the lazy layout-A stack and the numpy
+    halves of 3D phase 3 (the run and zone accumulators, the border
+    distance, the RAM gate, the surface members) are the JAX module's
+    text."""
+    import importlib
+    j = importlib.import_module("nyxus_tpu." + mod)
+    t = importlib.import_module("nyxus_tpu_torch." + mod)
+    assert inspect.getsource(getattr(j, name)) == \
+        inspect.getsource(getattr(t, name))
+
+
+def test_nifti_dtypes_and_3d_accumulation_copy():
+    """The NIfTI type table is the JAX package's, and ``accumulate3d``'s
+    body is ``process3d``'s up to its finish, line for line, less the one
+    line that picks a JAX dtype."""
+    from nyxus_tpu.io import readers as jreaders
+    from nyxus_tpu_torch.io import readers as treaders
+    from nyxus_tpu_torch.pipeline import oversized3d as toversized3d
+    assert treaders._NIFTI_DTYPES == jreaders._NIFTI_DTYPES
+    jsrc = inspect.getsource(joversized3d.process3d).splitlines()
+    jsrc = jsrc[jsrc.index("    D_, H_, W_ = rec.depth, rec.height, rec.width"):
+                jsrc.index("    # --- finalize via the SAME jitted statistics "
+                           "as the dense path -------")]
+    jsrc = [ln for ln in jsrc if "jnp." not in ln]
+    tsrc = inspect.getsource(toversized3d.accumulate3d).splitlines()
+    tsrc = tsrc[tsrc.index("    D_, H_, W_ = rec.depth, rec.height, rec.width"):
+                tsrc.index("    return Accum3D(")]
+    assert [ln for ln in tsrc if ln.strip()] == \
+        [ln for ln in jsrc if ln.strip()]
 
 
 def test_oversized_tables():

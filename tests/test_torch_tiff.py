@@ -28,6 +28,7 @@ from nyxus_tpu_torch.io import readers as treaders
 from nyxus_tpu_torch.io import tiff
 from nyxus_tpu_torch.pipeline.sources import TiffPairSource
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
+from jax_native import jax_native_loaded  # noqa: E402,F401 (autouse)
 
 DTYPES = [np.uint8, np.uint16, np.uint32, np.float32]
 LAYOUTS = [0, 128, 512]            # strips, 128-px tiles, 512-px tiles
