@@ -15,7 +15,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 1. build the seventeen CUDA kernels from nyxus_tpu_torch/csrc with nvcc
    (sm_90a, one nvcc process a source) and, at the same time, the
    host-geometry library from nyxus_tpu_torch/native/src with g++ (no
-   libtiff)
+   libtiff, no zlib: ldd of the library is printed and checked)
 2. hold each kernel against its plain PyTorch version on the card, f32 and
    f64 (counts, labels and distances exact, weighted sums within rtol 1e-6
    / 1e-12), and time both from a torch.profiler trace beside CUDA events.
@@ -146,6 +146,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    plain versions at the whole-volume crop (1 x 128 x 512 x 512), then
    timed there (a "whole_volume_kernels" JSON line); the walls again, and
    the smoke's wall, before the card's line
+3f. OME-Zarr and DICOM through the entry points, after phase 3e
+   (check_formats): (a) the 8 corpus slides written as OME-Zarr v2
+   (blosc-LZ4, byte shuffle, 512² chunks), read back bit for bit, *ALL*
+   through Nyxus.featurize_files in memory against PairRunner.run on the
+   arrays (K1-K12 launched; decode s a slide and the wall beside phase
+   3b's TIFF pair); (b) slide 7 as zarr v3 (gzip chunks; blosc-LZ4 in
+   sharding_indexed shards) and DICOM (single-frame, RLE Lossless, tiled
+   multi-frame in 256² frames, a signed int16 copy with intercept -1024,
+   JPEG-LS where CharLS loads), each in memory and at ram_limit=1, the
+   Zarr and tiled pairs through run_streamed and the others through run,
+   against (a)'s rows; slide 7 whole-slide from Zarr, tile-streamed,
+   against phase 3d (b)'s TIFF run; (c) the two throughput volumes as
+   OME-Zarr through Nyxus3D.featurize_files against phase 3e (a)'s NIfTI
+   rows (K13-K16 launched); the walls again before the card's line
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
@@ -3945,6 +3959,7 @@ def check_files(kern, card_runner):
                 raise AssertionError("%s: read_gray differs from what was "
                                      "written" % name)
             if name == "slide1.ome.tif":
+                TIFF_3B["decode_s"] = dt
                 log("  the 1024² pair decoded in %.4f s (tiled LZW, four "
                     "512² tiles a file)" % dt)
         want = {}
@@ -4010,6 +4025,7 @@ def check_files(kern, card_runner):
         torch.cuda.synchronize()
         times["PairRunner.run on the decoded arrays"] = \
             time.perf_counter() - t0
+        TIFF_3B["walls"] = times
         log("  the 1024² pair (%d ROIs, warm): %s; card %s"
             % (len(want["slide1.ome.tif"][0]),
                ", ".join("%s %.4f s" % kv for kv in times.items()),
@@ -4748,6 +4764,7 @@ def check_oversized(kern, ws_row, slides):
                 kern, lambda: list(nyx._iter_directory_raw(d7, d7, ".*")))
             log_run("(b) whole-slide *ALL* on corpus slide 7 at ram_limit=1, "
                     "tile-streamed (one 1025² box)", wall, launches, peak, p3)
+            WS_STREAMED_3D[:] = [(lb, vb, wall)]
             keep = [j for j, c in enumerate(cols)
                     if c not in WS_OWN_DEFINITION + WS_SYMMETRIC_ZERO]
             cm = [j for j, c in enumerate(cols)
@@ -4984,7 +5001,8 @@ def rows_agree(what, cols, got, want):
 
 
 def check_3d_files(kern, vols, mem):
-    """Phase 3e (a) and (b): the 3D file protocol on the card.
+    """Phase 3e (a) and (b): the 3D file protocol on the card; returns
+    (a)'s rows (labels, values) of both volumes.
     (a) the two throughput volumes written as vol1.nii and vol2.nii.gz
         through Nyxus3D.featurize_directory (pandas): the rows of the
         in-memory Nyxus3D.featurize of the same volumes (``mem``);
@@ -5072,6 +5090,7 @@ def check_3d_files(kern, vols, mem):
                     % (what, n1, same, worst))
         finally:
             runner3d.VolumeRunner.run = run
+    return files
 
 
 def check_3d_modes(kern, refs):
@@ -5367,7 +5386,8 @@ def check_3d_beyond(kern, vols, runner_3d):
     """Phase 3e: (a) and (b) check_3d_files, (c) check_3d_modes, (d)
     check_oversized_3d (the f64 CPU references of (c) and (d) in four
     worker processes meanwhile), (e) kernels_whole_volume.  Returns (the finish
-    stages' rows, phase 2's errors and times at the whole-volume crop)."""
+    stages' rows, phase 2's errors and times at the whole-volume crop,
+    (a)'s NIfTI rows)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -5383,7 +5403,7 @@ def check_3d_beyond(kern, vols, runner_3d):
         nyx = Nyxus3D(FEATURES_3D, DEVICE_3E, precision="f32")
         mem = frame_rows(nyx, nyx.featurize([v[0] for v in vols],
                                             [v[1] for v in vols]))
-        check_3d_files(kern, vols, mem)
+        nifti_rows = check_3d_files(kern, vols, mem)
         log_phase("phase 3e (c): the run modes, volume 1 whole on the card "
                   "and its first %d planes against the f64 CPU"
                   % MODE_CPU_DEPTH)
@@ -5394,7 +5414,374 @@ def check_3d_beyond(kern, vols, runner_3d):
     log_phase("phase 3e (e): K13-K16, K7 and K1 at the whole-volume crop")
     whole = kernels_whole_volume(vols[0])
     log("  phase 3e took %.1f s" % (time.perf_counter() - t0))
-    return rows, whole
+    return rows, whole, nifti_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: OME-Zarr and DICOM
+
+# phase 3b's figures of the 1024² TIFF pair (decode s, walls), printed beside
+# phase 3f's
+TIFF_3B = {}
+# phase 3d (b)'s whole-slide run of corpus slide 7 tile-streamed from a TIFF:
+# [(labels, values, wall s)], held against the same slide streamed from Zarr
+WS_STREAMED_3D = []
+# phase 3f's walls, kept to be printed again near the end of the output
+WALLS_3F = []
+# the device phase 3f runs on (the card; a rehearsal on a machine without
+# one sets "cpu")
+DEVICE_3F = "cuda"
+# a 1024² slide's chunks (OME-Zarr v2, phase 3f (a)) and its v3 inner chunks
+# and shards, 5D TCZYX
+ZARR_CHUNKS = (1, 1, 1, 512, 512)
+ZARR_V3_CHUNKS = (1, 1, 1, 256, 256)
+ZARR_V3_SHARDS = (1, 1, 1, 512, 512)
+# DICOM transfer syntaxes phase 3f writes encapsulated
+RLE_LOSSLESS = "1.2.840.10008.1.2.5"
+JPEGLS_LOSSLESS = "1.2.840.10008.1.2.4.80"
+# the signed copy's stored values are the intensities less this, so that
+# they fit int16; with the intercept -1024 its Hounsfield units are the
+# intensities less 32768
+HU_STORED_SHIFT = 31744
+
+
+def write_zarr_v3_blosc_shards(path, arr, chunks, shards):
+    """``arr`` as an OME-Zarr 0.5 container (zarr v3) in sharding_indexed
+    shards of ``shards`` elements whose inner chunks of ``chunks`` are
+    byte-shuffled blosc-LZ4 containers: write_zarr_v3's layout (which codes
+    inner chunks with gzip or not at all), each inner chunk then coded by
+    native.blosc_compress_lz4 and the codec named in zarr.json."""
+    import json
+
+    from nyxus_tpu_torch import native
+    from nyxus_tpu_torch.io.zarr import write_zarr_v3
+    write_zarr_v3(path, arr, chunks=chunks, codec=None, shards=shards)
+    ds = os.path.join(path, "0")
+    with open(os.path.join(ds, "zarr.json")) as f:
+        meta = json.load(f)
+    size = np.dtype(arr.dtype).itemsize
+    meta["codecs"][0]["configuration"]["codecs"].append(
+        {"name": "blosc", "configuration": {
+            "cname": "lz4", "clevel": 5, "shuffle": "shuffle",
+            "typesize": size, "blocksize": 0}})
+    with open(os.path.join(ds, "zarr.json"), "w") as f:
+        json.dump(meta, f)
+    n_inner = int(np.prod([s // c for s, c in zip(shards, chunks)]))
+    for d, _, files in os.walk(os.path.join(ds, "c")):
+        for name in files:
+            p = os.path.join(d, name)
+            with open(p, "rb") as f:
+                raw = f.read()
+            body, table, off = [], [], 0
+            for o, nb in np.frombuffer(raw[len(raw) - 16 * n_inner:],
+                                       "<u8").reshape(-1, 2):
+                if o == 0xFFFFFFFFFFFFFFFF:
+                    table.append((o, 0))
+                    continue
+                blk = native.blosc_compress_lz4(raw[int(o):int(o) + int(nb)],
+                                                size, shuffle=True)
+                body.append(blk)
+                table.append((off, len(blk)))
+                off += len(blk)
+            with open(p, "wb") as f:
+                f.write(b"".join(body) + np.asarray(table, "<u8").tobytes())
+
+
+def dicom_encapsulated(ts, frag, rows, cols, bits, signed=0):
+    """A minimal single-frame DICOM (explicit VR little endian) whose
+    PixelData is one encapsulated fragment in transfer syntax ``ts``
+    (tests/test_formats.py _encapsulate, copied: the script cannot import
+    the tests; pinned equal by tests/test_torch_dicom_jax.py)."""
+    import struct
+
+    from nyxus_tpu_torch.io.dicom import _el
+    body = _el(0x0002, 0x0010, b"UI", ts.encode())
+    body += _el(0x0028, 0x0002, b"US", struct.pack("<H", 1))
+    body += _el(0x0028, 0x0004, b"CS", b"MONOCHROME2 ")
+    body += _el(0x0028, 0x0010, b"US", struct.pack("<H", rows))
+    body += _el(0x0028, 0x0011, b"US", struct.pack("<H", cols))
+    body += _el(0x0028, 0x0100, b"US", struct.pack("<H", bits))
+    body += _el(0x0028, 0x0103, b"US", struct.pack("<H", signed))
+    if len(frag) % 2:
+        frag += b"\x00"
+    # (7FE0,0010) OB undefined length + empty BOT + one fragment + delimiter
+    body += struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF)
+    body += struct.pack("<HHI", 0xFFFE, 0xE000, 0)
+    body += struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag
+    body += struct.pack("<HHI", 0xFFFE, 0xE0DD, 0)
+    return b"\x00" * 128 + b"DICM" + body
+
+
+def rle_frame(img):
+    """One DICOM RLE Lossless frame of ``img`` in literal runs (valid,
+    uncompressed PackBits), a segment a byte plane, most significant first
+    (tests/test_formats.py _rle_encode, copied; pinned equal by
+    tests/test_torch_dicom_jax.py)."""
+    import struct
+    nbytes = img.dtype.itemsize
+    planes = []
+    flat = img.reshape(-1)
+    for b in range(nbytes):          # MSB first
+        shift = 8 * (nbytes - 1 - b)
+        planes.append(((flat >> shift) & 0xFF).astype(np.uint8).tobytes())
+    segs = []
+    for plane in planes:
+        out = bytearray()
+        for i in range(0, len(plane), 128):
+            chunk = plane[i:i + 128]
+            out.append(len(chunk) - 1)
+            out += chunk
+        if len(out) % 2:
+            out.append(0)
+        segs.append(bytes(out))
+    hdr = [len(segs)]
+    off = 64
+    for s in segs:
+        hdr.append(off)
+        off += len(s)
+    hdr += [0] * (16 - len(hdr))
+    return struct.pack("<16I", *hdr) + b"".join(segs)
+
+
+def write_format_pairs(root, intens, labels):
+    """Slide ``intens`` / ``labels`` in each format of phase 3f (b) under
+    ``root``: {name: (intensity path, mask path, streams at ram_limit=1)}.
+    The signed copy (int16, intercept -1024) stores the intensities less
+    HU_STORED_SHIFT; JPEG-LS is written only where CharLS loads."""
+    from nyxus_tpu_torch.io import dicom, jpegls
+    from nyxus_tpu_torch.io.zarr import write_zarr_v3
+
+    def path(name, kind, ext):
+        return os.path.join(root, "%s_%s%s" % (name, kind, ext))
+
+    out = {}
+    lab16 = labels.astype(np.uint16)
+    for name, writer in (
+            ("zarr v3 gzip", lambda p, a: write_zarr_v3(
+                p, a, chunks=ZARR_V3_CHUNKS)),
+            ("zarr v3 blosc shards", lambda p, a: write_zarr_v3_blosc_shards(
+                p, a, ZARR_V3_CHUNKS, ZARR_V3_SHARDS))):
+        ip, lp = (path(name.replace(" ", "_"), k, ".zarr")
+                  for k in ("int", "seg"))
+        writer(ip, intens)
+        writer(lp, lab16)
+        out[name] = (ip, lp, True)
+    ip, lp = path("dicom", "int", ".dcm"), path("dicom", "seg", ".dcm")
+    dicom.write_dicom_gray(ip, intens)
+    dicom.write_dicom_gray(lp, lab16)
+    out["dicom single-frame"] = (ip, lp, False)
+    ip = path("rle", "int", ".dcm")
+    with open(ip, "wb") as f:
+        f.write(dicom_encapsulated(RLE_LOSSLESS, rle_frame(intens),
+                                   *intens.shape, 16))
+    out["dicom RLE"] = (ip, lp, False)
+    ip, tp = path("tiled", "int", ".dcm"), path("tiled", "seg", ".dcm")
+    dicom.write_dicom_tiled(ip, intens, tile=256)
+    dicom.write_dicom_tiled(tp, lab16, tile=256)
+    out["dicom tiled 256²"] = (ip, tp, True)
+    ip = path("signed", "int", ".dcm")
+    dicom.write_dicom_gray(
+        ip, (intens.astype(np.int32) - HU_STORED_SHIFT).astype(np.int16),
+        intercept=-1024.0)
+    out["dicom signed HU"] = (ip, lp, False)
+    if jpegls.available():
+        ip = path("jpegls", "int", ".dcm")
+        with open(ip, "wb") as f:
+            f.write(dicom_encapsulated(JPEGLS_LOSSLESS,
+                                       jpegls.encode(intens, bits=16),
+                                       *intens.shape, 16))
+        out["dicom JPEG-LS"] = (ip, lp, False)
+    return out
+
+
+def check_formats(kern, slides, vols, nifti_rows):
+    """Phase 3f: OME-Zarr and DICOM through the entry points on the card.
+    (a) the 8 corpus slides written as OME-Zarr v2 (blosc-LZ4 with byte
+        shuffle, 512² chunks) by the port's write_zarr and read back bit for
+        bit, then *ALL* through Nyxus.featurize_files in memory: each pair's
+        labels equal to PairRunner.run's on the decoded arrays on the card
+        and its values within the f32 tiers, K1-K12 launched; the decode s a
+        slide and the wall of the 8 pairs beside phase 3b's TIFF figures;
+    (b) slide 7's pair in every other format (write_format_pairs), each in
+        memory and at ram_limit=1: the Zarr and tiled pairs through
+        run_streamed, the single-frame files through run; each within the
+        tiers of (a)'s rows of slide 7 (the signed copy: of PairRunner.run's
+        on its Hounsfield units shifted to start at 0, the map of
+        Nyxus._prep_intensity), K1-K12 launched by each; then slide 7
+        whole-slide (no mask) from its (a) Zarr file at ram_limit=1,
+        tile-streamed, against phase 3d (b)'s run of the same slide from a
+        TIFF;
+    (c) the two throughput volumes as OME-Zarr v2 through
+        Nyxus3D.featurize_files: phase 3e (a)'s NIfTI rows within the
+        tiers, K13-K16 launched."""
+    import tempfile
+
+    from nyxus_tpu_torch import Nyxus, Nyxus3D, columns, taxonomy
+    from nyxus_tpu_torch.api import _force_finite
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.io import jpegls, readers
+    from nyxus_tpu_torch.io.zarr import write_zarr
+    from nyxus_tpu_torch.pipeline.runner import PairRunner
+
+    t_phase = time.perf_counter()
+    fset = taxonomy.parse_feature_request(FEATURES_ALL)
+    cols = list(columns.build_header(fset, EngineConfig())[0][4:])
+    card = PairRunner(fset, EngineConfig(precision="f32"), DEVICE_3F)
+
+    def featurize(nyx, ips, lps, single_roi=False):
+        """featurize_files timed (timed_run) with its runner's run and
+        run_streamed calls counted: (rows of each pair, wall, launches,
+        calls)."""
+        calls = {"run": 0, "run_streamed": 0}
+        for meth in calls:
+            count_calls(nyx._runner, meth, calls)
+        df, wall, launches, _, _ = timed_run(
+            kern, lambda: nyx.featurize_files(ips, lps, single_roi))
+        labs, vals = frame_rows(nyx, df)
+        rows = [(labs[m], vals[m]) for m in
+                (df.intensity_image.to_numpy() == ip for ip in ips)]
+        return rows, wall, launches, calls
+
+    with tempfile.TemporaryDirectory(prefix="nyx_formats_") as root:
+        # (a)
+        ips = [os.path.join(root, "slide%02d.zarr" % (k + 7))
+               for k in range(len(slides))]
+        lps = [os.path.join(root, "mask%02d.zarr" % (k + 7))
+               for k in range(len(slides))]
+        t0 = time.perf_counter()
+        for (intens, labels), ip, lp in zip(slides, ips, lps):
+            write_zarr(ip, intens, chunks=ZARR_CHUNKS, compressor="blosc")
+            write_zarr(lp, labels.astype(np.uint16), chunks=ZARR_CHUNKS,
+                       compressor="blosc")
+        wrote = time.perf_counter() - t0
+        decode = []
+        for (intens, labels), ip, lp in zip(slides, ips, lps):
+            t0 = time.perf_counter()
+            ri = readers.read_gray(ip)
+            decode.append(time.perf_counter() - t0)
+            rl = readers.read_gray(lp)
+            if not (ri.dtype == np.uint16 and np.array_equal(ri, intens)
+                    and np.array_equal(rl, labels)):
+                raise AssertionError("(a) %s: read_gray differs from what "
+                                     "was written" % ip)
+        want = []
+        for intens, labels in slides:
+            labs, vals = card.run(intens, labels)
+            want.append((labs, _force_finite(vals, card.cfg.noval)))
+        rows, wall, launches, calls = featurize(
+            Nyxus(FEATURES_ALL, DEVICE_3F), ips, lps)
+        if calls != {"run": len(slides), "run_streamed": 0} or \
+                not all(launches.get(k) for k in KERNELS_2D):
+            raise AssertionError("(a): runner calls %s, launches %s"
+                                 % (calls, launches))
+        worst = []
+        for k, (got, w) in enumerate(zip(rows, want)):
+            worst.append(rows_agree("(a) slide %d" % (k + 7), cols, got, w))
+        n_rois = sum(len(w[0]) for w in want)
+        tiff_decode = "%.4f s" % TIFF_3B["decode_s"] \
+            if "decode_s" in TIFF_3B else "not measured"
+        tiff_wall = "%.4f s" % TIFF_3B["walls"]["file path in memory"] \
+            if "walls" in TIFF_3B else "not measured"
+        log("  (a) %d OME-Zarr v2 pairs (blosc-LZ4 + shuffle, 512² chunks) "
+            "written in %.3f s and read back bit for bit; decode s a slide "
+            "%s (mean %.4f; phase 3b's tiled-LZW TIFF pair: %s)"
+            % (len(slides), wrote, ["%.4f" % t for t in decode],
+               float(np.mean(decode)), tiff_decode))
+        log("  (a) featurize_files in memory: %d pairs, %d ROIs in %.4f s "
+            "(%.4f s a pair; phase 3b's TIFF pair through the file path in "
+            "memory: %s); launches %s; labels equal to PairRunner.run's "
+            "on the decoded arrays, (closest to its tier, share bit-equal) "
+            "%s" % (len(slides), n_rois, wall, wall / len(slides), tiff_wall,
+                    launches, worst))
+        WALLS_3F.append("(a) %d Zarr pairs %.4f s" % (len(slides), wall))
+
+        # (b)
+        intens, labels = slides[0]
+        t0 = time.perf_counter()
+        pairs = write_format_pairs(root, intens, labels)
+        log("  (b) slide 7 written in %d more formats in %.3f s; CharLS "
+            "(JPEG-LS) %s" % (len(pairs), time.perf_counter() - t0,
+                              "loads" if jpegls.available() else
+                              "does not load: JPEG-LS left out"))
+        hu = intens.astype(np.int32) - HU_STORED_SHIFT - 1024
+        labs, vals = card.run((hu - hu.min()).astype(np.uint32), labels)
+        want_hu = (labs, _force_finite(vals, card.cfg.noval))
+        for name, (ip, lp, streams) in pairs.items():
+            t0 = time.perf_counter()
+            ri = readers.read_gray(ip)
+            dt = time.perf_counter() - t0
+            signed = name == "dicom signed HU"
+            if not np.array_equal(ri, hu if signed else intens):
+                raise AssertionError("(b) %s: read_gray differs from what "
+                                     "was written" % name)
+            for what, kw in (("in memory", {}), ("ram_limit=1",
+                                                {"ram_limit": 1})):
+                (got,), wall, launches, calls = featurize(
+                    Nyxus(FEATURES_ALL, DEVICE_3F, **kw), [ip], [lp])
+                streamed = streams and bool(kw)
+                if calls != {"run": int(not streamed),
+                             "run_streamed": int(streamed)} or \
+                        not all(launches.get(k) for k in KERNELS_2D):
+                    raise AssertionError("(b) %s %s: runner calls %s, "
+                                         "launches %s" % (name, what, calls,
+                                                          launches))
+                w, same = rows_agree("(b) %s %s" % (name, what), cols, got,
+                                     want_hu if signed else want[0])
+                log("  (b) %s %s: decode %.4f s, wall %.4f s through %s; "
+                    "rows within the tiers of %s (%.4f bit for bit), closest "
+                    "to its tier %s" % (
+                        name, what, dt, wall,
+                        "run_streamed" if streamed else "run",
+                        "PairRunner.run on the shifted Hounsfield units"
+                        if signed else "(a)'s slide 7", same, w))
+                WALLS_3F.append("(b) %s %s %.4f s" % (name, what, wall))
+        if WS_STREAMED_3D:
+            ws_labs, ws_vals, ws_wall = WS_STREAMED_3D[0]
+            (got,), wall, launches, calls = featurize(
+                Nyxus(FEATURES_ALL, DEVICE_3F, ram_limit=1), ips[:1], None,
+                single_roi=True)
+            if calls != {"run": 0, "run_streamed": 1}:
+                raise AssertionError("(b) whole-slide Zarr: runner calls %s"
+                                     % calls)
+            w, same = rows_agree("(b) whole-slide Zarr", cols, got,
+                                 (ws_labs, ws_vals))
+            log("  (b) whole-slide slide 7 from Zarr at ram_limit=1, "
+                "tile-streamed: wall %.4f s (phase 3d (b) from a TIFF "
+                "%.4f s), launches %s; its row within the tiers of phase 3d "
+                "(b)'s (%.4f bit for bit), closest to its tier %s"
+                % (wall, ws_wall, launches, same, w))
+            WALLS_3F.append("(b) whole-slide Zarr streamed %.4f s" % wall)
+
+        # (c)
+        vips, vlps = [], []
+        t0 = time.perf_counter()
+        for k, (vi, vl) in enumerate(vols):
+            vips.append(os.path.join(root, "vol%d.zarr" % (k + 1)))
+            vlps.append(os.path.join(root, "vol%d_mask.zarr" % (k + 1)))
+            write_zarr(vips[-1], vi, compressor="blosc")
+            write_zarr(vlps[-1], vl, compressor="blosc")
+        wrote = time.perf_counter() - t0
+        nyx3 = Nyxus3D(FEATURES_3D, DEVICE_3F, precision="f32")
+        cols3 = list(nyx3.header[4:])
+        calls = {"run": 0}
+        count_calls(nyx3._runner, "run", calls)
+        df, wall, launches, _, _ = timed_run(
+            kern, lambda: nyx3.featurize_files(vips, vlps))
+        if calls != {"run": 2} or \
+                not all(launches.get(k) for k in KERNELS_3D):
+            raise AssertionError("(c): runner calls %s, launches %s"
+                                 % (calls, launches))
+        if list(df.intensity_image) != sorted(df.intensity_image):
+            raise AssertionError("(c): volumes out of order")
+        w, same = rows_agree("(c)", cols3, frame_rows(nyx3, df), nifti_rows)
+        log("  (c) the 2 volumes as OME-Zarr v2 (blosc, 256² chunks) "
+            "written in %.3f s; Nyxus3D.featurize_files %.4f s, launches "
+            "%s; %d ROIs x %d columns within the tiers of phase 3e (a)'s "
+            "NIfTI rows (%.4f bit for bit), closest to its tier %s"
+            % (wrote, wall, launches, len(df), len(cols3), same, w))
+        WALLS_3F.append("(c) 2 Zarr volumes %.4f s" % wall)
+    log("  phase 3f took %.1f s; card %s" % (time.perf_counter() - t_phase,
+                                             card_line()))
 
 
 # ---------------------------------------------------------------------------
@@ -5473,8 +5860,11 @@ def main():
             log("  ptxas:", line.strip())
     ldd = subprocess.run(["ldd", native.LIB_PATH], capture_output=True,
                          text=True, timeout=60).stdout
-    if "libtiff" in ldd:
-        raise AssertionError("the host library links libtiff:\n" + ldd)
+    if "libtiff" in ldd or "libz.so" in ldd:
+        raise AssertionError("the host library links libtiff or zlib:\n"
+                             + ldd)
+    log("  ldd %s: %s" % (native.LIB_PATH, "; ".join(
+        ln.split()[0] for ln in ldd.splitlines() if ln.strip())))
 
     # phase 2
     log_phase("phase 2: kernels against their plain versions")
@@ -5683,10 +6073,16 @@ def main():
     log_phase("phase 3e: %s beyond the default configuration: the NIfTI and "
               "2.5D file protocol, the run modes, an oversized ROI, the "
               "kernels at the whole-volume crop" % " ".join(FEATURES_3D))
-    finish3d_rows, (whole_err, whole_times) = check_3d_beyond(
+    finish3d_rows, (whole_err, whole_times), nifti_rows = check_3d_beyond(
         kern, vols, runner_3d)
     for k, e in whole_err.items():
         kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], e)
+
+    # phase 3f
+    log_phase("phase 3f: OME-Zarr and DICOM, %s through Nyxus.featurize_files "
+              "in memory and streamed and %s through Nyxus3D.featurize_files"
+              % (" ".join(FEATURES_ALL), " ".join(FEATURES_3D)))
+    check_formats(kern, slides, vols, nifti_rows)
 
     # phase 5
     log_phase("phase 5: profile of one warm slide of the 747-column request")
@@ -5754,6 +6150,7 @@ def main():
                            "device_copies", "kernel_launches", "bound_ms", "bound_by",
                            "library_ms", "agree")} for r in oversized_rows]}))
     log("phase 3e again: " + "; ".join(WALLS_3E))
+    log("phase 3f again: " + "; ".join(WALLS_3F))
     log(json.dumps({"finish3d_stages": [
         {k: r[k] for k in ("name", "ms", "device_ms", "device_launches",
                            "device_copies", "kernel_launches", "bound_ms",

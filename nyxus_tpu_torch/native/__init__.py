@@ -1,11 +1,15 @@
 """Native (C++) host library of the port, bound with ctypes (reduced from
 nyxus_tpu/native/__init__.py: the contour, geometry and CSV writer entry
-points, and the TIFF codec of ``io/tiff.py``).
+points, the TIFF codec of ``io/tiff.py`` and the blosc / LZ4 chunk codec
+of ``io/zarr.py``).
 
 ``src/`` holds verbatim copies of the JAX package's ``contour.cpp``,
-``geomfeats.cpp``, ``geomfeats_batch.cpp`` and ``csv_writer.cpp``, and the
-port's own ``tiff_codec.cpp`` (TIFF LZW and Predictor 2).  They link only
-against each other and the C++ standard library (no libtiff).  They are
+``geomfeats.cpp``, ``geomfeats_batch.cpp`` and ``csv_writer.cpp``, the
+port's own ``tiff_codec.cpp`` (TIFF LZW and Predictor 2), and
+``zarr_codec.cpp``, the JAX package's less zlib: a blosc container whose
+blocks are coded with zlib is inflated by Python's ``zlib`` here
+(``blosc_decompress``).  They link only against each other and the C++
+standard library (no libtiff, no zlib).  They are
 compiled with ``g++`` (or ``$CXX``), one process a source, at first use into
 ``nyxus_tpu_torch/_build/libnyxgeom.so``; a stamp holding a hash of the
 sources, the compiler and the flags sits next to it, and a change to any of
@@ -31,7 +35,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 LIB_PATH = os.path.join(os.path.dirname(_DIR), "_build", "libnyxgeom.so")
 SOURCES = ("contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp",
-           "csv_writer.cpp", "tiff_codec.cpp")
+           "csv_writer.cpp", "tiff_codec.cpp", "zarr_codec.cpp")
 # -march=native is safe: the library is built on first use on the machine
 # that runs it and never committed.  -ffp-contract=off: FMA contraction
 # would change the doubles and break parity with the JAX package's host
@@ -72,6 +76,10 @@ _SIGNATURES = {
     "nyx_lzw_encode": (_I64, [_P, _I64, _P, _I64]),
     "nyx_hdiff_decode": (_I, [_P, _I64, _I64, _I, _I, _I]),
     "nyx_hdiff_encode": (_I, [_P, _I64, _I64, _I, _I, _I]),
+    "nyx_lz4_decompress": (_I, [_P, _I, _P, _I]),
+    "nyx_lz4_compress": (_I, [_P, _I, _P, _I]),
+    "nyx_blosc_decompress": (_I, [_P, _I, _P, _I]),
+    "nyx_blosc_compress_lz4": (_I, [_P, _I, _I, _I, _P, _I]),
 }
 
 
@@ -439,3 +447,72 @@ def write_csv(path, header, row_prefixes, values, noval_text="nan",
         1 if sub_negzero else 0, _n_threads())
     if rc != 0:
         raise IOError("CSV write failed (rc=%d)" % rc)
+
+
+def _blosc_inflate(buf: bytes, nbytes_out: int) -> bytes:
+    """A c-blosc1 container whose blocks are coded with zlib (codec 3),
+    decoded as ``nyx_blosc_decompress`` decodes the others: a block whose
+    coded size is its size is stored raw, any other is inflated, and the
+    byte shuffle is undone a block.  The header was checked by the C call
+    that handed the container back (-4)."""
+    import struct
+    import zlib
+    src = memoryview(buf)
+    shuffled, typesize = src[2] & 0x1, src[3]
+    nbytes, blocksize = struct.unpack_from("<ii", src, 4)
+    nblocks = -(-nbytes // blocksize)
+    out = bytearray(nbytes)
+    for b in range(nblocks):
+        bstart = struct.unpack_from("<i", src, 16 + 4 * b)[0]
+        if bstart < 0 or bstart + 4 > len(src):
+            raise ValueError("corrupt blosc stream")
+        cbytes = struct.unpack_from("<i", src, bstart)[0]
+        neblock = nbytes - b * blocksize if b == nblocks - 1 else blocksize
+        if cbytes == neblock:
+            if bstart + 4 + cbytes > len(src):
+                raise ValueError("corrupt blosc stream")
+            block = bytes(src[bstart + 4:bstart + 4 + cbytes])
+        else:
+            try:
+                block = zlib.decompress(src[bstart + 4:bstart + 4 + cbytes])
+            except zlib.error:
+                raise ValueError("corrupt blosc stream")
+            if len(block) != neblock:
+                raise ValueError("corrupt blosc stream")
+        if shuffled and typesize > 1 and neblock % typesize == 0:
+            block = np.frombuffer(block, np.uint8).reshape(
+                typesize, -1).T.tobytes()
+        out[b * blocksize:b * blocksize + neblock] = block
+    return bytes(out)
+
+
+def blosc_decompress(buf: bytes, nbytes_out: int) -> bytes:
+    """Decode one c-blosc1 container (lz4/zlib/memcpy codecs, byte shuffle)
+    as nyxus_tpu/native/__init__.py blosc_decompress does, with its
+    errors; zlib-coded blocks are inflated in Python (``_blosc_inflate``)."""
+    lib = _load()
+    out = ctypes.create_string_buffer(nbytes_out)
+    rc = lib.nyx_blosc_decompress(buf, len(buf), out, nbytes_out)
+    if rc == -4:
+        return _blosc_inflate(buf, nbytes_out)
+    if rc == -2:
+        raise ValueError("blosc bitshuffle filter is not supported")
+    if rc == -3:
+        raise ValueError("unsupported blosc inner codec (only lz4/zlib)")
+    if rc < 0:
+        raise ValueError("corrupt blosc stream")
+    return out.raw[:rc]
+
+
+def blosc_compress_lz4(buf: bytes, typesize: int = 1,
+                       shuffle: bool = True) -> bytes:
+    """One c-blosc1 container of one LZ4 block (byte-shuffled by default),
+    as nyxus_tpu/native/__init__.py blosc_compress_lz4 writes it."""
+    lib = _load()
+    cap = 16 + 8 + len(buf) + len(buf) // 128 + 64
+    out = ctypes.create_string_buffer(cap)
+    rc = lib.nyx_blosc_compress_lz4(buf, len(buf), typesize,
+                                    1 if shuffle else 0, out, cap)
+    if rc < 0:
+        raise ValueError("blosc compress failed")
+    return out.raw[:rc]

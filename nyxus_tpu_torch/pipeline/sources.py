@@ -1,15 +1,15 @@
-"""Pair sources: region access over an in-memory pair or an on-disk TIFF
-(nyxus_tpu/pipeline/sources.py ArrayPairSource, TiffPairSource,
-WholeSlideTiffSource, the adapters AnisoResampledSource and
-MergedLabelSource, and the lazy 2.5D z-stack LayoutAStack with its
-_LazyVol channels; the last four are verbatim copies).
+"""Pair sources: region access over an in-memory pair or an on-disk TIFF,
+OME-Zarr or tiled DICOM pair (nyxus_tpu/pipeline/sources.py
+ArrayPairSource, TiffPairSource, WholeSlideTiffSource, ZarrPairSource,
+DicomPairSource, the adapters AnisoResampledSource and MergedLabelSource,
+and the lazy 2.5D z-stack LayoutAStack with its _LazyVol channels; the
+last six are verbatim copies).
 
 The runner asks a source for region [y0:y0+h, x0:x0+w) of the pair, so the
 same core drives numpy arrays and slides too large to hold in memory: a
-file-backed source decodes only the blocks a region touches; a layout-A
-stack decodes one slice file at a time through the port's ``read_gray``.
-The Zarr and DICOM sources of the JAX package are not ported yet
-(ROADMAP.md queue 1 item 13).
+file-backed source decodes only the blocks, chunks or frames a region
+touches; a layout-A stack decodes one slice file at a time through the
+port's ``read_gray``.
 """
 
 from __future__ import annotations
@@ -110,6 +110,100 @@ class WholeSlideTiffSource:
 
     def close(self):
         self._ir.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class ZarrPairSource:
+    """Chunk-streamed source over one (intensity, mask) OME-Zarr pair.
+
+    Region reads decode only the chunks a request touches through
+    ``OmeZarrReader.read_plane_region`` (reference: the z5-backed tile
+    loader, omezarr.h:10-48) so over-RAM zarr slides take the same
+    streamed path as tiled TIFFs."""
+
+    def __init__(self, int_path: str, seg_path: str = None):
+        import threading
+
+        from ..io.zarr import OmeZarrReader
+        self._ir = OmeZarrReader(int_path)
+        self._sr = OmeZarrReader(seg_path) if seg_path else None
+        if self._sr is not None and \
+                (self._ir.height, self._ir.width) != (self._sr.height,
+                                                      self._sr.width):
+            raise ValueError("intensity/mask dimension mismatch")
+        self.shape = (self._ir.height, self._ir.width)
+        kind = np.dtype(self._ir.arr.dtype).kind
+        self.int_is_float = kind == "f"
+        self.int_transfer_u32_ok = kind == "u"
+        self._lock = threading.Lock()
+
+    def read_pair(self, y0: int, x0: int, h: int, w: int):
+        with self._lock:
+            ii = self._ir.read_plane_region(y0, x0, h, w).astype(np.float64)
+            if self._sr is None:    # wholeslide: constant-1 labels
+                H, W = self.shape
+                ll = np.zeros((h, w), np.int64)
+                ll[:max(0, min(y0 + h, H) - y0),
+                   :max(0, min(x0 + w, W) - x0)] = 1
+            else:
+                ll = self._sr.read_plane_region(
+                    y0, x0, h, w).astype(np.int64)
+        return ii, ll
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class DicomPairSource:
+    """Frame-streamed source over a tiled multi-frame (WSI) DICOM pair:
+    region reads decode only the tile-frames a request touches (reference:
+    nyxus_dicom_loader.h:4-19).  Raises for non-tiled DICOM, which takes
+    the whole-image decode path instead."""
+
+    def __init__(self, int_path: str, seg_path: str = None):
+        import threading
+
+        from ..io.dicom import DicomTiledReader
+        self._ir = DicomTiledReader(int_path)
+        self._sr = DicomTiledReader(seg_path) if seg_path else None
+        if self._sr is not None and \
+                (self._ir.height, self._ir.width) != (self._sr.height,
+                                                      self._sr.width):
+            raise ValueError("intensity/mask dimension mismatch")
+        self.shape = (self._ir.height, self._ir.width)
+        self.int_is_float = False
+        self.int_transfer_u32_ok = (self._ir.meta["signed"] == 0
+                                    and self._ir.meta["slope"] is None
+                                    and self._ir.meta["intercept"] is None)
+        self._lock = threading.Lock()
+
+    def read_pair(self, y0: int, x0: int, h: int, w: int):
+        with self._lock:
+            ii = self._ir.read_region(y0, x0, h, w).astype(np.float64)
+            if self._sr is None:
+                H, W = self.shape
+                ll = np.zeros((h, w), np.int64)
+                ll[:max(0, min(y0 + h, H) - y0),
+                   :max(0, min(x0 + w, W) - x0)] = 1
+            else:
+                ll = self._sr.read_region(y0, x0, h, w).astype(np.int64)
+        return ii, ll
+
+    def close(self):
+        self._ir.close()
+        if self._sr is not None:
+            self._sr.close()
 
     def __enter__(self):
         return self

@@ -126,7 +126,8 @@ def test_nifti_equals_jax(tmp_path, dtype, ext):
 
 def test_nifti_4d_and_rescale(tmp_path):
     """A 4D volume keeps its time axis; a header's scl_slope and scl_inter
-    come back in the metadata, as JAX reads them."""
+    come back in the metadata, as JAX reads them; a directory is read as
+    an OME-Zarr volume, as JAX reads it."""
     vol = np.arange(2 * 3 * 4 * 5, dtype=np.int16).reshape(2, 3, 4, 5)
     p = str(tmp_path / "v.nii")
     treaders.write_nifti(p, vol)
@@ -139,8 +140,15 @@ def test_nifti_4d_and_rescale(tmp_path):
     assert meta == jmeta == {"scl_slope": 2.5, "scl_inter": -7.0, "nt": 2}
     np.testing.assert_array_equal(got, want)
     assert got.shape == (2, 3, 4, 5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        treaders.read_volume(str(tmp_path))
+    from nyxus_tpu_torch.io.zarr import write_zarr
+    z = str(tmp_path / "zarr_volume")
+    write_zarr(z, vol.reshape(2, 1, 3, 4, 5), chunks=(1, 1, 2, 3, 3))
+    got, meta = treaders.read_volume(z, with_meta=True)
+    want, jmeta = jreaders.read_volume(z, with_meta=True)
+    assert meta == jmeta == {"nt": 2, "slope": 1.0, "inter": 0.0}
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, vol)
 
 
 # -- featurize_directory / featurize_files --------------------------------

@@ -1025,3 +1025,49 @@ def test_bin_edges_on_the_card():
     assert torch.equal(quant.bin_radiomics(x.cuda(), lo.cuda(), hi.cuda(),
                                            35).cpu(),
                        quant.bin_radiomics(x, lo, hi, 35))
+
+
+# ---------------------------------------------------------------------------
+# OME-Zarr and DICOM pairs streamed on the card
+
+
+@pytest.mark.cuda
+def test_zarr_and_tiled_dicom_stream_on_the_card(tmp_path, monkeypatch):
+    """*ALL* on the 320 x 320 slide from an OME-Zarr v2 pair (blosc-LZ4,
+    128² chunks) and a tiled multi-frame DICOM pair (128² frames) at
+    ram_limit=1, through Nyxus.featurize_files on the card: each goes
+    through run_streamed with its region source, and its rows are the
+    in-memory rows of the same pair (PairRunner.run on the arrays, on the
+    card) within the f32 tiers, labels equal."""
+    from nyxus_tpu_torch import Nyxus
+    from nyxus_tpu_torch.api import _force_finite
+    from nyxus_tpu_torch.io.dicom import write_dicom_tiled
+    from nyxus_tpu_torch.io.zarr import write_zarr
+    intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)
+    lab16 = labels.astype(np.uint16)
+    pairs = {"ZarrPairSource": (str(tmp_path / "i.zarr"),
+                                str(tmp_path / "l.zarr")),
+             "DicomPairSource": (str(tmp_path / "i.dcm"),
+                                 str(tmp_path / "l.dcm"))}
+    ip, lp = pairs["ZarrPairSource"]
+    write_zarr(ip, intens, chunks=(1, 1, 1, 128, 128))
+    write_zarr(lp, lab16, chunks=(1, 1, 1, 128, 128))
+    ip, lp = pairs["DicomPairSource"]
+    write_dicom_tiled(ip, intens, tile=128)
+    write_dicom_tiled(lp, lab16, tile=128)
+    fset = taxonomy.parse_feature_request(chip_smoke.FEATURES_ALL)
+    cols = columns.build_header(fset, EngineConfig())[0][4:]
+    card = PairRunner(fset, EngineConfig(precision="f32"), "cuda")
+    labs, vals = card.run(intens, labels)
+    want = (labs, _force_finite(vals, card.cfg.noval))
+    for kind, (ip, lp) in pairs.items():
+        nyx = Nyxus(chip_smoke.FEATURES_ALL, device="cuda", ram_limit=1)
+        seen = []
+        run_streamed = nyx._runner.run_streamed
+        monkeypatch.setattr(nyx._runner, "run_streamed",
+                            lambda src, **k: seen.append(type(src).__name__)
+                            or run_streamed(src, **k))
+        df = nyx.featurize_files([ip], [lp])
+        assert seen == [kind]
+        chip_smoke.rows_agree(kind, cols, chip_smoke.frame_rows(nyx, df),
+                              want)

@@ -60,7 +60,8 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
                                  "pipeline/contour.py", "timing.py",
                                  "nested.py", "pipeline/oversized_tex.py",
                                  "pipeline/oversized_extra.py",
-                                 "ops/imq.py"])
+                                 "ops/imq.py", "io/zarr.py", "io/dicom.py",
+                                 "io/jpegls.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -85,6 +86,39 @@ def test_native_sources_are_verbatim_copies(name):
     assert first.startswith("// Copied verbatim from nyxus_tpu/native/src/%s"
                             % name)
     assert copy == orig
+
+
+def test_zarr_codec_copy():
+    """zarr_codec.cpp is the JAX package's but for zlib: the first line
+    names the source and what differs, the LZ4 block codec, the byte
+    shuffle and the blosc-LZ4 writer are the original's text, and the
+    whole is the original with the <zlib.h> include dropped and the zlib
+    block's inflate replaced by the -4 that hands the container to
+    Python."""
+    with open(os.path.join(ROOT, "nyxus_tpu", "native", "src",
+                           "zarr_codec.cpp")) as f:
+        orig = f.read()
+    with open(os.path.join(ROOT, "nyxus_tpu_torch", "native", "src",
+                           "zarr_codec.cpp")) as f:
+        first, copy = f.read().split("\n", 1)
+    assert first.startswith("// Copied from nyxus_tpu/native/src/"
+                            "zarr_codec.cpp less zlib")
+
+    def part(text, start, end):
+        return text[text.index(start):text.index(end)]
+    for start, end in (("// LZ4 block format", "// c-blosc1 container"),
+                       ("// single-block blosc1+lz4 writer",
+                        '}  // extern "C"')):
+        assert part(copy, start, end) == part(orig, start, end)
+    inflate = """            uLongf outlen = neblock;
+            if (uncompress(bout, &outlen, bsrc, cbytes) != Z_OK ||
+                (int)outlen != neblock)
+                return -1;
+"""
+    assert copy == orig.replace("#include <zlib.h>\n", "").replace(
+        inflate, "            return -4;                     "
+                 "// inflated by the caller\n")
+    assert "zlib.h" not in copy and "uncompress(" not in copy
 
 
 def test_native_contours_and_geometry_equal_jax():
@@ -132,8 +166,9 @@ def _port_copy(tmp_path):
 
 def test_native_build_links_no_libtiff(tmp_path):
     """A fresh copy of the port builds its host library (geometry, the CSV
-    writer and the TIFF codec) with neither -ltiff nor the JAX package's
-    file readers, and links no libtiff."""
+    writer, the TIFF codec and the Zarr chunk codec) with neither -ltiff
+    nor -lz nor the JAX package's TIFF reader and discovery, and links
+    neither libtiff nor zlib."""
     root = _port_copy(tmp_path)
     log = tmp_path / "cxx.log"
     cxx = tmp_path / "cxx"
@@ -148,15 +183,16 @@ def test_native_build_links_no_libtiff(tmp_path):
     lib = out.stdout.strip().splitlines()[-1]
     assert lib.startswith(root)
     args = log.read_text()
-    assert "-ltiff" not in args
-    for src in ("tiff_reader", "zarr_codec", "discover"):
+    assert "-ltiff" not in args and "-lz" not in args.split()
+    for src in ("tiff_reader", "discover"):
         assert src not in args
+    assert "zarr_codec" in args
     for src in tnative.SOURCES:
         assert src in args
     assert "-ffp-contract=off" in args and "-march=native" in args
     ldd = subprocess.run(["ldd", lib], capture_output=True, text=True,
                          timeout=60).stdout
-    assert "libtiff" not in ldd
+    assert "libtiff" not in ldd and "libz.so" not in ldd
 
 
 def test_native_build_failure_raises(tmp_path):
@@ -318,15 +354,19 @@ def test_verbatim_3d_host_code(jfn, tfn):
      "nyxus_tpu_torch.pipeline.sources:AnisoResampledSource"),
     ("nyxus_tpu.pipeline.sources:MergedLabelSource",
      "nyxus_tpu_torch.pipeline.sources:MergedLabelSource"),
+    ("nyxus_tpu.pipeline.sources:ZarrPairSource",
+     "nyxus_tpu_torch.pipeline.sources:ZarrPairSource"),
+    ("nyxus_tpu.pipeline.sources:DicomPairSource",
+     "nyxus_tpu_torch.pipeline.sources:DicomPairSource"),
     ("nyxus_tpu.cli:_aggregate_per_slide",
      "nyxus_tpu_torch.cli:_aggregate_per_slide"),
     ("nyxus_tpu.cli:_nested_post_pass",
      "nyxus_tpu_torch.cli:_nested_post_pass"),
 ], ids=lambda s: s.split(":")[-1])
 def test_verbatim_run_mode_code(jname, tname):
-    """The anisotropic box, the resampling and merged-label sources and the
-    CLI's aggregation and nested post-pass are the JAX package's text,
-    docstrings included."""
+    """The anisotropic box, the resampling, merged-label, OME-Zarr and
+    tiled-DICOM sources and the CLI's aggregation and nested post-pass are
+    the JAX package's text, docstrings included."""
     import importlib
 
     def src(name):
@@ -378,6 +418,8 @@ def test_import_pulls_no_jax():
             "import nyxus_tpu_torch.pipeline.imq_streamed\n"
             "import nyxus_tpu_torch.pipeline.oversized3d\n"
             "import nyxus_tpu_torch.ops.imq\n"
+            "import nyxus_tpu_torch.io.zarr, nyxus_tpu_torch.io.dicom\n"
+            "import nyxus_tpu_torch.io.jpegls\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"

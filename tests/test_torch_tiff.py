@@ -398,8 +398,11 @@ def test_pair_source_threads(tmp_path):
 
 
 def test_read_gray_other_formats(tmp_path):
-    """Non-TIFF images go through PIL; OME-Zarr and DICOM raise
-    NotImplementedError until they are ported."""
+    """Non-TIFF images go through PIL; an OME-Zarr container (a ``.zarr``
+    path or any directory) and a DICOM file through the copies of the JAX
+    package's readers: each equal to JAX's read_gray."""
+    from nyxus_tpu_torch.io.dicom import write_dicom_gray
+    from nyxus_tpu_torch.io.zarr import write_zarr
     a = np.arange(600, dtype=np.uint16).reshape(20, 30)
     p = str(tmp_path / "m.png")
     treaders.write_gray(p, a)
@@ -407,9 +410,17 @@ def test_read_gray_other_formats(tmp_path):
     q = str(tmp_path / "m.tif")
     treaders.write_gray(q, a)
     _same(treaders.read_gray(q), a)
-    for bad in ("x.zarr", "x.dcm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            treaders.read_gray(str(tmp_path / bad))
+    for name in ("x.zarr", "plain_dir"):
+        z = str(tmp_path / name)
+        write_zarr(z, a, chunks=(1, 1, 1, 16, 16))
+        _same(treaders.read_gray(z), jreaders.read_gray(z))
+        _same(treaders.read_gray(z), a)
+    for ext, arr, kw in ((".dcm", a, {}),
+                         (".dicom", a.astype(np.int16) - 300,
+                          {"intercept": -1024.0})):
+        d = str(tmp_path / ("x" + ext))
+        write_dicom_gray(d, arr, **kw)
+        _same(treaders.read_gray(d), jreaders.read_gray(d))
 
 
 def test_codec_entry_points_match_declarations():
