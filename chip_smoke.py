@@ -160,6 +160,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    against phase 3d (b)'s TIFF run; (c) the two throughput volumes as
    OME-Zarr through Nyxus3D.featurize_files against phase 3e (a)'s NIfTI
    rows (K13-K16 launched); the walls again before the card's line
+3g. scale-out and the native discovery, after phase 3f (check_shards):
+   (a) the 8 corpus slides at *ALL* through PairRunner(devices=[cuda:0,
+   cuda:0]), each bucket in two shards on the card, against the one-device
+   rows (EXACT and the pre-collect host columns bit for bit, the rest
+   within the tiers), both walls and the launches; (b) volume 1 at
+   *3D_ALL* the same way through VolumeRunner; (c) the card count
+   Nyxus(n_devices=-1) resolves, n_devices=2 raising ValueError on one
+   card (a real two-card pass where there are two); (d) two processes on
+   cuda:0 joined by initialize_distributed over tcp://localhost, each
+   featurize_directory(shard_slides=True) over four corpus slides, every
+   pair in one shard, the union within the tiers of the one-process run;
+   (e) the native discovery on the 8 slides against the numpy pass, ms a
+   slide; the walls again before the card's line
 4. throughput: the 8 slides make_dsb_like(1024, 1024, 300, seed=7..14), one
    untimed pass then one timed pass through PairRunner.run, for the
    337-column texture slice, the 713-column request *ALL* -GABOR
@@ -5785,6 +5798,260 @@ def check_formats(kern, slides, vols, nifti_rows):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: ROI buckets sharded over devices, slides over processes, and the
+# native discovery
+
+
+# phase 3g's walls, kept to be printed again near the end of the output
+WALLS_3G = []
+
+_SHARD_WORKER = r"""
+import os, pickle, sys, time
+sys.path.insert(0, %(root)r)
+import torch
+from nyxus_tpu_torch import Nyxus
+from nyxus_tpu_torch.parallel import initialize_distributed
+initialize_distributed(coordinator_address=%(coord)r, num_processes=2,
+                       process_id=%(pid)d)
+import torch.distributed as dist
+assert dist.get_rank() == %(pid)d and dist.get_world_size() == 2
+t0 = time.perf_counter()
+df = Nyxus(%(feats)r, shard_slides=True).featurize_directory(%(intdir)r,
+                                                            %(segdir)r)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+with open(%(out)r, "wb") as f:
+    pickle.dump((df, wall), f)
+assert not [m for m in sys.modules
+            if m in ("jax", "nyxus_tpu") or m.startswith("nyxus_tpu.")]
+dist.destroy_process_group()
+"""
+
+
+def timed_pass(kern, runner, items):
+    """One timed pass of ``runner.run`` over ``items`` (a warm-up already
+    made): (outputs, host-clock wall to a synchronised card, launches)."""
+    import torch
+    torch.cuda.synchronize()
+    for f in kern.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    outs = [runner.run(*item) for item in items]
+    torch.cuda.synchronize()
+    return (outs, time.perf_counter() - t0,
+            {k: f.launches for k, f in kern.items()})
+
+
+def check_shards(kern, card_runner, slides, runner_3d, vols):
+    """Phase 3g: the ROI axis sharded over devices and the slide list over
+    processes, on the card's machine, and the native discovery.
+    (a) the 8 corpus slides at *ALL* through PairRunner(devices=[cuda:0,
+        cuda:0]) (each bucket in two shards on the one card) against the
+        one-device rows of card_runner, one timed pass each: the EXACT
+        columns and the pre-collect host columns bit for bit, the rest
+        within the tiers; both walls and the launches printed; every 2D
+        kernel launched by the sharded pass
+    (b) volume 1 at *3D_ALL* the same way through VolumeRunner
+    (c) Nyxus(n_devices=-1): the card count it resolves; n_devices=2 raises
+        ValueError on one card, and where there are two, a real two-card
+        pass over (a)'s slides held the same way
+    (d) two processes, both on cuda:0, joined by initialize_distributed
+        over tcp://localhost, each featurize_directory(shard_slides=True)
+        over four corpus slides: every pair in exactly one shard, the union
+        within the tiers of the one-process run
+    (e) the native discovery on the 8 slides: the records of the numpy
+        pass, ms a slide beside the numpy pass's"""
+    import pickle
+    import socket
+    import tempfile
+    import torch
+    from nyxus_tpu_torch import Nyxus, columns, taxonomy
+    from nyxus_tpu_torch.config import EngineConfig
+    from nyxus_tpu_torch.pipeline import labels as plabels
+    from nyxus_tpu_torch.pipeline.runner import PairRunner
+    from nyxus_tpu_torch.pipeline.runner3d import VolumeRunner
+    t_phase = time.perf_counter()
+    two = [torch.device("cuda", 0)] * 2
+    fset = card_runner.fset
+    hdr, slots = columns.build_header(fset, EngineConfig())
+    cols = hdr[4:]
+
+    # (a)
+    sharded = PairRunner(fset, card_runner.cfg, devices=two)
+    sharded.run(*slides[0])                               # warm-up
+    ones, wall1, l1 = timed_pass(kern, card_runner, slides)
+    twos, wall2, l2 = timed_pass(kern, sharded, slides)
+    fixed = np.concatenate([pre_host_columns(sharded, slots),
+                            [j for j, c in enumerate(cols) if c in EXACT]])
+    worst, shares = None, []
+    for k, ((la, va), (lb, vb)) in enumerate(zip(twos, ones)):
+        if not np.array_equal(va[:, fixed].view(np.uint64),
+                              vb[:, fixed].view(np.uint64)):
+            raise AssertionError("3g (a) slide %d: the integer or host "
+                                 "columns differ between the shards and "
+                                 "one device" % k)
+        worst, share = rows_agree("3g (a) slide %d" % k, cols, (la, va),
+                                  (lb, vb))
+        shares.append(share)
+    if not all(l2[k] for k in KERNELS_2D):
+        raise AssertionError("3g (a): a kernel was not launched by the "
+                             "sharded pass: %r" % l2)
+    n_rois = sum(len(la) for la, _ in ones)
+    log("  (a) *ALL* on the 8 slides (%d ROIs): one device %.4f s, two "
+        "shards on cuda:0 %.4f s; %d columns bit for bit (EXACT and the "
+        "pre-collect host columns), the rest within the tiers (%.4f-%.4f "
+        "of values bit for bit; closest to its tier %s); launches one "
+        "device %s; two shards %s"
+        % (n_rois, wall1, wall2, len(fixed), min(shares), max(shares),
+           worst, l1, l2))
+    WALLS_3G.append("(a) 8 slides one device %.4f s, two shards %.4f s"
+                    % (wall1, wall2))
+
+    # (b)
+    fset3 = taxonomy.parse_feature_request(FEATURES_3D, dim=3)
+    hdr3, _ = columns.build_header(fset3, EngineConfig())
+    sharded3 = VolumeRunner(fset3, runner_3d.cfg, devices=two)
+    sharded3.run(*vols[0])                                # warm-up
+    (one3,), w31, _ = timed_pass(kern, runner_3d, vols[:1])
+    (two3,), w32, l3 = timed_pass(kern, sharded3, vols[:1])
+    worst3, same3 = rows_agree("3g (b) volume 1", hdr3[4:], two3, one3)
+    if not all(l3[k] for k in KERNELS_3D):
+        raise AssertionError("3g (b): a kernel was not launched: %r" % l3)
+    log("  (b) *3D_ALL* on volume 1 (%d ROIs): one device %.4f s, two "
+        "shards %.4f s; within the tiers (%.4f of values bit for bit, "
+        "closest to its tier %s); launches %s"
+        % (len(one3[0]), w31, w32, same3, worst3,
+           {k: l3[k] for k in KERNELS_3D + ("batched_hist", "zone_stats")}))
+    WALLS_3G.append("(b) volume 1 one device %.4f s, two shards %.4f s"
+                    % (w31, w32))
+
+    # (c)
+    n_cards = torch.cuda.device_count()
+    resolved = Nyxus(FEATURES_ALL, n_devices=-1)._runner.devices
+    if len(resolved) != n_cards:
+        raise AssertionError("3g (c): n_devices=-1 resolved %s on %d "
+                             "cards" % (resolved, n_cards))
+    log("  (c) Nyxus(n_devices=-1) resolved %d card(s): %s"
+        % (len(resolved), [str(d) for d in resolved]))
+    if n_cards < 2:
+        try:
+            Nyxus(FEATURES_ALL, n_devices=2)
+        except ValueError as e:
+            log("  (c) n_devices=2 on one card raises ValueError: %s" % e)
+        else:
+            raise AssertionError("3g (c): n_devices=2 on one card did not "
+                                 "raise")
+        log("  (c) no two-card run was made: the machine has %d card"
+            % n_cards)
+    else:
+        real = Nyxus(FEATURES_ALL, n_devices=2)._runner
+        real.run(*slides[0])
+        reals, wall_r, lr = timed_pass(kern, real, slides)
+        for k, (got, want) in enumerate(zip(reals, ones)):
+            rows_agree("3g (c) slide %d" % k, cols, got, want)
+        log("  (c) n_devices=2 on two cards: 8 slides %.4f s, within the "
+            "tiers of one device; launches %s" % (wall_r, lr))
+        WALLS_3G.append("(c) 8 slides on two cards %.4f s" % wall_r)
+
+    # (d)
+    with tempfile.TemporaryDirectory(prefix="nyx_shards_") as root:
+        int_dir, seg_dir = write_pair_dir(
+            root, [("s%d.tif" % k, slides[k]) for k in range(4)])
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            coord = "localhost:%d" % sock.getsockname()[1]
+        env = dict(os.environ)
+        env.pop("NYXUS_PROCESS_INDEX", None)
+        env.pop("NYXUS_PROCESS_COUNT", None)
+        procs, outs = [], []
+        t0 = time.perf_counter()
+        try:
+            for pid in range(2):
+                out = os.path.join(root, "shard%d.pkl" % pid)
+                outs.append(out)
+                code = _SHARD_WORKER % {
+                    "root": HERE, "coord": coord, "pid": pid,
+                    "feats": FEATURES_ALL, "intdir": int_dir,
+                    "segdir": seg_dir, "out": out}
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, env=env, cwd=root))
+            logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_p = time.perf_counter() - t0
+        for p, text in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError("3g (d): a shard process failed:\n"
+                                     + text[-3000:])
+        parts = []
+        for out in outs:
+            with open(out, "rb") as f:
+                parts.append(pickle.load(f))
+        t0 = time.perf_counter()
+        whole = Nyxus(FEATURES_ALL).featurize_directory(int_dir, seg_dir)
+        torch.cuda.synchronize()
+        wall_w = time.perf_counter() - t0
+    names = ["s%d.tif" % k for k in range(4)]
+    seen = [sorted({os.path.basename(m) for m in df.mask_image})
+            for df, _ in parts]
+    if seen != [names[0::2], names[1::2]]:
+        raise AssertionError("3g (d): the shards hold %s" % seen)
+    same_d = []
+    for df, _ in parts:
+        for name in sorted(set(df.mask_image)):
+            got = df[df.mask_image == name]
+            want = whole[whole.mask_image == name]
+            w, same = rows_agree(
+                "3g (d) " + os.path.basename(name), cols,
+                (got.ROI_label.to_numpy(), got[cols].to_numpy(float)),
+                (want.ROI_label.to_numpy(), want[cols].to_numpy(float)))
+            same_d.append(same)
+    if sum(len(df) for df, _ in parts) != len(whole):
+        raise AssertionError("3g (d): the union has %d rows, the one "
+                             "process %d" % (sum(len(df) for df, _ in parts),
+                                             len(whole)))
+    log("  (d) two processes on cuda:0 joined by initialize_distributed "
+        "(gloo, %s): shards %s, %d rows in all within the tiers of the "
+        "one-process run (%.4f-%.4f of values bit for bit); featurize_"
+        "directory in the processes %.4f and %.4f s, both processes "
+        "(start-up included) %.4f s; one process over the 4 slides %.4f s"
+        % (coord, seen, len(whole), min(same_d), max(same_d), parts[0][1],
+           parts[1][1], wall_p, wall_w))
+    WALLS_3G.append("(d) two processes %.4f s (featurize_directory %.4f, "
+                    "%.4f), one process %.4f s"
+                    % (wall_p, parts[0][1], parts[1][1], wall_w))
+
+    # (e)
+    t_native, t_np = 0.0, 0.0
+    for k, (intens, labels) in enumerate(slides):
+        t0 = time.perf_counter()
+        recs, smin, smax, clouds = plabels.discover_rois_clouds(intens,
+                                                                labels)
+        t1 = time.perf_counter()
+        want = plabels._discover_rois_np(intens, labels)
+        t_np += time.perf_counter() - t1
+        t_native += t1 - t0
+        if clouds is None or [vars(r) for r in recs] != \
+                [vars(r) for r in want[0]] or (smin, smax) != want[1:]:
+            raise AssertionError("3g (e) slide %d: the native discovery "
+                                 "differs from the numpy pass" % k)
+    log("  (e) native discovery (discover_rois_clouds, the records and the "
+        "clouds) on the 8 slides: %.2f ms a slide, the records equal to "
+        "the numpy pass's (%.2f ms a slide)"
+        % (t_native * 1e3 / len(slides), t_np * 1e3 / len(slides)))
+    WALLS_3G.append("(e) discovery %.2f ms a slide (numpy %.2f)"
+                    % (t_native * 1e3 / len(slides),
+                       t_np * 1e3 / len(slides)))
+    log("  phase 3g took %.1f s; card %s" % (time.perf_counter() - t_phase,
+                                             card_line()))
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_times_only(root, only=None):
@@ -6084,6 +6351,13 @@ def main():
               % (" ".join(FEATURES_ALL), " ".join(FEATURES_3D)))
     check_formats(kern, slides, vols, nifti_rows)
 
+    # phase 3g
+    log_phase("phase 3g: %s with each bucket in two shards on the card, "
+              "Nyxus(n_devices=-1), two processes joined by "
+              "initialize_distributed, the native discovery"
+              % " ".join(FEATURES_ALL))
+    check_shards(kern, card_runner, slides, runner_3d, vols)
+
     # phase 5
     log_phase("phase 5: profile of one warm slide of the 747-column request")
     profile_report("slide 8 of the 747-column request",
@@ -6151,6 +6425,7 @@ def main():
                            "library_ms", "agree")} for r in oversized_rows]}))
     log("phase 3e again: " + "; ".join(WALLS_3E))
     log("phase 3f again: " + "; ".join(WALLS_3F))
+    log("phase 3g again: " + "; ".join(WALLS_3G))
     log(json.dumps({"finish3d_stages": [
         {k: r[k] for k in ("name", "ms", "device_ms", "device_launches",
                            "device_copies", "kernel_launches", "bound_ms",

@@ -158,6 +158,16 @@ def check(name: str, code: int):
                            % (name, code))
 
 
-def stream_of(t) -> int:
-    """Handle of PyTorch's current stream on the tensor's device."""
+def stream_of(t, kernel: str) -> int:
+    """Handle of PyTorch's current stream on the tensor's device, which
+    must be the current CUDA device: the C side sets its attributes and
+    launches on the current device, so a tensor on another card raises
+    here, naming ``kernel``.  Callers enter the device first
+    (``torch.cuda.device``; the runners do, once a shard)."""
+    cur = torch.cuda.current_device()
+    if t.device.index != cur:
+        raise RuntimeError(
+            "CUDA kernel %s: its tensor is on %s but the current CUDA "
+            "device is cuda:%d; enter torch.cuda.device(%s) first"
+            % (kernel, t.device, cur, t.device))
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -110,19 +110,19 @@ class Nyxus:
     ``mergerois=True`` (every nonzero label one ROI), ``anisotropy_x`` /
     ``anisotropy_y`` (the nearest-neighbour resampled slide) and
     whole-slide mode (``featurize_directory`` with no mask directory)
-    work in memory and streamed.  ``n_devices`` other
-    than None, 0 or 1 and ``shard_slides`` raise ``NotImplementedError``:
-    the port does not shard over cards or processes yet (ROADMAP queue 1
-    item 10)."""
+    work in memory and streamed.
+
+    Scale-out (nyxus_tpu/api.py's knobs): ``n_devices`` shards each ROI
+    bucket over cards (None, 0 or 1: ``device`` alone; -1: every visible
+    card; k: the first k cards; on the CPU, k shards of the CPU);
+    ``shard_slides=True`` makes ``featurize_directory`` featurize only
+    this process's share of the pairs (``parallel.process_shard``: by
+    ``NYXUS_PROCESS_INDEX`` / ``NYXUS_PROCESS_COUNT``, else by the rank of
+    a ``parallel.initialize_distributed`` group)."""
 
     _valid_output_types = list(_VALID_OUTPUT_TYPES)
 
     def __init__(self, features, device="cuda", **kwargs):
-        if kwargs.get("n_devices", 1) not in (None, 0, 1) \
-                or kwargs.get("shard_slides"):
-            raise NotImplementedError(
-                "nyxus_tpu_torch does not support multi-device 2D yet: "
-                "ROADMAP.md queue 1 item 10 [S 15] (multi-GPU)")
         self.features = list(features)
         self._blacklist = RoiBlacklist()
         updates = {}
@@ -144,7 +144,15 @@ class Nyxus:
                 updates[k] = float(np.float32(updates[k]))
         self.cfg = EngineConfig().replace(**updates)
         self.device = device
+        self._n_devices = kwargs.get("n_devices", 1)
+        self._shard_slides = bool(kwargs.get("shard_slides", False))
         self._compile()
+
+    def _devices(self):
+        """The devices each ROI bucket is sharded over
+        (``parallel.roi_devices``; one for ``n_devices`` None, 0 or 1)."""
+        from .parallel import roi_devices
+        return roi_devices(self._n_devices, device=self.device)
 
     def use_gpu_device(self, device_id: int):
         """Select the CUDA device the features are computed on (reference:
@@ -161,7 +169,8 @@ class Nyxus:
         self.fset = tx.parse_feature_request(
             self.features, dim=2, ibsi=self.cfg.ibsi)
         self.header, _ = col.build_header(self.fset, self.cfg)
-        self._runner = PairRunner(self.fset, self.cfg, device=self.device)
+        self._runner = PairRunner(self.fset, self.cfg, device=self.device,
+                                  devices=self._devices())
 
     def featurize(self, intensity_images: np.ndarray, label_images: np.ndarray,
                   intensity_names: list = (), label_names: list = (),
@@ -335,6 +344,9 @@ class Nyxus:
         int_files, lab_files, wholeslide = ds.read_2d_dataset(
             intensity_dir, label_dir, file_pattern)
         pairs = list(zip(int_files, lab_files))
+        if self._shard_slides:
+            from .parallel import process_shard
+            pairs = process_shard(pairs)
         for k, pre in _prefetched(
                 lambda k: self._load_pair_arrays(*pairs[k], wholeslide),
                 len(pairs)):
@@ -559,7 +571,8 @@ class ImageQuality(Nyxus):
     def _compile(self):
         self.fset = tx.parse_feature_request(self.features, imq=True)
         self.header, _ = col.build_header(self.fset, self.cfg)
-        self._runner = PairRunner(self.fset, self.cfg, device=self.device)
+        self._runner = PairRunner(self.fset, self.cfg, device=self.device,
+                                  devices=self._devices())
 
     def featurize(self, intensity_images: np.ndarray, label_images=None,
                   intensity_names: list = (), label_names: list = (),
@@ -583,18 +596,14 @@ class Nyxus3D:
     ``anisotropy_x`` / ``anisotropy_y`` / ``anisotropy_z`` (the nearest-
     neighbour resampled volume), whole-volume mode (``featurize_files``
     with ``single_roi``), ROIs over the RAM gate (phase 3) and stacks over
-    it (read a plane at a time) all work.  ``n_devices`` other than None,
-    0 or 1 raises ``NotImplementedError``: the port does not shard over
-    cards yet (ROADMAP queue 1 item 10)."""
+    it (read a plane at a time) all work.  ``n_devices`` and
+    ``shard_slides`` as for ``Nyxus``; ``shard_slides`` splits the volume
+    pairs of ``featurize_directory`` (not a layout-A pattern's stacks, nor
+    ``featurize_files``, as in the JAX package)."""
 
     _valid_output_types = list(_VALID_OUTPUT_TYPES)
 
     def __init__(self, features, device="cuda", **kwargs):
-        if kwargs.get("n_devices", 1) not in (None, 0, 1) \
-                or kwargs.get("shard_slides"):
-            raise NotImplementedError(
-                "nyxus_tpu_torch does not support multi-device 3D yet: "
-                "ROADMAP.md queue 1 item 10 (multi-GPU)")
         self.features = list(features)
         updates = {}
         for k, v in kwargs.items():
@@ -613,8 +622,11 @@ class Nyxus3D:
                 updates[k] = float(np.float32(updates[k]))
         self.cfg = EngineConfig().replace(**updates)
         self.device = device
+        self._n_devices = kwargs.get("n_devices", 1)
+        self._shard_slides = bool(kwargs.get("shard_slides", False))
         self._compile()
 
+    _devices = Nyxus._devices
     use_gpu_device = Nyxus.use_gpu_device
     # metaparameter surface (the 3D-family paths are 3glcm/...,
     # 3ngtdm/radius, ...)
@@ -626,7 +638,8 @@ class Nyxus3D:
         self.fset = tx.parse_feature_request(
             self.features, dim=3, ibsi=self.cfg.ibsi)
         self.header, _ = col.build_header(self.fset, self.cfg)
-        self._runner = VolumeRunner(self.fset, self.cfg, device=self.device)
+        self._runner = VolumeRunner(self.fset, self.cfg, device=self.device,
+                                    devices=self._devices())
 
     def featurize(self, intensity_volumes, label_volumes,
                   intensity_names: list = (), label_names: list = ()):
@@ -692,7 +705,11 @@ class Nyxus3D:
         else:
             int_files, lab_files, _ = ds.read_3d_dataset(
                 intensity_dir, label_dir, file_pattern)
-            frames = self._iter_volume_pairs(list(zip(int_files, lab_files)))
+            pairs = list(zip(int_files, lab_files))
+            if self._shard_slides:
+                from .parallel import process_shard
+                pairs = process_shard(pairs)
+            frames = self._iter_volume_pairs(pairs)
         return self._emit(frames, output_type, output_path)
 
     def featurize_files(self, intensity_files, mask_files, single_roi=False,

@@ -1,11 +1,12 @@
 """Native (C++) host library of the port, bound with ctypes (reduced from
-nyxus_tpu/native/__init__.py: the contour, geometry and CSV writer entry
-points, the TIFF codec of ``io/tiff.py`` and the blosc / LZ4 chunk codec
-of ``io/zarr.py``).
+nyxus_tpu/native/__init__.py: the one-pass ROI discovery, the contour,
+geometry and CSV writer entry points, the TIFF codec of ``io/tiff.py``
+and the blosc / LZ4 chunk codec of ``io/zarr.py``).
 
-``src/`` holds verbatim copies of the JAX package's ``contour.cpp``,
-``geomfeats.cpp``, ``geomfeats_batch.cpp`` and ``csv_writer.cpp``, the
-port's own ``tiff_codec.cpp`` (TIFF LZW and Predictor 2), and
+``src/`` holds verbatim copies of the JAX package's ``discover.cpp``,
+``contour.cpp``, ``geomfeats.cpp``, ``geomfeats_batch.cpp`` and
+``csv_writer.cpp``, the port's own ``tiff_codec.cpp`` (TIFF LZW and
+Predictor 2), and
 ``zarr_codec.cpp``, the JAX package's less zlib: a blosc container whose
 blocks are coded with zlib is inflated by Python's ``zlib`` here
 (``blosc_decompress``).  They link only against each other and the C++
@@ -34,8 +35,9 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 LIB_PATH = os.path.join(os.path.dirname(_DIR), "_build", "libnyxgeom.so")
-SOURCES = ("contour.cpp", "geomfeats.cpp", "geomfeats_batch.cpp",
-           "csv_writer.cpp", "tiff_codec.cpp", "zarr_codec.cpp")
+SOURCES = ("discover.cpp", "contour.cpp", "geomfeats.cpp",
+           "geomfeats_batch.cpp", "csv_writer.cpp", "tiff_codec.cpp",
+           "zarr_codec.cpp")
 # -march=native is safe: the library is built on first use on the machine
 # that runs it and never committed.  -ffp-contract=off: FMA contraction
 # would change the doubles and break parity with the JAX package's host
@@ -54,6 +56,8 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # entry point -> (restype, argtypes)
 _SIGNATURES = {
+    "nyx_discover": (_I, [_P, _P, _I, _L, _L]),
+    "nyx_discover_fetch": (_I, [_P, _P, _I] + [_P] * 7),
     "nyx_contour": (_I, [_P, _P, _I, _I, _P, _I]),
     "nyx_caliper_feret": (None, [_P, _P, _P, _L, _P, _I]),
     "nyx_caliper_martin": (None, [_P, _P, _P, _L, _P, _I]),
@@ -332,6 +336,55 @@ def _labels_i32(labels_img, validated=False):
         raise ValueError("labels exceed int32 range; the native scan "
                          "cannot represent them")
     return np.ascontiguousarray(labels_img, np.int32)
+
+
+_DISCOVER_DTYPES = {np.dtype(np.uint8): 0, np.dtype(np.uint16): 1,
+                    np.dtype(np.uint32): 2, np.dtype(np.int32): 3,
+                    np.dtype(np.float32): 4, np.dtype(np.float64): 5,
+                    np.dtype(np.int64): 6}
+_discover_lock = threading.Lock()
+
+
+def discover(labels_img, intens, want_clouds=False,
+             labels_validated=False):
+    """One-pass label discovery (+ optional raster-order cloud assembly)
+    (nyxus_tpu/native/__init__.py discover, the same contract).
+
+    labels_img: [H, W] int-like; intens: [H, W] numeric (same shape).
+    Returns (recs int64 [n, 8] (label, area, y0, y1, x0, x1, 0, 0),
+             fmm float64 [n, 2] (vmin, vmax), slide_min, slide_max,
+             clouds | None) with clouds = (gx, gy, inten, offsets)
+    concatenated per ascending label in raster order."""
+    lib = _load()
+    labels_img = _labels_i32(labels_img, validated=labels_validated)
+    intens = np.ascontiguousarray(intens)
+    if intens.dtype not in _DISCOVER_DTYPES:
+        intens = np.ascontiguousarray(intens, np.float64)
+    dt = _DISCOVER_DTYPES[intens.dtype]
+    H, W = labels_img.shape
+    lp = labels_img.ctypes.data_as(ctypes.c_void_p)
+    ip = intens.ctypes.data_as(ctypes.c_void_p)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    with _discover_lock:   # the two calls share thread_local native state
+        n = lib.nyx_discover(lp, ip, dt, H, W)
+        if n < 0:
+            raise RuntimeError("nyx_discover failed")
+        recs = np.zeros((n, 8), np.int64)
+        fmm = np.zeros((n, 2), np.float64)
+        extrema = np.zeros(2, np.float64)
+        clouds = None
+        if want_clouds:
+            total = int(np.count_nonzero(labels_img)) if n else 0
+            clouds = (np.empty(total, np.int64), np.empty(total, np.int64),
+                      np.empty(total, np.float64), np.zeros(n + 1, np.int64))
+            gx, gy, gi, off = clouds
+            lib.nyx_discover_fetch(lp, ip, dt, ptr(recs), ptr(fmm),
+                                   ptr(extrema), ptr(off), ptr(gx), ptr(gy),
+                                   ptr(gi))
+        else:
+            lib.nyx_discover_fetch(lp, ip, dt, ptr(recs), ptr(fmm),
+                                   ptr(extrema), None, None, None, None)
+    return recs, fmm, float(extrema[0]), float(extrema[1]), clouds
 
 
 def geom_batch(clouds, contours, recs_mat, flags, groups, logw_eps=0.0,

@@ -149,12 +149,11 @@ def erosion_counts(mask, heights, widths):
         scratch = torch.empty((B, 2, H, W), dtype=torch.uint8,
                               device=mask.device)
     vec = W % 16 == 0 and mask.data_ptr() % 16 == 0
-    with torch.cuda.device(mask.device):
-        code = _build.lib().nyx_erosion(
-            mask.data_ptr(), heights.data_ptr(), widths.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            B, H, W, ("warp", "block", "device").index(path), bits, T, smem,
-            int(vec), _build.stream_of(mask))
+    code = _build.lib().nyx_erosion(
+        mask.data_ptr(), heights.data_ptr(), widths.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        B, H, W, ("warp", "block", "device").index(path), bits, T, smem,
+        int(vec), _build.stream_of(mask, "erosion"))
     _build.check("erosion", code)
     erosion_counts.launches += 1
     return out
@@ -287,12 +286,11 @@ def binary_quads(mask):
                               device=mask.device)
     aligned = mask.data_ptr() % 16 == 0
     vec = aligned and W % (16 if path == "warp" else 32) == 0
-    with torch.cuda.device(mask.device):
-        code = _build.lib().nyx_binary_quads(
-            mask.data_ptr(), quads.data_ptr(), boxes.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), words, B, H, W,
-            S, ("warp", "block", "device").index(path), rois, words_a_row,
-            smem, int(vec), _build.stream_of(mask))
+    code = _build.lib().nyx_binary_quads(
+        mask.data_ptr(), quads.data_ptr(), boxes.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), words, B, H, W,
+        S, ("warp", "block", "device").index(path), rois, words_a_row,
+        smem, int(vec), _build.stream_of(mask, "binary_quads"))
     _build.check("binary_quads", code)
     binary_quads.launches += 1
     return quads, boxes

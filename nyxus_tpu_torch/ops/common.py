@@ -170,11 +170,11 @@ def batched_hist(idx, weights, nbins: int):
             B, A, nbins, C, w3.element_size())
         vec = A % HIST_STEP == 0 and chunk % HIST_STEP == 0 \
             and idx.data_ptr() % 16 == 0 and w3.data_ptr() % 16 == 0
-        with torch.cuda.device(idx.device):
-            code = _build.lib().nyx_batched_hist(
-                idx.data_ptr(), w3.data_ptr(), out.data_ptr(), B, A, nbins, C,
-                S, chunk, threads, copies, L, int(vec),
-                int(w3.dtype == torch.float64), _build.stream_of(idx))
+        code = _build.lib().nyx_batched_hist(
+            idx.data_ptr(), w3.data_ptr(), out.data_ptr(), B, A, nbins, C,
+            S, chunk, threads, copies, L, int(vec),
+            int(w3.dtype == torch.float64),
+            _build.stream_of(idx, "batched_hist"))
         _build.check("batched_hist", code)
         batched_hist.launches += 1
     return out if weights.dim() == 3 else out[0]
@@ -468,15 +468,14 @@ def neigh_matrix(mode: str, lev, part, nbins: int, dtype):
             dsum = torch.empty((B, nbins), dtype=dtype, device=dev)
     vec = W % 4 == 0 and lev.data_ptr() % 16 == 0 \
         and part.data_ptr() % 16 == 0
-    with torch.cuda.device(dev):
-        code = _build.lib().nyx_neigh_matrix(
-            lev.data_ptr(), part.data_ptr(), _NM_PART[part.dtype],
-            out.data_ptr(), 0 if present is None else present.data_ptr(),
-            0 if dcount is None else dcount.data_ptr(),
-            0 if dsum is None else dsum.data_ptr(), B, H, W, nbins,
-            NM_MODES.index(mode), NM_PATHS.index(path), C, threads, smem,
-            int(vec), int(esz == 8),
-            _build.stream_of(lev))
+    code = _build.lib().nyx_neigh_matrix(
+        lev.data_ptr(), part.data_ptr(), _NM_PART[part.dtype],
+        out.data_ptr(), 0 if present is None else present.data_ptr(),
+        0 if dcount is None else dcount.data_ptr(),
+        0 if dsum is None else dsum.data_ptr(), B, H, W, nbins,
+        NM_MODES.index(mode), NM_PATHS.index(path), C, threads, smem,
+        int(vec), int(esz == 8),
+        _build.stream_of(lev, "neigh_matrix"))
     _build.check("neigh_matrix", code)
     neigh_matrix.launches += 1
     return result

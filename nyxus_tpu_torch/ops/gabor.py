@@ -300,13 +300,12 @@ def gabor_counts(img, heights, widths, cfg):
         cmpval = torch.full((B,), math.inf, dtype=img.dtype, device=dev)
         base = torch.empty((B, H, W), dtype=img.dtype, device=dev)
         taps = filter_bank(cfg, img.dtype, dev)
-    with torch.cuda.device(dev):
-        code = _build.lib().nyx_gabor(
-            img.data_ptr(), taps.data_ptr(), hts.data_ptr(), wds.data_ptr(),
-            hs, ws, None if base is None else base.data_ptr(),
-            maxval.data_ptr(), cmpval.data_ptr(), counts.data_ptr(), B, H, W,
-            n, K, float(cfg.gabor_thold), C, P, KG, smem,
-            int(img.dtype == torch.float64), _build.stream_of(img))
+    code = _build.lib().nyx_gabor(
+        img.data_ptr(), taps.data_ptr(), hts.data_ptr(), wds.data_ptr(),
+        hs, ws, None if base is None else base.data_ptr(),
+        maxval.data_ptr(), cmpval.data_ptr(), counts.data_ptr(), B, H, W,
+        n, K, float(cfg.gabor_thold), C, P, KG, smem,
+        int(img.dtype == torch.float64), _build.stream_of(img, "gabor"))
     _build.check("gabor", code)
     gabor_counts.launches += 1
     return counts, maxval, cmpval

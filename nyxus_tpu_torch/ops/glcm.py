@@ -229,13 +229,12 @@ def cooc_matrices(orig, levels, angles, offset: int, ng: int,
     for k in range(4):
         dx, dy = ANGLE_OFFSETS[angles[k]] if k < na else (0, 0)
         d += [dx * offset, dy * offset]
-    with torch.cuda.device(orig.device):
-        code = _build.lib().nyx_glcm_cooc(
-            orig.data_ptr(), levels.data_ptr(), out.data_ptr(),
-            0 if dcount is None else dcount.data_ptr(), B, H, W, ng,
-            na, *d, int(symmetric), GLCM_PATHS[path], bits, AG, C, threads,
-            smem, hx, hy, int(vec), int(esz == 8),
-            _build.stream_of(orig))
+    code = _build.lib().nyx_glcm_cooc(
+        orig.data_ptr(), levels.data_ptr(), out.data_ptr(),
+        0 if dcount is None else dcount.data_ptr(), B, H, W, ng,
+        na, *d, int(symmetric), GLCM_PATHS[path], bits, AG, C, threads,
+        smem, hx, hy, int(vec), int(esz == 8),
+        _build.stream_of(orig, "glcm_cooc"))
     _build.check("glcm_cooc", code)
     cooc_matrices.launches += 1
     return out

@@ -218,13 +218,12 @@ def run_matrices(lev, valid, ng: int, nr: int, dtype):
     vec = W % 4 == 0 and lev.data_ptr() % 16 == 0 \
         and valid.data_ptr() % 4 == 0
     vec_out = (ng * nr) % 4 == 0 and out.data_ptr() % 16 == 0
-    with torch.cuda.device(lev.device):
-        code = _build.lib().nyx_glrlm_runs(
-            lev.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            0 if gcnt is None else gcnt.data_ptr(), B, H, W, ng, nr,
-            _RUNS_MODES[path], code_bits, ws, cnt_bytes, smem,
-            glrlm_runs_threads(H, W), int(vec), int(vec_out), int(esz == 8),
-            _build.stream_of(lev))
+    code = _build.lib().nyx_glrlm_runs(
+        lev.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        0 if gcnt is None else gcnt.data_ptr(), B, H, W, ng, nr,
+        _RUNS_MODES[path], code_bits, ws, cnt_bytes, smem,
+        glrlm_runs_threads(H, W), int(vec), int(vec_out), int(esz == 8),
+        _build.stream_of(lev, "glrlm_runs"))
     _build.check("glrlm_runs", code)
     run_matrices.launches += 1
     return out

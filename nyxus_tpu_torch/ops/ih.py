@@ -298,11 +298,11 @@ def ih_stats(freq, counts, vmin, vmax, noval: float, pscale, poffset):
     if B == 0:
         return out
     path, bins_lane = ih_stats_plan(N, freq.element_size())
-    with torch.cuda.device(freq.device):
-        code = _build.lib().nyx_ih_stats(
-            freq.data_ptr(), *(r.data_ptr() for r in rows), out.data_ptr(),
-            B, N, _IH_PATHS.index(path), bins_lane,
-            int(dt == torch.float64), float(noval), _build.stream_of(freq))
+    code = _build.lib().nyx_ih_stats(
+        freq.data_ptr(), *(r.data_ptr() for r in rows), out.data_ptr(),
+        B, N, _IH_PATHS.index(path), bins_lane,
+        int(dt == torch.float64), float(noval),
+        _build.stream_of(freq, "ih_stats"))
     _build.check("ih_stats", code)
     ih_stats.launches += 1
     return out

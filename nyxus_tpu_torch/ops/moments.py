@@ -204,13 +204,12 @@ def moment_power_sums(intens, mask, area, logw=None):
     area, astride = roi_sizes(area)
     _, C, chunk, threads, smem = power_sums_plan(B, H, W,
                                                  intens.element_size(), P)
-    with torch.cuda.device(intens.device):
-        code = _build.lib().nyx_power_sums(
-            intens.data_ptr(), mask.data_ptr(),
-            None if logw is None else logw.data_ptr(), area.data_ptr(),
-            astride, sums.data_ptr(), centres.data_ptr(), B, P, H, W, C,
-            chunk, threads, smem, int(dt == torch.float64),
-            _build.stream_of(intens))
+    code = _build.lib().nyx_power_sums(
+        intens.data_ptr(), mask.data_ptr(),
+        None if logw is None else logw.data_ptr(), area.data_ptr(),
+        astride, sums.data_ptr(), centres.data_ptr(), B, P, H, W, C,
+        chunk, threads, smem, int(dt == torch.float64),
+        _build.stream_of(intens, "power_sums"))
     _build.check("power_sums", code)
     moment_power_sums.launches += 1
     return out

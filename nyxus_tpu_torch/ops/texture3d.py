@@ -294,15 +294,14 @@ def glcm3d_cooc(levels, depths, heights, widths, offset: int, ng: int,
                                                        symmetric)
     gcnt = None if path == "cluster" else torch.zeros(
         (B, 13, ng, ng), dtype=torch.int32, device=levels.device)
-    with torch.cuda.device(levels.device):
-        code = _build.lib().nyx_glcm3d_cooc(
-            levels.data_ptr(), dd.data_ptr(), hh.data_ptr(), ww.data_ptr(),
-            ds, hs, ws, _glcm3d_table(offset), out.data_ptr(),
-            None if gcnt is None else gcnt.data_ptr(), B, D, H, W, ng,
-            int(symmetric), int(4 * ng * ng <= SMEM_MAX), C, DG, T, Zb, Yb,
-            offset,
-            int(narrow), smem, int(dtype == torch.float64),
-            _build.stream_of(levels))
+    code = _build.lib().nyx_glcm3d_cooc(
+        levels.data_ptr(), dd.data_ptr(), hh.data_ptr(), ww.data_ptr(),
+        ds, hs, ws, _glcm3d_table(offset), out.data_ptr(),
+        None if gcnt is None else gcnt.data_ptr(), B, D, H, W, ng,
+        int(symmetric), int(4 * ng * ng <= SMEM_MAX), C, DG, T, Zb, Yb,
+        offset,
+        int(narrow), smem, int(dtype == torch.float64),
+        _build.stream_of(levels, "glcm3d_cooc"))
     _build.check("glcm3d_cooc", code)
     glcm3d_cooc.launches += 1
     return out
@@ -444,11 +443,10 @@ def glrlm3d_runs(lev, valid, ng: int, nr: int, dtype):
     if B == 0 or ng == 0 or nr == 0:
         return out
     S, L, P, narrow, _ = glrlm3d_plan(ng, nr, D * H * W)
-    with torch.cuda.device(lev.device):
-        code = _build.lib().nyx_glrlm3d_runs(
-            lev.data_ptr(), valid.data_ptr(), _GLRLM_TABLE, out.data_ptr(),
-            B, D, H, W, ng, nr, S, L.bit_length() - 1, P, int(narrow),
-            int(dtype == torch.float64), _build.stream_of(lev))
+    code = _build.lib().nyx_glrlm3d_runs(
+        lev.data_ptr(), valid.data_ptr(), _GLRLM_TABLE, out.data_ptr(),
+        B, D, H, W, ng, nr, S, L.bit_length() - 1, P, int(narrow),
+        int(dtype == torch.float64), _build.stream_of(lev, "glrlm3d_runs"))
     _build.check("glrlm3d_runs", code)
     glrlm3d_runs.launches += 1
     return out
@@ -619,14 +617,13 @@ def cc3d(lev, valid, connectivity: int, heights=None, widths=None):
     if lev.numel() == 0:
         return anc, dist
     _, C, Zs, T, wide, smem = cc3d_plan(B, D, H, W, want_dist)
-    with torch.cuda.device(lev.device):
-        code = _build.lib().nyx_cc3d(
-            lev.data_ptr(), valid.data_ptr(),
-            hh.data_ptr() if want_dist else 0,
-            ww.data_ptr() if want_dist else 0, hs, ws, anc.data_ptr(),
-            dist.data_ptr() if want_dist else 0, B, D, H, W,
-            int(connectivity == 26), C, Zs, T, int(wide), smem,
-            _build.stream_of(lev))
+    code = _build.lib().nyx_cc3d(
+        lev.data_ptr(), valid.data_ptr(),
+        hh.data_ptr() if want_dist else 0,
+        ww.data_ptr() if want_dist else 0, hs, ws, anc.data_ptr(),
+        dist.data_ptr() if want_dist else 0, B, D, H, W,
+        int(connectivity == 26), C, Zs, T, int(wide), smem,
+        _build.stream_of(lev, "cc3d"))
     _build.check("cc3d", code)
     cc3d.launches += 1
     return anc, dist
@@ -786,11 +783,10 @@ def stencil3d(lev, part, shifts=None, radius: int = 0):
             else _stencil3d_table(shifts)
         halo = int(radius) if shifts is None else int(mask >= 0)
         _, Zt, Yt, T, smem = stencil3d_plan(B, D, H, W, halo)
-        with torch.cuda.device(lev.device):
-            code = _build.lib().nyx_stencil3d(
-                lev.data_ptr(), part.data_ptr(), table, n, mask, int(radius),
-                ptr(same), ptr(nsum), ptr(ncnt), B, D, H, W, Zt, Yt, T, smem,
-                _build.stream_of(lev))
+        code = _build.lib().nyx_stencil3d(
+            lev.data_ptr(), part.data_ptr(), table, n, mask, int(radius),
+            ptr(same), ptr(nsum), ptr(ncnt), B, D, H, W, Zt, Yt, T, smem,
+            _build.stream_of(lev, "stencil3d"))
         _build.check("stencil3d", code)
         stencil3d.launches += 1
     return same if shifts is not None else (nsum, ncnt)

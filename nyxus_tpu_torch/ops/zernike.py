@@ -222,14 +222,13 @@ def zernike_moments(img, raw, heights, widths, vmin, vmax, noval,
         if vmin.stride(0) != vmax.stride(0):
             vmin, vmax = vmin.contiguous(), vmax.contiguous()
         C, chunk = zernike_plan(B, H, W)
-        with torch.cuda.device(img.device):
-            code = _build.lib().nyx_zernike(
-                img.data_ptr(), raw.data_ptr(), raw.stride(0),
-                heights.data_ptr(), hs, widths.data_ptr(), ws,
-                vmin.data_ptr(), vmax.data_ptr(), vmin.stride(0),
-                float(noval), _H_ALL.ctypes.data, mags.data_ptr(),
-                None if S is None else S.data_ptr(), B, H, W, C, chunk,
-                int(dt == torch.float64), _build.stream_of(img))
+        code = _build.lib().nyx_zernike(
+            img.data_ptr(), raw.data_ptr(), raw.stride(0),
+            heights.data_ptr(), hs, widths.data_ptr(), ws,
+            vmin.data_ptr(), vmax.data_ptr(), vmin.stride(0),
+            float(noval), _H_ALL.ctypes.data, mags.data_ptr(),
+            None if S is None else S.data_ptr(), B, H, W, C, chunk,
+            int(dt == torch.float64), _build.stream_of(img, "zernike"))
         _build.check("zernike", code)
         zernike_moments.launches += 1
     return (mags, S) if sums else mags

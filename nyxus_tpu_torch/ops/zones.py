@@ -258,11 +258,10 @@ def zone_labels(lev, valid):
     if lev.numel() == 0:
         return anc
     path, warps, R, C = zone_dag_plan(B, H, W)
-    with torch.cuda.device(lev.device):
-        code = _build.lib().nyx_zone_dag(
-            lev.data_ptr(), valid.data_ptr(), anc.data_ptr(), B, H, W,
-            0 if path == "warp" else 1, C, R, 32 * warps,
-            _build.stream_of(lev))
+    code = _build.lib().nyx_zone_dag(
+        lev.data_ptr(), valid.data_ptr(), anc.data_ptr(), B, H, W,
+        0 if path == "warp" else 1, C, R, 32 * warps,
+        _build.stream_of(lev, "zone_dag"))
     _build.check("zone_dag", code)
     zone_labels.launches += 1
     return anc
@@ -278,9 +277,8 @@ def zone_dag_chain(B: int, H: int, device="cuda"):
     as a launch of K5."""
     out = torch.empty((B,), dtype=torch.int32, device=device)
     R = zone_dag_plan(B, H, 1)[2]
-    with torch.cuda.device(out.device):
-        code = _build.lib().nyx_zone_dag_chain(out.data_ptr(), B, H, R,
-                                               _build.stream_of(out))
+    code = _build.lib().nyx_zone_dag_chain(
+        out.data_ptr(), B, H, R, _build.stream_of(out, "zone_dag_chain"))
     _build.check("zone_dag_chain", code)
     return out
 
@@ -334,11 +332,10 @@ def zone_cc4(lev, valid, heights, widths):
     if lev.numel() == 0:
         return anc, dist
     smem, threads = zone_cc4_plan(H, W)
-    with torch.cuda.device(lev.device):
-        code = _build.lib().nyx_zone_cc4(
-            lev.data_ptr(), valid.data_ptr(), heights.data_ptr(),
-            widths.data_ptr(), anc.data_ptr(), dist.data_ptr(), B, H, W,
-            smem, threads, _build.stream_of(lev))
+    code = _build.lib().nyx_zone_cc4(
+        lev.data_ptr(), valid.data_ptr(), heights.data_ptr(),
+        widths.data_ptr(), anc.data_ptr(), dist.data_ptr(), B, H, W,
+        smem, threads, _build.stream_of(lev, "zone_cc4"))
     _build.check("zone_cc4", code)
     zone_cc4.launches += 1
     return anc, dist
@@ -432,14 +429,13 @@ def zone_list(anc, lev, valid, dist=None):
                                       else [])
     vec = A % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ints) \
         and valid.data_ptr() % 4 == 0 and ok.data_ptr() % 4 == 0
-    with torch.cuda.device(anc.device):
-        code = _build.lib().nyx_zone_stats(
-            anc.data_ptr(), lev.data_ptr(), valid.data_ptr(),
-            0 if dist is None else dist.data_ptr(), zlev.data_ptr(),
-            zsize.data_ptr(), 0 if zdist is None else zdist.data_ptr(),
-            ok.data_ptr(), B, A, ("smem", "cluster", "device").index(path),
-            C, T, smem, int(vec),
-            _build.stream_of(anc))
+    code = _build.lib().nyx_zone_stats(
+        anc.data_ptr(), lev.data_ptr(), valid.data_ptr(),
+        0 if dist is None else dist.data_ptr(), zlev.data_ptr(),
+        zsize.data_ptr(), 0 if zdist is None else zdist.data_ptr(),
+        ok.data_ptr(), B, A, ("smem", "cluster", "device").index(path),
+        C, T, smem, int(vec),
+        _build.stream_of(anc, "zone_stats"))
     _build.check("zone_stats", code)
     zone_list.launches += 1
     return zlev, zsize, zdist, ok

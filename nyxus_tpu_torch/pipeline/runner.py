@@ -3,11 +3,20 @@ dense padded-bucket path of nyxus_tpu/pipeline/runner.py).
 
 Orchestrates: label discovery -> contours and the native host-geometry pass
 -> bucketed batching -> every device family over each padded ROI batch on
-one torch device -> row assembly -> the host families.  Crops (and, for the
-moment families, the per-pixel log contour distances) are assembled on the
-host, one padded [B, H, W] plane per bucket, and shipped to the device once
-per bucket; the packed outputs of all buckets come back in one
+its torch device(s) -> row assembly -> the host families.  Crops (and, for
+the moment families, the per-pixel log contour distances) are assembled on
+the host, one padded [B, H, W] plane per bucket, and shipped to the device
+once per bucket; the packed outputs of all buckets come back in one
 device-to-host copy per slide.
+
+With several devices (``devices=``, from ``parallel.roi_devices``) each
+bucket's ROI axis is split by ``parallel.partition`` (JAX's shard_batch
+partition, nyxus_tpu/pipeline/runner.py:1015-1046, less its pad rows) and
+each shard runs every family on its own device, under
+``torch.cuda.device``, from the one host thread: the launches are
+asynchronous, so the cards overlap.  The packed rows come back in one
+device-to-host copy a device.  Phase 3 runs on the first (primary)
+device.
 
 ROIs over the batch budget (``oversized.is_oversized``) take no crop and
 no batch: each is streamed through ``oversized.process`` (the reference's
@@ -28,8 +37,9 @@ nothing is synchronised.
 
 Two crop paths share one core (``_run_core``):
 * in-memory pairs (``run``): crops are windows of the resident slide, the
-  contours of every ROI come from one native call and the pixel clouds
-  from one whole-slide label sort
+  contours of every ROI come from one native call, and the ROI records
+  and pixel clouds from one native discovery pass
+  (``labels.discover_rois_clouds``)
 * file-backed pairs (``run_streamed``): discovery streams tiles, and each
   ROI's padded crop is read from the source once, into a crop cache that
   the contour trace, the pixel clouds and its batch share, so the slide is
@@ -56,6 +66,7 @@ from .. import registry
 from .. import taxonomy as tx
 from ..config import EngineConfig
 from ..ops.moments import WEIGHTING_EPSILON
+from ..parallel import device_guard, partition
 from ..timing import Stopwatch, stopwatch
 from . import batching, hostfeats, labels
 from . import oversized as ovs
@@ -77,15 +88,17 @@ def compute_dtype(cfg: EngineConfig):
 
 
 @contextlib.contextmanager
-def stage(key, device, span=None):
+def stage(key, devices, span=None):
     """One stage of a run: the Stopwatch ``key`` and, where given, the
-    ``span`` profiler range; with the Stopwatch enabled, ``device`` (a
-    CUDA one) is synchronised before the stage's time is taken."""
+    ``span`` profiler range; with the Stopwatch enabled, every CUDA device
+    of ``devices`` is synchronised before the stage's time is taken."""
     with stopwatch(key), (record_function(span) if span
                           else contextlib.nullcontext()):
         yield
-        if Stopwatch.enabled() and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if Stopwatch.enabled():
+            for dev in dict.fromkeys(devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
 
 def _aniso_records(recs, vrecs, ax, ay):
@@ -153,15 +166,35 @@ def _cat(parts, dt):
     return np.concatenate(parts).astype(dt) if parts else np.zeros(0, dt)
 
 
-def _build_clouds(recs, intens, label_img, skip=frozenset()):
+def _build_clouds(recs, intens, label_img, skip=frozenset(), pre=None):
     """Concatenated per-ROI pixel clouds (global raster order) for the
     batched native geometry pass: (gx, gy, inten, offsets) aligned with
-    ``recs``, from one whole-slide nonzero + stable label sort (the resident
-    branch of nyxus_tpu/pipeline/runner.py:361 _build_clouds).  The rows in
+    ``recs`` (the resident branches of nyxus_tpu/pipeline/runner.py:361
+    _build_clouds).  ``pre`` = (gx, gy, inten, offsets, label -> index)
+    from the native discovery pass: each ROI's segment is sliced out of it
+    (or it is returned whole when ``recs`` are its ROIs in its order);
+    otherwise one whole-slide nonzero + stable label sort.  The rows in
     ``skip`` (oversized) get empty clouds."""
     n = len(recs)
     off = np.zeros(n + 1, np.int64)
     gx_p, gy_p, it_p = [], [], []
+    if pre is not None:
+        gx0, gy0, gi0, off0, lab2k = pre
+        if not skip and n == len(lab2k) and all(
+                lab2k.get(r.label) == j for j, r in enumerate(recs)):
+            return gx0, gy0, gi0, off0
+        for j, r in enumerate(recs):
+            k = lab2k.get(r.label)
+            if j in skip or k is None:
+                off[j + 1] = off[j]
+                continue
+            a, b = int(off0[k]), int(off0[k + 1])
+            off[j + 1] = off[j] + (b - a)
+            gx_p.append(gx0[a:b])
+            gy_p.append(gy0[a:b])
+            it_p.append(gi0[a:b])
+        return (_cat(gx_p, np.int64), _cat(gy_p, np.int64),
+                _cat(it_p, np.float64), off)
     ys, xs = np.nonzero(label_img)
     labs = label_img[ys, xs]
     order = np.argsort(labs, kind="stable")
@@ -238,13 +271,18 @@ class _CropWindows:
 
 class PairRunner:
     """Extracts features for all ROIs of one (intensity, labels) pair on
-    ``device`` (a torch device; the CPU only when the caller asks for it)."""
+    ``device`` (a torch device; the CPU only when the caller asks for it),
+    or with each bucket sharded over ``devices`` (a list from
+    ``parallel.roi_devices``, whose first entry is the primary device;
+    None, or one device, is the one-device path)."""
 
     def __init__(self, fset: tx.FeatureSet, cfg: EngineConfig,
-                 device="cuda"):
+                 device="cuda", devices=None):
         self.fset = fset
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else [torch.device(device)]
+        self.device = self.devices[0]
         self.dtype = compute_dtype(cfg)
         self.families = registry.activated_families(fset)
         self.device_families = tuple(
@@ -295,8 +333,12 @@ class PairRunner:
         (reference: phase2_2d.cpp:183-285)."""
         if self.cfg.mergerois:
             label_img = (label_img != 0).astype(np.int64)
-        with stage(SW_DISCOVER, self.device, "nyx:discover"):
-            all_recs, smin, smax = labels._discover_rois_np(intens, label_img)
+        with stage(SW_DISCOVER, self.devices, "nyx:discover"):
+            # the records and the pixel clouds in one native pass (numpy
+            # and no clouds for labels past int32)
+            all_recs, smin, smax, clouds = labels.discover_rois_clouds(
+                intens, label_img)
+            cloud_recs = all_recs
             if wholeslide and len(all_recs) == 1:
                 all_recs[0].y1, all_recs[0].x1 = intens.shape
             if self.cfg.aniso_customized:
@@ -308,13 +350,17 @@ class PairRunner:
                                 intens.shape[1] - 1)
                 intens = np.ascontiguousarray(intens[pr][:, pc])
                 label_img = np.ascontiguousarray(label_img[pr][:, pc])
-                all_recs = _aniso_records(
-                    all_recs, labels._discover_rois_np(intens, label_img)[0],
-                    ax, ay)
+                # the clouds come from the virtual slide, which every later
+                # pixel read sees
+                cloud_recs, _, _, clouds = labels.discover_rois_clouds(
+                    intens, label_img)
+                all_recs = _aniso_records(all_recs, cloud_recs, ax, ay)
+            if clouds is not None:
+                clouds += ({r.label: k for k, r in enumerate(cloud_recs)},)
         return self._run_core(all_recs, smin, smax,
                               ArrayPairSource(intens, label_img), blacklist,
                               fname, hu_offset, resident=(intens, label_img),
-                              wholeslide=wholeslide)
+                              wholeslide=wholeslide, clouds=clouds)
 
     def run_streamed(self, source, blacklist=None, fname: str = "",
                      tile: int = 2048, wholeslide: bool = False,
@@ -327,7 +373,7 @@ class PairRunner:
         ``AnisoResampledSource``."""
         if self.cfg.mergerois:
             source = MergedLabelSource(source)
-        with stage(SW_DISCOVER, self.device, "nyx:discover"):
+        with stage(SW_DISCOVER, self.devices, "nyx:discover"):
             all_recs, smin, smax = labels.discover_rois_streamed(source, tile)
             if wholeslide and len(all_recs) == 1:
                 all_recs[0].y1, all_recs[0].x1 = source.shape
@@ -341,9 +387,11 @@ class PairRunner:
                               hu_offset, wholeslide=wholeslide)
 
     def _run_core(self, all_recs, smin, smax, source, blacklist, fname,
-                  hu_offset, resident=None, wholeslide=False):
+                  hu_offset, resident=None, wholeslide=False, clouds=None):
         """Both paths from discovery on: ``resident`` (intens, labels) for
-        an in-memory pair, None when crops are read from ``source``.
+        an in-memory pair, None when crops are read from ``source``;
+        ``clouds``: the native discovery's pixel clouds with their label ->
+        index map, or None.
 
         The RAM gate splits the ROIs (nyxus_tpu/pipeline/runner.py:595-602;
         reference: workflow_2d_segmented.cpp:124-139): trivial ROIs take
@@ -378,7 +426,7 @@ class PairRunner:
         if host_rows and (self.pre_host or self.post_host
                           or self._needs_logw):
             hc = self._host_context(recs, values, crops, contours,
-                                    host_rows, over_set)
+                                    host_rows, over_set, clouds)
 
         static_meta = ()
         if self.cfg.ibsi:
@@ -394,13 +442,20 @@ class PairRunner:
         for shape, sub in batching.group_rois([recs[i] for i in batched],
                                               hbm_budget_bytes=budget):
             idxs = [batched[j] for j in sub]
-            with stage(SW_BATCHES, self.device):
+            with stage(SW_BATCHES, self.devices):
                 lw = self._logw_planes(hc, recs, idxs, shape) \
                     if hc is not None and self._needs_logw else None
-                windows = [crops(i, *shape) for i in idxs]
-                outs.append((idxs, self._run_batch(
-                    windows, [recs[i] for i in idxs], shape, smin, smax, lw,
-                    static_meta, hu_offset)))
+                # one shard a device (one shard: the whole bucket), each
+                # one's crops, families and pack under its device
+                for k, part in partition(len(idxs), len(self.devices)):
+                    dev = self.devices[k]
+                    sidx = idxs[part]
+                    windows = [crops(i, *shape) for i in sidx]
+                    with device_guard(dev):
+                        outs.append((sidx, self._run_batch(
+                            windows, [recs[i] for i in sidx], shape, smin,
+                            smax, None if lw is None else lw[part],
+                            static_meta, hu_offset, dev)))
                 crops.release(idxs, shape)
 
         # phase 3: the oversized ROIs' streamed passes, host work that runs
@@ -409,7 +464,8 @@ class PairRunner:
         # oversized rows (nyxus_tpu/pipeline/runner.py:1256-1307)
         over_res = []
         for i in over_rows:
-            with stage(SW_OVERSIZED, self.device, "nyx:oversized"):
+            with stage(SW_OVERSIZED, self.devices, "nyx:oversized"), \
+                    device_guard(self.device):
                 over_res.append((i, ovs.process(
                     recs[i], source, self.cfg, self.families, smin, smax,
                     contour=None if contours is None else contours[i],
@@ -420,25 +476,31 @@ class PairRunner:
                 # the heavy half of the geometry pass and the host families
                 # that read no device result: the device batches above run
                 # asynchronously meanwhile
-                with stage(SW_GEOM, self.device, "nyx:geom"):
+                with stage(SW_GEOM, self.devices, "nyx:geom"):
                     hostfeats.compute_geom(
                         hc, self.cfg, self.families, phase="rest",
                         exclude=hostfeats.DIST_FAMILIES)
             self._run_host(hc, values, self.pre_host)
 
         if outs:
-            # one device-to-host copy per slide: every bucket packs the same
-            # member layout, so the packed outputs concatenate
-            with stage(SW_COLLECT, self.device, "nyx:collect"):
-                packed_all = torch.cat([o for _, o in outs],
-                                       dim=0).cpu().numpy()
+            # one device-to-host copy per slide and device: every bucket
+            # and shard packs the same member layout, so the packed
+            # outputs of a device concatenate
             src, dst = self._colmap
-            row = 0
+            by_dev = {}
             for idxs, o in outs:
-                n = o.shape[0]
-                values[np.ix_(np.asarray(idxs), dst)] = \
-                    packed_all[row:row + n][:, src]
-                row += n
+                by_dev.setdefault(o.device, []).append((idxs, o))
+            with stage(SW_COLLECT, self.devices, "nyx:collect"):
+                packed = [(part, torch.cat([o for _, o in part],
+                                           dim=0).cpu().numpy())
+                          for part in by_dev.values()]
+            for part, packed_all in packed:
+                row = 0
+                for idxs, o in part:
+                    n = o.shape[0]
+                    values[np.ix_(np.asarray(idxs), dst)] = \
+                        packed_all[row:row + n][:, src]
+                    row += n
 
         for i, res in over_res:
             self._scatter(values, [i], res)
@@ -486,7 +548,7 @@ class PairRunner:
         no dense crop.  Whole-slide mode traces nothing: its contour is
         ``wholeslide_contours``'s."""
         resident = crops.resident
-        with stage(SW_CONTOURS, self.device, "nyx:contours"):
+        with stage(SW_CONTOURS, self.devices, "nyx:contours"):
             if wholeslide:
                 return wholeslide_contours(recs)
             triv = [i for i in range(len(recs)) if i not in over_set]
@@ -510,13 +572,13 @@ class PairRunner:
         return contours
 
     def _host_context(self, recs, values, crops, contours, host_rows,
-                      over_set):
+                      over_set, clouds=None):
         """The HostContext of the host rows (``host_rows``, indices into
-        ``recs``), and, with contours, their pixel clouds and phase "logw"
-        of the native geometry pass: the per-pixel log contour distances
-        the moment families consume, and the ROI radius / radial families
-        that share that distance search.  Oversized rows get empty
-        clouds."""
+        ``recs``), and, with contours, their pixel clouds (sliced from the
+        discovery pass's ``clouds`` where given) and phase "logw" of the
+        native geometry pass: the per-pixel log contour distances the
+        moment families consume, and the ROI radius / radial families that
+        share that distance search.  Oversized rows get empty clouds."""
         resident = crops.resident
         rows = np.asarray(host_rows)
         over_local = frozenset(j for j, i in enumerate(host_rows)
@@ -538,8 +600,9 @@ class PairRunner:
         hc.pos = {i: j for j, i in enumerate(host_rows)}
         if contours is None:
             return hc
-        with stage(SW_GEOM, self.device, "nyx:geom"):
-            hc.clouds = _build_clouds(host_recs, *resident, over_local) \
+        with stage(SW_GEOM, self.devices, "nyx:geom"):
+            hc.clouds = _build_clouds(host_recs, *resident, over_local,
+                                      pre=clouds) \
                 if resident is not None else _crop_clouds(
                     host_recs, lambda j, hb, wb: crops(host_rows[j], hb, wb),
                     over_local)
@@ -581,7 +644,7 @@ class PairRunner:
         ``values`` before the next one runs (later families read earlier
         ones' members)."""
         for name in names:
-            with stage(SW_HOST % name, self.device, "nyx:host:" + name):
+            with stage(SW_HOST % name, self.devices, "nyx:host:" + name):
                 members = registry.FAMILIES[name].host_fn(hc, self.cfg)
             self._scatter(values, hc.rows, {name: members})
 
@@ -602,13 +665,15 @@ class PairRunner:
                 values[rows, off:off + w] = arr[:, :w]
 
     def _run_batch(self, windows, batch_recs, shape, smin, smax, lw=None,
-                   static_meta=(), hu_offset=0.0):
-        """All device families over one padded bucket; returns the packed
-        [B, total_width] output on the device.  Each stage is a
-        ``nyx:<stage>`` profiler range (near free when no profiler runs)."""
+                   static_meta=(), hu_offset=0.0, device=None):
+        """All device families over one padded bucket (or one shard of it)
+        on ``device`` (the runner's by default), which the caller has made
+        current; returns the packed [B, total_width] output there.  Each
+        stage is a ``nyx:<stage>`` profiler range (near free when no
+        profiler runs)."""
         with record_function("nyx:crops"):
             ctx = self._batch_context(windows, batch_recs, shape, smin, smax,
-                                      lw, static_meta, hu_offset)
+                                      lw, static_meta, hu_offset, device)
         out = {}
         for name in self.device_families:
             with record_function("nyx:" + name):
@@ -627,10 +692,10 @@ class PairRunner:
             return torch.cat(parts, dim=1)
 
     def _batch_context(self, windows, batch_recs, shape, smin, smax, lw=None,
-                       static_meta=(), hu_offset=0.0):
+                       static_meta=(), hu_offset=0.0, device=None):
         """Host crop assembly of one padded bucket from each ROI's crop
-        window (``_CropWindows``), shipped to the device once (with the
-        bucket's log-distance planes when given)."""
+        window (``_CropWindows``), shipped to ``device`` (the runner's by
+        default) once, with the bucket's log-distance planes when given."""
         hb, wb = shape
         B = len(batch_recs)
         np_dt = np.float64 if self.dtype == torch.float64 else np.float32
@@ -644,7 +709,7 @@ class PairRunner:
                              for r in batch_recs], np.int32)
         meta_f = np.asarray([[r.vmin, r.vmax, smin, smax, hu_offset]
                              for r in batch_recs], np_dt)
-        dev = self.device
+        dev = self.device if device is None else device
         mi = torch.from_numpy(meta_i).to(dev)
         mf = torch.from_numpy(meta_f).to(dev)
         return registry.BatchContext(

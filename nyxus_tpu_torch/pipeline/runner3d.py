@@ -1,6 +1,8 @@
 """3D pipeline (PyTorch port of nyxus_tpu/pipeline/runner3d.py): volume ROI
 discovery, bucketed [B, D, H, W] batching, the eight device families
-``D3_*`` on one torch device, and the host surface family.
+``D3_*`` on one torch device, or with each bucket's ROI axis sharded over
+several (``devices=``; nyxus_tpu/pipeline/runner3d.py:585-587, as
+``runner.PairRunner`` shards its buckets), and the host surface family.
 
 The run modes: ``mergerois``, whole-volume mode (one vROI over the
 one-past box), 3D anisotropy (the nearest-neighbour resampled virtual
@@ -33,6 +35,7 @@ from ..ops import common as ops_common
 from ..ops import intensity as ops_intensity
 from ..ops import quant
 from ..ops import texture3d as t3
+from ..parallel import device_guard, partition
 from . import batching
 from .oversized3d import is_oversized3d, process3d
 
@@ -341,13 +344,17 @@ FAMILIES3D = {
 
 class VolumeRunner:
     """Featurizes one (intensity, labels) 3D volume pair on ``device`` (a
-    torch device; the CPU only when the caller asks for it)."""
+    torch device; the CPU only when the caller asks for it), or with each
+    bucket sharded over ``devices`` (a list from ``parallel.roi_devices``;
+    the first is the primary device, where phase 3 runs)."""
 
     def __init__(self, fset: tx.FeatureSet, cfg: EngineConfig,
-                 device="cuda"):
+                 device="cuda", devices=None):
         self.fset = fset
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else [torch.device(device)]
+        self.device = self.devices[0]
         self.dtype = torch.float64 if cfg.precision == "f64" else torch.float32
         self.families = tuple(
             n for n in FAMILIES3D
@@ -410,7 +417,8 @@ class VolumeRunner:
         budget = self.cfg.ram_limit_mb << 20
         over = {i for i, r in enumerate(recs) if is_oversized3d(r, budget)}
         if over:
-            with record_function("nyx:oversized"):
+            with record_function("nyx:oversized"), \
+                    device_guard(self.device):
                 self._oversized(values, recs, over, intens, label_img, smin,
                                 smax)
 
@@ -436,36 +444,26 @@ class VolumeRunner:
                     ngldm_nmax = max(ngldm_nmax,
                                      int(r.vmax * g_ngldm / r.bin_max) + 1)
             static_meta = (("max_int", ceil), ("ngldm_nmax", ngldm_nmax))
-            with record_function("nyx:crops"):
-                ctx = self._batch_context(intens, label_img, brecs, shape,
-                                          smax - smin, static_meta)
-            out = {}
-            for name in self.families:
-                with record_function("nyx:" + name):
-                    out[name] = FAMILIES3D[name](ctx, self.cfg)
-            with record_function("nyx:pack"):
-                members, parts = [], []
-                for members_of in out.values():
-                    for member, arr in members_of.items():
-                        code = tx.F3D.get(member)
-                        if code is None or code not in self.member_slots:
-                            continue
-                        a2 = arr[:, None] if arr.dim() == 1 else arr
-                        members.append((code, a2.shape[1]))
-                        parts.append(a2.to(self.dtype))
-                packed = torch.cat(parts, dim=1) if parts else None
-            outs.append((idxs, members, packed))
+            # one shard a device (one shard: the whole bucket), each one's
+            # crops, families and pack under its device
+            for k, part in partition(len(idxs), len(self.devices)):
+                dev = self.devices[k]
+                with device_guard(dev):
+                    outs.append((idxs[part],) + self._run_batch(
+                        intens, label_img, brecs[part], shape, smax - smin,
+                        static_meta, dev))
 
-        packed = [p for _, _, p in outs if p is not None]
-        if packed:
-            # one device-to-host copy per volume
+        # one device-to-host copy per volume and device
+        by_dev = {}
+        for o in outs:
+            if o[2] is not None:
+                by_dev.setdefault(o[2].device, []).append(o)
+        for part in by_dev.values():
             with record_function("nyx:collect"):
-                host = torch.cat([p.reshape(-1) for p in packed]).cpu() \
+                host = torch.cat([p.reshape(-1) for _, _, p in part]).cpu() \
                     .to(torch.float64).numpy()
             pos = 0
-            for idxs, members, p in outs:
-                if p is None:
-                    continue
+            for idxs, members, p in part:
                 block = host[pos:pos + p.numel()].reshape(p.shape)
                 pos += p.numel()
                 rows = np.asarray(idxs)
@@ -486,6 +484,30 @@ class VolumeRunner:
                                   skip=over)
         labs = np.asarray([r.label for r in recs], np.int64)
         return labs, values
+
+    def _run_batch(self, intens, label_img, brecs, shape, srange,
+                   static_meta, device):
+        """Every 3D device family over one padded bucket (or one shard of
+        it) on ``device``, which the caller has made current; returns
+        (members [(code, width)], packed [B, total width] or None)."""
+        with record_function("nyx:crops"):
+            ctx = self._batch_context(intens, label_img, brecs, shape,
+                                      srange, static_meta, device)
+        out = {}
+        for name in self.families:
+            with record_function("nyx:" + name):
+                out[name] = FAMILIES3D[name](ctx, self.cfg)
+        with record_function("nyx:pack"):
+            members, parts = [], []
+            for members_of in out.values():
+                for member, arr in members_of.items():
+                    code = tx.F3D.get(member)
+                    if code is None or code not in self.member_slots:
+                        continue
+                    a2 = arr[:, None] if arr.dim() == 1 else arr
+                    members.append((code, a2.shape[1]))
+                    parts.append(a2.to(self.dtype))
+            return members, (torch.cat(parts, dim=1) if parts else None)
 
     def _anisotropic(self, recs, intens, label_img):
         """3D anisotropy: the physical phase-1 records mapped to the
@@ -544,9 +566,9 @@ class VolumeRunner:
                     values[i, off:off + w] = arr[:w]
 
     def _batch_context(self, intens, label_img, brecs, shape, srange,
-                       static_meta):
-        """Host crop assembly of one padded bucket, shipped to the device
-        once.  A lazy stack's crops are cut plane by plane, the ROIs in
+                       static_meta, device=None):
+        """Host crop assembly of one padded bucket, shipped to ``device``
+        (the runner's by default) once.  A lazy stack's crops are cut plane by plane, the ROIs in
         the order of their first plane, so that its LRU of decoded planes
         serves each plane once where the ROIs allow."""
         D, H, W = shape
@@ -579,7 +601,7 @@ class VolumeRunner:
                               r.vmin if r.bin_min is None else r.bin_min,
                               r.vmax if r.bin_max is None else r.bin_max,
                               srange] for r in brecs], np_dt)
-        dev = self.device
+        dev = self.device if device is None else device
         mi = torch.from_numpy(meta_i).to(dev)
         mf = torch.from_numpy(meta_f).to(dev)
         return Ctx3D(torch.from_numpy(ci).to(dev), torch.from_numpy(cm).to(dev),

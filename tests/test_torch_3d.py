@@ -2,9 +2,8 @@
 (the request *3D_ALL*: 213 columns, the eight device families and the host
 surface family), against the JAX package's VolumeRunner on the same volume
 in f64 on the CPU, and against the reference binary's own CSV; the two
-packages' Nyxus3D configurations; and the one mode the port does not
-serve, several cards, which raises NotImplementedError naming its ROADMAP
-item.  The run modes, oversized ROIs and the file protocol are held
+packages' Nyxus3D configurations; and the ROI buckets sharded over
+several devices (n_devices), equal to the one-device rows.  The run modes, oversized ROIs and the file protocol are held
 against JAX in tests/test_torch_3d_modes_jax.py,
 tests/test_torch_3d_aniso_jax.py, tests/test_torch_oversized3d_jax.py,
 tests/test_torch_3d_files_jax.py and tests/test_torch_3d_layout_jax.py.  The
@@ -153,12 +152,19 @@ def test_set_params_and_prep():
 
 @pytest.mark.parametrize("mode", ["n_devices"])
 def test_unported_modes_raise(mode):
-    """The one mode the port does not serve, sharding over several cards,
-    raises NotImplementedError naming its ROADMAP item."""
+    """Sharding over several cards, the last mode the port lacked, is
+    served: Nyxus3D(n_devices=4) splits each voxel bucket into 4 shards on
+    the CPU, and its *3D_ALL* rows equal the one-device rows in f64."""
     ctor = {"n_devices": {"n_devices": 4}}[mode]
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", **ctor)
-    assert "item" in str(e.value)
+    intens, labels = _blob3d(seed=4, shape=(20, 24, 16))
+    one = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", precision="f64")
+    many = nyxus_tpu_torch.Nyxus3D(FEATURES, device="cpu", precision="f64",
+                                   **ctor)
+    assert len(many._runner.devices) == 4
+    a, b = one.featurize(intens, labels), many.featurize(intens, labels)
+    assert len(a) >= 2 and len(a.columns) == 217
+    pd.testing.assert_frame_equal(b, a, check_exact=False, rtol=1e-12,
+                                  atol=1e-12)
 
 
 def test_empty_volume():

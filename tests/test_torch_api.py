@@ -236,12 +236,33 @@ def test_ibsi_construction(cls, features, width):
 
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_n_devices_beyond_one_raises(n):
-    """The 2D Nyxus refuses a request to shard over cards, as Nyxus3D does,
-    naming the ROADMAP item, instead of dropping it."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        _nyx(["MEAN"], n_devices=n)
-    with pytest.raises(NotImplementedError, match="multi-device 3D"):
-        nyxus_tpu_torch.Nyxus3D(["*3D_ALL*"], device="cpu", n_devices=n)
+    """A request to shard over n cards no longer raises: on the CPU it
+    makes n shards of each ROI bucket, and the 2D and 3D rows equal the
+    one-device rows in f64 at rtol 1e-12 (each ROI's features read its own
+    crop alone; a batched einsum may add a shard's rows in another order
+    than the whole bucket's).  The slide's 5 ROIs give empty shards at
+    n = 8."""
+    from conftest import make_blobs3d
+    intens, labels = _pair()
+    feats = ["*ALL_INTENSITY*", "*ALL_GLCM*", "*ALL_MORPHOLOGY*"]
+    one = _nyx(feats, precision="f64").featurize(intens, labels)
+    many = _nyx(feats, precision="f64", n_devices=n)
+    assert len(many._runner.devices) == n
+    _same_frame(many.featurize(intens, labels), one)
+    vol, vlab = make_blobs3d(seed=n)
+    one3 = nyxus_tpu_torch.Nyxus3D(["*3D_ALL*"], device="cpu",
+                                   precision="f64").featurize(vol, vlab)
+    many3 = nyxus_tpu_torch.Nyxus3D(["*3D_ALL*"], device="cpu",
+                                    precision="f64", n_devices=n)
+    assert len(many3._runner.devices) == n
+    _same_frame(many3.featurize(vol, vlab), one3)
+
+
+def _same_frame(got, want):
+    import pandas as pd
+    assert len(want) > 0
+    pd.testing.assert_frame_equal(got, want, check_exact=False, rtol=1e-12,
+                                  atol=1e-12)
 
 
 @pytest.mark.parametrize("n", [None, 0, 1])

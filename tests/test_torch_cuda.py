@@ -1071,3 +1071,48 @@ def test_zarr_and_tiled_dicom_stream_on_the_card(tmp_path, monkeypatch):
         assert seen == [kind]
         chip_smoke.rows_agree(kind, cols, chip_smoke.frame_rows(nyx, df),
                               want)
+
+
+@pytest.mark.cuda
+def test_kernel_off_the_current_card_raises():
+    """Every wrapper launches on the current CUDA device: a tensor on
+    another card raises, naming the kernel, and no plain version runs in
+    its place; under ``torch.cuda.device`` of its card it launches and
+    equals the plain version.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    g = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, 50, (8, 256), generator=g, dtype=torch.int32)
+    w = torch.rand((8, 256), generator=g, dtype=torch.float64)
+    want = common.batched_hist_plain(idx, w, 50)
+    before = common.batched_hist.launches
+    with torch.cuda.device(0):
+        with pytest.raises(RuntimeError, match="batched_hist.*cuda:1"):
+            common.batched_hist(idx.to("cuda:1"), w.to("cuda:1"), 50)
+    assert common.batched_hist.launches == before
+    with torch.cuda.device(1):
+        got = common.batched_hist(idx.to("cuda:1"), w.to("cuda:1"), 50)
+    assert got.device == torch.device("cuda", 1)
+    assert common.batched_hist.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_two_shards_on_one_card():
+    """The 320 x 320 slide's *ALL* rows through PairRunner with its
+    buckets split into two shards on the card (devices cuda:0 twice):
+    within the tiers of the one-device card run, and every kernel of the
+    path launched by both shards."""
+    fset = taxonomy.parse_feature_request(chip_smoke.FEATURES_ALL)
+    intens, labels = chip_smoke.make_dsb_like(320, 320, 40, seed=11)
+    cfg = EngineConfig(precision="f32")
+    kern = chip_smoke.counters()
+    labs1, one = PairRunner(fset, cfg, "cuda").run(intens, labels)
+    before = {k: f.launches for k, f in kern.items()}
+    labs2, two = PairRunner(fset, cfg, devices=["cuda:0", "cuda:0"]).run(
+        intens, labels)
+    np.testing.assert_array_equal(labs1, labs2)
+    hdr, _ = columns.build_header(fset, EngineConfig())
+    chip_smoke.check_output("two shards", hdr[4:], labs2, two, labs1, one)
+    for k in chip_smoke.KERNELS_2D:
+        assert kern[k].launches > before[k], k

@@ -287,10 +287,11 @@ def test_run_streamed_tile_seams(tmp_path, tile):
     np.testing.assert_array_equal(np.isnan(got_v), np.isnan(want_v))
 
 
-def test_whole_slide_and_bad_pairs_raise(tiff_dirs, tmp_path):
+def test_whole_slide_and_bad_pairs_raise(tiff_dirs, tmp_path, monkeypatch):
     """Whole-slide mode (no mask directory, or single_roi) gives one row an
-    image, in memory and streamed alike; pairs of mismatched or corrupt
-    files raise."""
+    image, in memory and streamed alike, and under shard_slides each
+    process's share of the images; pairs of mismatched or corrupt files
+    raise."""
     int_dir, seg_dir = tiff_dirs
     nyx = _nyx(["MEAN", "AREA_PIXELS_COUNT", "BBOX_WIDTH"])
     ws = nyx.featurize_directory(int_dir)
@@ -315,5 +316,14 @@ def test_whole_slide_and_bad_pairs_raise(tiff_dirs, tmp_path):
     (tmp_path / "s" / "a.tif").write_bytes(b"II*\0" + bytes(4))
     with pytest.raises(IOError):
         nyx.featurize_directory(str(tmp_path / "i"), str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        _nyx(["MEAN"], shard_slides=True)
+    # shard_slides under the environment override: process 1 of 2 takes
+    # every second pair (here the one of three pairs the round-robin gives
+    # it), with the rows the unsharded run gives those pairs
+    monkeypatch.setenv("NYXUS_PROCESS_INDEX", "1")
+    monkeypatch.setenv("NYXUS_PROCESS_COUNT", "2")
+    part = _nyx(["MEAN", "AREA_PIXELS_COUNT", "BBOX_WIDTH"],
+                shard_slides=True).featurize_directory(int_dir)
+    names = sorted(set(ws.intensity_image))
+    assert sorted(set(part.intensity_image)) == names[1::2]
+    _same_rows(part, ws[ws.intensity_image.isin(names[1::2])]
+               .reset_index(drop=True), rtol=0)

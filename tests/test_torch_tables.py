@@ -61,7 +61,7 @@ REQUESTS = [SLICE, ["*ALL*"], ["*ALL_GLCM*"], ["*ALL_INTENSITY*", "-MEAN"],
                                  "nested.py", "pipeline/oversized_tex.py",
                                  "pipeline/oversized_extra.py",
                                  "ops/imq.py", "io/zarr.py", "io/dicom.py",
-                                 "io/jpegls.py"])
+                                 "io/jpegls.py", "pipeline/labels.py"])
 def test_verbatim_copies(rel):
     """Each verbatim copy is its original plus one first-line comment that
     names the source file."""
@@ -74,7 +74,8 @@ def test_verbatim_copies(rel):
 
 
 @pytest.mark.parametrize("name", ["contour.cpp", "geomfeats.cpp",
-                                  "geomfeats_batch.cpp", "csv_writer.cpp"])
+                                  "geomfeats_batch.cpp", "csv_writer.cpp",
+                                  "discover.cpp"])
 def test_native_sources_are_verbatim_copies(name):
     """The host-geometry library's C++ sources: each is its original plus
     one first-line comment that names the source file."""
@@ -165,9 +166,9 @@ def _port_copy(tmp_path):
 
 
 def test_native_build_links_no_libtiff(tmp_path):
-    """A fresh copy of the port builds its host library (geometry, the CSV
-    writer, the TIFF codec and the Zarr chunk codec) with neither -ltiff
-    nor -lz nor the JAX package's TIFF reader and discovery, and links
+    """A fresh copy of the port builds its host library (discovery,
+    geometry, the CSV writer, the TIFF codec and the Zarr chunk codec) with
+    neither -ltiff nor -lz nor the JAX package's TIFF reader, and links
     neither libtiff nor zlib."""
     root = _port_copy(tmp_path)
     log = tmp_path / "cxx.log"
@@ -184,9 +185,8 @@ def test_native_build_links_no_libtiff(tmp_path):
     assert lib.startswith(root)
     args = log.read_text()
     assert "-ltiff" not in args and "-lz" not in args.split()
-    for src in ("tiff_reader", "discover"):
-        assert src not in args
-    assert "zarr_codec" in args
+    assert "tiff_reader" not in args
+    assert "zarr_codec" in args and "discover.cpp" in args
     for src in tnative.SOURCES:
         assert src in args
     assert "-ffp-contract=off" in args and "-march=native" in args
@@ -420,6 +420,9 @@ def test_import_pulls_no_jax():
             "import nyxus_tpu_torch.ops.imq\n"
             "import nyxus_tpu_torch.io.zarr, nyxus_tpu_torch.io.dicom\n"
             "import nyxus_tpu_torch.io.jpegls\n"
+            "import nyxus_tpu_torch.parallel.mesh\n"
+            "import nyxus_tpu_torch.parallel.dataset\n"
+            "import nyxus_tpu_torch.pipeline.labels\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'nyxus_tpu' or m.startswith('nyxus_tpu.')"
             " or m == 'pandas']\n"
