@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        (from the repository root; needs one card)
     python3 chip_smoke.py --kernel-times [ROOT [GROUP,...]]
-                                 (K1-K5, K7-K13 and K15-K17 alone, the
+                                 (K1-K13 and K15-K17 alone, the
                                  package under ROOT; GROUP one of k1_k5,
-                                 k2, k3_k9, k4_k17, k7_k8, k10_k12,
-                                 k11_k13, k15_k16)
+                                 k2, k3_k9, k4_k17, k7_k8, k6_k8,
+                                 k10_k12, k11_k13, k15_k16)
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -42,7 +42,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    uniform and per-pixel crops, A = 65535 and 65536, 7 x 13 and labels
    off every zone or at pixels that are no seeds, and K8 on every bucket
    and shape crop and on the cap, widths 31 to 65, the 256² disk, 1024 x
-   64 and 1025 x 64, each by its plan and on every plan forced; K4, each
+   64 and 1025 x 64, the whole-slide ROI, a 969 x 960 disk with holes and
+   a 2100² box at the cap, each by its plan and on every plan forced (the
+   dist path on every crop) and against the plain distance form; K6's
+   tiled path on random, uniform, checkerboard and serpentine levels at
+   161², 256² and 1024 x 64, an AABB smaller than its bucket; K4, each
    8-neighbour family's matrix (GLDM, NGTDM over the AABB and the ROI,
    NGLDM) in one launch and no K1 launch, on every bucket and on uniform,
    one-pixel and border ROIs, levels outside the matrix and past 16-bit
@@ -572,6 +576,62 @@ def zone_kernels_agree(agree, lev, valid, hts, wds):
         agree("zone_cc4", got, want)
     for anc, d in ((dag, None), (cc4, dist)):
         zone_stats_paths_agree(agree, anc, lev, valid, d)
+
+
+def cc4_crop(H, W, kind, seed=0, device="cuda"):
+    """(levels, valid, heights, widths) of two H x W crops of K6: "random"
+    64 levels on ~95% of the pixels with zero-level holes, "uniform" one
+    level everywhere (one component across every tile, the longest union
+    chains), "checkerboard" two levels (every component a single pixel),
+    "serpentine" level 1 on the even rows joined at alternate ends through
+    the odd rows, which are level 2 (one zone that crosses every tile
+    border of a row); the second crop's AABB smaller than the bucket, its
+    levels 0 and valid False beyond it."""
+    import torch
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    if kind == "random":
+        lev = r.integers(0, 65, (2, H, W))
+    elif kind == "uniform":
+        lev = np.full((2, H, W), 5)
+    elif kind == "checkerboard":
+        lev = np.broadcast_to(1 + (yy + xx) % 2, (2, H, W)).copy()
+    else:
+        end = np.where((yy // 2) % 2 == 0, W - 1, 0)
+        snake = (yy % 2 == 0) | (xx == end)
+        lev = np.broadcast_to(np.where(snake, 1, 2), (2, H, W)).copy()
+    valid = r.random((2, H, W)) < (0.95 if kind == "random" else 1.0)
+    hw = np.array([[H, W], [max(1, H - 7), max(1, W - 11)]], np.int32)
+    inside = ((yy[None] < hw[:, 0, None, None])
+              & (xx[None] < hw[:, 1, None, None]))
+    valid &= inside
+    lev = np.where(valid, lev, 0).astype(np.int32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(lev), to(valid), to(hw[:, 0]), to(hw[:, 1])
+
+
+# K6's crops past its shared-memory path (the tiled path) and its kinds
+CC4_SHAPES = ((161, 161), (256, 256), (1024, 64))
+CC4_KINDS = ("random", "uniform", "checkerboard", "serpentine")
+
+
+def cc4_paths_agree(agree):
+    """K6 equal to zone_cc4_plain (labels and distances) on cc4_crop's
+    kinds at CC4_SHAPES, each by its plan (the tiled path); returns the
+    number of calls."""
+    from nyxus_tpu_torch.ops import zones
+    n = 0
+    for H, W in CC4_SHAPES:
+        if zones.zone_cc4_plan(H, W)[0] != "tiled":
+            raise AssertionError("zone_cc4: %d x %d is not on the tiled "
+                                 "path" % (H, W))
+        for kind in CC4_KINDS:
+            lev, valid, hts, wds = cc4_crop(H, W, kind)
+            for got, want in zip(zones.zone_cc4(lev, valid, hts, wds),
+                                 zones.zone_cc4_plain(lev, valid, hts, wds)):
+                agree("zone_cc4", got, want)
+            n += 1
+    return n
 
 
 def zone_stats_plans(B, A, has_dist):
@@ -1412,7 +1472,8 @@ def erosion_plans(B, H, W):
     """Every K8 plan for B masks of H x W: the warp path in 32-bit (W <= 32)
     and 64-bit words (W <= 64) at H <= 128; the block path where its
     planes fit, with its plan's threads and with 64 (a thread walking many
-    rows); the device path."""
+    rows); the dist path with its plan's 8 warps a row-pass block and
+    with one."""
     from nyxus_tpu_torch.ops import binary
     from nyxus_tpu_torch.ops.common import SMEM_MAX
     out = []
@@ -1425,7 +1486,9 @@ def erosion_plans(B, H, W):
     if smem <= SMEM_MAX:
         T = 32 * -(-NW * min(H, binary.EROSION_THREADS_MAX // NW) // 32)
         out += [("block", 64, t, smem) for t in sorted({T, 64})]
-    out.append(("device", 8, 256, 0))
+    warps = getattr(binary, "EROSION_DIST_WARPS", None)  # None: a parent
+    out += [("dist", 16, 32 * k, k * 8 * -(-W // 32))
+            for k in ((warps, 1) if warps else ())]
     return out
 
 
@@ -1440,9 +1503,11 @@ def forced_erosion_plan(plan):
 
 def erosion_paths_agree(agree, mask, hts, wds):
     """K8 against erosion_counts_plain by its plan and on every plan of
-    erosion_plans, forced; returns the number of forced plans."""
+    erosion_plans, forced, and the plain distance form against
+    erosion_counts_plain; returns the number of forced plans."""
     from nyxus_tpu_torch.ops import binary
     want = binary.erosion_counts_plain(mask, hts, wds)
+    agree("erosion", binary.erosion_counts_dist_plain(mask, hts, wds), want)
     agree("erosion", binary.erosion_counts(mask, hts, wds), want)
     plans = erosion_plans(*mask.shape)
     for plan in plans:
@@ -1454,10 +1519,12 @@ def erosion_paths_agree(agree, mask, hts, wds):
     return len(plans)
 
 
-# K8's own cases (erosion_case), beyond the synth buckets
+# K8's own cases (erosion_case), beyond the synth buckets; the last three
+# past the block path (held once in phase 2: the kernel reads no dtype)
+EROSION_BEYOND = ("whole-slide 2048²", "disk 969x960", "box 2100²")
 EROSION_CASES = ("full 32²", "w31", "w32", "w33", "w63", "w64", "w65",
                  "7x13", "128x64", "129x64", "disk256", "long 1024x64",
-                 "tall 1024x64")
+                 "tall 1024x64") + EROSION_BEYOND
 
 
 def erosion_case(name, device="cuda", seed=0):
@@ -1469,7 +1536,11 @@ def erosion_case(name, device="cuda", seed=0):
     largest: 4 rows a lane) and 129 x 64 (the block path's); the 256² disk
     beside disks of 9 and 4 steps (special_shape_cases); the long ROI's 2 x
     1024 x 64 bucket (a 600 x 40 ellipse); an ellipse filling 1024 x 64
-    (150 steps)."""
+    (150 steps); past the block path, the whole-slide ROI's mask (1024²
+    ones, its 1025² box in a 2048² bucket: the cap, T = 1022), an ellipse
+    filling 969 x 960 with ~0.2% holes, and a 2100² box of ones inside a
+    zero frame (its 2102² AABB in a 4096² bucket: the count stops at the
+    cap with the distance finite)."""
     import torch
     r = np.random.default_rng(seed)
 
@@ -1483,6 +1554,15 @@ def erosion_case(name, device="cuda", seed=0):
         return [c for c in special_shape_cases(device) if c[0] == name][0][1:]
     if name == "full 32²":
         m, hw = np.ones((2, 32, 32), bool), (32, 32)
+    elif name == "whole-slide 2048²":
+        m, hw = np.zeros((1, WS_BUCKET, WS_BUCKET), bool), (WS_SLIDE + 1,) * 2
+        m[0, :WS_SLIDE, :WS_SLIDE] = True
+    elif name == "disk 969x960":
+        m, hw = ellipse(1, 969, 960, 969, 960), (969, 960)
+        m &= r.random(m.shape) >= 0.002
+    elif name == "box 2100²":
+        m, hw = np.zeros((1, 4096, 4096), bool), (2102, 2102)
+        m[0, 1:2101, 1:2101] = True
     elif name.startswith("w"):
         W = int(name[1:])
         m, hw = ellipse(3, 44, W, 40, W), (40, W)
@@ -1750,13 +1830,14 @@ def erosion_work(mask, heights, widths):
 
 def erosion_bound(mask, heights, widths):
     """(bytes, operations) K8 must move and do: the mask and the AABB sizes
-    read once, the counts written once; 5 operations (a 5-way min and the
-    test) per interior pixel a step, over the steps erosion_work finds."""
+    read once, the counts written once; the count as a distance transform
+    (binary.erosion_counts_dist_plain), which needs no chain of steps: 10
+    operations a pixel of the AABB's rows and columns 1 .. dim-1 (the
+    source test, the row scans' two mins, the column scans' two adds and
+    two mins, the max)."""
     B, H, W = mask.shape
-    interior = ((heights - 3).clamp(min=0) * (widths - 3).clamp(min=0))
-    ops = 5 * float((erosion_work(mask, heights, widths).double()
-                     * interior.double()).sum())
-    return B * H * W + 12 * B, ops
+    area = ((heights - 1).clamp(min=0) * (widths - 1).clamp(min=0))
+    return B * H * W + 12 * B, 10 * float(area.double().sum())
 
 
 def shape_bounds(mask, heights, widths, planes):
@@ -1886,6 +1967,19 @@ def check_kernels():
                           glrlm.run_matrices_plain(lv, valid, ng, nr, dtype))
         for name, zl, zv, hts, wds in special_zone_cases():
             zone_kernels_agree(agree, zl, zv, hts, wds)
+        if prec == "f32":  # integer kernels past shared memory: one pass
+            t0 = time.perf_counter()
+            n6 = cc4_paths_agree(agree)
+            n8 = [erosion_paths_agree(agree, *erosion_case(name))
+                  for name in EROSION_BEYOND]
+            log("  K6 on %d calls of two crops (random, uniform, "
+                "checkerboard and serpentine levels at %s, the second "
+                "crop's AABB smaller than its bucket) on its tiled path, and "
+                "K8 on %s on its dist path (%d plans), agree; %.2f s with "
+                "the plain versions"
+                % (n6, ", ".join("%dx%d" % hw for hw in CC4_SHAPES),
+                   ", ".join(EROSION_BEYOND), sum(n8),
+                   time.perf_counter() - t0))
         # K5 on its own cases, by its plan and with the block path forced;
         # K1 on every plan and edge
         dag = dag_cases()
@@ -1932,14 +2026,13 @@ def check_kernels():
               for name in ZONE_STATS_CASES if not name.startswith("3D")
               for inp in zone_stats_case(name)]
         n8 = [erosion_paths_agree(agree, *erosion_case(name))
-              for name in EROSION_CASES]
+              for name in EROSION_CASES if name not in EROSION_BEYOND]
         log("  %s: K7 on %d inputs (uniform and per-pixel crops, A = 65535 "
             "and 65536, 7 x 13, labels A and non-seeds) by its plan and on "
             "%d forced plans, and K8 on %d masks (the cap, widths 31 to 65, "
-            "128 and 129 x 64, the 256² disk, 1024 x 64) by its plan "
-            "and on %d "
-            "forced plans, agree" % (prec, len(n7), sum(n7), len(n8),
-                                     sum(n8)))
+            "128 and 129 x 64, the 256² disk, 1024 x 64) by its plan and on "
+            "%d forced plans, and the plain distance form, agree"
+            % (prec, len(n7), sum(n7), len(n8), sum(n8)))
         steps = []
         for name, sm, hts, wds in special_shape_cases():
             shape_kernels_agree(agree, sm, hts, wds, dtype)
@@ -2722,6 +2815,117 @@ def k7_k8_times(iters=20):
                 "device %.4f ms (events %.4f ms), %s device launches a call; "
                 "bound %s; plan (path, word bits, threads, smem) %s%s"
                 % (name, B, H, W, count, need, ms, ev, nl, bound,
+                   plan or (eplan(B, H, W) if eplan else "none in this tree"),
+                   " forced" if plan else ""))
+
+
+# K6's and K8's crops past their shared-memory paths (k6_k8_times): K6
+# (B, H, W) of cc4_crop's random levels, then the whole-slide crop; K8's
+# EROSION_BEYOND, then ellipses filling 256², 512² and 968 x 960, where
+# the block path and the dist path both run
+K6_TIMED = ((1, 161, 161), (2, 256, 256), (1, 1024, 64))
+K8_DISKS = ((256, 256), (512, 512), (968, 960))
+
+
+def kernel_breakdown(fn, iters=3):
+    """{kernel name: device µs a call} of fn() from one torch.profiler
+    window of ``iters`` calls after a warm-up (the launches of a
+    multi-launch path, each apart)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, us in device_events(prof):
+        out[name] = out.get(name, 0.0) + us / iters
+    return out
+
+
+def k6_k8_times(iters=3):
+    """K6 and K8 past their shared-memory paths: device and events ms a
+    call, device launches a call (from the profiler), the bytes bound and
+    the plan.  K6 at K6_TIMED and at the whole-slide crop's 64 levels with
+    the AABB and the ROI as participation (the levels, valid bytes and both
+    int32 outputs once: 13 bytes a pixel of the bucket); K8 at
+    EROSION_BEYOND and on ellipses filling K8_DISKS by its plan and, on a tree with the
+    dist path, with the dist path forced where the plan is another (the
+    mask once); on a tree with the tiled and dist paths, the whole-slide
+    times by launch (kernel_breakdown).  Few calls a time:
+    the first port's device paths take up to seconds a call.  Runs on any
+    tree's package, so that two trees can be timed in turn
+    (--kernel-times)."""
+    import torch
+    from nyxus_tpu_torch.ops import binary, zones
+    f32 = torch.float32
+    cplan = getattr(zones, "zone_cc4_plan", None)
+    eplan = getattr(binary, "erosion_plan", None)
+    has_dist = hasattr(binary, "erosion_counts_dist_plain")
+
+    def k6(name, lev, valid, hts, wds):
+        B, H, W = lev.shape
+        ev, ms, nl = timed(lambda: zones.zone_cc4(lev, valid, hts, wds),
+                           iters)
+        log("  K6 zone_cc4 %s f32 B=%d %dx%d: device %.4f ms (events %.4f "
+            "ms), %s device launches a call; bound %.5f ms (bytes); plan %s"
+            % (name, B, H, W, ms, ev, nl,
+               (13 * B * H * W + 8 * B) / HBM_BYTES_S * 1e3,
+               cplan(H, W) if cplan else "none in this tree"))
+
+    for B, H, W in K6_TIMED:
+        lev, valid, hts, wds = cc4_crop(H, W, "random")
+        k6("random", lev[:B], valid[:B], hts[:B], wds[:B])
+    _, lev, aabb, roi, hts, wds = wholeslide_crop(f32)
+    for part, valid in (("aabb", aabb), ("roi", roi)):
+        k6("whole-slide 64 levels %s" % part, torch.where(valid, lev, 0),
+           valid, hts, wds)
+
+    if cplan and cplan(*lev.shape[1:])[0] == "tiled":
+        zl = torch.where(aabb, lev, 0)
+        log("  K6 zone_cc4 whole-slide 64 levels aabb, device us a call by "
+            "launch: %s" % kernel_breakdown(
+                lambda: zones.zone_cc4(zl, aabb, hts, wds)))
+
+    def ellipse(H, W):
+        yy, xx = np.mgrid[0:H, 0:W]
+        e = (((yy - (H - 1) / 2) / (H / 2)) ** 2
+             + ((xx - (W - 1) / 2) / (W / 2)) ** 2 <= 1.0)
+        return (torch.from_numpy(e[None].copy()).cuda(),
+                torch.full((1,), H, dtype=torch.int32, device="cuda"),
+                torch.full((1,), W, dtype=torch.int32, device="cuda"))
+
+    masks = [(name, *erosion_case(name)) for name in EROSION_BEYOND]
+    masks += [("disk %dx%d" % hw, *ellipse(*hw)) for hw in K8_DISKS]
+    for name, m, hts, wds in masks:
+        B, H, W = m.shape
+        nbytes, ops = erosion_bound(m, hts, wds)
+        plans = [None]
+        if has_dist and eplan(B, H, W)[0] != "dist":
+            plans += [p for p in erosion_plans(B, H, W)
+                      if p[0] == "dist"][:1]
+        for plan in plans:
+            saved = forced_erosion_plan(plan) if plan else None
+            try:
+                ev, ms, nl = timed(lambda: binary.erosion_counts(m, hts, wds),
+                                   iters)
+                count = binary.erosion_counts(m, hts, wds).tolist()
+            finally:
+                if saved:
+                    binary.erosion_plan = saved
+            if name == EROSION_BEYOND[0] and has_dist:
+                log("  K8 erosion %s, device us a call by launch: %s"
+                    % (name, kernel_breakdown(
+                        lambda: binary.erosion_counts(m, hts, wds))))
+            log("  K8 erosion %s f32 B=%d %dx%d (count %s): device %.4f ms "
+                "(events %.4f ms), %s device launches a call; bound %.5f ms "
+                "(%s); plan (path, word bits, threads, smem) %s%s"
+                % (name, B, H, W, count, ms, ev, nl,
+                   max(nbytes / HBM_BYTES_S, ops / OPS_S) * 1e3,
+                   "bytes" if nbytes / HBM_BYTES_S >= ops / OPS_S
+                   else "operations",
                    plan or (eplan(B, H, W) if eplan else "none in this tree"),
                    " forced" if plan else ""))
 
@@ -6057,10 +6261,11 @@ def check_shards(kern, card_runner, slides, runner_3d, vols):
 def kernel_times_only(root, only=None):
     """--kernel-times [ROOT [GROUP,...]]: build the kernels of the package
     under ROOT (by default this script's tree), print k1_k5_times,
-    k2_times, k3_k9_times, k7_k8_times, k10_k12_times, k11_k13_times,
+    k2_times, k3_k9_times, k7_k8_times, k6_k8_times, k10_k12_times,
+    k11_k13_times,
     k15_k16_times, k4_k17_times (or only the named groups, e.g. "k2") and
     the card; no result line.  Two trees timed in one call, in turns,
-    compare the two versions of each of K1-K5, K7-K13 and K15-K17 on one
+    compare the two versions of each of K1-K13 and K15-K17 on one
     card."""
     import torch
     sys.path.insert(0, os.path.abspath(root))
@@ -6072,7 +6277,8 @@ def kernel_times_only(root, only=None):
     log("kernels of %s built in %.1f s" % (os.path.abspath(root),
                                            time.perf_counter() - t0))
     groups = {"k1_k5": k1_k5_times, "k2": k2_times, "k3_k9": k3_k9_times,
-              "k7_k8": k7_k8_times, "k10_k12": k10_k12_times,
+              "k7_k8": k7_k8_times, "k6_k8": k6_k8_times,
+              "k10_k12": k10_k12_times,
               "k11_k13": k11_k13_times, "k15_k16": k15_k16_times,
               "k4_k17": k4_k17_times}
     for name in (only.split(",") if only else groups):

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "nyx_neigh_matrix": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
     "nyx_zone_dag": [_P, _P, _P] + [_I] * 7 + [_P],
     "nyx_zone_dag_chain": [_P, _I, _I, _I, _P],
-    "nyx_zone_cc4": [_P] * 6 + [_I] * 5 + [_P],
+    "nyx_zone_cc4": [_P] * 6 + [_I] * 6 + [_P],
     "nyx_zone_stats": [_P] * 8 + [_I] * 7 + [_P],
     "nyx_erosion": [_P] * 5 + [_I] * 8 + [_P],
     "nyx_binary_quads": [_P] * 4 + [ctypes.c_longlong] + [_I] * 9 + [_P],

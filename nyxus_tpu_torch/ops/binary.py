@@ -6,6 +6,16 @@ References:
 * ErosionPixelsFeature (erosion.cpp:16-80): iterated 3x3 cross erosion over
   the AABB INTERIOR (cols/rows 2..dim-2; border pixels are frozen at their
   initial value), counting iterations until the interior empties (cap 1000).
+  The count is also a city-block distance transform: with I the interior,
+  S its 0s and the 0s of the frame pixels 4-adjacent to I (not the frame's
+  corners, never row 0 or column 0), and T the largest distance
+  |dy| + |dx| from a pixel of I to S, it is 0 where I is empty, 1000 where
+  S is, else min(max(T - 1, 0), 1000).  A 0 spreads one pixel a step
+  through I and a frozen 1 never changes, so after k steps a pixel of I is
+  0 exactly when a source lies within k steps along a path through I; I is
+  a rectangle, so such a shortest path can stay inside it, and its length
+  is |dy| + |dx|.  The interior first empties at step T, which is not
+  counted.
 * EulerNumberFeature (euler_number.cpp:10-100): 2x2 quad pattern counting
   over a 1-padded mask, mode 8: (C1 - C3 - 2*Cd) / 4 with C++ integer
   division.
@@ -19,7 +29,8 @@ plain PyTorch version beside it that follows the JAX formulation (the only
 path for a tensor on the CPU; a CUDA tensor launches the kernel or raises):
 
 * K8 ``erosion_counts`` (csrc/erosion.cu): the mask in bit rows, a warp a
-  ROI (``erosion_plan``), each ROI exiting on its own
+  ROI (``erosion_plan``), each ROI exiting on its own; from 256² and past
+  a block's shared memory the count as a distance transform (below)
 * K9 ``binary_quads`` (csrc/binary_quads.cu): the quad counts and every
   scale's and origin's box counts in one launch, from the mask packed into
   bit rows (``binary_quads_plan``)
@@ -95,12 +106,53 @@ def erosion_counts_plain(mask, heights, widths):
     return n
 
 
+def erosion_counts_dist_plain(mask, heights, widths):
+    """Plain version of K8's "dist" path: the count as a city-block
+    distance transform (csrc/erosion.cu's header has the proof sketch).
+    I is the interior (erosion_interior); the sources S are the 0s of I
+    and the 0s of the frame pixels 4-adjacent to I (rows 1 and h-1 at
+    columns 2..w-2, columns 1 and w-1 at rows 2..h-2).  With T the largest
+    distance |dy| + |dx| from a pixel of I to its nearest source, the count
+    is min(max(T - 1, 0), EROSION_CAP): 0 where I is empty, the cap where
+    S is (the distances are clamped at EROSION_CAP + 1, which leaves every
+    count as it was).  Row distances first, then the column min-plus scans
+    of slope 1 over them.  [B] int32."""
+    B, H, W = mask.shape
+    dev = mask.device
+    far = EROSION_CAP + 1
+    big = 1 << 24
+    interior = erosion_interior(mask, heights, widths)
+    xs = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :]
+    ys = torch.arange(H, dtype=torch.int32, device=dev)[None, :, None]
+    h1 = heights.to(torch.int32)[:, None, None] - 1
+    w1 = widths.to(torch.int32)[:, None, None] - 1
+    cols = (xs >= 2) & (xs <= w1 - 1)
+    rows = (ys >= 2) & (ys <= h1 - 1)
+    frame = (((ys == 1) | (ys == h1)) & cols) | (((xs == 1) | (xs == w1))
+                                                  & rows)
+    src = (interior | frame) & ~mask.to(torch.bool)
+    left = xs - torch.cummax(torch.where(src, xs, -big), dim=2).values
+    right = torch.cummin(torch.where(src, xs, big).flip(2),
+                         dim=2).values.flip(2) - xs
+    g = torch.minimum(left, right).clamp(max=far)
+    fwd = ys + torch.cummin(g - ys, dim=1).values
+    d = torch.cummin((fwd + ys).flip(1), dim=1).values.flip(1) - ys
+    T = torch.where(interior, d, 0).amax(dim=(1, 2)) if H * W else \
+        torch.zeros(B, dtype=torch.int32, device=dev)
+    return torch.clamp(T - 1, 0, EROSION_CAP).to(torch.int32)
+
+
 # K8's launch plan: the warp path's largest W and H (past 128 rows a block
 # of a thread a row's word ran faster: PERF.md); the block path's threads
-# at most
+# at most; the shorter side from which the dist path runs wherever the
+# block path would (on disks filling 256², 512² and 968 x 960 it ran 7-70x
+# faster than the block path, whose steps grow with the side: PERF.md);
+# the dist path's rows a block of its row pass (a warp a row)
 EROSION_WARP_W = 64
 EROSION_WARP_H = 128
 EROSION_THREADS_MAX = 1024
+EROSION_DIST_SIDE = 256
+EROSION_DIST_WARPS = 8
 
 
 def erosion_plan(B: int, H: int, W: int):
@@ -112,27 +164,36 @@ def erosion_plan(B: int, H: int, W: int):
     H x ceil(W / 64) 64-bit words in shared memory (where they fit), a
     thread a column of words: the NW = ceil(W / 64) columns times as many
     rows as EROSION_THREADS_MAX threads take (at most H), rounded up to
-    whole warps.  "device": the byte planes in a device scratch (8-bit
-    "words"), 256 threads.  B does not change the plan: at 300 x 32² two
-    or three warps a block ran no faster than one (PERF.md)."""
+    whole warps; taken below EROSION_DIST_SIDE on the shorter side (the
+    long ROI's 1024 x 64 among them).  "dist": the distance transform
+    (erosion_counts_dist_plain) in an int16 plane ("word bits" 16), its
+    row pass EROSION_DIST_WARPS warps a block with 2 ceil(W / 32) ints of
+    chunk tables a warp in shared memory: crops of EROSION_DIST_SIDE and
+    more on both sides, and any the block path does not hold.  B does not
+    change the plan: at 300 x 32² two or three warps a block ran no faster
+    than one (PERF.md)."""
     if W <= EROSION_WARP_W and H <= EROSION_WARP_H:
         return "warp", 32 if W <= 32 else 64, 32, 0
     NW = -(-W // 64)
     smem = 16 * H * NW
-    if NW <= EROSION_THREADS_MAX and smem <= SMEM_MAX:
+    if min(H, W) < EROSION_DIST_SIDE and NW <= EROSION_THREADS_MAX \
+            and smem <= SMEM_MAX:
         T = 32 * -(-NW * min(H, EROSION_THREADS_MAX // NW) // 32)
         return "block", 64, T, smem
-    return "device", 8, 256, 0
+    return ("dist", 16, 32 * EROSION_DIST_WARPS,
+            EROSION_DIST_WARPS * 8 * -(-W // 32))
 
 
 def erosion_counts(mask, heights, widths):
     """K8 erosion (csrc/erosion.cu), replacing nyxus_tpu/ops/binary.py:27
     erosions_to_vanish's while_loop.  mask: [B, H, W] bool; heights,
-    widths: [B] AABB sizes -> [B] int32 EROSIONS_2_VANISH.  One launch,
-    each ROI exiting on its own: the mask packed into bit rows, a warp a ROI
-    with its rows in registers up to 128 x 64, else a block a ROI with two
-    bit planes in shared memory, else byte planes in a device scratch
-    (``erosion_plan``)."""
+    widths: [B] AABB sizes -> [B] int32 EROSIONS_2_VANISH.  Each ROI exits
+    on its own: the mask packed into bit rows, a warp a ROI with its rows
+    in registers up to 128 x 64, else a block a ROI with two bit planes in
+    shared memory, in one launch, below 256 on the shorter side; from 256²
+    and past a block's shared memory no steps at all, the count as a
+    city-block distance transform over each AABB, in two launches
+    (``erosion_plan``, ``erosion_counts_dist_plain``)."""
     if not _kernel_device(mask, "erosion_counts"):
         return erosion_counts_plain(mask, heights, widths)
     _check_mask("erosion_counts", mask, heights, widths)
@@ -145,14 +206,14 @@ def erosion_counts(mask, heights, widths):
         return out
     path, bits, T, smem = erosion_plan(B, H, W)
     scratch = None
-    if path == "device":
-        scratch = torch.empty((B, 2, H, W), dtype=torch.uint8,
+    if path == "dist":
+        scratch = torch.empty((B, H, W), dtype=torch.int16,
                               device=mask.device)
     vec = W % 16 == 0 and mask.data_ptr() % 16 == 0
     code = _build.lib().nyx_erosion(
         mask.data_ptr(), heights.data_ptr(), widths.data_ptr(),
         None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-        B, H, W, ("warp", "block", "device").index(path), bits, T, smem,
+        B, H, W, ("warp", "block", "dist").index(path), bits, T, smem,
         int(vec), _build.stream_of(mask, "erosion"))
     _build.check("erosion", code)
     erosion_counts.launches += 1

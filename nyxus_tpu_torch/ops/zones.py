@@ -283,19 +283,29 @@ def zone_dag_chain(B: int, H: int, device="cuda"):
     return out
 
 
+# K6's tiled path: the tile side and its launch's shared memory (levels at
+# an odd pitch, parents, valid bytes) and threads (its row and column
+# launches run 256)
+CC4_TILE = 64
+CC4_TILE_SMEM = 4 * CC4_TILE * (CC4_TILE + 1) + 5 * CC4_TILE * CC4_TILE
+CC4_TILE_THREADS = 512
+
+
 def zone_cc4_plan(H: int, W: int):
-    """(smem, threads) of K6's launch for H x W crops.  The shared-memory
-    path holds a crop's levels and parents (int32, rows of an odd pitch
-    W | 1) and its valid bytes: 8 * H * (W | 1) + H * W bytes, taken when
-    that is at most SMEM_MAX (up to 160 x 160, 128 x 128, 256 x 64 or
+    """(path, smem, threads) of K6's launch for H x W crops.  "smem": the
+    crop's levels and parents (int32, rows of pitch W | 1) and its valid
+    bytes in a block's shared memory, 8 * H * (W | 1) + H * W bytes, taken
+    when that is at most SMEM_MAX (up to 160 x 160, 128 x 128, 256 x 64 or
     1024 x 16), with a warp a row or column, at most 1024 threads (the
     distance scans run a line a warp; fewer threads measured slower at
     every bucket, ``PERF.md``).  Larger crops (1024 x 64, 256 x 256) take
-    the device-memory path: smem 0, 256 threads."""
+    the "tiled" path: CC4_TILE² tiles labelled in shared memory
+    (CC4_TILE_SMEM bytes, CC4_TILE_THREADS threads), merged across their
+    borders and flattened in device memory, three launches."""
     smem = 8 * H * (W | 1) + H * W
     if smem > SMEM_MAX:
-        return 0, 256
-    return smem, min(1024, 32 * max(H, W))
+        return "tiled", CC4_TILE_SMEM, CC4_TILE_THREADS
+    return "smem", smem, min(1024, 32 * max(H, W))
 
 
 def zone_cc4(lev, valid, heights, widths):
@@ -308,12 +318,15 @@ def zone_cc4(lev, valid, heights, widths):
     valid: [B, H, W] participation mask; heights/widths: [B] AABB sizes.
     Returns (anc, dist), each [B, H, W] int32: anc the lowest raster index
     of each pixel's 4-connected same-level component (BIG = H * W off
-    ``valid``), dist the dist2border.  On the card one block per ROI, in
-    one launch: where the crop fits shared memory (``zone_cc4_plan``) the
-    union-find runs there and warps scan the rows and columns for the
-    distance; larger crops keep the parents in device memory and walk each
-    line with one thread.  Bound on the card: latency (dependent finds and
-    scan steps), not bytes."""
+    ``valid``), dist the dist2border.  ``valid`` is false beyond each
+    AABB (the tiled path labels only the AABB).  On the card, where the
+    crop fits shared memory (``zone_cc4_plan``), one block per ROI in one
+    launch runs the union-find there and warps scan the rows and columns
+    for the distance; larger crops take the tiled path in three launches:
+    64² tiles labelled in shared memory, their borders merged and the rows'
+    distances scanned a warp a row, then the labels flattened and the
+    columns' distances scanned a warp a column.  Bound on the card:
+    latency (dependent finds and scan steps), not bytes."""
     if not _kernel_device(lev, "zone_cc4"):
         return zone_cc4_plain(lev, valid, heights, widths)
     _check_planes("zone_cc4", lev, valid)
@@ -331,11 +344,12 @@ def zone_cc4(lev, valid, heights, widths):
     dist = torch.empty_like(lev)
     if lev.numel() == 0:
         return anc, dist
-    smem, threads = zone_cc4_plan(H, W)
+    path, smem, threads = zone_cc4_plan(H, W)
     code = _build.lib().nyx_zone_cc4(
         lev.data_ptr(), valid.data_ptr(), heights.data_ptr(),
         widths.data_ptr(), anc.data_ptr(), dist.data_ptr(), B, H, W,
-        smem, threads, _build.stream_of(lev, "zone_cc4"))
+        ("smem", "tiled").index(path), smem, threads,
+        _build.stream_of(lev, "zone_cc4"))
     _build.check("zone_cc4", code)
     zone_cc4.launches += 1
     return anc, dist

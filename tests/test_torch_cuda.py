@@ -249,42 +249,22 @@ def test_zone_kernels_special_crops(crop):
     assert int(zsize.sum()) == int(valid.sum())
 
 
-def _zone_crop(H, W, kind, seed=0):
-    """(levels, valid, heights, widths) of two H x W crops: "random" 64
-    levels on ~95% of the pixels with zero-level holes (the second crop's
-    AABB smaller than the bucket), "uniform" one level everywhere (one
-    component, the longest union chains), "checkerboard" two levels (every
-    component a single pixel)."""
-    r = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H, 0:W]
-    if kind == "random":
-        lev = r.integers(0, 65, (2, H, W))
-    elif kind == "uniform":
-        lev = np.full((2, H, W), 5)
-    else:
-        lev = np.broadcast_to(1 + (yy + xx) % 2, (2, H, W)).copy()
-    valid = r.random((2, H, W)) < (0.95 if kind == "random" else 1.0)
-    hw = np.array([[H, W], [max(1, H - 7), max(1, W - 11)]], np.int32)
-    inside = (yy[None] < hw[:, 0, None, None]) & (xx[None] < hw[:, 1, None, None])
-    valid &= inside
-    lev = np.where(valid, lev, 0).astype(np.int32)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
-    return to(lev), to(valid), to(hw[:, 0]), to(hw[:, 1])
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "uniform", "checkerboard"])
+@pytest.mark.parametrize("kind", list(chip_smoke.CC4_KINDS))
 @pytest.mark.parametrize("hw,in_smem", [((160, 160), True),
                                         ((161, 161), False),
                                         ((256, 64), True),
+                                        ((256, 256), False),
                                         ((1024, 64), False)], ids=str)
 def test_zone_cc4_paths(hw, in_smem, kind):
     """K6 on both sides of its shared-memory limit (160 x 160 is the
     largest square crop of the shared-memory path, 161 x 161 the smallest
-    of the device-memory path) and on 256 x 64 and 1024 x 64: labels and
+    of the tiled path) and on 256 x 64, 256 x 256 and 1024 x 64, on
+    chip_smoke.cc4_crop's random, uniform, checkerboard and serpentine
+    levels, the second crop's AABB smaller than its bucket: labels and
     distances equal to the plain version."""
-    assert (zones.zone_cc4_plan(*hw)[0] > 0) == in_smem
-    lev, valid, hts, wds = _zone_crop(*hw, kind)
+    assert (zones.zone_cc4_plan(*hw)[0] == "smem") == in_smem
+    lev, valid, hts, wds = chip_smoke.cc4_crop(*hw, kind)
     for got, want in zip(zones.zone_cc4(lev, valid, hts, wds),
                          zones.zone_cc4_plain(lev, valid, hts, wds)):
         assert torch.equal(got, want)
@@ -302,24 +282,34 @@ def test_shape_kernels(prec, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", list(DTYPES))
-@pytest.mark.parametrize("crop", ["empty", "full", "checkerboard", "disk256"])
+@pytest.mark.parametrize("crop", ["empty", "full", "checkerboard", "disk256",
+                                  "whole-slide 2048²", "disk 969x960",
+                                  "box 2100²"])
 def test_shape_kernels_special_crops(prec, crop):
     """Empty, full and checkerboard crops, and a 256 x 256 solid disk whose
-    long erosion runs beside two short ones in one launch; the erosion
-    counts and Euler numbers are those of the shapes (a full AABB never
-    erodes: its frozen border feeds the interior, and the count stops at
-    the cap)."""
-    (_, mask, hts, wds), = [c for c in chip_smoke.special_shape_cases()
-                            if c[0] == crop]
+    long erosion runs beside two short ones in one launch; past the block
+    path (K8's dist path) the whole-slide ROI's mask, a 969 x 960 disk with
+    holes and a 2100² box inside a zero frame; the erosion counts and
+    Euler numbers are those of the shapes (a full AABB never erodes: its
+    frozen border feeds the interior, and the count stops at the cap; the
+    box reaches the cap with every distance finite)."""
+    cases = {c[0]: c[1:] for c in chip_smoke.special_shape_cases()}
+    mask, hts, wds = (cases[crop] if crop in cases
+                      else chip_smoke.erosion_case(crop))
     chip_smoke.shape_kernels_agree(_Agree(), mask, hts, wds, DTYPES[prec])
     n = binary.erosion_counts(mask, hts, wds).tolist()
+    assert n == binary.erosion_counts_dist_plain(mask, hts, wds).tolist()
     want = {"empty": [0], "full": [1000], "checkerboard": [0],
-            "disk256": [131, 9, 4]}[crop]
-    assert n == want
+            "disk256": [131, 9, 4], "whole-slide 2048²": [1000],
+            "box 2100²": [1000]}
+    if crop in want:
+        assert n == want[crop]
     quads, _ = binary.binary_quads(mask)
     euler = binary.euler_number(mask, torch.float64, quads).tolist()
-    assert euler == {"empty": [0], "full": [1], "checkerboard": [-449],
-                     "disk256": [1, 1, 1]}[crop]
+    if crop != "disk 969x960":
+        assert euler == {"empty": [0], "full": [1], "checkerboard": [-449],
+                         "disk256": [1, 1, 1], "whole-slide 2048²": [1],
+                         "box 2100²": [1]}[crop]
 
 
 @pytest.mark.cuda
@@ -390,11 +380,12 @@ def test_erosion_paths(crop):
     """K8 equal to its plain version on two full 32² AABBs (the cap),
     ellipses of widths 31, 32, 33, 63, 64 and 65, 7 x 13 masks, an ellipse
     filling 128 x 64 and one 129 x 64, the 256² disk beside disks of 9 and
-    4 steps, the long ROI's 1024 x 64 bucket, an ellipse filling 1024 x 64:
-    by its plan and on every
-    plan of chip_smoke.erosion_plans (the warp path in 32- and 64-bit
-    words, the block path at its plan's threads and at 64, the device
-    path), forced."""
+    4 steps, the long ROI's 1024 x 64 bucket, an ellipse filling 1024 x 64,
+    the whole-slide ROI's mask, a 969 x 960 disk with holes and a 2100² box
+    at the cap: by its plan and on every plan of chip_smoke.erosion_plans
+    (the warp path in 32- and 64-bit words, the block path at its plan's
+    threads and at 64, the dist path at 8 warps and 1 a row-pass block),
+    forced, and the plain distance form."""
     mask, hts, wds = chip_smoke.erosion_case(crop)
     assert chip_smoke.erosion_paths_agree(_Agree(), mask, hts, wds) >= 2
     if crop == "full 32²":

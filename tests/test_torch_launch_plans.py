@@ -811,8 +811,10 @@ def test_erosion_plan(shape):
     """K8: the warp path exactly where W <= 64 and H <= 128 (32-bit rows
     up to 32 columns, else 64-bit), a block of one warp a ROI whatever the
     batch; else a block a ROI with two planes of H x ceil(W / 64) 64-bit
-    words where they fit a Hopper block's shared memory, a thread a column
-    of words; else the device path's byte planes."""
+    words where they fit a Hopper block's shared memory and the shorter
+    side is below 256, a thread a column of words; else the dist path's
+    int16 plane, its row pass 8 warps a block with 2 ceil(W / 32) ints of
+    chunk tables a warp."""
     B, H, W = shape
     plan = tbinary.erosion_plan(B, H, W)
     assert all(tbinary.erosion_plan(b, H, W) == plan for b in (1, 5000))
@@ -821,7 +823,7 @@ def test_erosion_plan(shape):
         assert plan == ("warp", 32 if W <= 32 else 64, 32, 0)
         return
     NW = -(-W // 64)
-    if NW <= 1024 and 16 * H * NW <= SMEM_MAX:
+    if min(H, W) < 256 and NW <= 1024 and 16 * H * NW <= SMEM_MAX:
         assert (path, bits, smem) == ("block", 64, 16 * H * NW)
         # whole warps, a thread a column of words, every word held: RP
         # rows a pass of NW threads each, all H rows in one pass where 1024
@@ -830,15 +832,17 @@ def test_erosion_plan(shape):
         RP = T // NW
         assert RP >= H or (RP >= 1024 // NW and RP * NW > T - 32)
     else:
-        assert plan == ("device", 8, 256, 0)
+        assert plan == ("dist", 16, 256, 8 * 8 * -(-W // 32))
+        assert smem <= SMEM_MAX
 
 
 def test_erosion_plan_main_path():
     """The main buckets a warp a ROI (32-bit rows to 32 columns, 64-bit
     to 64), a slide's 300 x 32² and 5000 x 32² as 64 x 32²; the long ROI's
-    1024 x 64 and 2 x 256² a block a ROI with 16 KB of bit planes, a
-    thread a row's word; 968 x 960 the largest square block path (227 KB),
-    969 x 960 the device path."""
+    1024 x 64 and 255 x 255 a block a ROI, a thread a row's word; from
+    256² (2 x 256², 968 x 960, which the block path's 227 KB would hold)
+    and past the block path (969 x 960, the whole-slide 2048² bucket) the
+    dist path."""
     plan = tbinary.erosion_plan
     assert plan(64, 32, 32) == ("warp", 32, 32, 0)
     assert plan(28, 16, 16) == ("warp", 32, 32, 0)
@@ -847,9 +851,11 @@ def test_erosion_plan_main_path():
     assert plan(1, 1024, 64) == ("block", 64, 1024, 16384)
     assert plan(300, 32, 32) == ("warp", 32, 32, 0)
     assert plan(5000, 32, 32) == ("warp", 32, 32, 0)
-    assert plan(2, 256, 256) == ("block", 64, 1024, 16384)
-    assert plan(1, 968, 960) == ("block", 64, 1024, 16 * 968 * 15)
-    assert plan(1, 969, 960)[0] == "device"
+    assert plan(1, 255, 255) == ("block", 64, 256 * 4, 16 * 255 * 4)
+    assert plan(2, 256, 256) == ("dist", 16, 256, 512)
+    assert plan(1, 968, 960) == ("dist", 16, 256, 1920)
+    assert plan(1, 969, 960) == ("dist", 16, 256, 1920)
+    assert plan(1, 2048, 2048) == ("dist", 16, 256, 4096)
 
 
 # K4's (B, H, W): the main path's three buckets, a slide's 300 x 32², 5 x

@@ -291,14 +291,15 @@ def test_zone_cc4_plan_path_choice(hw, in_smem):
     """K6 takes its shared-memory path exactly when the crop's levels and
     parents (int32, rows of pitch W | 1) and valid bytes fit a block's
     shared memory: 160 x 160 is the largest square that does, 161 x 161
-    the smallest that does not; 1024 x 64 runs the device-memory path."""
+    the smallest that does not; 1024 x 64 runs the tiled path (64² tiles
+    labelled in 37120 bytes of shared memory by 512 threads)."""
     H, W = hw
-    smem, threads = tzones.zone_cc4_plan(H, W)
+    path, smem, threads = tzones.zone_cc4_plan(H, W)
     need = 8 * H * (W | 1) + H * W
-    assert (smem > 0) == in_smem == (need <= tcommon.SMEM_MAX)
+    assert (path == "smem") == in_smem == (need <= tcommon.SMEM_MAX)
     if in_smem:
         assert smem == need
         # a warp a row or column, at most 1024 threads
         assert threads == min(1024, 32 * max(H, W))
     else:
-        assert threads == 256
+        assert (path, smem, threads) == ("tiled", 37120, 512)
