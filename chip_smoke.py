@@ -40,7 +40,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    masks, the long ROI's and 256², each by its plan and on every path its
    plan can take, forced; K7 on every bucket and zone crop and on
    uniform and per-pixel crops, A = 65535 and 65536, 7 x 13 and labels
-   off every zone or at pixels that are no seeds, and K8 on every bucket
+   off every zone or at pixels that are no seeds, and on its grid path by
+   its plan past a cluster (a uniform 1024² crop, a zone a pixel of
+   1024², two 1023 x 1021 ROIs of different contents), and K8 on every bucket
    and shape crop and on the cap, widths 31 to 65, the 256² disk, 1024 x
    64 and 1025 x 64, the whole-slide ROI, a 969 x 960 disk with holes and
    a 2100² box at the cap, each by its plan and on every plan forced (the
@@ -140,7 +142,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    in-memory featurize rows; (b) volume 1 as a 96-slice layout-A stack of
    TIFF slices, in memory and over the RAM gate (read a plane at a time),
    against (a)'s rows; (c) anisotropy along z and along x, y and z,
-   whole-volume mode and mergerois on volume 1 whole (timed) and on its
+   whole-volume mode and mergerois on volume 1 whole (timed; whole-volume
+   mode also profiled: card busy share, K7 and K13-K16 totals) and on its
    first MODE_CPU_DEPTH planes against the f64 CPU run; (d) volume 1 at a
    RAM gate that puts its largest ROI alone over it, *3D_ALL* and IBSI:
    that ROI through 3D phase 3 against the f64 CPU trivial run at rtol
@@ -636,8 +639,12 @@ def cc4_paths_agree(agree):
 
 def zone_stats_plans(B, A, has_dist):
     """Every K7 plan for B ROIs of A pixels: one block a ROI; clusters of 2
-    and 16 blocks a ROI (slabs of 4 pixels and empty slabs included); the
-    device path; each where its shared memory fits a block."""
+    and 16 blocks a ROI (slabs of 4 pixels and empty slabs included), each
+    where its shared memory fits a block; the grid path as its plan gives
+    it, with blocks of one warp (128 pixels: many blocks, so that runs
+    cross blocks even on small crops) and of 1024 threads (runs joined
+    across 32 warps).  On a tree without the grid path (an older tree
+    under --kernel-times), its device path."""
     from nyxus_tpu_torch.ops import zones
     from nyxus_tpu_torch.ops.common import SMEM_MAX
     out = []
@@ -647,7 +654,13 @@ def zone_stats_plans(B, A, has_dist):
         T = min(zones.ZS_THREADS_MAX, 32 * max(1, -(-S // 128)))
         if smem <= SMEM_MAX:
             out.append(("smem" if C == 1 else "cluster", C, T, smem))
-    out.append(("device", 0, 256, 0))
+    grid = getattr(zones, "zone_stats_grid_plan", None)
+    if grid is None:
+        return out + [("device", 0, 256, 0)]
+    for plan in (grid(A), ("grid", -(-A // 128), 32, 0),
+                 ("grid", -(-A // 4096), 1024, 0)):
+        if plan not in out:
+            out.append(plan)
     return out
 
 
@@ -681,10 +694,12 @@ def zone_stats_paths_agree(agree, anc, lev, valid, dist):
     return len(plans)
 
 
-# K7's own cases (zone_stats_case), beyond the synth buckets
+# K7's own cases (zone_stats_case), beyond the synth buckets; those of
+# ZONE_STATS_BEYOND on the grid path by its plan
+ZONE_STATS_BEYOND = ("uniform 1024²", "per-pixel 1024²", "two 1023x1021")
 ZONE_STATS_CASES = ("uniform 64x32²", "per-pixel 64x32²", "A=65535",
-                    "A=65536", "7x13", "labels A and non-seeds",
-                    "3D 8x32³", "3D 2x64³", "3D uniform 2x64³")
+                    "A=65536", "7x13", "labels A and non-seeds") \
+    + ZONE_STATS_BEYOND + ("3D 8x32³", "3D 2x64³", "3D uniform 2x64³")
 
 
 def zone_stats_case(name, device="cuda", seed=0):
@@ -695,8 +710,14 @@ def zone_stats_case(name, device="cuda", seed=0):
     "uniform": one level on every pixel (one zone a ROI); "per-pixel": a
     level a pixel (a zone a pixel); A = 65535 (255 x 257, scalar loads) and
     65536 (256 x 256, 16-byte loads), clusters of 16 blocks; 7 x 13 (A not
-    a multiple of 4: scalar loads and stores); "labels A and non-seeds": valid pixels labelled A (off
-    every zone) or with the raster index of a pixel that is no seed."""
+    a multiple of 4: scalar loads and stores); "labels A and non-seeds":
+    valid pixels labelled A (off every zone) or with the raster index of a
+    pixel that is no seed.  Past a cluster, on the grid path by its plan:
+    "uniform 1024²" one zone over all 256 blocks of the ROI (its labels all
+    0: the seed is pixel 0), "per-pixel 1024²" a zone a pixel, "two
+    1023x1021" (A not a multiple of 4) two ROIs of different contents, the
+    first random as "labels A and non-seeds", the second a zone a row (two
+    levels in turn), each across warps and blocks."""
     import torch
     from nyxus_tpu_torch.ops import texture3d as t3, zones
     r = np.random.default_rng(seed)
@@ -712,7 +733,9 @@ def zone_stats_case(name, device="cuda", seed=0):
         anc6, dist6 = t3.cc3d_plain(dlev, aabb, 6, hh, ww)
         return [(anc26, slev, sv, None), (anc6, dlev, aabb, dist6)]
     shape = {"A=65535": (2, 255, 257), "A=65536": (2, 256, 256),
-             "7x13": (3, 7, 13)}.get(name, (64, 32, 32))
+             "7x13": (3, 7, 13), "uniform 1024²": (1, 1024, 1024),
+             "per-pixel 1024²": (1, 1024, 1024),
+             "two 1023x1021": (2, 1023, 1021)}.get(name, (64, 32, 32))
     B, H, W = shape
     if name.startswith("uniform"):
         lev = np.full(shape, 5)
@@ -723,17 +746,28 @@ def zone_stats_case(name, device="cuda", seed=0):
     else:
         lev = r.integers(1, 4, shape)
         valid = r.random(shape) < 0.95
+    if name.startswith("two"):
+        lev[1] = 1 + np.arange(H)[:, None] % 2
+        valid[1] = True
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     lev = to(np.where(valid, lev, 0).astype(np.int32))
     valid = to(valid)
     hts = torch.full((B,), H, dtype=torch.int32, device=device)
     wds = torch.full((B,), W, dtype=torch.int32, device=device)
-    dag = zones.zone_labels_plain(lev, valid)
-    cc4, dist = zones.zone_cc4_plain(lev, valid, hts, wds)
-    if name == "labels A and non-seeds":
-        pick = to(r.random(shape) < 0.05)
+    if name == "uniform 1024²":
+        # the plain labellings' fixpoints take a round a row here
+        dag = cc4 = torch.zeros(shape, dtype=torch.int32, device=device)
+        dist = zones.border_distance_plain(lev, hts, wds)
+    else:
+        dag = zones.zone_labels_plain(lev, valid)
+        cc4, dist = zones.zone_cc4_plain(lev, valid, hts, wds)
+    if name in ("labels A and non-seeds", "two 1023x1021"):
+        pick = r.random(shape) < 0.05
         other = to(r.integers(0, H * W, shape).astype(np.int32))
-        off = to(r.random(shape) < 0.05)
+        off = r.random(shape) < 0.05
+        if name.startswith("two"):
+            pick[1] = off[1] = False
+        pick, off = to(pick), to(off)
         dag = torch.where(pick, other, torch.where(off, H * W, dag))
         cc4 = torch.where(pick, other, torch.where(off, H * W, cc4))
     return [(dag, lev, valid, None), (cc4, lev, valid, dist)]
@@ -1972,13 +2006,24 @@ def check_kernels():
             n6 = cc4_paths_agree(agree)
             n8 = [erosion_paths_agree(agree, *erosion_case(name))
                   for name in EROSION_BEYOND]
+            beyond = [(name, inp) for name in ZONE_STATS_BEYOND
+                      for inp in zone_stats_case(name)]
+            for name, (anc, _, _, dist) in beyond:
+                plan = zones.zone_stats_plan(anc.shape[0], anc[0].numel(),
+                                             dist is not None)
+                if plan[0] != "grid":
+                    raise AssertionError("zone_stats: %s is not on the grid "
+                                         "path: %s" % (name, plan))
+            n7 = [zone_stats_paths_agree(agree, *inp) for _, inp in beyond]
             log("  K6 on %d calls of two crops (random, uniform, "
                 "checkerboard and serpentine levels at %s, the second "
-                "crop's AABB smaller than its bucket) on its tiled path, and "
-                "K8 on %s on its dist path (%d plans), agree; %.2f s with "
-                "the plain versions"
+                "crop's AABB smaller than its bucket) on its tiled path, "
+                "K8 on %s on its dist path (%d plans), and K7 on %d inputs "
+                "of %s on the grid path by its plan and on %d forced plans, "
+                "agree; %.2f s with the plain versions"
                 % (n6, ", ".join("%dx%d" % hw for hw in CC4_SHAPES),
-                   ", ".join(EROSION_BEYOND), sum(n8),
+                   ", ".join(EROSION_BEYOND), sum(n8), len(n7),
+                   ", ".join(ZONE_STATS_BEYOND), sum(n7),
                    time.perf_counter() - t0))
         # K5 on its own cases, by its plan and with the block path forced;
         # K1 on every plan and edge
@@ -2024,6 +2069,7 @@ def check_kernels():
             % (prec, len(n3), sum(n3), len(n9), sum(n9)))
         n7 = [zone_stats_paths_agree(agree, *inp)
               for name in ZONE_STATS_CASES if not name.startswith("3D")
+              and name not in ZONE_STATS_BEYOND
               for inp in zone_stats_case(name)]
         n8 = [erosion_paths_agree(agree, *erosion_case(name))
               for name in EROSION_CASES if name not in EROSION_BEYOND]
@@ -2718,13 +2764,83 @@ K7_K8_CUBES = (MAIN_CUBE, (42, 16, 16, 16), (2, 64, 64, 64))
 K7_K8_WIDE = (300, 32, 32, (29, 31))
 
 
+# K7's grid path against the cluster path, both forced: 2D crops of the
+# whole-slide levels (H, W)
+K7_GRID_VS_CLUSTER = ((512, 512), (1024, 64), (1024, 512))
+
+
+def k7_large_inputs():
+    """(name, anc, lev, valid, dist | None, forced) of K7 past the main
+    buckets, the labels from the tree's K5, K6 and K15 as the families make
+    them: GLSZM's and GLDZM's of crops K7_GRID_VS_CLUSTER of the whole-slide
+    levels (AABB participation; timed on every plan forced), of the
+    whole-slide 2048² bucket, of 1 x 64 x 256 x 256 (synth_cube) and of the
+    whole-volume crop 1 x 128 x 512 x 512 (whole_volume_cube of
+    make_volume_3d(1); 26-connected raw-level zones and 6-connected zones
+    with distances), each by its plan."""
+    import torch
+    from nyxus_tpu_torch.ops import texture3d as t3, zones
+    f32 = torch.float32
+    out = []
+    _, wlev, waabb, _, whts, wwds = wholeslide_crop(f32)
+    wlev = torch.where(waabb, wlev, 0)
+    for H, W in K7_GRID_VS_CLUSTER + ((WS_BUCKET, WS_BUCKET),):
+        whole = H == WS_BUCKET
+        lev = wlev[:, :H, :W].contiguous()
+        valid = waabb[:, :H, :W].contiguous()
+        hts, wds = (whts, wwds) if whole else (
+            torch.full((1,), n, dtype=torch.int32, device="cuda")
+            for n in (H, W))
+        tag = "whole-slide %dx%d" % (H, W)
+        anc, dist = zones.zone_cc4(lev, valid, hts, wds)
+        out.append(("GLDZM %s (dist)" % tag, anc, lev, valid, dist,
+                    not whole))
+        out.append(("GLSZM %s" % tag, zones.zone_labels(lev, valid), lev,
+                    valid, None, not whole))
+    cube = synth_cube(1, 64, 256, 256, 0, f32)
+    for tag, (_, lev, raw, aabb, dd, hh, ww) in (
+            ("3D 64x256x256", cube),
+            ("whole volume 128x512x512", whole_volume_cube(make_volume_3d(1)))):
+        sv = aabb & (raw != 0)
+        slev = torch.where(sv, raw, -1)
+        dlev = torch.where(aabb, lev, 0)
+        anc6, dist6 = t3.cc3d(dlev, aabb, 6, hh, ww)
+        out.append(("GLDZM %s (dist)" % tag, anc6, dlev, aabb, dist6, False))
+        out.append(("GLSZM %s" % tag, t3.cc3d(slev, sv, 26)[0], slev, sv,
+                    None, False))
+    return out
+
+
+def grouped_sums_time(zlev, zsize, zdist, ok):
+    """K7's consumer, zones.grouped_weight_sums (a torch sort, gathers, a
+    cumsum and a scatter_add_), timed as GLSZM's GLN calls it on one K7
+    output (float32 levels as keys, +inf off the zones, the zone weights):
+    device ms and launches a call, each launch apart, and the bytes bound
+    (keys and weights read, the four outputs written once)."""
+    import torch
+    from nyxus_tpu_torch.ops import zones
+    w = ok.to(torch.float32)
+    keys = torch.where(ok, zlev.to(torch.float32), float("inf"))
+    ev, ms, nl = timed(lambda: zones.grouped_weight_sums(keys, w), 3)
+    nbytes = keys.numel() * (4 + 4 + 4 + 4 + 4 + 1)
+    log("  grouped_weight_sums (GLSZM's GLN) B=%d A=%d: device %.4f ms "
+        "(events %.4f ms), %s device launches a call; bound %.5f ms "
+        "(bytes); device us a call by launch: %s"
+        % (keys.shape[0], keys.shape[1], ms, ev, nl,
+           nbytes / HBM_BYTES_S * 1e3,
+           kernel_breakdown(lambda: zones.grouped_weight_sums(keys, w))))
+
+
 def k7_k8_times(iters=20):
     """K7 and K8 in f32 with their launch plans: device and events ms a
     call, device launches a call (from the profiler) and the bound.  K7 on
     GLSZM's labels (no distances) and GLDZM's (with them) at the main
     buckets (AABB participation) and at K7_K8_CUBES (K15's 26-connected
-    labels at raw levels, 6-connected labels and distances at 64 levels),
-    each beside its library calls (zone_stats_library); K8 on the synth
+    labels at raw levels, 6-connected labels and distances at 64 levels)
+    and at k7_large_inputs (3 calls a time; on a tree with the grid path
+    its launches apart where it is the plan), each beside its library
+    calls (zone_stats_library), and grouped_sums_time on GLSZM's zones of
+    the whole-slide bucket; K8 on the synth
     buckets' ROI masks, the long ROI's 1 x 1024 x 64, the 256² disk, a full
     32² AABB (the cap) and an ellipse filling 1024 x 64 (erosion_case's
     "tall"), the longest ROI's count and the steps it needs
@@ -2738,11 +2854,10 @@ def k7_k8_times(iters=20):
     eplan = getattr(binary, "erosion_plan", None)
     f32 = torch.float32
 
-    def k7(name, anc, lev, valid, dist, forced=False):
+    def k7(name, anc, lev, valid, dist, forced=False, n=iters):
         B = anc.shape[0]
         A = anc[0].numel()
-        lib_ev, lib_ms, _ = timed(zone_stats_library(anc, valid, dist),
-                                  iters)
+        lib_ev, lib_ms, _ = timed(zone_stats_library(anc, valid, dist), n)
         nbytes = 2 * B * A * (13 if dist is not None else 9)
         plans = [None] + (zone_stats_plans(B, A, dist is not None)
                           if zplan and forced else [])
@@ -2750,7 +2865,7 @@ def k7_k8_times(iters=20):
             saved = forced_zone_stats_plan(plan) if plan else None
             try:
                 ev, ms, nl = timed(
-                    lambda: zones.zone_list(anc, lev, valid, dist), iters)
+                    lambda: zones.zone_list(anc, lev, valid, dist), n)
             finally:
                 if saved:
                     zones.zone_stats_plan = saved
@@ -2782,6 +2897,15 @@ def k7_k8_times(iters=20):
         k7("GLDZM %s (dist)" % tag, anc6, dlev, aabb, dist6, True)
         k7("GLSZM %s" % tag, t3.cc3d_plain(slev, sv, 26)[0], slev, sv, None,
            True)
+    for name, anc, lev, valid, dist, forced in k7_large_inputs():
+        k7(name, anc, lev, valid, dist, forced, 3)
+        if zplan and zplan(anc.shape[0], anc[0].numel(),
+                           dist is not None)[0] == "grid":
+            log("  K7 zone_stats %s, device us a call by launch: %s"
+                % (name, kernel_breakdown(
+                    lambda: zones.zone_list(anc, lev, valid, dist))))
+        if name == "GLSZM whole-slide %dx%d" % (WS_BUCKET, WS_BUCKET):
+            grouped_sums_time(*zones.zone_list(anc, lev, valid))
 
     masks = []
     for B, H, W, hw in CASES[:3] + (K7_K8_WIDE, (1, 1024, 64, (600, 40))):
@@ -5312,8 +5436,9 @@ def check_3d_files(kern, vols, mem):
 
 def check_3d_modes(kern, refs):
     """Phase 3e (c): *3D_ALL* under each run mode of MODES_3D on the card in
-    f32: volume 1 whole (timed; its labels, shape and launches checked)
-    and its first MODE_CPU_DEPTH planes against the f64 CPU run of the same
+    f32: volume 1 whole (timed; its labels, shape and launches checked;
+    in whole-volume mode once more under the profiler: card busy share,
+    K13-K16 and K7 totals) and its first MODE_CPU_DEPTH planes against the f64 CPU run of the same
     planes (worker processes of ``pool``, started first), within the
     tiers, the surface columns bit for bit.  Returns the whole-volume
     mode's full-size row (labels, values)."""
@@ -5345,6 +5470,10 @@ def check_3d_modes(kern, refs):
                 raise AssertionError("(c) %s: labels %r" % (mode, labs))
         if whole:
             whole_row = (labs, vals)
+            profile_report("(c) %s, volume 1 (one 128 x 512 x 512 bucket)"
+                           % mode, lambda: runner.run(*vol, wholeslide=True),
+                           totals=dict(KERNEL_NAMES_3D,
+                                       **{"K7 zone_stats": "zone_stats"}))
         cut = runner.run(*mode_volume(mode, MODE_CPU_DEPTH), wholeslide=whole)
         labs64, ref = refs[mode].result()
         worst = check_output("(c) %s" % mode, cols, cut[0], cut[1], labs64,

@@ -17,7 +17,8 @@ CUDA tensor launches the kernel or raises):
   distance in the same launch
 * K7 zone_stats, ``zone_list`` (csrc/zone_stats.cu): a zone's size and
   minimum distance counted in shared memory, one atomic a run of one
-  label, no sort (``zone_stats_plan``)
+  label, or past a cluster's by a grid of blocks adding into the output
+  buffers; no sort (``zone_stats_plan``)
 
 The plain versions keep the JAX package's fixpoint formulation (vertical
 pulls plus segmented prefix-mins along x, repeated until nothing changes), a
@@ -360,10 +361,14 @@ zone_cc4.launches = 0
 
 # K7's launch plan: threads a block at most; the cluster path's blocks a
 # ROI at most, and the pixels a block aims at (a pass of 1024 threads of 4
-# pixels)
+# pixels, a grid block's most); the ROI size from which the grid path runs
+# in place of a cluster (timed on the card, PERF.md), and the blocks a ROI
+# the grid path aims at (two an SM of the card's 132)
 ZS_THREADS_MAX = 1024
 ZS_CLUSTER_MAX = 16
 ZS_SLAB = 4096
+ZS_GRID_PIXELS = 1 << 18
+ZS_GRID_BLOCKS = 2 * 132
 
 
 def zone_stats_slab(A: int, C: int) -> int:
@@ -379,21 +384,31 @@ def zone_stats_smem(S: int, has_dist: bool) -> int:
     return 4 * S + (4 * S if has_dist else 0) + (S + 15) // 16 * 16
 
 
+def zone_stats_grid_plan(A: int):
+    """K7's grid path for ROIs of A pixels: ("grid", blocks a ROI, threads,
+    0), a thread a 4 pixels, the fewest whole warps a block that keep the
+    ROI's blocks to ZS_GRID_BLOCKS, at most ZS_THREADS_MAX threads
+    (ZS_SLAB pixels), the counters in the output buffers."""
+    warps = min(ZS_THREADS_MAX // 32, max(1, -(-A // (128 * ZS_GRID_BLOCKS))))
+    return "grid", -(-A // (128 * warps)), 32 * warps, 0
+
+
 def zone_stats_plan(B: int, A: int, has_dist: bool):
     """(path, C, threads, smem) of K7's launch for B ROIs of A pixels.  C
     is the fewest blocks a ROI whose slabs' counters fit a block's
     SMEM_MAX, raised to ceil(A / ZS_SLAB) (at most ZS_CLUSTER_MAX) so that
     a large ROI spreads over SMs; a block has a thread (4 pixels) a slab
     pixel, at most ZS_THREADS_MAX.  "smem": C = 1, one block a ROI.
-    "cluster": a cluster of C blocks a ROI.  "device": no cluster of
-    ZS_CLUSTER_MAX blocks holds the counters (C 0, 256 threads, smem 0).
-    B does not change the plan: at 300 x 32² two or three ROIs a block ran
-    no faster than one (PERF.md)."""
+    "cluster": a cluster of C blocks a ROI.  "grid"
+    (``zone_stats_grid_plan``): from ZS_GRID_PIXELS pixels a ROI, and
+    wherever no cluster of ZS_CLUSTER_MAX blocks holds the counters.  B
+    does not change the plan: at 300 x 32² two or three ROIs a block ran no
+    faster than one (PERF.md)."""
     fit = next((c for c in range(1, ZS_CLUSTER_MAX + 1)
                 if zone_stats_smem(zone_stats_slab(A, c), has_dist)
                 <= SMEM_MAX), None)
-    if fit is None:
-        return "device", 0, 256, 0
+    if fit is None or A >= ZS_GRID_PIXELS:
+        return zone_stats_grid_plan(A)
     C = max(fit, min(ZS_CLUSTER_MAX, -(-A // ZS_SLAB)))
     S = zone_stats_slab(A, C)
     T = min(ZS_THREADS_MAX, 32 * max(1, -(-S // 128)))
@@ -411,11 +426,13 @@ def zone_list(anc, lev, valid, dist=None):
     Returns (zlev, zsize, zdist | None, ok): [B, A] int32 arrays (ok bool)
     in raster order of the zone seeds: position p holds zone p where ok[p]
     (p is valid and its own seed), zeros elsewhere.  The JAX package returns
-    the same zones in sorted-label order.  On the card one launch
+    the same zones in sorted-label order.  On the card
     (``zone_stats_plan``): the counters of a ROI in a block's shared memory,
-    or in a cluster's, a warp's runs of one label each adding once; beyond
-    a cluster, atomics in the output buffers.  No sort.  Bound on the card:
-    bytes."""
+    or in a cluster's, in one launch, a warp's runs of one label each
+    adding once; on the grid path, blocks of up to 4096 pixels, two an
+    SM or more, adding a run once to the zeroed output buffers (the
+    repeated runs of a zone from before the block summed in shared memory
+    first, once a block), then a pass that keeps the seeds' counts.  No sort.  A < 2^31.  Bound on the card: bytes."""
     if not _kernel_device(anc, "zone_stats"):
         return zone_list_plain(anc, lev, valid, dist)
     B = anc.shape[0]
@@ -426,6 +443,9 @@ def zone_list(anc, lev, valid, dist=None):
                              "device" % (name, tuple(t.shape),
                                          tuple(anc.shape)))
     A = math.prod(anc.shape[1:])
+    if A >= 1 << 31:
+        raise ValueError("zone_stats: %d pixels a ROI, at most 2^31 - 1"
+                         % A)
     anc = anc.to(torch.int32).contiguous().reshape(B, A)
     lev = lev.to(torch.int32).contiguous().reshape(B, A)
     valid = valid.to(torch.bool).contiguous().reshape(B, A)
@@ -447,7 +467,7 @@ def zone_list(anc, lev, valid, dist=None):
         anc.data_ptr(), lev.data_ptr(), valid.data_ptr(),
         0 if dist is None else dist.data_ptr(), zlev.data_ptr(),
         zsize.data_ptr(), 0 if zdist is None else zdist.data_ptr(),
-        ok.data_ptr(), B, A, ("smem", "cluster", "device").index(path),
+        ok.data_ptr(), B, A, ("smem", "cluster", "grid").index(path),
         C, T, smem, int(vec),
         _build.stream_of(anc, "zone_stats"))
     _build.check("zone_stats", code)

@@ -365,10 +365,12 @@ def test_zone_stats_paths(case):
     """K7 equal to its plain version on GLSZM's labels and on GLDZM's labels
     and distances of uniform (one zone) and per-pixel (a zone a pixel) 64 x
     32² crops, A = 65535 and 65536, 7 x 13, valid pixels labelled A or at
-    a pixel that is no seed, and the 3D 8 x 32³, 2 x 64³ and uniform 2 x
-    64³ cubes: by its plan and on every plan of
-    chip_smoke.zone_stats_plans (one block a ROI, clusters of 2 and 16,
-    the device path), forced."""
+    a pixel that is no seed, a uniform and a per-pixel 1024² crop and two
+    1023 x 1021 ROIs of different contents (the grid path by its plan),
+    and the 3D 8 x 32³, 2 x 64³ and uniform 2 x 64³ cubes: by its plan and
+    on every plan of chip_smoke.zone_stats_plans (one block a ROI,
+    clusters of 2 and 16, the grid path as planned and in blocks of one
+    warp), forced."""
     for anc, lev, valid, dist in chip_smoke.zone_stats_case(case):
         assert chip_smoke.zone_stats_paths_agree(_Agree(), anc, lev, valid,
                                                  dist) >= 1

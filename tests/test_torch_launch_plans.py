@@ -727,14 +727,19 @@ def test_zernike_plan_main_path():
 # K7's (B, A, label shape): the main path's three 2D buckets, 5 x 32², 3 x
 # 7 x 13, the long ROI's 1024 x 64 and 2 x 256², a large batch of 32²
 # ROIs, the 3D cubes 8³ to 64³ and the 64 x 256 x 256 crop, A = 65535
-# against 65536 and 65537 (16 slabs), the largest ROI of 4096-pixel slabs, and the largest ROI a 16-block cluster holds with and
-# without the distances (413184 and 743808 pixels) against the next
+# against 65536 and 65537 (16 slabs), the largest ROI of 4096-pixel slabs,
+# the largest ROI a 16-block cluster holds with and without the distances
+# (413184 and 743808 pixels) against the next, the grid path's threshold
+# and the pixel before it, 1024 x 512, the whole-slide 2048² bucket, the
+# whole-volume crop 128 x 512 x 512 and the largest A
 ZS_SHAPES = [(64, 1024), (47, 4096), (28, 256), (5, 1024), (3, 91),
              (2, 65536), (500, 1024), (64, 512), (32, 4096), (8, 32768),
              (2, 262144), (1, 64 * 256 * 256), (1, 65535), (1, 65536),
              (1, 65537), (1, 16 * 4096), (1, 16 * 4096 + 1), (1, 413184),
              (1, 413185), (1, 743808), (1, 743809), (2, 4097), (1, 1),
-             (1, 3)]
+             (1, 3), (1, tzones.ZS_GRID_PIXELS - 1),
+             (2, tzones.ZS_GRID_PIXELS), (1, 1024 * 512),
+             (1, 2048 * 2048), (1, 128 * 512 * 512), (1, 2 ** 31 - 1)]
 
 
 @pytest.mark.parametrize("has_dist", [False, True])
@@ -744,8 +749,9 @@ def test_zone_stats_plan(shape, has_dist):
     counters fit a Hopper block's shared memory (slabs of a multiple of 4
     pixels, every pixel owned by one block), raised to a block a ZS_SLAB
     pixels up to 16; one block a ROI on the smem path whatever the batch,
-    a cluster beyond one block, the device path where no 16-block cluster
-    holds the counters; a thread a 4 pixels of a slab, at most 1024."""
+    a cluster beyond one block, the grid path from ZS_GRID_PIXELS pixels
+    and wherever no 16-block cluster holds the counters; a thread a 4
+    pixels of a slab, at most 1024."""
     B, A = shape
     plan = tzones.zone_stats_plan(B, A, has_dist)
     assert all(tzones.zone_stats_plan(b, A, has_dist) == plan
@@ -753,8 +759,8 @@ def test_zone_stats_plan(shape, has_dist):
     path, C, T, smem = plan
     fits = [c for c in range(1, 17) if tzones.zone_stats_smem(
         tzones.zone_stats_slab(A, c), has_dist) <= SMEM_MAX]
-    if not fits:
-        assert plan == ("device", 0, 256, 0)
+    if not fits or A >= tzones.ZS_GRID_PIXELS:
+        assert plan == tzones.zone_stats_grid_plan(A)
         return
     assert C == max(fits[0], min(16, -(-A // tzones.ZS_SLAB)))
     S = tzones.zone_stats_slab(A, C)
@@ -770,9 +776,11 @@ def test_zone_stats_plan_main_path():
     minima): 64 x 32² of 256 threads in 9 KB with the distances, 5 KB
     without; 47 x 64² 1024 threads; a slide's 300 x 32² as 64 x 32²; the
     long ROI's 1024 x 64 and 2 x 256² (65536 pixels) clusters of 16; the
-    3D cubes: 8³ and 16³ one block, 8 x 32³ a cluster of 8, 2 x 64³ of 16
-    (147 KB a block with the distances), the 64 x 256 x 256 crop the
-    device path."""
+    3D cubes: 8³ and 16³ one block, 8 x 32³ a cluster of 8; from 2^18
+    pixels a ROI (2 x 64³, where the grid path ran faster than a cluster
+    of 16 on the card, PERF.md), the 64 x 256 x 256 crop, the whole-slide
+    2048² bucket and the whole-volume crop the grid path, in blocks of
+    1024 pixels at 2 x 64³ and of 4096 past a million."""
     plan = tzones.zone_stats_plan
     assert plan(64, 1024, True) == ("smem", 1, 256, 9216)
     assert plan(64, 1024, False) == ("smem", 1, 256, 5120)
@@ -784,13 +792,113 @@ def test_zone_stats_plan_main_path():
     assert plan(1, 65535, True)[:2] == ("cluster", 16)
     assert plan(64, 512, False) == ("smem", 1, 128, 2560)
     assert plan(8, 32768, True) == ("cluster", 8, 1024, 36864)
-    assert plan(2, 262144, True) == ("cluster", 16, 1024, 147456)
-    assert plan(2, 262144, False) == ("cluster", 16, 1024, 81920)
-    assert plan(1, 64 * 256 * 256, False)[0] == "device"
-    assert plan(1, 413184, True)[:2] == ("cluster", 16)
-    assert plan(1, 413185, True)[0] == "device"
-    assert plan(1, 743808, False)[:2] == ("cluster", 16)
-    assert plan(1, 743809, False)[0] == "device"
+    assert tzones.ZS_GRID_PIXELS == 262144
+    assert plan(2, 262143, True) == ("cluster", 16, 1024, 147456)
+    assert plan(2, 262143, False) == ("cluster", 16, 1024, 81920)
+    assert plan(2, 262144, True) == ("grid", 256, 256, 0)
+    assert plan(2, 262144, False) == ("grid", 256, 256, 0)
+    for has_dist in (False, True):
+        assert plan(1, 64 * 256 * 256, has_dist) == ("grid", 1024, 1024, 0)
+        assert plan(1, 2048 * 2048, has_dist) == ("grid", 1024, 1024, 0)
+        assert plan(1, 128 * 512 * 512, has_dist) == ("grid", 8192, 1024, 0)
+    assert plan(1, 413185, True)[0] == "grid"
+    assert plan(1, 743809, False)[0] == "grid"
+
+
+@pytest.mark.parametrize("has_dist", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("A", [tzones.ZS_GRID_PIXELS,
+                               tzones.ZS_GRID_PIXELS + 1, 743809,
+                               1024 * 1023 + 3, 2048 * 2048,
+                               128 * 512 * 512, 2 ** 31 - 1])
+def test_zone_stats_grid_plan(A, B, has_dist):
+    """K7's grid path past the measured threshold, for 1 to 3 ROIs, with
+    and without the distances: blocks of whole warps, a thread a 4
+    pixels, as many blocks a ROI as cover it and no more, the fewest warps
+    a block that keep a ROI's blocks to ZS_GRID_BLOCKS (two an SM), 1024
+    threads (ZS_SLAB pixels) past that, no dynamic shared memory, and a
+    launch of fewer than 2^31 blocks."""
+    path, C, T, smem = tzones.zone_stats_plan(B, A, has_dist)
+    assert (path, smem) == ("grid", 0) and T % 32 == 0 and T <= 1024
+    assert (C - 1) * 4 * T < A <= C * 4 * T
+    assert C <= tzones.ZS_GRID_BLOCKS or T == 1024
+    assert T == 32 or -(-A // (4 * (T - 32))) > tzones.ZS_GRID_BLOCKS
+    assert (T == 1024) == (A > 31 * 128 * tzones.ZS_GRID_BLOCKS)
+    assert B * C < 2 ** 31
+
+
+@pytest.mark.parametrize("A", [1, 3, 91, 128, 129, 1024, 4096, 4097,
+                               65536, 262144])
+def test_zone_stats_grid_plan_small(A):
+    """The grid path at small A (forced by chip_smoke's zone_stats_plans):
+    blocks of one warp up to ZS_GRID_BLOCKS a ROI, C = ceil(A / 4 T);
+    chip_smoke also forces blocks of one warp and of 1024 threads."""
+    path, C, T, smem = tzones.zone_stats_grid_plan(A)
+    assert path == "grid" and smem == 0 and T % 32 == 0
+    assert T == 32 * max(1, -(-A // (128 * tzones.ZS_GRID_BLOCKS)))
+    assert C == -(-A // (4 * T))
+    plans = chip_smoke.zone_stats_plans(1, A, False)
+    for plan in ((path, C, T, smem), ("grid", -(-A // 128), 32, 0),
+                 ("grid", -(-A // 4096), 1024, 0)):
+        assert plans.count(plan) == 1
+
+
+def _zone_list_args(monkeypatch, anc, lev, valid, dist):
+    """The arguments zone_list passes to nyx_zone_stats for CPU tensors
+    posing as the card's (the library, stream and check replaced)."""
+    from nyxus_tpu_torch import _build
+    seen = []
+
+    class Lib:
+        def nyx_zone_stats(self, *args):
+            seen.append(args)
+            return 0
+
+    monkeypatch.setattr(tzones, "_kernel_device", lambda t, name: True)
+    monkeypatch.setattr(_build, "lib", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t, name: 0)
+    monkeypatch.setattr(_build, "check", lambda name, code: None)
+    tzones.zone_list(anc, lev, valid, dist)
+    return seen
+
+
+@pytest.mark.parametrize("has_dist", [False, True])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 512, 513),
+                                   (3, 1024, 1024)], ids=str)
+def test_zone_stats_entry_point_args(monkeypatch, shape, has_dist):
+    """zone_list hands nyx_zone_stats as many arguments as its declaration
+    in csrc/zone_stats.cu has, in _build's types: 8 pointers (anc, lev,
+    valid, dist or 0, zlev, zsize, zdist or 0, ok), B, A, the path's index
+    (0 "smem", 1 "cluster", 2 "grid"), C, threads, smem, vec, the stream;
+    the plan's values, vec only where A is a multiple of 4."""
+    from nyxus_tpu_torch import _build
+    import ctypes
+    B = shape[0]
+    A = shape[1] * shape[2]
+    anc = torch.zeros(shape, dtype=torch.int32)
+    dist = torch.ones(shape, dtype=torch.int32) if has_dist else None
+    (args,) = _zone_list_args(monkeypatch, anc, anc, anc > 0, dist)
+    types = _build._SIGNATURES["nyx_zone_stats"]
+    assert types == _c_entry_points()["nyx_zone_stats"]
+    assert len(args) == len(types)
+    assert [type(a) is int for a in args] == [True] * len(args)
+    assert types == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    assert (args[3] == 0) == (args[6] == 0) == (not has_dist)
+    path, C, T, smem = tzones.zone_stats_plan(B, A, has_dist)
+    assert args[8:14] == (B, A, ("smem", "cluster", "grid").index(path), C,
+                          T, smem)
+    assert args[14] in (0, 1) and (args[14] == 0 or A % 4 == 0)
+
+
+def test_zone_stats_past_int32(monkeypatch):
+    """A ROI of 2^31 pixels or more raises on the card's path (the kernel
+    indexes a ROI's pixels with 32-bit ints) before any launch."""
+    shape = (1, 2 ** 16, 2 ** 15)
+    big = torch.zeros((1, 1, 1), dtype=torch.int32).expand(shape)
+    valid = torch.zeros((1, 1, 1), dtype=torch.bool).expand(shape)
+    with pytest.raises(ValueError, match="2\\^31"):
+        _zone_list_args(monkeypatch, big, big, valid, None)
 
 
 # K8's (B, H, W): the main path's three buckets, 5 x 32², 3 x 7 x 13, the

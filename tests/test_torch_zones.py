@@ -242,6 +242,69 @@ def test_zone_list_uniform_and_per_pixel(kind, family):
         assert (zsize[ok] == 1).all()
 
 
+# one ROI past a 16-block cluster's counters with and without the
+# distances (743808 pixels): K7's grid path on the card
+LARGE_CROP = (1, 1024, 768)
+
+
+def _large_zone_inputs(kind, family):
+    """(anc, levels, valid, dist | None) of one LARGE_CROP ROI as the GLSZM
+    (no distances) and GLDZM families hand them to K7: "random" 8 levels
+    on ~95% of the pixels, labelled by the port's plain K5 / K6; "uniform"
+    one level on every pixel, one zone across all of a grid launch's
+    blocks, its labels 0 (the seed is pixel 0: the plain labellings'
+    fixpoints would take a round a row)."""
+    B, H, W = LARGE_CROP
+    r = np.random.default_rng(11)
+    if kind == "uniform":
+        lev = np.full(LARGE_CROP, 3, np.int32)
+        valid = np.ones(LARGE_CROP, bool)
+    else:
+        valid = r.random(LARGE_CROP) < 0.95
+        lev = np.where(valid, r.integers(1, 9, LARGE_CROP), 0).astype(
+            np.int32)
+    lev_t, valid_t = torch.from_numpy(lev), torch.from_numpy(valid)
+    hts = torch.full((B,), H, dtype=torch.int32)
+    wds = torch.full((B,), W, dtype=torch.int32)
+    if kind == "uniform":
+        anc = torch.zeros(LARGE_CROP, dtype=torch.int32)
+        dist = tzones.border_distance_plain(lev_t, hts, wds)
+    elif family == "glszm":
+        anc, dist = tzones.zone_labels(lev_t, valid_t), None
+    else:
+        anc, dist = tzones.zone_cc4(lev_t, valid_t, hts, wds)
+    return anc, lev_t, valid_t, None if family == "glszm" else dist
+
+
+@pytest.mark.parametrize("family", ["glszm", "gldzm"])
+@pytest.mark.parametrize("kind", ["random", "uniform"])
+def test_zone_list_past_cluster(kind, family):
+    """zone_list (its plain version here) against JAX's at a ROI that only
+    K7's grid path takes on the card, as multisets of (level, size[,
+    distance]), on the same labels; the port's layout (zone p at position
+    p, zeros elsewhere) checked on its own."""
+    anc, lev, valid, dist = _large_zone_inputs(kind, family)
+    A = anc[0].numel()
+    assert tzones.zone_stats_plan(1, A, dist is not None)[0] == "grid"
+    got = tzones.zone_list(anc, lev, valid, dist)
+    j = [jnp.asarray(_np(t)) for t in (anc, lev, valid)]
+    if dist is None:
+        want = jax.jit(jzones.zone_list)(*j)
+    else:
+        want = jax.jit(lambda a, lv, vd, d: jzones.zone_list(
+            a, lv, vd, dist=d))(*j, jnp.asarray(_np(dist)))
+    assert _zone_multisets(*got) == _zone_multisets(*want)
+    zlev, zsize, zdist, ok = got
+    assert (zsize[~ok] == 0).all() and (zlev[~ok] == 0).all()
+    assert int(zsize.sum()) == int(valid.sum())
+    if kind == "uniform":
+        assert ok[0, 0] and int(ok.sum()) == 1 and int(zsize[0, 0]) == A
+        if dist is not None:
+            assert int(zdist[0, 0]) == 1
+    else:
+        assert int(ok.sum()) > 1000
+
+
 @pytest.mark.parametrize("kind", ["float", "int"])
 def test_grouped_weight_sums(kind):
     r = np.random.default_rng(3)
